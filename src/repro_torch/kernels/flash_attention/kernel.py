@@ -1,0 +1,112 @@
+"""CUDA flash-attention forward: the binding of ``csrc/flash_attention.cu``.
+
+Counterpart of the Pallas kernel ``repro.kernels.flash_attention.kernel.
+flash_attention_bhsd``, on the model's ``(B, S, H, D)`` layout instead of
+the flattened ``(B*H, S, D)`` one (the kernel takes strides, so no
+transpose is copied).  The shared library is built by ``nvcc`` at first
+use (``repro_torch.kernels.build``) and loaded with ``ctypes``; importing
+this module builds nothing.
+
+The kernel launches on the current CUDA stream and allocates nothing;
+the wrapper checks every argument, allocates the output, and raises if
+the launch returns an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as B
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 128)       # the head dims the library is built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+built: Optional[B.Built] = None      # how the loaded library was built
+
+
+def load() -> B.Built:
+    """Build (or reuse) and load the kernel library; returns its build
+    record (seconds, nvcc log)."""
+    global _lib, built
+    if _lib is None:
+        built = B.build("flash_attention", [SOURCE])
+        lib = ctypes.CDLL(str(built.path))
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_int64] * 12
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return built
+
+
+def _check(name: str, x: torch.Tensor, device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, q on {device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} dtype {x.dtype}: the kernel takes "
+                        "float32 or bfloat16")
+    if x.dim() != 4 or x.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name} shape {tuple(x.shape)}: the kernel takes "
+                         f"(B, S, H, D) with D in {HEAD_DIMS}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: head dim must be contiguous")
+    # 16-byte vector loads: aligned base, row strides in whole vectors.
+    if x.data_ptr() % 16 or any(s % 8 for s in _strides(x)):
+        raise ValueError(f"{name}: base must be 16-byte aligned and "
+                         f"strides multiples of 8 elements ({x.stride()})")
+
+
+def _strides(x: torch.Tensor):
+    """(batch, seq, head) element strides; 0 for an axis of size 1, whose
+    stride is never used and may be anything."""
+    return [0 if x.shape[i] == 1 else x.stride(i) for i in range(3)]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) CUDA tensors, D in
+    ``HEAD_DIMS`` -> (B, Sq, H, D) in q's dtype.  ``q_offset`` is a
+    runtime int: one compiled kernel serves every chunk position."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check(name, x, q.device)
+    if k.dtype != v.dtype or k.shape != v.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"k {k.dtype}{tuple(k.shape)} and v "
+                         f"{v.dtype}{tuple(v.shape)} must match")
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or hkv == 0 or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: "
+                         "batch must match and H be a multiple of Hkv")
+    if b * h == 0 or sq == 0:
+        raise ValueError(f"empty query {tuple(q.shape)}")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset={q_offset} must be >= 0")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    load()
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], b, sq, skv, h, hkv,
+            d, *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+            int(causal), q_offset, scale, stream)
+    if err != 0:
+        msg = _lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_fwd failed ({err}): {msg}")
+    return o

@@ -1,0 +1,36 @@
+"""Public attention op: ``(B, S, H, D)`` layout, GQA-aware.
+
+``attention`` is what the model layers call.  It dispatches on the
+tensors' device: a CUDA tensor goes to the hand-written kernel
+(``kernel.flash_attention``) or raises; a CPU tensor goes to the plain
+version (``ref.attention``).  There is no fallback from one to the other.
+
+``launches`` counts kernel launches made through this op (and nothing
+else), so a run can show its prefill went through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel, ref
+
+launches = 0
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, sm_scale: float | None = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in
+    q's dtype.  Scores, softmax and P·V run in float32 whatever the input
+    dtypes; ``q_offset`` is the absolute position of query 0."""
+    global launches
+    if q.device.type == "cuda":
+        out = kernel.flash_attention(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, q_offset=q_offset)
+        launches += 1
+        return out
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                             q_offset=q_offset)
+    raise ValueError(f"flash attention has no path for device {q.device}")

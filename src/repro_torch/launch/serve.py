@@ -1,0 +1,135 @@
+"""Serving launcher of the port: continuous-batching generation on one
+device (counterpart of the non-elastic path of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 \
+        --batch 4 --max-new 12                       # reduced, on CUDA
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 4 --max-new 4
+
+    # qwen2-72b at its published widths, depth cut to 4 layers
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --num-layers 4 --max-len 4096 --page-tokens 256 --batch 8
+
+Elastic serving (``--elastic``, ``--fault-*``, ``--ctrl-*``) arrives
+with the port's elastic-serving slice and is refused here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ARCH_IDS, get_config, with_num_layers
+from repro_torch.models import build_model
+from repro_torch.serve import BatchScheduler, Request, ServeCfg
+
+logger = logging.getLogger("repro_torch.serve")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Flags of the reference launcher that need the elastic-serving slice.
+_LATER = ("elastic", "fault_plan", "fault_seed", "max_recoveries",
+          "watchdog_timeout", "snapshot_dir", "ctrl_peers", "ctrl_port",
+          "ctrl_host", "ctrl_member", "heartbeat_interval", "ctrl_fault_plan")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="qwen2-72b")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda | cpu)")
+    size = ap.add_mutually_exclusive_group()
+    size.add_argument("--reduced", dest="reduced", action="store_true",
+                      default=True, help="test-sized config (default)")
+    size.add_argument("--full", dest="reduced", action="store_false",
+                      help="published widths")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut depth to this many layers (widths unchanged)")
+    ap.add_argument("--param-dtype", choices=list(_DTYPES), default=None,
+                    help="weight dtype (default: the config's)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling seed (ServeCfg.seed) and weight seed")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission-control backlog bound (shed beyond)")
+    ap.add_argument("--page-tokens", type=int, default=None,
+                    help="KV page size (pow2 dividing max-len; equal to "
+                         "max-len = contiguous layout; default auto)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="page-pool capacity (default batch*max_len/"
+                         "page_tokens; smaller values overcommit and "
+                         "exercise preemption)")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="run prompts' chunks back to back at admission "
+                         "instead of interleaved with decode")
+    later = ap.add_argument_group(
+        "elastic serving (refused: arrives with the elastic-serving slice)")
+    later.add_argument("--elastic", action="store_true")
+    for flag in _LATER[1:]:
+        later.add_argument("--" + flag.replace("_", "-"), default=None)
+    args = ap.parse_args(argv)
+    used = [f for f in _LATER if getattr(args, f) not in (None, False)]
+    if used:
+        ap.error(f"{', '.join('--' + f.replace('_', '-') for f in used)}: "
+                 "elastic serving arrives with the port's elastic-serving "
+                 "slice (after the collective slice brings Session)")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    device = resolve_device(args.device)
+
+    dtype = _DTYPES[args.param_dtype] if args.param_dtype else None
+    cfg = get_config(args.arch, reduced=args.reduced, param_dtype=dtype)
+    if args.num_layers is not None:
+        cfg = with_num_layers(cfg, args.num_layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(args.seed))
+    logger.info("model %s: %d layers, %.2fM params on %s", model.name,
+                cfg.num_layers, model.param_count() / 1e6, device)
+
+    scfg = ServeCfg(max_len=args.max_len, batch=args.batch,
+                    cache_dtype=torch.float32, seed=args.seed,
+                    max_queue=args.max_queue, page_tokens=args.page_tokens,
+                    pool_pages=args.pool_pages,
+                    chunked_prefill=not args.no_chunked_prefill)
+    rng = np.random.RandomState(0)
+    requests = [
+        Request(rid=rid,
+                prompt=rng.randint(0, cfg.vocab_size,
+                                   size=rng.randint(4, 16)).tolist(),
+                max_new=args.max_new)
+        for rid in range(args.requests)]
+
+    t0 = time.time()
+    sched = BatchScheduler(model, params, scfg, device=device)
+    for req in requests:
+        sched.submit(req)
+    done, shed = sched.run(), sched.shed
+    pool = sched.pool
+    dt = time.time() - t0
+    logger.info("page pool: %d-token pages, %d/%d allocated at exit, "
+                "%d bytes resident (contiguous layout: %d)",
+                pool.page_tokens, pool.pages_allocated, pool.pages_total,
+                pool.resident_bytes(), pool.contiguous_bytes())
+    total_tokens = sum(len(r.generated) for r in done)
+    logger.info("served %d requests (%d shed), %d tokens in %.2fs "
+                "(%.1f tok/s)", len(done), len(shed), total_tokens, dt,
+                total_tokens / dt)
+    for r in done[:4]:
+        logger.info("req %d: %s", r.rid, r.generated)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,323 @@
+"""Dense layers of the port: RMSNorm, RoPE, GQA attention, SwiGLU MLP.
+
+Counterpart of the dense subset of ``repro.models.layers``.
+
+Conventions
+-----------
+- Params are nested dicts of tensors with the reference's layout:
+  weights are ``(in, out)`` and ``x @ w`` applies them.  ``init_*`` take
+  a ``torch.Generator`` (``None`` gives uninitialised tensors, for the
+  ``meta`` device) and the same distributions as the reference
+  (``repro/models/layers.py:37-44``); the numbers differ, since JAX's
+  threefry is not reproduced.
+- Prefill attention (chunked and one-shot) goes through the flash op
+  ``repro_torch.kernels.flash_attention``: the hand-written CUDA kernel
+  on the card, its plain version on the CPU.  Decode attention is a
+  plain matvec in PyTorch, as the reference computes it outside any
+  kernel.
+- KV caches are written IN PLACE (the reference returns updated copies):
+  a prefill or decode step mutates the ``k``/``v`` tensors it is handed
+  and returns them with a new ``len``.  This keeps one arena, not two, on
+  the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+
+Params = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: Optional[torch.Generator], shape, std: float, dtype,
+            device) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+def dense_init(gen, shape, dtype, device, fan_in: Optional[int] = None):
+    """``shape`` may carry leading stack axes; ``fan_in`` defaults to the
+    second-to-last axis (the ``in`` of ``(in, out)``)."""
+    fan_in = fan_in if fan_in is not None else shape[-2]
+    return _normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype, device)
+
+
+def embed_init(gen, shape, dtype, device):
+    return _normal(gen, shape, 0.02, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(dim: int, dtype, device, lead: Tuple[int, ...] = ()):
+    return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 1e4
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., S) int -> cos/sin (..., S, dim/2) f32."""
+    ang = positions[..., None].float() * rope_freqs(dim, theta,
+                                                    positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) — rotate-half convention."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def text_positions(batch: int, seq: int, offset: int = 0,
+                   device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return pos.expand(batch, seq)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """One-shot prefill attention (the reference's ``flash_attention_jnp``).
+
+    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); query 0 at ``q_offset``."""
+    return flash_ops.attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               q_offset=q_offset)
+
+
+def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, q_offset: int,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """Chunked-prefill attention: a chunk of queries against the FULL
+    cache (prior chunks + this one already written), causal by absolute
+    position, so positions above a query (pad tail, unwritten pages)
+    never enter the softmax.
+
+    q: (B, Sq, H, D) at absolute positions ``q_offset + i``; caches:
+    (B, Smax, Hkv, D).  ``q_offset`` is a runtime int: one compiled kernel
+    serves every chunk index.  The reference takes a (B, Sq) position
+    array; its serving path always passes ``arange(Sq) + q_offset``."""
+    return flash_ops.attention(q, k_cache, v_cache, causal=True,
+                               sm_scale=sm_scale, q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor,
+                     sm_scale: float | None = None) -> torch.Tensor:
+    """Single-token attention against a ragged cache, in float32.
+
+    q: (B, 1, H, D); caches: (B, Smax, Hkv, D); kv_len: (B,)."""
+    b, _, h, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = h // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hkv, group, d).float() * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    mask = (torch.arange(smax, device=q.device)[None, :]
+            < kv_len[:, None])                              # (B, Smax)
+    s = s.masked_fill(~mask[:, None, None, :], -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionCfg:
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    causal: bool = True
+
+
+def init_attention(gen, cfg: AttentionCfg, dtype, device,
+                   lead: Tuple[int, ...] = ()):
+    D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p: Params = {
+        "wq": dense_init(gen, lead + (D, H * Dh), dtype, device),
+        "wk": dense_init(gen, lead + (D, Hkv * Dh), dtype, device),
+        "wv": dense_init(gen, lead + (D, Hkv * Dh), dtype, device),
+        "wo": dense_init(gen, lead + (H * Dh, D), dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh)):
+            p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params: Params, cfg: AttentionCfg, x: torch.Tensor):
+    b, sq, _ = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return (q.reshape(b, sq, H, Dh), k.reshape(b, sq, Hkv, Dh),
+            v.reshape(b, sq, Hkv, Dh))
+
+
+def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
+                      q_offset: int = 0,
+                      kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+                      chunked: bool = False,
+                      valid_len: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full-sequence (prefill) path.  Returns (out, new_cache).
+
+    ``chunked=True`` is the paged-prefill variant: queries attend the
+    whole cache through ``chunk_attention`` (earlier chunks included),
+    and ``valid_len`` clamps the length counter so a chunk right-padded
+    to the page boundary doesn't count its pad positions.  The chunk's
+    K/V are written into ``kv_cache`` in place."""
+    b, sq, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x)
+    positions = text_positions(b, sq, q_offset, x.device)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    new_cache = None
+    if kv_cache is not None:
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        if q_offset + sq > kc.shape[1]:
+            raise ValueError(f"positions {q_offset}..{q_offset + sq} past "
+                             f"the cache's {kc.shape[1]}")
+        kc[:, q_offset:q_offset + sq] = k.to(kc.dtype)
+        vc[:, q_offset:q_offset + sq] = v.to(vc.dtype)
+        new_len = kv_cache["len"] + sq
+        if valid_len is not None:
+            new_len = torch.clamp(new_len, max=valid_len)
+        new_cache = {"k": kc, "v": vc, "len": new_len}
+    if chunked:
+        if new_cache is None:
+            raise ValueError("chunked prefill needs a cache")
+        out = chunk_attention(q, new_cache["k"], new_cache["v"], q_offset)
+    else:
+        out = flash_attention(q, k, v, causal=cfg.causal, q_offset=q_offset)
+    out = out.reshape(b, sq, cfg.num_heads * cfg.head_dim)
+    return out @ params["wo"], new_cache
+
+
+def attention_decode(params: Params, cfg: AttentionCfg, x: torch.Tensor,
+                     kv_cache: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode with in-place cache update.  x: (B, 1, D)."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(params, cfg, x)
+    idx = kv_cache["len"]                                 # (B,)
+    cos, sin = rope_cos_sin(idx[:, None], cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    # Scatter the new kv at each sequence's own length (ragged batch).
+    kc = _scatter_token(kv_cache["k"], k, idx)
+    vc = _scatter_token(kv_cache["v"], v, idx)
+    new_len = idx + 1
+    out = decode_attention(q, kc, vc, new_len)
+    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+    return out @ params["wo"], {"k": kc, "v": vc, "len": new_len}
+
+
+def _scatter_token(cache: torch.Tensor, token: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """cache: (B, Smax, H, D); token: (B, 1, H, D); idx: (B,).  Writes
+    row ``idx[b]`` of each sequence in place; an index past the cache
+    writes nothing, as the reference's one-hot select does."""
+    b, smax = cache.shape[:2]
+    rows = torch.arange(b, device=cache.device)
+    at = idx.long().clamp(0, smax - 1)
+    inside = ((idx >= 0) & (idx < smax))[:, None, None]
+    cache[rows, at] = torch.where(inside, token[:, 0].to(cache.dtype),
+                                  cache[rows, at])
+    return cache
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttentionCfg, dtype,
+                  device, lead: Tuple[int, ...] = ()
+                  ) -> Dict[str, torch.Tensor]:
+    shape = lead + (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros(lead + (batch,), dtype=torch.int32,
+                               device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPCfg:
+    d_model: int
+    d_ff: int
+    activation: str = "swiglu"
+
+
+def _check_activation(cfg: MLPCfg) -> None:
+    if cfg.activation != "swiglu":
+        raise NotImplementedError(
+            f"MLP activation {cfg.activation!r} arrives with the port's "
+            "remaining-model-families slice")
+
+
+def init_mlp(gen, cfg: MLPCfg, dtype, device, lead: Tuple[int, ...] = ()):
+    _check_activation(cfg)
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {"w_gate": dense_init(gen, lead + (D, Fd), dtype, device),
+            "w_up": dense_init(gen, lead + (D, Fd), dtype, device),
+            "w_down": dense_init(gen, lead + (Fd, D), dtype, device)}
+
+
+def mlp_forward(params: Params, cfg: MLPCfg, x: torch.Tensor
+                ) -> torch.Tensor:
+    _check_activation(cfg)
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]

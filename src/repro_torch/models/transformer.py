@@ -1,0 +1,201 @@
+"""Decoder LM of the port: stages of attention + dense-FFN layers.
+
+Counterpart of ``repro.models.transformer`` for the dense subset.  A
+model is a sequence of *stages*; each stage is a pattern of layers
+(``LayerSpec``) repeated ``repeat`` times with STACKED params and caches
+(leading axis = repeat), exactly the reference's layout, so params and
+caches compare leaf for leaf across the two packages.  The reference
+scans the repeats with ``lax.scan``; here a Python loop indexes the
+stacks.
+
+Layer = pre-norm mixer + pre-norm FFN, both residual.  Only the
+``attn`` mixer and the ``dense`` FFN exist in this slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.tree import map_tree
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"            # attn (mla | mamba: later slices)
+    ffn: str = "dense"             # dense | none (moe: later slice)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    layers: Tuple[LayerSpec, ...]
+    repeat: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerCfg:
+    name: str
+    d_model: int
+    vocab_size: int
+    stages: Tuple[StageSpec, ...]
+    attn: Optional[L.AttentionCfg] = None
+    mlp: Optional[L.MLPCfg] = None
+    tie_embeddings: bool = False
+    param_dtype: Any = torch.float32
+
+    @property
+    def num_layers(self) -> int:
+        return sum(len(st.layers) * st.repeat for st in self.stages)
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.mixer != "attn":
+        raise NotImplementedError(
+            f"mixer {spec.mixer!r} arrives with the port's "
+            "remaining-model-families slice")
+    if spec.ffn not in ("dense", "none"):
+        raise NotImplementedError(
+            f"ffn {spec.ffn!r} arrives with the port's "
+            "remaining-model-families slice")
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
+               lead: Tuple[int, ...] = ()) -> Params:
+    _check_spec(spec)
+    dt = cfg.param_dtype
+    p: Params = {"norm_mixer": L.init_rmsnorm(cfg.d_model, dt, device, lead),
+                 "attn": L.init_attention(gen, cfg.attn, dt, device, lead)}
+    if spec.ffn == "dense":
+        p["norm_ffn"] = L.init_rmsnorm(cfg.d_model, dt, device, lead)
+        p["mlp"] = L.init_mlp(gen, cfg.mlp, dt, device, lead)
+    return p
+
+
+def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
+                x: torch.Tensor, *, q_offset: int = 0,
+                cache: Optional[Params] = None, decode: bool = False,
+                chunked: bool = False, valid_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (x_out, new_cache)."""
+    _check_spec(spec)
+    h = L.rmsnorm(params["norm_mixer"], x)
+    if decode:
+        out, new_cache = L.attention_decode(params["attn"], cfg.attn, h,
+                                            cache)
+    else:
+        out, new_cache = L.attention_forward(
+            params["attn"], cfg.attn, h, q_offset=q_offset, kv_cache=cache,
+            chunked=chunked, valid_len=valid_len)
+    x = x + out
+    if spec.ffn == "dense":
+        x = x + L.mlp_forward(params["mlp"], cfg.mlp,
+                              L.rmsnorm(params["norm_ffn"], x))
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stages (stacked params, a loop over repeat)
+# ---------------------------------------------------------------------------
+
+
+def init_stage(gen, cfg: TransformerCfg, stage: StageSpec, device) -> Params:
+    return {f"layer{i}": init_layer(gen, cfg, spec, device, (stage.repeat,))
+            for i, spec in enumerate(stage.layers)}
+
+
+def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
+                x: torch.Tensor, *, q_offset: int = 0,
+                caches: Optional[Params] = None, decode: bool = False,
+                chunked: bool = False, valid_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Run the stage's ``repeat`` blocks.  ``caches``: stacked cache tree
+    with leading dim = repeat (or None).  K/V rows are written into the
+    stacked tensors in place; the ``len`` counters come back stacked."""
+    lens: Dict[str, list] = {f"layer{i}": [] for i in range(len(stage.layers))}
+    for r in range(stage.repeat):
+        for i, spec in enumerate(stage.layers):
+            name = f"layer{i}"
+            cache_r = None if caches is None else \
+                map_tree(lambda t: t[r], caches[name])
+            x, nc = apply_layer(
+                map_tree(lambda t: t[r], params_stage[name]), cfg, spec, x,
+                q_offset=q_offset, cache=cache_r, decode=decode,
+                chunked=chunked, valid_len=valid_len)
+            if caches is not None:
+                lens[name].append(nc["len"])
+    if caches is None:
+        return x, None
+    return x, {name: {"k": caches[name]["k"], "v": caches[name]["v"],
+                      "len": torch.stack(lens[name])}
+               for name in caches}
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: Optional[torch.Generator], cfg: TransformerCfg,
+                device) -> Params:
+    """Random params on ``device`` from ``gen`` (``None``: uninitialised,
+    for shape probes on the ``meta`` device)."""
+    dt = cfg.param_dtype
+    p: Params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                       dt, device)}
+    for i, stage in enumerate(cfg.stages):
+        p[f"stage{i}"] = init_stage(gen, cfg, stage, device)
+    p["final_norm"] = L.init_rmsnorm(cfg.d_model, dt, device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                    device)
+    return p
+
+
+def _unembed(params: Params, cfg: TransformerCfg, h: torch.Tensor
+             ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def forward(params: Params, cfg: TransformerCfg,
+            batch: Dict[str, torch.Tensor], *,
+            caches: Optional[Params] = None, q_offset: int = 0,
+            decode: bool = False, chunked: bool = False,
+            valid_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (hidden (B, S, D), new_caches)."""
+    h = params["embed"][batch["tokens"].long()]
+    new_caches = {} if caches is not None else None
+    for i, stage in enumerate(cfg.stages):
+        name = f"stage{i}"
+        h, nc = apply_stage(
+            params[name], cfg, stage, h, q_offset=q_offset,
+            caches=None if caches is None else caches[name], decode=decode,
+            chunked=chunked, valid_len=valid_len)
+        if new_caches is not None:
+            new_caches[name] = nc
+    return L.rmsnorm(params["final_norm"], h), new_caches
+
+
+def init_caches(cfg: TransformerCfg, batch: int, max_len: int, dtype,
+                device) -> Params:
+    caches: Params = {}
+    for i, stage in enumerate(cfg.stages):
+        for spec in stage.layers:
+            _check_spec(spec)
+        caches[f"stage{i}"] = {
+            f"layer{j}": L.init_kv_cache(batch, max_len, cfg.attn, dtype,
+                                         device, (stage.repeat,))
+            for j in range(len(stage.layers))}
+    return caches

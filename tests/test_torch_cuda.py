@@ -1,0 +1,111 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need a CUDA device (the hand-written kernels have no CPU
+mode) and skip elsewhere.  They import neither JAX nor the JAX package,
+so they run on a machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerance: a share of the plain output's largest magnitude.  The kernel
+and the plain version both compute in float32 and round once to q's
+dtype.  Two bf16 roundings differ by at most 2**-7 of the largest value,
+so a bf16 output is held to 2**-6 of it; an f32 output differs only by
+summation order and is held to 1e-4 of it, which a dropped key tile, a
+mis-masked edge or probabilities rounded to bf16 exceed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.models import build_model
+from repro_torch.tree import map_tree
+
+pytestmark = pytest.mark.cuda
+
+REL_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+
+
+def _assert_matches(got, want):
+    want = want.float()
+    tol = REL_TOL[got.dtype] * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(seed, sq, skv, h, hkv, d, q_dtype, kv_dtype, device):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(1, sq, h, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(1, skv, hkv, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(1, skv, hkv, d).astype(np.float32))
+    return (q.to(device, q_dtype), k.to(device, kv_dtype),
+            v.to(device, kv_dtype))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,off", [(256, 4096, 0), (256, 4096, 256),
+                                        (256, 4096, 3840), (1000, 1000, 0)])
+def test_kernel_matches_plain_at_serving_shapes(cuda, q_dtype, kv_dtype, sq,
+                                                skv, off):
+    """64 -> 8 heads, D = 128: chunks over a 4096-token cache and a
+    one-shot prefill whose length is not a multiple of the tile."""
+    q, k, v = _qkv(sq + off, sq, skv, 64, 8, 128, q_dtype, kv_dtype, cuda)
+    before = ops.launches
+    got = ops.attention(q, k, v, q_offset=off)
+    assert ops.launches == before + 1
+    assert got.dtype == q_dtype
+    _assert_matches(got, ref.attention(q, k, v, q_offset=off))
+
+
+@pytest.mark.parametrize("h,hkv,d,causal", [(4, 2, 16, True),
+                                            (8, 1, 16, False),
+                                            (64, 8, 128, False)])
+def test_kernel_matches_plain_f32(cuda, h, hkv, d, causal):
+    q, k, v = _qkv(h, 77, 77, h, hkv, d, torch.float32, torch.float32, cuda)
+    got = kernel.flash_attention(q, k, v, causal=causal)
+    want = ref.attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_kernel_takes_strided_cache_views(cuda):
+    """The serving path hands the kernel one layer of a stacked arena: a
+    view whose token stride spans every layer."""
+    q, k, v = _qkv(3, 64, 256, 8, 2, 128, torch.bfloat16, torch.float32,
+                   cuda)
+    stack_k = torch.zeros(1, 256, 3, 2, 128, device=cuda)
+    stack_v = torch.zeros_like(stack_k)
+    stack_k[:, :, 1], stack_v[:, :, 1] = k, v
+    got = kernel.flash_attention(q, stack_k[:, :, 1], stack_v[:, :, 1],
+                                 q_offset=64)
+    _assert_matches(got, ref.attention(q, k, v, q_offset=64))
+
+
+def test_kernel_refuses_unsupported_head_dim(cuda):
+    q, k, v = _qkv(0, 8, 8, 4, 2, 64, torch.float32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="D in"):
+        kernel.flash_attention(q, k, v)
+
+
+def test_reduced_model_prefill_on_card_matches_cpu(cuda):
+    model = build_model(get_config("qwen2-72b", reduced=True))
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    toks = np.random.RandomState(1).randint(0, 256, size=(2, 40))
+    logits = []
+    for dev in ("cpu", "cuda"):
+        params = map_tree(lambda t: t.to(dev), cpu_params)
+        caches = model.init_caches(2, 64, dtype=torch.float32, device=dev)
+        lg, _ = model.prefill(params, {"tokens": torch.tensor(toks,
+                                                              device=dev)},
+                              caches)
+        logits.append(lg.cpu())
+    torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=0)

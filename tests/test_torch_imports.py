@@ -1,0 +1,49 @@
+"""The port stands alone: nothing under ``src/repro_torch`` nor
+``chip_smoke.py`` imports JAX or the JAX package, and importing the
+serving entry points leaves ``jax`` out of ``sys.modules``."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    root = os.path.join(REPO, "src", "repro_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root)
+             for f in fs if f.endswith(".py")]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_file_imports_no_jax_or_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_serving_entry_points_import_without_jax():
+    code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention.kernel; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Where the port's serving time and memory go on one CUDA card.
+
+    python3 tools/profile_torch_serve.py [--out DIR]
+
+Serves the workload of ``chip_smoke.py``'s serve phase
+(``chip_smoke.serve_workload``: qwen2-72b at its published widths, 4 of
+80 layers, 16 requests of 256-3000 prompt tokens, 32 new tokens each,
+batch 8, 256-token pages, f32 cache) three times after its warm-up:
+
+1. step by step: the host clock around each scheduler step, ended by a
+   synchronize, and the step's peak of allocated memory, split into steps
+   that ran prefill chunks and steps that only decoded;
+2. under ``torch.profiler``: device time by kernel, and the share of the
+   wall time the device was busy (``DIR/serve_trace.json`` holds the
+   timeline);
+3. with the allocator's history recorded: the largest tensors alive at
+   the peak of allocated memory, with the port's line that made each.
+
+Exits non-zero when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GiB = 2 ** 30
+
+
+def _timed(fn, ops, n_layers: int, decode_steps):
+    """(prefill chunks, decode steps, seconds, peak bytes) of ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    l0, d0 = ops.launches, decode_steps()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return ((ops.launches - l0) // n_layers, decode_steps() - d0,
+            time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+
+
+def _site(frames) -> str:
+    """The innermost frames of the port (or this repo's scripts)."""
+    ours = [f for f in frames if "repro_torch" in f["filename"]
+            or "chip_smoke" in f["filename"]]
+    return " <- ".join(f"{os.path.basename(f['filename'])}:{f['line']}"
+                       for f in ours[:3]) or "?"
+
+
+def _live_at_peak(snapshot):
+    """Replay the recorded allocations; returns (peak bytes above the
+    recording's start, the allocations alive at that peak)."""
+    live, total, peak, at_peak = {}, 0, 0, {}
+    for ev in snapshot["device_traces"][0]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif ev["action"] in ("free_requested", "free_completed") \
+                and ev["addr"] in live:
+            total -= live.pop(ev["addr"])["size"]
+    return peak, list(at_peak.values())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"),
+                    help="directory for the profiler's timeline")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path[:0] = [REPO, os.path.join(REPO, "src")]
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.serve import BatchScheduler, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+
+    model, params, scfg, prompts = chip_smoke.serve_workload()
+    n_layers = model.cfg.num_layers
+
+    def submit(sched):
+        for rid, p in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=p,
+                                 max_new=chip_smoke.SERVE_MAX_NEW))
+
+    # 1. step by step
+    sched = BatchScheduler(model, params, scfg, device="cuda")
+    base = torch.cuda.memory_allocated()
+    steps = [_timed(lambda: submit(sched), ops, n_layers,
+                    lambda: sched.decode_steps)]
+    while sched.pending():
+        steps.append(_timed(sched.step, ops, n_layers,
+                            lambda: sched.decode_steps))
+    pre = [s for s in steps if s[0]]
+    dec = [s for s in steps if not s[0] and s[1]]
+    print(f"[steps] allocated before serving {base / GiB:.2f} GiB "
+          f"(weights + page pool); submit + {len(steps) - 1} steps in "
+          f"{sum(s[2] for s in steps):.3f}s")
+    print(f"[steps] {len(pre)} with prefill ({sum(s[0] for s in pre)} "
+          f"chunks, {sum(s[1] for s in pre)} decodes): "
+          f"{sum(s[2] for s in pre):.3f}s, peak "
+          f"{max(s[3] for s in pre) / GiB:.2f} GiB")
+    if dec:
+        print(f"[steps] {len(dec)} decode-only: {sum(s[2] for s in dec):.3f}s,"
+              f" median {np.median([s[2] for s in dec]) * 1e3:.2f} ms, peak "
+              f"{max(s[3] for s in dec) / GiB:.2f} GiB")
+    del sched
+
+    # 2. profiler
+    sched = BatchScheduler(model, params, scfg, device="cuda")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        submit(sched)
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(os.path.join(args.out, "serve_trace.json"))
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    print(f"[profile] wall {wall:.3f}s (profiled), device busy {busy:.3f}s "
+          f"= {busy / wall:.1%}; kernels by device time:")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
+        print(f"[profile] {dev_us(e) / 1e3:10.1f} ms {e.count:6d}x "
+              f"{dev_us(e) / 1e6 / busy:6.1%}  {e.key[:100]}")
+    del sched, prof
+
+    # 3. allocator history
+    sched = BatchScheduler(model, params, scfg, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=500_000,
+                                             stacks="python")
+    submit(sched)
+    sched.run()
+    torch.cuda.synchronize()
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    peak, live = _live_at_peak(snap)
+    print(f"[memory] peak {(base + peak) / GiB:.2f} GiB = "
+          f"{base / GiB:.2f} GiB before serving + {peak / GiB:.2f} GiB; "
+          f"largest of the {len(live)} tensors alive at the peak:")
+    for ev in sorted(live, key=lambda e: e["size"], reverse=True)[:10]:
+        print(f"[memory] {ev['size'] / 2**20:10.1f} MiB  "
+              f"{_site(ev.get('frames', []))}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
