@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; the last stdout line is the result):
 
-1. build   — compile the flash-attention CUDA kernel from the checkout's
-             sources (``nvcc``, sm_90a) and print the seconds it took.
+1. build   — compile the three CUDA kernel libraries (flash attention,
+             local_reduce, quantize) from the checkout's sources
+             (``nvcc``, sm_90a), all at once, and print each one's seconds.
 2. kernels — the kernel against its plain PyTorch version on the card at
              the serving path's shapes (64 query / 8 KV heads, D = 128):
              page-sized chunks (Sq 256) against a 4096-token cache at
@@ -31,12 +32,42 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              the checked run's tokens.  Checks completion, pool integrity
              and that every prefill chunk of every layer went through the
              kernel.
+5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
+             ``dequantize``, ``dequant_add``) against their plain versions,
+             bit for bit, at the sizes granite-34b's sync gives them: the
+             ``lm_head`` gradient's bidirectional-ring combine chunk at
+             two ranks (n/4 of 6144 x 49152) and compressed-ring chunk
+             (n/2), a 6144-value norm and a ragged length.  Prints kernel,
+             plain and one-PyTorch-call times and the bound.
+6. train_small — the reduced granite-34b (f32) trained over 2 thread
+             ranks for 3 steps, composed and compressed, through the sync
+             kernels on the card and through the plain path on the CPU,
+             from the same weights: the losses agree within tolerance.
+             Seq 64 runs the training attention over 4 key blocks
+             (block_k 16), forward and recompute backward.
+7. train   — granite-34b at its published widths, depth cut to 2 of 88
+             layers, random bf16 weights from a seed: data-parallel
+             training over 2 thread ranks on the card (seq 2048, global
+             batch 4), through ``launch.train.build_session`` and
+             ``trainer.make_train_step``, 3 steps in each of four runs:
+             {composed, compressed} x {sync kernels, plain}.  The
+             package has no switch between the two: the sync's ops take
+             the kernels for CUDA tensors, and for the plain runs this
+             script alone points the ops at their plain versions
+             (``plain_sync_ops``).  Checks bit-identical losses and
+             parameters between the kernel and plain runs, identical
+             replicas, finite losses, and each kernel's launch count
+             against the count the plan predicts.  A fifth run, composed
+             at lr 1e-5, must lower the loss: at lr 1e-3 the first AdamW
+             step moves every weight of these 6144-wide layers by about
+             1e-3, and the loss rises.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -58,6 +89,22 @@ REL_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
 SMALL_LOGIT_TOL = 1e-3  # f32 reduced model, card vs CPU summation order
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}      # dense; f32 = CUDA cores
+TRAIN_LAYERS = 2
+TRAIN_RANKS = 2
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 4                         # global: 2 rows a rank
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-3
+LOW_LR = 1e-5                           # the run whose loss must fall
+SMALL_TRAIN_SEQ = 64                    # 4 key blocks of the reduced 16
+SMALL_LOSS_RTOL = {"composed": 1e-4, "compressed": 1e-3}
+LM_HEAD = 6144 * 49152                  # granite-34b's largest gradient
+SYNC_SIZES = (("combine chunk", LM_HEAD // 4), ("compressed chunk",
+                                                 LM_HEAD // 2),
+              ("norm", 6144), ("ragged", 1_000_003))
+SYNC_KERNELS = ("sum_chunks", "quantize", "dequantize", "dequant_add")
+F32_OPS_PER_VALUE = {"sum_chunks": 2, "quantize": 6, "dequantize": 1,
+                     "dequant_add": 2}  # k adds; |x|, max, div, rint, 2 clamps
 SERVE_LAYERS = 4
 SERVE_REQUESTS = 16
 SERVE_MAX_NEW = 32
@@ -108,15 +155,19 @@ def _error(got, want):
     return err, REL_TOL[got.dtype] * want.abs().max().item()
 
 
-def phase_build(kernel):
+def phase_build(libraries):
+    """Build every kernel library at once (one nvcc each, in threads)."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    built = kernel.load()
-    print(f"[build] flash_attention: nvcc {built.seconds:.1f}s "
-          f"(load {time.perf_counter() - t0:.1f}s) -> "
-          f"{os.path.relpath(built.path, HERE)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda lib: lib.load(), libraries))
+    for lib, b in zip(libraries, built):
+        print(f"[build] {lib.name}: nvcc {b.seconds:.1f}s -> "
+              f"{os.path.relpath(b.path, HERE)}")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+    print(f"[build] all libraries in {time.perf_counter() - t0:.1f}s")
 
 
 def phase_kernels(kernel, ref):
@@ -283,7 +334,8 @@ def _checked_serve(model, params, scfg, submit, ref):
     return checked, errs
 
 
-def phase_serve(ops, ref):
+def phase_serve(ref):
+    from repro_torch.kernels import counter
     from repro_torch.serve import BatchScheduler, Request
     from repro_torch.tree import leaves
     model, params, scfg, prompts = serve_workload()
@@ -303,13 +355,13 @@ def phase_serve(ops, ref):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ops.launches = 0
+    counter.reset_all()
     t0 = time.perf_counter()
     submit(sched)
     done = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launches
+    launches = counter.counts()["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
 
     n_chunks = sum(-(-n // scfg.page_tokens) for n in lens)
@@ -360,8 +412,376 @@ def phase_serve(ops, ref):
     return dict(launches=launches, max_abs_err=max(e[0] for e in errs))
 
 
+def _bits_equal(a, b) -> bool:
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(view), b.view(view)))
+
+
+def _sync_bound(name: str, n: int, in_bytes: int, out_bytes: int):
+    """Least time (ms) for ``name`` on ``n`` values: bytes read once and
+    written once over HBM bandwidth against its f32 operations over the
+    CUDA cores' f32 peak.  Returns (ms, "bytes" | "operations")."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = F32_OPS_PER_VALUE[name] * n / PEAK_OPS["f32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _nb(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_collectives():
+    """The four gradient-sync kernels against their plain versions, bit
+    for bit, at the sync's sizes.  Calls the bindings directly, so no
+    launch counter moves.  Returns {(kernel, size name, dtype): row}."""
+    from repro_torch.kernels.local_reduce import kernel as lk
+    from repro_torch.kernels.local_reduce import ref as lref
+    from repro_torch.kernels.quantize import kernel as qk
+    from repro_torch.kernels.quantize import ref as qref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+
+    def record(name, size, dtype, n, got, want, fn, plain, lib, in_b,
+               out_b):
+        same = all(_bits_equal(g, w) for g, w in zip(got, want))
+        iters = 5 if n > 10 ** 7 else 50
+        ms = _ms(fn, iters)
+        plain_ms = _ms(plain, 3 if n > 10 ** 7 else 20, warmup=1)
+        lib_ms = _ms(lib, iters) if lib is not None else None
+        bound_ms, by = _sync_bound(name, n, in_b, out_b)
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        rows[(name, size, dtype)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=by, max_abs_err=err, bit_identical=same)
+        lib_s = f"{lib_ms:.4f}ms" if lib_ms is not None else "none"
+        print(f"[collectives] {name:11s} {size:16s} n={n:>11,d} {dtype:8s} "
+              f"bit-identical={same} kernel={ms:.4f}ms plain={plain_ms:.4f}"
+              f"ms library={lib_s} bound={bound_ms:.4f}ms ({by})")
+        if not same:
+            raise AssertionError(f"{name} at {size} ({dtype}) differs from "
+                                 "its plain version")
+
+    for size, n in SYNC_SIZES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(2, n, generator=gen, device="cuda").to(dt)
+            a, b = x[0], x[1]
+            got = lk.sum_chunks([a, b])
+            record("sum_chunks", size, str(dt).split(".")[-1], n, [got],
+                   [lref.sum_chunks([a, b])],
+                   lambda: lk.sum_chunks([a, b]),
+                   lambda: lref.sum_chunks([a, b]),
+                   lambda: torch.add(a, b), _nb(a, b), _nb(got))
+            del x, a, b, got
+        m = -(-n // qref.QBLOCK) * qref.QBLOCK    # the sync pads to blocks
+        x = torch.randn(m, generator=gen, device="cuda")
+        x.view(-1, qref.QBLOCK)[0] = 0.0          # an all-zero block
+        acc = torch.randn(m, generator=gen, device="cuda")
+        q, sc = qk.quantize(x)
+        wq, ws = qref.quantize(x)
+        record("quantize", size, "float32", m, [q, sc], [wq, ws],
+               lambda: qk.quantize(x), lambda: qref.quantize(x), None,
+               _nb(x), _nb(q, sc))
+        q2d, s2d = q.view(-1, qref.QBLOCK), sc[:, None]
+        acc2d = acc.view(-1, qref.QBLOCK)
+        d = qk.dequantize(q, sc)
+        record("dequantize", size, "float32", m, [d],
+               [qref.dequantize(q, sc)], lambda: qk.dequantize(q, sc),
+               lambda: qref.dequantize(q, sc),
+               lambda: torch.mul(q2d, s2d), _nb(q, sc), _nb(d))
+        da = qk.dequant_add(acc, q, sc)
+        record("dequant_add", size, "float32", m, [da],
+               [qref.dequant_add(acc, q, sc)],
+               lambda: qk.dequant_add(acc, q, sc),
+               lambda: qref.dequant_add(acc, q, sc),
+               lambda: torch.addcmul(acc2d, q2d, s2d), _nb(acc, q, sc),
+               _nb(da))
+        del x, acc, q, sc, wq, ws, d, da, q2d, s2d, acc2d
+    torch.cuda.empty_cache()
+    return rows
+
+
+def planned_launches(engine, grads, loss, p: int, compress: bool):
+    """Launches of each sync kernel on one rank in one step, as the
+    session's plan predicts them, with the formula for each."""
+    from repro_torch.core import costmodel, layers, registry
+    from repro_torch.tree import leaves
+    combine = {costmodel.RING: lambda chunk: p - 1,
+               costmodel.BIDIR_RING: lambda chunk: (p - 1) * (
+                   1 if chunk % 2 else 2)}
+    n_combine, terms, protocols = 0, [], []
+    reduced = [loss] if compress else leaves(grads) + [loss]
+    for t in reduced:
+        proto = engine.protocol_for(registry.ALL_REDUCE, layers.nbytes(t),
+                                    "data")
+        chunk = -(-t.numel() // p)
+        k = combine.get(proto, lambda chunk: 0)(chunk)
+        n_combine += k
+        protocols.append((tuple(t.shape), str(t.dtype).split(".")[-1],
+                          proto, k))
+    out = {"sum_chunks": (n_combine, "sum over all-reduced leaves of "
+                          "(p-1) per ring, 2(p-1) per bidir ring with an "
+                          "even chunk, 0 for recursive protocols")}
+    if compress:
+        n = len(leaves(grads))
+        out["quantize"] = (n * (p + 1), f"{n} leaves x (p+1): p-1 ring "
+                           "hops + the all-gather payload + the residual")
+        out["dequantize"] = (n * p, f"{n} leaves x p: the own chunk + "
+                             "p-1 all-gather hops")
+        out["dequant_add"] = (n * p, f"{n} leaves x p: p-1 receive steps "
+                              "+ the residual")
+    return out, protocols
+
+
+def _adamw(lr: float):
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    return make_optimizer("adamw", lr=cosine_schedule(
+        lr, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS))
+
+
+def train_workload():
+    """The training workload, on the card: granite-34b at its published
+    widths cut to TRAIN_LAYERS layers with random bf16 weights from seed
+    0, TRAIN_RANKS thread ranks, ``SyntheticLMDataset`` seed 0 (seq
+    TRAIN_SEQ, global batch TRAIN_BATCH), AdamW with a cosine schedule
+    from TRAIN_LR over TRAIN_STEPS steps.  Returns (model, initial
+    params, mesh, dataset, optimizer)."""
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import leaves
+    cfg = with_num_layers(get_config("granite-34b"), TRAIN_LAYERS)
+    model = build_model(cfg)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    print(f"[train] {cfg.name} d_model={cfg.d_model} heads="
+          f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} head_dim="
+          f"{cfg.attn.head_dim} ff={cfg.mlp.d_ff} ({cfg.mlp.activation}) "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers} block_k="
+          f"{cfg.block_k}: {model.param_count() / 1e9:.3f}B params "
+          f"({_nbytes(leaves(init)) / 1e9:.2f} GB bf16); {TRAIN_RANKS} "
+          f"ranks, seq {TRAIN_SEQ}, global batch {TRAIN_BATCH}")
+    mesh = substrate.make_host_mesh(TRAIN_RANKS, device="cuda")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=0)
+    return model, init, mesh, ds, _adamw(TRAIN_LR)
+
+
+def train_run(model, init, mesh, ds, opt, sync: str):
+    """A fresh session (the §2.2 scan through ``build_session``), fresh
+    replicas of ``init`` and the step function for one run."""
+    from repro_torch.launch.train import build_session
+    from repro_torch.train import trainer
+    from repro_torch.tree import map_tree
+    tcfg = trainer.TrainCfg(sync_mode=sync)
+    session = build_session(mesh, model, opt, ds, tcfg)
+    states = trainer.replicate(trainer.make_train_state(
+        model, opt, map_tree(lambda t: t.clone(), init), tcfg), mesh.size)
+    return session, states, trainer.make_train_step(model, opt, tcfg,
+                                                    comm=session.world)
+
+
+@contextlib.contextmanager
+def plain_sync_ops():
+    """Point the gradient sync's ops at their plain versions (``ref``)
+    while the block runs, on CUDA tensors too: the other side of the
+    whole-step comparison.  The package has no such switch; its ops take
+    the kernels for every CUDA tensor."""
+    from repro_torch.kernels.local_reduce import ops as lops
+    from repro_torch.kernels.local_reduce import ref as lref
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+    saved = (lops.sum_chunks, qops.quantize, qops.dequantize,
+             qops.dequant_add)
+    lops.sum_chunks = lambda chunks, dtype=None: lref.sum_chunks(
+        list(chunks), dtype)
+    qops.quantize = lambda x, block=qref.QBLOCK: qref.quantize(x, block)
+    qops.dequantize = (lambda q, s, block=qref.QBLOCK, dtype=torch.float32:
+                       qref.dequantize(q, s, block, dtype))
+    qops.dequant_add = (lambda acc, q, s, block=qref.QBLOCK:
+                        qref.dequant_add(acc, q, s, block))
+    try:
+        yield
+    finally:
+        (lops.sum_chunks, qops.quantize, qops.dequantize,
+         qops.dequant_add) = saved
+
+
+def _train_steps(step_fn, states, ds):
+    """TRAIN_STEPS steps; returns (states, losses, seconds a step,
+    last metrics)."""
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        states, metrics = step_fn(states, ds.host_batch(step))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+    return states, losses, times, metrics
+
+
+def phase_train_small():
+    """Reduced granite-34b: 3 training steps over 2 thread ranks through
+    the sync kernels on the card and through the plain path on the CPU,
+    from the same f32 weights, composed and compressed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import map_tree
+    cfg = get_config("granite-34b", reduced=True)
+    model = build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                            seq_len=SMALL_TRAIN_SEQ, global_batch=4, seed=0)
+    opt = _adamw(TRAIN_LR)
+    for sync in ("composed", "compressed"):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            mesh = substrate.make_host_mesh(2, device=dev)
+            _, states, step_fn = train_run(
+                model, map_tree(lambda t: t.to(dev), init), mesh, ds, opt,
+                sync)
+            losses[dev] = _train_steps(step_fn, states, ds)[1]
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        print(f"[train_small] reduced granite-34b {sync}, seq "
+              f"{SMALL_TRAIN_SEQ} ({SMALL_TRAIN_SEQ // cfg.block_k} key "
+              f"blocks): card {losses['cuda']} vs CPU {losses['cpu']}; max "
+              f"rel err {err:.3e} (tol {SMALL_LOSS_RTOL[sync]})")
+        if not err <= SMALL_LOSS_RTOL[sync]:
+            raise AssertionError(f"{sync}: card and CPU losses differ")
+
+
+def phase_train():
+    """granite-34b at its published widths (2 of 88 layers) trained over
+    TRAIN_RANKS thread ranks on the card: four runs of TRAIN_STEPS steps,
+    {composed, compressed} x {sync kernels, plain}, then a composed run
+    at LOW_LR whose loss must fall."""
+    import gc
+    from repro_torch.kernels import counter
+    from repro_torch.tree import leaves
+    model, init, mesh, ds, opt = train_workload()
+    p = TRAIN_RANKS
+    results, out = {}, {}
+    for sync in ("composed", "compressed"):
+        for on in (True, False):
+            session, states, step_fn = train_run(model, init, mesh, ds,
+                                                 opt, sync)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counter.reset_all()
+            with (contextlib.nullcontext() if on else plain_sync_ops()):
+                states, losses, times, metrics = _train_steps(
+                    step_fn, states, ds)
+            counts = counter.counts()
+            peak = torch.cuda.max_memory_allocated()
+            same = all(_bits_equal(a, b) for st in states[1:] for a, b in
+                       zip(leaves(states[0]["params"]),
+                           leaves(st["params"])))
+            tag = f"{sync}, {'kernels' if on else 'plain'}"
+            step_s = float(np.mean(times[1:]))
+            print(f"[train] {tag}: losses {losses}; step {step_s * 1e3:.1f}"
+                  f" ms (steps 2-{TRAIN_STEPS}; first "
+                  f"{times[0] * 1e3:.1f} ms) = "
+                  f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+                  f"allocated {peak / 2**30:.2f} GiB; replicas identical: "
+                  f"{same}")
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"{tag}: losses {losses}")
+            if not same:
+                raise AssertionError(f"{tag}: replicas differ")
+            if not peak < 0.95 * torch.cuda.get_device_properties(
+                    0).total_memory:
+                raise AssertionError(f"{tag}: peak {peak} near the card")
+            grads_like = states[0]["params"]
+            plan, protocols = planned_launches(
+                session.engine, grads_like, metrics["loss"], p,
+                sync == "compressed")
+            main = ("sum_chunks",) if sync == "composed" else (
+                "quantize", "dequantize", "dequant_add")
+            for name in SYNC_KERNELS:
+                per, formula = plan.get(name, (0, "not on this path"))
+                want = per * p * TRAIN_STEPS if on else 0
+                if on and per:
+                    print(f"[train]   {name}: {counts[name]} launches; plan "
+                          f"{want} = {per} a rank a step x {p} ranks x "
+                          f"{TRAIN_STEPS} steps ({formula})")
+                if counts[name] != want or (on and name in main
+                                            and not want):
+                    raise AssertionError(f"{tag}: {name} launched "
+                                         f"{counts[name]} times, plan "
+                                         f"{want}")
+                if on and name in main:
+                    out[name] = counts[name]
+            if on:
+                for shape, dt, proto, k in protocols:
+                    print(f"[train]   all_reduce {dt} {shape}: {proto} "
+                          f"({k} combine launches a rank a step)")
+                out[f"{sync}_step_ms"] = step_s * 1e3
+                out[f"{sync}_peak_gib"] = peak / 2**30
+            # rank 0's params, no longer written once its run is over
+            results[(sync, on)] = (losses, leaves(states[0]["params"]))
+            del states, step_fn, session, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+        (l_on, p_on), (l_off, p_off) = results.pop((sync, True)), \
+            results.pop((sync, False))
+        same = l_on == l_off and all(_bits_equal(a, b)
+                                     for a, b in zip(p_on, p_off))
+        print(f"[train] {sync}: the kernel and plain runs give "
+              f"bit-identical losses and parameters: {same}")
+        if not same:
+            raise AssertionError(f"{sync}: kernel and plain runs differ")
+        del p_on, p_off
+    session, states, step_fn = train_run(model, init, mesh, ds,
+                                         _adamw(LOW_LR), "composed")
+    losses = _train_steps(step_fn, states, ds)[1]
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    print(f"[train] composed, kernels, lr {LOW_LR}: losses {losses}; "
+          f"falling: {falls}")
+    if not falls:
+        raise AssertionError(f"lr {LOW_LR}: losses {losses} do not fall")
+    del states, step_fn, session, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+SYNC_SOURCES = {
+    "sum_chunks": ("local_reduce/csrc/local_reduce.cu",
+                   "src/repro/kernels/local_reduce/kernel.py:37"),
+    "quantize": ("quantize/csrc/quantize.cu",
+                 "src/repro/kernels/quantize/kernel.py:59"),
+    "dequantize": ("quantize/csrc/quantize.cu",
+                   "src/repro/kernels/quantize/kernel.py:76"),
+    "dequant_add": ("quantize/csrc/quantize.cu",
+                    "src/repro/kernels/quantize/kernel.py:90")}
+
+
+def _sync_entry(name, sync_rows, train):
+    """The kernels-line entry of a sync kernel: times at its largest
+    main-path call (the combine chunk in the gradients' bf16, the
+    compressed chunk in f32), launches from the training run."""
+    key = ((name, "combine chunk", "bfloat16") if name == "sum_chunks"
+           else (name, "compressed chunk", "float32"))
+    row = sync_rows[key]
+    source, replaces = SYNC_SOURCES[name]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/" + source,
+            "replaces": replaces, "launches": train[name],
+            "max_abs_err": max(r["max_abs_err"] for k, r in
+                               sync_rows.items() if k[0] == name),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -369,17 +789,22 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.local_reduce import kernel as lkernel
+    from repro_torch.kernels.quantize import kernel as qkernel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build(kernel)
+    phase_build([kernel.LIBRARY, lkernel.LIBRARY, qkernel.LIBRARY])
     rows = phase_kernels(kernel, ref)
     phase_small()
-    serve = phase_serve(ops, ref)
+    serve = phase_serve(ref)
+    sync_rows = phase_collectives()
+    phase_train_small()
+    train = phase_train()
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s")
 
     card = subprocess.run(
@@ -400,7 +825,8 @@ def main() -> int:
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}))
+        "library_ms": main_row["library_ms"]}] + [
+            _sync_entry(name, sync_rows, train) for name in SYNC_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -32,5 +32,5 @@ def reduced(param_dtype=torch.float32) -> TransformerCfg:
         attn=AttentionCfg(d_model=d, num_heads=4, num_kv_heads=2,
                           head_dim=16, qkv_bias=True, rope_theta=1e6),
         mlp=MLPCfg(d, 128, "swiglu"),
-        param_dtype=param_dtype,
+        param_dtype=param_dtype, block_k=16,
     )

@@ -1,0 +1,462 @@
+"""The CollectiveEngine: a dynamically composed, tiered, per-function-
+protocol communication library (paper §2+§3+§4 as one object).
+
+Counterpart of ``repro.core.engine``, cut to what the data-parallel
+gradient sync needs: planned dispatch of ``all_reduce`` (ring,
+bidirectional ring, Rabenseifner, recursive doubling) with its
+start/progress/wait arms — the blocking call is literally
+``wait(start(x))`` — the error-feedback ``compressed_all_reduce`` with
+its arms, ``sync_gradients`` (one collective per leaf), and
+``EngineConfig``.  The reference's two kernel switches
+(``use_quantize_kernel``, ``use_local_reduce_kernel``) have no
+counterpart: the ring combine and the int8 ops always go through their
+``ops``, which take the CUDA kernels on the card and the plain versions
+on the CPU.  Bucketed sync, ZeRO arms, persistent bindings and the
+monolithic baseline arrive with later slices.
+
+Construction mirrors the paper's pipeline:
+
+  1. scan the application          -> ``trace.scan_step``       (§2.2)
+  2. compose the thin library      -> ``compose.compose``        (§2)
+  3. assign per-function tiers     -> ``layers.assign_tiers``    (§3)
+  4. plan per-function protocols   -> ``plan.CommPlan``          (§4)
+
+Collective methods run inside a rank of ``substrate.run_spmd``.  One
+engine serves every rank of a session (the ranks are threads); its
+mutable state is the invoked-function set and ``CommStats``, both
+updated under locks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.core import compression, costmodel, layers, registry
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.compose import ComposedLibrary
+from repro_torch.core.protocols import common as c
+from repro_torch.core.protocols import recursive, ring
+from repro_torch.core.topology import Topology, topology_from_mesh
+from repro_torch.tree import flatten, unflatten
+
+#: stats key the gradient-sync paths record wire-payload bytes under.
+SYNC_STATS_KEY = "sync_gradients"
+
+
+def _as_axes(axis_name) -> Tuple[str, ...]:
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+def scale_by(y: torch.Tensor, scale: float) -> torch.Tensor:
+    """``y * scale`` with the scale rounded to y's dtype first, as the
+    reference's ``y * jnp.asarray(scale, y.dtype)`` does."""
+    s = torch.tensor(scale, dtype=y.dtype).item()
+    return y * s
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    mode: str = "composed"               # only "composed" in this slice
+    tier_policy: layers.TierPolicy = dataclasses.field(
+        default_factory=layers.TierPolicy)
+    sanitize_checked: bool = False       # L2+: finite-guard op
+    force_protocol: Mapping[str, str] = dataclasses.field(default_factory=dict)
+    plan: bool = True                    # False: per-call selection
+
+    def __post_init__(self):
+        if self.mode != "composed":
+            raise ValueError(
+                f"engine mode {self.mode!r}: only 'composed' is ported; the "
+                "monolithic baseline arrives with the port of xla.py")
+
+
+@dataclasses.dataclass
+class InFlight:
+    """A started-but-unfinished collective.  ``finish`` runs the
+    remaining pipeline stage(s); ``scale`` is the mean factor the wait
+    arm applies after the last stage.  Consume exactly once."""
+
+    fn: str
+    axes: Tuple[str, ...]
+    finish: Callable[[], torch.Tensor]
+    protocol: str = costmodel.XLA_DEFAULT
+    start_bytes: int = 0
+    wait_bytes: int = 0
+    scale: Optional[float] = None
+    waited: bool = False
+    stepper: Any = None
+
+
+class CollectiveEngine:
+    """One application ↔ one engine (paper §2.1)."""
+
+    def __init__(self, topology: Topology,
+                 library: Optional[ComposedLibrary] = None,
+                 frequencies: Optional[Mapping[str, float]] = None,
+                 config: Optional[EngineConfig] = None) -> None:
+        self.topology = topology
+        self.config = config or EngineConfig()
+        self.stats = layers.CommStats()
+        self._initialized = False
+        self._finalized = False
+        self.last_init_rebuilt = False
+        self._invoked = set()
+        self._lock = threading.Lock()
+        if library is None:
+            raise ValueError("a composed engine needs a ComposedLibrary "
+                             "(use repro_torch.comm.Session)")
+        self.library = library
+        self.frequencies = dict(frequencies or registry.DEFAULT_FREQUENCIES)
+        self.tiers = layers.assign_tiers(
+            {fn: self.frequencies.get(
+                fn, registry.DEFAULT_FREQUENCIES.get(fn, 1.0))
+             for fn in library.provided},
+            self.config.tier_policy)
+        self._build_plan()
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def composed(self) -> bool:
+        return True
+
+    def tier(self, fn: str) -> int:
+        return self.tiers.get(fn, layers.CONVENTIONAL_TIER)
+
+    def average_layer_number(self) -> float:
+        freqs = {fn: self.frequencies.get(
+            fn, registry.DEFAULT_FREQUENCIES.get(fn, 1.0))
+            for fn in self.tiers}
+        return layers.average_layer_number(self.tiers, freqs)
+
+    def protocol_for(self, fn: str, nbytes: float, axis: str) -> str:
+        return self.plan.protocol_for(fn, nbytes, axis)
+
+    def describe(self) -> str:
+        rows = [f"CollectiveEngine(mode={self.config.mode}, "
+                f"avg_layer={self.average_layer_number():.3f})",
+                f"  library: {self.library.describe()}",
+                f"  plan: {self.plan.describe()}"]
+        for fn in sorted(self.library.provided):
+            rows.append(f"  {fn:<22s} tier={layers.TIER_NAMES[self.tier(fn)]}")
+        return "\n".join(rows)
+
+    # -- planning: protocol table + pre-bound tier wrappers --------------
+
+    def _build_plan(self) -> None:
+        self.plan = plan_mod.CommPlan(
+            self.topology, composed=True,
+            force=self.config.force_protocol, enabled=self.config.plan,
+            warm_functions=tuple(self.library.provided))
+        self._rebind_dispatch()
+
+    def _rebind_dispatch(self) -> None:
+        self._dispatch: Dict[str, Callable] = {}
+        for fn in self.library.provided:
+            impl = self._impl_for(fn)
+            if impl is not None:
+                self._dispatch[fn] = self._bind(fn, impl)
+
+    def _bind(self, fn: str, impl: Callable) -> Callable:
+        return layers.wrap_tier(fn, self.tier(fn), impl, self.stats,
+                                sanitize=self.config.sanitize_checked)
+
+    def dispatcher(self, fn: str) -> Callable:
+        d = self._dispatch.get(fn)
+        if d is None:
+            impl = self._impl_for(fn)
+            if impl is None:
+                raise NotImplementedError(
+                    f"{fn!r} has no schedule in the port yet")
+            d = self._bind(fn, impl)
+        return d
+
+    def _impl_for(self, fn: str) -> Optional[Callable]:
+        return {registry.ALL_REDUCE: self._allreduce_composed,
+                registry.COMPRESSED_ALL_REDUCE: self._compressed_impl,
+                }.get(fn)
+
+    # -- plumbing --------------------------------------------------------
+
+    def _check(self, fn: str) -> None:
+        with self._lock:
+            self._invoked.add(fn)
+        self.library.require(fn)
+
+    @property
+    def invoked_functions(self) -> frozenset:
+        """Engine-level functions invoked through this engine — the §2.2
+        scan at the API layer (protocol lowering turns all_reduce into
+        hops, so the hop record alone cannot attribute them)."""
+        with self._lock:
+            return frozenset(self._invoked)
+
+    def _axis_size(self, axis: str) -> int:
+        if axis in self.topology.axis_sizes:
+            return self.topology.axis_sizes[axis]
+        return c.axis_size(axis)
+
+    def mean_scale(self, axis_name) -> float:
+        """1 / prod(axis sizes): the one authority every mean-reduction
+        path divides through."""
+        scale = 1.0
+        for ax in _as_axes(axis_name):
+            scale /= self._axis_size(ax)
+        return scale
+
+    @staticmethod
+    def _chunked(x: torch.Tensor, p: int):
+        flat, n = c.pad_flat(x, p)
+        return flat.reshape(p, -1), n, tuple(x.shape)
+
+    # -- all_reduce --------------------------------------------------------
+
+    def all_reduce(self, x: torch.Tensor, axis_name) -> torch.Tensor:
+        fn = registry.ALL_REDUCE
+        self._check(fn)
+        axes = _as_axes(axis_name)
+        return self.dispatcher(fn)(x, axes if len(axes) > 1 else axes[0])
+
+    def _allreduce_composed(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = _as_axes(axes)
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"all_reduce over {axes}: multi-axis protocols (two-phase, "
+                "hierarchical) arrive with the port of twophase.py")
+        return self._allreduce_1d(x, axes[0])
+
+    def _allreduce_1d(self, x: torch.Tensor, axis: str,
+                      proto: Optional[str] = None) -> torch.Tensor:
+        return self._allreduce_1d_start(x, axis, proto=proto).finish()
+
+    def _allreduce_1d_start(self, x: torch.Tensor, axis: str,
+                            proto: Optional[str] = None) -> InFlight:
+        """Launch the first pipeline stage of a 1-axis all-reduce; the
+        token's ``finish`` runs the remaining stage(s)."""
+        fn = registry.ALL_REDUCE
+        p = self._axis_size(axis)
+        if p == 1:
+            return InFlight(fn, (axis,), lambda: x, protocol="local")
+        nb = layers.nbytes(x)
+        if proto is None:
+            proto = self.protocol_for(fn, nb, axis)
+        sb, wb = plan_mod.phase_wire_bytes(proto, p, nb)
+        if proto == costmodel.RECURSIVE_DOUBLING:
+            y = recursive.recursive_doubling_all_reduce(x, axis)
+            return InFlight(fn, (axis,), lambda: y, proto, sb, wb)
+        x2d, n, shape = self._chunked(x, p)
+        if proto == costmodel.RING:
+            shard = ring.ring_all_reduce_start(x2d, axis)
+            run = ring.RingAllGatherRun(shard, axis)
+        elif proto == costmodel.BIDIR_RING:
+            shard = ring.bidir_ring_all_reduce_start(x2d, axis)
+            run = ring.BidirRingAllGatherRun(shard, axis)
+        elif proto == costmodel.RECURSIVE_HALVING:
+            shard = recursive.halving_reduce_scatter_flat(x2d, axis)
+            run = recursive.DoublingAllGatherRun(shard, axis)
+        else:
+            raise ValueError(f"no all_reduce schedule for protocol "
+                             f"{proto!r} in the port")
+        fin = lambda: c.unpad(run.result().reshape(-1), n, shape)
+        return InFlight(fn, (axis,), fin, proto, sb, wb, stepper=run)
+
+    # -- nonblocking two-phase arms ----------------------------------------
+
+    def all_reduce_start(self, x: torch.Tensor, axis_name, *,
+                         mean: bool = False) -> InFlight:
+        fn = registry.ALL_REDUCE
+        self._check(fn)
+        axes = _as_axes(axis_name)
+        x = layers.tier_input(fn, self.tier(fn), x,
+                              axes if len(axes) > 1 else axes[0],
+                              self.stats,
+                              sanitize=self.config.sanitize_checked)
+        if len(axes) != 1:
+            raise NotImplementedError(
+                f"all_reduce_start over {axes}: multi-axis protocols arrive "
+                "with the port of twophase.py")
+        tok = self._allreduce_1d_start(x, axes[0])
+        if mean:
+            tok.scale = self.mean_scale(axes)
+        self.stats.record_phase(fn, "start", tok.start_bytes)
+        return tok
+
+    def all_reduce_wait(self, token: InFlight) -> torch.Tensor:
+        return self._wait_inflight(token)
+
+    def all_reduce_progress(self, token: InFlight, stages: int = 1) -> int:
+        return self._progress_inflight(token, stages)
+
+    def _progress_inflight(self, token: InFlight, stages: int = 1) -> int:
+        """Retire up to ``stages`` wait-phase protocol stages without
+        completing the collective; returns stages taken.  Each hop bills
+        ``wait_bytes * k / remaining`` so the phases sum to the blocking
+        path's wire bytes."""
+        if token.waited:
+            raise RuntimeError(
+                f"cannot progress an already-waited {token.fn} token")
+        run = token.stepper
+        if run is None or run.remaining <= 0:
+            return 0
+        remaining_before = run.remaining
+        k = run.step(stages)
+        if k:
+            moved = token.wait_bytes * k // remaining_before
+            token.wait_bytes -= moved
+            self.stats.record_phase(token.fn, "progress", moved)
+        return k
+
+    def _wait_inflight(self, token: InFlight) -> torch.Tensor:
+        if token.waited:
+            raise RuntimeError(
+                f"in-flight {token.fn} token was already waited — each "
+                f"start() produces exactly one wait()able reduction")
+        token.waited = True
+        self.stats.record_phase(token.fn, "wait", token.wait_bytes)
+        y = token.finish()
+        if token.scale is not None:
+            y = scale_by(y, token.scale)
+        return layers.tier_output(self.tier(token.fn), y)
+
+    # -- compressed all-reduce ---------------------------------------------
+
+    def compressed_all_reduce(self, x: torch.Tensor, axis_name: str,
+                              state: Optional[compression.EFState] = None):
+        fn = registry.COMPRESSED_ALL_REDUCE
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, state=state)
+
+    def _compressed_impl(self, x, axis: str, state=None):
+        return compression.compressed_all_reduce(x, axis, state)
+
+    def compressed_all_reduce_start(self, x: torch.Tensor, axis_name: str,
+                                    state: Optional[compression.EFState]
+                                    = None):
+        fn = registry.COMPRESSED_ALL_REDUCE
+        self._check(fn)
+        x = layers.tier_input(fn, self.tier(fn), x, axis_name, self.stats,
+                              sanitize=self.config.sanitize_checked)
+        tok = compression.compressed_all_reduce_start(x, axis_name, state)
+        sb, _ = plan_mod.phase_wire_bytes(
+            costmodel.RING, tok.p, compressed_wire_bytes(x.numel()))
+        self.stats.record_phase(fn, "start", sb)
+        return tok
+
+    def compressed_all_reduce_progress(self, token, stages: int = 1) -> int:
+        fn = registry.COMPRESSED_ALL_REDUCE
+        if token.p == 1:
+            return 0
+        if token.wait_bytes_left is None:
+            _, wb = plan_mod.phase_wire_bytes(
+                costmodel.RING, token.p, compressed_wire_bytes(token.n))
+            token.wait_bytes_left = wb
+        remaining_before = (token.ag_run.remaining
+                            if token.ag_run is not None else token.p - 1)
+        if remaining_before <= 0:
+            return 0
+        k = compression.compressed_all_reduce_progress(token, stages)
+        if k:
+            moved = token.wait_bytes_left * k // remaining_before
+            token.wait_bytes_left -= moved
+            self.stats.record_phase(fn, "progress", moved)
+        return k
+
+    def compressed_all_reduce_wait(self, token):
+        fn = registry.COMPRESSED_ALL_REDUCE
+        if token.wait_bytes_left is not None:
+            wb = token.wait_bytes_left
+        else:
+            _, wb = plan_mod.phase_wire_bytes(
+                costmodel.RING, token.p, compressed_wire_bytes(token.n))
+        self.stats.record_phase(fn, "wait", wb)
+        return layers.tier_output(self.tier(fn),
+                                  compression.compressed_all_reduce_wait(
+                                      token))
+
+    # -- setup / rank queries ----------------------------------------------
+
+    def axis_index(self, axis_name: str) -> int:
+        self._check(registry.AXIS_INDEX)
+        return c.axis_index(axis_name)
+
+    def axis_size(self, axis_name: str) -> int:
+        self._check(registry.AXIS_SIZE)
+        return self._axis_size(axis_name)
+
+    def init(self, mesh=None) -> "CollectiveEngine":
+        """MPI_Init analogue: bind to ``mesh``'s topology, reset stats,
+        and re-plan (topology change => plan rebuild)."""
+        self._check(registry.INIT)
+        if mesh is not None:
+            self.topology = topology_from_mesh(mesh)
+        self.stats = layers.CommStats()
+        self.last_init_rebuilt = self.plan.maybe_rebuild(self.topology)
+        self._rebind_dispatch()
+        self._initialized = True
+        return self
+
+    @property
+    def plan_rebuilds(self) -> int:
+        return self.plan.stats.rebuilds
+
+    def finalize(self) -> str:
+        """MPI_Finalize analogue: flush stats, mark the engine dead."""
+        self._check(registry.FINALIZE)
+        self._finalized = True
+        return self.stats.summary()
+
+    # -- gradient synchronisation ------------------------------------------
+
+    def sync_gradients(self, grads: Any, axis_name, *, mean: bool = True,
+                       compress: bool = False, ef_state: Any = None):
+        """Sum (or mean) a gradient tree over the data-parallel axes, one
+        collective per leaf, in the tree's leaf order.  With
+        ``compress=True`` uses the int8 error-feedback protocol and
+        threads ``ef_state`` (a tree of EFState matching ``grads``; None
+        to init; its residuals are updated in place).  Returns
+        (synced_grads, new_ef_state)."""
+        axes = _as_axes(axis_name)
+        scale = self.mean_scale(axes) if mean else 1.0
+        leaves, paths = flatten(grads)
+
+        if not compress:
+            out = []
+            for g in leaves:
+                self.stats.record(SYNC_STATS_KEY, layers.nbytes(g))
+                y = self.all_reduce(g, axes if len(axes) > 1 else axes[0])
+                out.append(scale_by(y, scale) if mean else y)
+            return unflatten(paths, out), ef_state
+
+        if ef_state is None:
+            states = [compression.EFState.zeros_like(g) for g in leaves]
+        else:
+            states, state_paths = flatten(ef_state)
+            if state_paths != paths:
+                raise ValueError("ef_state does not match the gradient tree")
+        out = []
+        for g, s in zip(leaves, states):
+            # compressed protocol runs on the first axis; remaining axes
+            # use the uncompressed all-reduce.
+            self.stats.record(SYNC_STATS_KEY,
+                              compressed_wire_bytes(g.numel()))
+            y, s2 = self.compressed_all_reduce(g, axes[0], s)
+            # Leaf by leaf, the new residual overwrites the old one (the
+            # reference returns a new tree): a second tree of f32
+            # residuals is never alive.
+            s.residual.copy_(s2.residual)
+            for ax in axes[1:]:
+                y = self.all_reduce(y, ax)
+            out.append(scale_by(y, scale) if mean else y)
+        return unflatten(paths, out), unflatten(paths, states)
+
+
+def compressed_wire_bytes(size: int) -> int:
+    """Payload bytes per hop of the int8 protocol: 1 byte/value + one f32
+    scale per quantization block."""
+    return int(size) + 4 * math.ceil(int(size) / compression.QBLOCK)
+

@@ -1,0 +1,83 @@
+"""Application scan (paper §2.2): find the collective functions an
+application actually invokes, before building its library.
+
+Counterpart of ``repro.core.trace``.  The reference traces the step to a
+jaxpr with abstract inputs and walks it for collective primitives.  The
+port runs the step once, as rank 0, on ``meta`` tensors under the
+substrate's recording transport (``substrate.recording``): no operation
+computes and no memory is allocated, and every hop (``ppermute``, with
+its bytes) and rank query (``axis_index``) is recorded as a call site —
+the primitives the reference's jaxpr holds for the same step.  The
+result is the function set 𝓕 plus the counts that drive tier
+assignment (paper §3).  ``TraceReport.to_schedule`` waits for the
+schedule-IR slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import defaultdict
+from typing import Callable, Dict, List, Tuple
+
+from repro_torch.runtime import substrate
+
+
+@dataclasses.dataclass
+class CallSite:
+    """One collective call site of the scanned step."""
+
+    function: str            # registry function name
+    primitive: str           # the substrate primitive recorded
+    count: int               # executions per step
+    nbytes: int              # payload bytes per execution (per rank)
+    axes: Tuple[str, ...]    # mesh axes it runs over
+    path: Tuple[str, ...] = ()
+
+    @property
+    def total_bytes(self) -> int:
+        return self.count * self.nbytes
+
+
+@dataclasses.dataclass
+class TraceReport:
+    """The application's collective profile: 𝓕, frequencies, bytes."""
+
+    sites: List[CallSite]
+
+    @property
+    def function_set(self) -> frozenset:
+        return frozenset(s.function for s in self.sites)
+
+    def frequencies(self) -> Dict[str, float]:
+        freq: Dict[str, float] = defaultdict(float)
+        for s in self.sites:
+            freq[s.function] += float(s.count)
+        return dict(freq)
+
+    def bytes_by_function(self) -> Dict[str, int]:
+        total: Dict[str, int] = defaultdict(int)
+        for s in self.sites:
+            total[s.function] += s.total_bytes
+        return dict(total)
+
+    def count(self, function: str) -> int:
+        return sum(s.count for s in self.sites if s.function == function)
+
+    def summary(self) -> str:
+        lines = ["function            calls        bytes/step"]
+        freq = self.frequencies()
+        byt = self.bytes_by_function()
+        for fn in sorted(freq, key=lambda f: -freq[f]):
+            lines.append(f"{fn:<18s} {int(freq[fn]):>8d} {byt[fn]:>16,d}")
+        return "\n".join(lines)
+
+
+def scan_step(fn: Callable, *args, **kwargs) -> TraceReport:
+    """Run ``fn`` on ``meta`` inputs under the recording transport and
+    report its collective call sites.  Nothing computes; a step that
+    touches a real tensor's data raises (meta tensors have none)."""
+    with substrate.recording() as rec:
+        fn(*args, **kwargs)
+    sites = [CallSite(function=s.function, primitive=s.function, count=1,
+                      nbytes=s.nbytes, axes=(s.axis,)) for s in rec.sites]
+    return TraceReport(sites=sites)

@@ -9,14 +9,16 @@ with ``ctypes``; nothing links against PyTorch.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -67,3 +69,36 @@ def build(name: str, sources: Sequence[Path]) -> Built:
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     return Built(out, seconds, log)
+
+
+class Library:
+    """One kernel library, built and loaded at its first use.
+
+    Ranks run as threads, so two of them may ask for the library at
+    once: a lock makes the first build it and the others wait for it.
+    ``declare`` sets each C function's ``argtypes`` and ``restype``."""
+
+    def __init__(self, name: str, sources: Sequence[Path],
+                 declare: Callable[[ctypes.CDLL], None]) -> None:
+        self.name = name
+        self.sources = tuple(sources)
+        self._declare = declare
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self.built: Optional[Built] = None
+
+    def load(self) -> Built:
+        """Build (or reuse) and load the library; returns its build
+        record (seconds, nvcc log)."""
+        with self._lock:
+            if self._lib is None:
+                built = build(self.name, self.sources)
+                lib = ctypes.CDLL(str(built.path))
+                self._declare(lib)
+                self._lib, self.built = lib, built
+            return self.built
+
+    @property
+    def lib(self) -> ctypes.CDLL:
+        self.load()
+        return self._lib

@@ -17,7 +17,6 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Optional
 
 import torch
 
@@ -27,27 +26,26 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 128)       # the head dims the library is built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
-built: Optional[B.Built] = None      # how the loaded library was built
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_int64] * 12
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = B.Library("flash_attention", [SOURCE], _declare)
 
 
 def load() -> B.Built:
     """Build (or reuse) and load the kernel library; returns its build
     record (seconds, nvcc log)."""
-    global _lib, built
-    if _lib is None:
-        built = B.build("flash_attention", [SOURCE])
-        lib = ctypes.CDLL(str(built.path))
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_int64] * 12
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return built
+    return LIBRARY.load()
 
 
 def _check(name: str, x: torch.Tensor, device: torch.device) -> None:
@@ -97,16 +95,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset < 0:
         raise ValueError(f"q_offset={q_offset} must be >= 0")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    load()
+    lib = LIBRARY.lib
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib.flash_attention_fwd(
+        err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], b, sq, skv, h, hkv,
             d, *_strides(q), *_strides(k), *_strides(v), *_strides(o),
             int(causal), q_offset, scale, stream)
     if err != 0:
-        msg = _lib.flash_attention_error_string(err).decode()
+        msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd failed ({err}): {msg}")
     return o

@@ -5,17 +5,21 @@ tensors' device: a CUDA tensor goes to the hand-written kernel
 (``kernel.flash_attention``) or raises; a CPU tensor goes to the plain
 version (``ref.attention``).  There is no fallback from one to the other.
 
-``launches`` counts kernel launches made through this op (and nothing
-else), so a run can show its prefill went through the kernel.
+``counter`` counts kernel launches made through this op (and nothing
+else), so a run can show its prefill went through the kernel; it is
+thread-safe, since ranks launch from threads.  Read it as
+``counter.value`` or through ``repro_torch.kernels.counter.counts()``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.counter import LaunchCounter
 from repro_torch.kernels.flash_attention import kernel, ref
 
-launches = 0
+counter = LaunchCounter("flash_attention")
+
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -24,11 +28,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in
     q's dtype.  Scores, softmax and P·V run in float32 whatever the input
     dtypes; ``q_offset`` is the absolute position of query 0."""
-    global launches
     if q.device.type == "cuda":
         out = kernel.flash_attention(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
-        launches += 1
+        counter.add()
         return out
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,

@@ -1,0 +1,118 @@
+"""Training launcher of the port: composed data-parallel training with
+in-process ranks on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch granite-34b --reduced --sync composed --steps 8
+
+Counterpart of the non-elastic path of ``repro.launch.train`` without
+checkpoints: synthetic data -> the §2.2 scan and composed session
+(``build_session``) -> ``--data`` ranks running the train step through
+the session's communicator.  Runs on ``cuda`` unless ``--device cpu``;
+raises without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import torch
+
+from repro_torch.comm import Session
+from repro_torch.configs import ARCH_IDS, get_config, with_num_layers
+from repro_torch.core.engine import EngineConfig
+from repro_torch.data import SyntheticLMDataset
+from repro_torch.models import build_model
+from repro_torch.optim import cosine_schedule, make_optimizer
+from repro_torch.runtime import substrate
+from repro_torch.train import trainer
+
+logger = logging.getLogger("repro_torch.train")
+
+PROBE_SHAPE = (4,)     # the reference probes its (data=4, model=2) mesh
+
+
+def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
+                  config: EngineConfig | None = None) -> Session:
+    """Paper §2.2 through the facade: run a probe step of the *actual*
+    sync mode over ``Session.probe``'s abstract data axis, on ``meta``
+    tensors, to find the collective set 𝓕; then
+    ``Session.from_application`` composes the thin library and
+    initializes the session for ``mesh`` with ``config``.  The sync's
+    kernels need no switch: its ops take the CUDA kernels on the card and
+    their plain versions on the CPU."""
+    probe = Session.probe(PROBE_SHAPE, ("data",))
+    probe_step = trainer.make_train_step(model, opt, tcfg,
+                                         comm=probe.world)
+    abstate = trainer.abstract_state(model, opt, tcfg)
+    abatch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                             device="meta")
+              for k, v in ds.host_batch(0).items()}
+    return Session.from_application(
+        probe_step, [abstate] * probe.mesh.size, abatch, mesh=mesh,
+        probe=probe, config=config)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="granite-34b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth (widths untouched)")
+    ap.add_argument("--param-dtype", choices=list(_DTYPES), default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--sync", choices=["composed", "compressed"],
+                    default="composed")
+    ap.add_argument("--data", type=int, default=2,
+                    help="data-parallel ranks (threads on one device)")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--log-every", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    cfg = get_config(args.arch, reduced=args.reduced,
+                     param_dtype=_DTYPES.get(args.param_dtype))
+    if args.num_layers is not None:
+        cfg = with_num_layers(cfg, args.num_layers)
+    model = build_model(cfg)
+    mesh = substrate.make_host_mesh(args.data, device=args.device)
+    logger.info("mesh: %s  model: %s (%.2fM params)", mesh, model.name,
+                model.param_count() / 1e6)
+    opt = make_optimizer(
+        "adamw", lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 1),
+                                    total=args.steps))
+    tcfg = trainer.TrainCfg(microbatches=args.microbatches,
+                            sync_mode=args.sync)
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                            global_batch=args.global_batch, seed=args.seed)
+    session = build_session(mesh, model, opt, ds, tcfg)
+    logger.info("composed session:\n%s", session.describe())
+
+    gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
+    states = trainer.replicate(
+        trainer.make_train_state(model, opt, model.init(gen), tcfg),
+        mesh.size)
+    step_fn = trainer.make_train_step(model, opt, tcfg, comm=session.world)
+    t0 = time.time()
+    for step in range(args.steps):
+        states, metrics = step_fn(states, ds.host_batch(step))
+        if step % args.log_every == 0 or step == args.steps - 1:
+            logger.info("step %4d  loss %.4f  |g| %.3f  lr %.2e  "
+                        "(%.2fs/step)", step, float(metrics["loss"]),
+                        float(metrics["grad_norm"]), float(metrics["lr"]),
+                        (time.time() - t0) / (step + 1))
+    logger.info("session stats:\n%s", session.finalize())
+
+
+if __name__ == "__main__":
+    main()

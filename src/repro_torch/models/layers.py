@@ -1,4 +1,5 @@
-"""Dense layers of the port: RMSNorm, RoPE, GQA attention, SwiGLU MLP.
+"""Dense layers of the port: RMSNorm, RoPE, GQA/MQA attention, SwiGLU
+and tanh-GELU MLPs.
 
 Counterpart of the dense subset of ``repro.models.layers``.
 
@@ -15,6 +16,12 @@ Conventions
   on the card, its plain version on the CPU.  Decode attention is a
   plain matvec in PyTorch, as the reference computes it outside any
   kernel.
+- Training attention (``train_attention``) is the reference's
+  ``flash_attention_jnp`` with its custom VJP (``_flash_vjp``): a
+  blockwise online-softmax forward that keeps only ``out`` and the
+  log-sum-exp, and a backward that recomputes the scores block by block.
+  The reference computes it in jnp, outside any Pallas kernel; here it is
+  a ``torch.autograd.Function`` in plain PyTorch.
 - KV caches are written IN PLACE (the reference returns updated copies):
   a prefill or decode step mutates the ``k``/``v`` tensors it is handed
   and returns them with a new ``len``.  This keeps one arena, not two, on
@@ -160,6 +167,123 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _kv_blocks(k, v, block_k: int):
+    """K/V zero-padded to a multiple of ``block_k`` keys."""
+    pad = (-k.shape[1]) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v
+
+
+def _block_mask(j: int, block_k: int, skv: int, sq: int, q_offset: int,
+                causal: bool, device) -> torch.Tensor:
+    """(1 or Sq, block_k) visibility of keys j*block_k.. to queries."""
+    kpos = j * block_k + torch.arange(block_k, device=device)
+    mask = (kpos < skv)[None, :]
+    if causal:
+        q_pos = torch.arange(sq, device=device) + q_offset
+        mask = mask & (q_pos[:, None] >= kpos[None, :])
+    return mask[None, :, None, None, :]          # (1, Sq|1, 1, 1, Bk)
+
+
+def _flash_blocks(q, k, v, skv, causal, q_offset, block_k, scale):
+    """Blockwise forward: (out f32 (B,Sq,Hkv,G,Dv), lse f32
+    (B,Sq,Hkv,G,1)).  Contractions take the inputs in their dtype and
+    accumulate in f32; P is cast to V's dtype before P·V, as the
+    reference does."""
+    b, sq, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    group = h // hkv
+    qg = q.reshape(b, sq, hkv, group, d).float()
+    m = torch.full((b, sq, hkv, group, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, sq, hkv, group, 1), device=q.device)
+    acc = torch.zeros((b, sq, hkv, group, dv), device=q.device)
+    for j in range(k.shape[1] // block_k):
+        kblk = k[:, j * block_k:(j + 1) * block_k].float()
+        vblk = v[:, j * block_k:(j + 1) * block_k]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kblk) * scale
+        mask = _block_mask(j, block_k, skv, sq, q_offset, causal, q.device)
+        s = torch.where(mask, s, -math.inf)
+        m_cur = s.amax(dim=-1, keepdim=True)
+        m_new = torch.maximum(m, m_cur)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vblk.dtype).float(), vblk.float())
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = acc / l_safe
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    return out, m_safe + torch.log(l_safe)
+
+
+class _TrainAttention(torch.autograd.Function):
+    """Blockwise attention whose backward recomputes the scores from
+    (q, k, v, out, lse) — the FlashAttention-2 backward of the
+    reference's ``_flash_vjp`` — so no (Sq, Skv) matrix is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, block_k, scale):
+        skv = k.shape[1]
+        kp, vp = _kv_blocks(k, v, block_k)
+        out, lse = _flash_blocks(q, kp, vp, skv, causal, q_offset, block_k,
+                                 scale)
+        b, sq, hkv, group, dv = out.shape
+        o = out.reshape(b, sq, hkv * group, dv).to(q.dtype)
+        ctx.save_for_backward(q, kp, vp, o, lse)
+        ctx.meta = (skv, causal, q_offset, block_k, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        skv, causal, q_offset, block_k, scale = ctx.meta
+        b, sq, h, d = q.shape
+        hkv, dv = k.shape[2], v.shape[-1]
+        group = h // hkv
+        qg = q.reshape(b, sq, hkv, group, d)
+        og = o.reshape(b, sq, hkv, group, dv).float()
+        dog = do.reshape(b, sq, hkv, group, dv).float()
+        delta = (og * dog).sum(dim=-1, keepdim=True)   # FA-2 eq. 19
+        qf = qg.float()
+        dq = torch.zeros((b, sq, hkv, group, d), device=q.device)
+        dks, dvs = [], []
+        for j in range(k.shape[1] // block_k):
+            kblk = k[:, j * block_k:(j + 1) * block_k]
+            vblk = v[:, j * block_k:(j + 1) * block_k].float()
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kblk.float()) * scale
+            mask = _block_mask(j, block_k, skv, sq, q_offset, causal,
+                               q.device)
+            p = torch.where(mask, torch.exp(s - lse), 0.0)   # recompute
+            dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vblk)
+            ds = p * (dp - delta) * scale
+            dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dog))
+            dks.append(torch.einsum("bqhgk,bqhgd->bkhd",
+                                    ds.to(qg.dtype).float(), qf))
+            dq = dq + torch.einsum("bqhgk,bkhd->bqhgd",
+                                   ds.to(kblk.dtype).float(), kblk.float())
+        dk = torch.cat(dks, dim=1)[:, :skv]
+        dv_ = torch.cat(dvs, dim=1)[:, :skv]
+        return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+                dv_.to(v.dtype), None, None, None, None)
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    block_k: int = 512,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """Differentiable attention for the training forward (the
+    reference's ``flash_attention_jnp``).  q: (B, Sq, H, D); k/v:
+    (B, Skv, Hkv, D) -> (B, Sq, H, D) in q's dtype."""
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    return _TrainAttention.apply(q, k, v, causal, int(q_offset),
+                                 int(block_k), float(scale))
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
@@ -209,9 +333,13 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
                       q_offset: int = 0,
                       kv_cache: Optional[Dict[str, torch.Tensor]] = None,
                       chunked: bool = False,
-                      valid_len: Optional[int] = None
+                      valid_len: Optional[int] = None,
+                      train: bool = False, block_k: int = 512
                       ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Full-sequence (prefill) path.  Returns (out, new_cache).
+    """Full-sequence (prefill or training) path.  Returns (out,
+    new_cache).  ``train=True`` computes attention with
+    ``train_attention`` (differentiable, ``block_k`` keys a block)
+    instead of the forward-only flash kernel.
 
     ``chunked=True`` is the paged-prefill variant: queries attend the
     whole cache through ``chunk_attention`` (earlier chunks included),
@@ -240,6 +368,9 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
         if new_cache is None:
             raise ValueError("chunked prefill needs a cache")
         out = chunk_attention(q, new_cache["k"], new_cache["v"], q_offset)
+    elif train:
+        out = train_attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
+                              block_k=block_k)
     else:
         out = flash_attention(q, k, v, causal=cfg.causal, q_offset=q_offset)
     out = out.reshape(b, sq, cfg.num_heads * cfg.head_dim)
@@ -301,8 +432,11 @@ class MLPCfg:
     activation: str = "swiglu"
 
 
+ACTIVATIONS = ("swiglu", "gelu")
+
+
 def _check_activation(cfg: MLPCfg) -> None:
-    if cfg.activation != "swiglu":
+    if cfg.activation not in ACTIVATIONS:
         raise NotImplementedError(
             f"MLP activation {cfg.activation!r} arrives with the port's "
             "remaining-model-families slice")
@@ -311,13 +445,20 @@ def _check_activation(cfg: MLPCfg) -> None:
 def init_mlp(gen, cfg: MLPCfg, dtype, device, lead: Tuple[int, ...] = ()):
     _check_activation(cfg)
     D, Fd = cfg.d_model, cfg.d_ff
-    return {"w_gate": dense_init(gen, lead + (D, Fd), dtype, device),
-            "w_up": dense_init(gen, lead + (D, Fd), dtype, device),
+    if cfg.activation == "swiglu":
+        return {"w_gate": dense_init(gen, lead + (D, Fd), dtype, device),
+                "w_up": dense_init(gen, lead + (D, Fd), dtype, device),
+                "w_down": dense_init(gen, lead + (Fd, D), dtype, device)}
+    return {"w_up": dense_init(gen, lead + (D, Fd), dtype, device),
             "w_down": dense_init(gen, lead + (Fd, D), dtype, device)}
 
 
 def mlp_forward(params: Params, cfg: MLPCfg, x: torch.Tensor
                 ) -> torch.Tensor:
+    """SwiGLU, or GELU in its tanh form (``jax.nn.gelu``'s default)."""
     _check_activation(cfg)
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]

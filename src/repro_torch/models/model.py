@@ -2,6 +2,7 @@
 ``repro.models.model``).
 
   init / abstract_params / param_count          — parameters
+  loss                                          — training
   init_caches / prefill / prefill_chunk / decode_step — serving
 
 Prefill and decode write the caches they are given in place (see
@@ -43,6 +44,14 @@ class Model:
 
     def param_count(self) -> int:
         return sum(math.prod(t.shape) for t in leaves(self.abstract_params()))
+
+    # -- training ---------------------------------------------------------
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(scalar f32 loss, metrics) of a {"tokens", "labels"} batch,
+        differentiable in ``params``."""
+        return T.loss_fn(params, self.cfg, batch)
 
     # -- serving ----------------------------------------------------------
 

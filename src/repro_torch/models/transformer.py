@@ -47,6 +47,7 @@ class TransformerCfg:
     mlp: Optional[L.MLPCfg] = None
     tie_embeddings: bool = False
     param_dtype: Any = torch.float32
+    block_k: int = 512             # training attention kv block
 
     @property
     def num_layers(self) -> int:
@@ -84,7 +85,8 @@ def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
 def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
                 x: torch.Tensor, *, q_offset: int = 0,
                 cache: Optional[Params] = None, decode: bool = False,
-                chunked: bool = False, valid_len: Optional[int] = None
+                chunked: bool = False, valid_len: Optional[int] = None,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (x_out, new_cache)."""
     _check_spec(spec)
@@ -95,7 +97,8 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
     else:
         out, new_cache = L.attention_forward(
             params["attn"], cfg.attn, h, q_offset=q_offset, kv_cache=cache,
-            chunked=chunked, valid_len=valid_len)
+            chunked=chunked, valid_len=valid_len, train=train,
+            block_k=cfg.block_k)
     x = x + out
     if spec.ffn == "dense":
         x = x + L.mlp_forward(params["mlp"], cfg.mlp,
@@ -116,7 +119,8 @@ def init_stage(gen, cfg: TransformerCfg, stage: StageSpec, device) -> Params:
 def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 x: torch.Tensor, *, q_offset: int = 0,
                 caches: Optional[Params] = None, decode: bool = False,
-                chunked: bool = False, valid_len: Optional[int] = None
+                chunked: bool = False, valid_len: Optional[int] = None,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the stage's ``repeat`` blocks.  ``caches``: stacked cache tree
     with leading dim = repeat (or None).  K/V rows are written into the
@@ -130,7 +134,7 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
             x, nc = apply_layer(
                 map_tree(lambda t: t[r], params_stage[name]), cfg, spec, x,
                 q_offset=q_offset, cache=cache_r, decode=decode,
-                chunked=chunked, valid_len=valid_len)
+                chunked=chunked, valid_len=valid_len, train=train)
             if caches is not None:
                 lens[name].append(nc["len"])
     if caches is None:
@@ -172,9 +176,10 @@ def forward(params: Params, cfg: TransformerCfg,
             batch: Dict[str, torch.Tensor], *,
             caches: Optional[Params] = None, q_offset: int = 0,
             decode: bool = False, chunked: bool = False,
-            valid_len: Optional[int] = None
+            valid_len: Optional[int] = None, train: bool = False
             ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (hidden (B, S, D), new_caches)."""
+    """Returns (hidden (B, S, D), new_caches).  ``train=True`` is the
+    differentiable training forward (see ``layers.train_attention``)."""
     h = params["embed"][batch["tokens"].long()]
     new_caches = {} if caches is not None else None
     for i, stage in enumerate(cfg.stages):
@@ -182,10 +187,33 @@ def forward(params: Params, cfg: TransformerCfg,
         h, nc = apply_stage(
             params[name], cfg, stage, h, q_offset=q_offset,
             caches=None if caches is None else caches[name], decode=decode,
-            chunked=chunked, valid_len=valid_len)
+            chunked=chunked, valid_len=valid_len, train=train)
         if new_caches is not None:
             new_caches[name] = nc
     return L.rmsnorm(params["final_norm"], h), new_caches
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token NLL in f32; labels < 0 are ignored.  The label's
+    log-prob is picked with ``gather``: the reference's one-hot
+    contraction adds only zeros to it, so the value is the same."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = labels >= 0
+    nll = torch.where(valid, lse - ll, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def loss_fn(params: Params, cfg: TransformerCfg,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Language-model loss (the reference's ``loss_fn`` for a dense
+    decoder: no MoE aux loss, no multi-token prediction)."""
+    h, _ = forward(params, cfg, batch, train=True)
+    loss = cross_entropy(_unembed(params, cfg, h), batch["labels"])
+    return loss, {"nll": loss, "loss": loss}
 
 
 def init_caches(cfg: TransformerCfg, batch: int, max_len: int, dtype,

@@ -1,5 +1,12 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
+Flash attention is held to a tolerance (below); the gradient-sync
+kernels (``sum_chunks``, ``quantize``, ``dequantize``, ``dequant_add``)
+bit for bit, at the sizes the data-parallel sync of granite-34b gives
+them: the ``lm_head`` gradient's bidirectional-ring combine chunk at two
+ranks (n/4 of 6144 x 49152) and its compressed-ring chunk (n/2), a
+6144-value norm, and a ragged length.
+
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
 so they run on a machine that has only the port's dependencies:
@@ -20,6 +27,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.local_reduce import ops as lops
+from repro_torch.kernels.local_reduce import ref as lref
+from repro_torch.kernels.quantize import ops as qops
+from repro_torch.kernels.quantize import ref as qref
 from repro_torch.models import build_model
 from repro_torch.tree import map_tree
 
@@ -60,9 +71,9 @@ def test_kernel_matches_plain_at_serving_shapes(cuda, q_dtype, kv_dtype, sq,
     """64 -> 8 heads, D = 128: chunks over a 4096-token cache and a
     one-shot prefill whose length is not a multiple of the tile."""
     q, k, v = _qkv(sq + off, sq, skv, 64, 8, 128, q_dtype, kv_dtype, cuda)
-    before = ops.launches
+    before = ops.counter.value
     got = ops.attention(q, k, v, q_offset=off)
-    assert ops.launches == before + 1
+    assert ops.counter.value == before + 1
     assert got.dtype == q_dtype
     _assert_matches(got, ref.attention(q, k, v, q_offset=off))
 
@@ -109,3 +120,58 @@ def test_reduced_model_prefill_on_card_matches_cpu(cuda):
                               caches)
         logits.append(lg.cpu())
     torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=0)
+
+
+LM_HEAD = 6144 * 49152
+SYNC_SIZES = [LM_HEAD // 4, LM_HEAD // 2, 6144, 1_000_003]
+
+
+def _bits_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    assert torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", SYNC_SIZES[:1] + SYNC_SIZES[2:])
+def test_sum_chunks_kernel_matches_plain_bits(cuda, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(3, n, generator=gen, device=cuda).to(dtype)
+    for k in (2, 3):
+        before = lops.counter.value
+        got = lops.sum_chunks(list(x[:k]), dtype)
+        assert lops.counter.value == before + 1
+        _bits_equal(got, lref.sum_chunks(list(x[:k]), dtype))
+    # 4-byte offset views: not 16-byte aligned, so the scalar path
+    flat = x.reshape(-1)
+    a, b = flat[1:n // 2], flat[n // 2 + 1:n]
+    m = min(a.numel(), b.numel())
+    _bits_equal(lops.sum_chunks([a[:m], b[:m]]),
+                lref.sum_chunks([a[:m], b[:m]]))
+
+
+def _quant_input(n, cuda):
+    n = -(-n // qref.QBLOCK) * qref.QBLOCK       # the sync pads to blocks
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, generator=gen, device=cuda)
+    x = x.view(-1, qref.QBLOCK) * torch.rand(
+        n // qref.QBLOCK, 1, generator=gen, device=cuda) * 10
+    x[0] = 0.0                                   # all-zero block
+    if x.shape[0] > 1:                           # exact .5 ties, scale 1
+        x[1] = (torch.arange(qref.QBLOCK, device=cuda) % 9 - 4) + 0.5
+        x[1, 0] = 127.0
+    return x.reshape(-1)
+
+
+@pytest.mark.parametrize("n", SYNC_SIZES)
+def test_quantize_kernels_match_plain_bits(cuda, n):
+    x = _quant_input(n, cuda)
+    q, s = qops.quantize(x)
+    wq, ws = qref.quantize(x)
+    _bits_equal(q, wq)
+    _bits_equal(s, ws)
+    _bits_equal(qops.dequantize(q, s), qref.dequantize(q, s))
+    acc = torch.randn(x.numel(), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    _bits_equal(qops.dequant_add(acc, q, s), qref.dequant_add(acc, q, s))
+    _bits_equal(qops.dequant_add(acc, q, -s), qref.dequant_add(acc, q, -s))

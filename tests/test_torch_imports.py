@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
-serving entry points leaves ``jax`` out of ``sys.modules``."""
+serving and training entry points leaves ``jax`` out of
+``sys.modules``."""
 
 import ast
 import os
@@ -37,9 +38,8 @@ def test_port_file_imports_no_jax_or_reference(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
-def test_serving_entry_points_import_without_jax():
-    code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention.kernel; "
+def _imports_without_jax(modules):
+    code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -47,3 +47,14 @@ def test_serving_entry_points_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_serving_entry_points_import_without_jax():
+    _imports_without_jax(["repro_torch.serve", "repro_torch.launch.serve",
+                          "repro_torch.kernels.flash_attention.kernel"])
+
+
+def test_training_entry_points_import_without_jax():
+    _imports_without_jax(["repro_torch.launch.train", "repro_torch.comm",
+                          "repro_torch.kernels.local_reduce.ops",
+                          "repro_torch.kernels.quantize.ops"])

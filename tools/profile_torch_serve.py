@@ -38,11 +38,11 @@ def _timed(fn, ops, n_layers: int, decode_steps):
     """(prefill chunks, decode steps, seconds, peak bytes) of ``fn()``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    l0, d0 = ops.launches, decode_steps()
+    l0, d0 = ops.counter.value, decode_steps()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    return ((ops.launches - l0) // n_layers, decode_steps() - d0,
+    return ((ops.counter.value - l0) // n_layers, decode_steps() - d0,
             time.perf_counter() - t0, torch.cuda.max_memory_allocated())
 
 

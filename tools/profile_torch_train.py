@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Where the port's training step time goes on one CUDA card.
+
+    python3 tools/profile_torch_train.py [--out DIR]
+
+Builds the workload of ``chip_smoke.py``'s train phase
+(``chip_smoke.train_workload``: granite-34b at its published widths, 2
+of 88 layers, 2 thread ranks, seq 2048, global batch 4) and, for
+``--sync composed`` and ``compressed`` (the sync through its kernels), runs
+two warm-up steps and then one step under ``torch.profiler``: device
+time by kernel, the gradient-sync kernels' share, and the share of the
+step's wall time the device was busy (``DIR/train_<sync>_trace.json``
+holds the timeline).  All ranks launch on one stream, so kernels do not
+overlap and their summed time is the busy time.
+
+Exits non-zero when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import os
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SYNC_KERNEL_NAMES = ("sum_chunks_kernel", "quantize_kernel",
+                     "dequantize_kernel", "dequant_add_kernel")
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"),
+                    help="directory for the profiler's timelines")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_train: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path[:0] = [REPO, os.path.join(REPO, "src")]
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+    model, init, mesh, ds, opt = chip_smoke.train_workload()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for sync in ("composed", "compressed"):
+        session, states, step_fn = chip_smoke.train_run(
+            model, init, mesh, ds, opt, sync)
+        for step in range(2):
+            states, _ = step_fn(states, ds.host_batch(step))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            states, _ = step_fn(states, ds.host_batch(2))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(os.path.join(args.out,
+                                              f"train_{sync}_trace.json"))
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(_dev_us(e) for e in kernels) / 1e6
+        sync_us = sum(_dev_us(e) for e in kernels
+                      if any(n in e.key for n in SYNC_KERNEL_NAMES))
+        print(f"[profile] {sync}: step wall {wall * 1e3:.1f} ms (profiled), "
+              f"device busy {busy * 1e3:.1f} ms = {busy / wall:.1%}; sync "
+              f"kernels {sync_us / 1e3:.1f} ms = {sync_us / 1e6 / busy:.1%} "
+              "of busy; kernels by device time:")
+        for e in sorted(kernels, key=_dev_us, reverse=True)[:15]:
+            print(f"[profile] {_dev_us(e) / 1e3:10.2f} ms {e.count:6d}x "
+                  f"{_dev_us(e) / 1e6 / busy:6.1%}  {e.key[:100]}")
+        del session, states, step_fn, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
