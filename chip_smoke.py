@@ -8,16 +8,18 @@ Phases (any failure exits non-zero; the last stdout line is the result):
 1. build   — compile the three CUDA kernel libraries (flash attention,
              local_reduce, quantize) from the checkout's sources
              (``nvcc``, sm_90a), all at once, and print each one's seconds.
-2. kernels — the kernel against its plain PyTorch version on the card at
-             the serving path's shapes (64 query / 8 KV heads, D = 128):
-             page-sized chunks (Sq 256) against a 4096-token cache at
-             q_offset 0, 256 and 3840, and a one-shot 1000-token prefill,
-             with q bf16 (as served) and f32, each over an f32 and a bf16
-             cache.  Prints the max error against its tolerance (a share
-             of the plain output's largest value: 2**-6 for a bf16 output,
-             1e-4 for f32), kernel / plain / SDPA times (SDPA is a
-             yardstick only; the port never calls it) and the least time
-             the card could take (the bound).
+2. kernels — flash attention against its plain PyTorch version on the
+             card at the serving path's shapes (64 query / 8 KV heads,
+             D = 128): page-sized chunks (Sq 256) against a 4096-token
+             cache at q_offset 0, 256 and 3840, and a one-shot 1000-token
+             prefill, with q bf16 (as served: the tensor-core variant) and
+             f32 (the CUDA-core variant), each over an f32 and a bf16
+             cache.  Prints the variant that ran, the max error against
+             its tolerance (a share of the plain output's largest value:
+             2**-6 for a bf16 output, 1e-4 for f32), kernel / plain / SDPA
+             times (SDPA is a yardstick only; the port never calls it), the
+             least time the card could take (the bound), and the host time
+             of a launch of each variant.
 3. small   — the reduced qwen2-72b served through the kernel on the card
              and through the plain path on the CPU from the same weights:
              logits agree within tolerance, greedy streams are equal.
@@ -31,14 +33,16 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              launch count, tokens/s, TTFT and peak memory, and must give
              the checked run's tokens.  Checks completion, pool integrity
              and that every prefill chunk of every layer went through the
-             kernel.
+             tensor-core kernel.
 5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
              ``dequantize``, ``dequant_add``) against their plain versions,
              bit for bit, at the sizes granite-34b's sync gives them: the
              ``lm_head`` gradient's bidirectional-ring combine chunk at
              two ranks (n/4 of 6144 x 49152) and compressed-ring chunk
              (n/2), a 6144-value norm and a ragged length.  Prints kernel,
-             plain and one-PyTorch-call times and the bound.
+             plain and one-PyTorch-call times and the bound; the kernel and
+             its PyTorch call are timed in turns (kernel, call, kernel,
+             call) and each keeps its faster turn.
 6. train_small — the reduced granite-34b (f32) trained over 2 thread
              ranks for 3 steps, composed and compressed, through the sync
              kernels on the card and through the plain path on the CPU,
@@ -80,14 +84,20 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Kernel vs plain, as a share of the plain output's largest magnitude.
-# Both compute in f32 and round once to q's dtype.  A bf16 rounding moves
-# a value by at most 2**-8 of it, so two independent roundings differ by
-# at most 2**-7 of the largest output: the limit is twice that.  An f32
-# output differs only by summation order (~1e-6); 1e-4 still fails a
-# dropped 64-key tile, a mis-masked edge or P rounded to bf16 (~1e-3).
+# The plain version computes in f32 and rounds once to q's dtype.  A bf16
+# query runs the tensor-core kernel, which also rounds K, V (an f32 cache)
+# and P to bf16 before its products: 2**-9 of each value at most, errors
+# that average over the keys of a row, plus the output's own rounding
+# (2**-9 of it).  The same arithmetic written out in plain torch holds
+# 2**-6 at GQA 8/1 and 64/8, offsets 0 to late and ragged lengths
+# (tests/test_torch_flash_attention_tc.py).  An f32 query runs the
+# CUDA-core kernel in f32 throughout: it
+# differs only by summation order (~1e-6), and 1e-4 still fails a dropped
+# 64-key tile, a mis-masked edge or P rounded to bf16 (~1e-3).
 REL_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
 SMALL_LOGIT_TOL = 1e-3  # f32 reduced model, card vs CPU summation order
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
+SLEEP_CYCLES_PER_S = 1.98e9        # H100 SXM top SM clock: sleeps no less
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}      # dense; f32 = CUDA cores
 TRAIN_LAYERS = 2
 TRAIN_RANKS = 2
@@ -113,10 +123,18 @@ CHECK_RIDS = (0, 1)    # requests whose every chunk is held against plain
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device milliseconds of ``fn`` over ``iters`` back-to-back
-    calls (CUDA events; the inputs stay hot in L2 between calls)."""
+    calls (CUDA events; the inputs stay hot in L2 between calls).  The
+    calls are queued behind a device-side sleep that outlasts their
+    enqueue, so a kernel shorter than its host launch time is timed on
+    the device, not at the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0            # host + device, one call
+    torch.cuda._sleep(int(min(1.5 * iters * one, 0.5) * SLEEP_CYCLES_PER_S))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -130,8 +148,11 @@ def _ms(fn, iters: int, warmup: int = 2) -> float:
 def _bound(q, k, q_offset: int):
     """Least time (ms) the card could take for causal attention of ``q``
     over ``k``/``v``: bytes (q, the visible K/V prefix, the output, each
-    once) over HBM bandwidth against FLOPs over the peak for the operand
-    type.  Returns (ms, "bytes" | "operations", peak name)."""
+    once) over HBM bandwidth against FLOPs over a peak.  A bf16 output
+    can be computed with bf16 products on the tensor cores whatever the
+    cache type (989 TFLOP/s); an f32 output, held to 1e-4, needs f32
+    products on the CUDA cores (67 TFLOP/s).  Returns (ms, "bytes" |
+    "operations", peak name)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     prefix = min(skv, q_offset + sq)
@@ -140,7 +161,7 @@ def _bound(q, k, q_offset: int):
     # query i sees min(skv, q_offset + i + 1) keys; 4*D FLOPs per key
     seen = sum(min(skv, q_offset + i + 1) for i in range(sq))
     flops = 4 * b * h * d * seen
-    kind = "bf16" if q.dtype == k.dtype == torch.bfloat16 else "f32"
+    kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_OPS[kind]
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -164,14 +185,55 @@ def phase_build(libraries):
     for lib, b in zip(libraries, built):
         print(f"[build] {lib.name}: nvcc {b.seconds:.1f}s -> "
               f"{os.path.relpath(b.path, HERE)}")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for fn, regs, spills in _ptxas_usage(b.log):
+            print(f"[build]   {fn}: {regs} registers; {spills}")
     print(f"[build] all libraries in {time.perf_counter() - t0:.1f}s")
 
 
+def _ptxas_usage(log: str):
+    """(kernel, registers, spill line) for each kernel in an ``nvcc
+    -Xptxas -v`` log, names demangled where ``c++filt`` exists."""
+    import re
+    out, fn, spills = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif "spill" in line:
+            spills = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.append([fn, int(m.group(1)), spills])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r[0] for r in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for r, name in zip(out, names):
+                r[0] = name.replace("(anonymous namespace)::", "").split(
+                    "(")[0].removeprefix("void ")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return out
+
+
+def _host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of ``fn``, the device kept idle enough
+    that the enqueue, not the device, sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
 def phase_kernels(kernel, ref):
-    """Kernel vs plain at the serving shapes; returns the rows printed."""
+    """Flash attention vs plain at the serving shapes; returns the rows
+    printed."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [("chunk", 256, 4096, off) for off in (0, 256, 3840)] \
@@ -187,7 +249,7 @@ def phase_kernels(kernel, ref):
                             ).to(kvdt)
             v = torch.randn(1, skv, 8, 128, generator=gen, device="cuda"
                             ).to(kvdt)
-            out = kernel.flash_attention(q, k, v, q_offset=off)
+            out, variant = kernel.launch(q, k, v, q_offset=off)
             want = ref.attention(q, k, v, q_offset=off)
             err, tol = _error(out, want)
             ms = _ms(lambda: kernel.flash_attention(q, k, v, q_offset=off),
@@ -207,18 +269,40 @@ def phase_kernels(kernel, ref):
             bound_ms, by, peak = _bound(q, k, off)
             row = dict(case=name, sq=sq, skv=skv, q_offset=off,
                        q_dtype=str(qdt).split(".")[-1],
-                       kv_dtype=str(kvdt).split(".")[-1], max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=by, bound_peak=peak)
+                       kv_dtype=str(kvdt).split(".")[-1], variant=variant,
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                       bound_peak=peak)
+            # The tensor-core variant against its own arithmetic in plain
+            # torch (bf16 operands and P): a reading, not a check.
+            emul = ""
+            if variant == "wgmma":
+                row["err_vs_bf16_products"] = (out.float() - ref.
+                    attention_bf16_products(q, k, v, q_offset=off).float()
+                    ).abs().max().item()
+                emul = f" (vs bf16 products {row['err_vs_bf16_products']:.3e})"
             rows.append(row)
             print(f"[kernels] {name:8s} Sq={sq:4d} Skv={skv:4d} "
                   f"off={off:4d} q={row['q_dtype']:8s} "
-                  f"kv={row['kv_dtype']:8s} err={err:.3e} (tol {tol:.3e} = "
-                  f"{REL_TOL[qdt]:.3g} x max|plain|) kernel={ms:.4f}ms "
-                  f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
-                  f"bound={bound_ms:.4f}ms ({by}, {peak} peak)")
+                  f"kv={row['kv_dtype']:8s} {variant:5s} err={err:.3e}{emul} "
+                  f"(tol {tol:.3e} = {REL_TOL[qdt]:.3g} x max|plain|) "
+                  f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}"
+                  f"ms bound={bound_ms:.4f}ms ({by}, {peak} peak)")
             if not err <= tol:
                 raise AssertionError(f"kernel disagrees with plain: {row}")
+            if variant != ("wgmma" if qdt == torch.bfloat16 else "simt"):
+                raise AssertionError(f"q {qdt} ran the {variant} kernel")
+    # Host time of a launch (the wgmma variant encodes two TMA tensor maps
+    # on the host each time), at a size where the device keeps up.
+    q = torch.randn(1, 8, 8, 128, generator=gen, device="cuda")
+    k = torch.randn(1, 64, 1, 128, generator=gen, device="cuda")
+    host = {kernel.launch(qq, k, k)[1]: _host_us(
+        lambda: kernel.flash_attention(qq, k, k))
+        for qq in (q.to(torch.bfloat16), q)}
+    print(f"[kernels] host time of a launch: " + ", ".join(
+        f"{name} {us:.1f} us" for name, us in host.items())
+        + " (the ctypes call, argument checks and, for wgmma, the tensor "
+        "maps)")
     return rows
 
 
@@ -362,6 +446,7 @@ def phase_serve(ref):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counter.counts()["flash_attention"]
+    tc_launches = counter.counts()["flash_attention_tc"]
     peak = torch.cuda.max_memory_allocated()
 
     n_chunks = sum(-(-n // scfg.page_tokens) for n in lens)
@@ -377,7 +462,8 @@ def phase_serve(ref):
           f"TTFT p50 {np.percentile(ttft, 50):.3f}s p99 "
           f"{np.percentile(ttft, 99):.3f}s")
     print(f"[serve] flash launches {launches} = {SERVE_LAYERS} layers x "
-          f"{n_chunks} prefill chunks: {launches == SERVE_LAYERS * n_chunks}")
+          f"{n_chunks} prefill chunks: {launches == SERVE_LAYERS * n_chunks}"
+          f"; on the tensor-core variant: {tc_launches}")
     worst = max(errs, key=lambda e: e[0] / e[1])
     same = {r.rid: r.generated for r in done} == checked
     print(f"[serve] checked run: {len(errs)} chunk-layer outputs of rids "
@@ -401,6 +487,9 @@ def phase_serve(ref):
     pool.check_integrity()
     if not (launches > 0 and launches == SERVE_LAYERS * n_chunks):
         raise AssertionError(f"{launches} launches for {n_chunks} chunks")
+    if tc_launches != launches:
+        raise AssertionError(f"{launches - tc_launches} of {launches} "
+                             "served chunks missed the tensor-core kernel")
     expect_checks = SERVE_LAYERS * sum(-(-lens[r] // scfg.page_tokens)
                                        for r in CHECK_RIDS)
     if len(errs) != expect_checks or not all(e <= t for e, t in errs):
@@ -409,7 +498,7 @@ def phase_serve(ref):
         raise AssertionError("checked and timed runs gave other tokens")
     if not peak < 0.95 * card:
         raise AssertionError(f"peak {peak} exceeds the card")
-    return dict(launches=launches, max_abs_err=max(e[0] for e in errs))
+    return dict(launches=tc_launches, max_abs_err=max(e[0] for e in errs))
 
 
 def _bits_equal(a, b) -> bool:
@@ -446,10 +535,14 @@ def phase_collectives():
     def record(name, size, dtype, n, got, want, fn, plain, lib, in_b,
                out_b):
         same = all(_bits_equal(g, w) for g, w in zip(got, want))
-        iters = 5 if n > 10 ** 7 else 50
-        ms = _ms(fn, iters)
+        iters = 20 if n > 10 ** 7 else 50
+        # In turns, kernel and PyTorch call; each keeps its faster turn.
+        ms, lib_ms = float("inf"), None
+        for _ in range(2):
+            ms = min(ms, _ms(fn, iters))
+            if lib is not None:
+                lib_ms = min(lib_ms or float("inf"), _ms(lib, iters))
         plain_ms = _ms(plain, 3 if n > 10 ** 7 else 20, warmup=1)
-        lib_ms = _ms(lib, iters) if lib is not None else None
         bound_ms, by = _sync_bound(name, n, in_b, out_b)
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
@@ -812,20 +905,25 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    main_row = next(r for r in rows if r["case"] == "chunk"
-                    and r["q_offset"] == 3840 and r["q_dtype"] == "bfloat16"
-                    and r["kv_dtype"] == "float32")
+    late = {r["kv_dtype"]: r for r in rows if r["case"] == "chunk"
+            and r["q_offset"] == 3840 and r["q_dtype"] == "bfloat16"}
+    main_row, bf16_row = late["float32"], late["bfloat16"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
+        "variant": main_row["variant"],
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
         "launches": serve["launches"],
         "max_abs_err": max(serve["max_abs_err"],
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}] + [
+        "library_ms": main_row["library_ms"],
+        "ms_bf16_cache": bf16_row["ms"],
+        "plain_ms_bf16_cache": bf16_row["plain_ms"],
+        "bound_ms_bf16_cache": bf16_row["bound_ms"],
+        "library_ms_bf16_cache": bf16_row["library_ms"]}] + [
             _sync_entry(name, sync_rows, train) for name in SYNC_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,12 @@
-// Causal blockwise (flash) attention forward for Hopper (sm_90a).
+// Causal blockwise (flash) attention forward for Hopper (sm_90a): the
+// CUDA-core variant, and the C entry of both variants.
+//
+// The C entry `flash_attention_fwd` (end of file) chooses by type: a bf16
+// query with head_dim 128 (every chunk of the full-width serve path)
+// runs the tensor-core kernel of flash_attention_wgmma.cu; any other
+// query (f32, whose output is held to 1e-4, or the reduced head dim 16)
+// runs the kernel below.  The choice is explicit and reported to the
+// caller; nothing retries on the other kernel.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` /
 // `_flash_kernel` in src/repro/kernels/flash_attention/kernel.py, and
@@ -18,10 +26,9 @@
 // causal prefix of the cache, q_offset + 256 keys.  Every K/V byte of the
 // prefix is used by Sq * (H / Hkv) query rows, so at late chunks the
 // score and P.V arithmetic, not the bytes, sets the least time; at early
-// chunks the bytes of q and o do.  This first kernel computes on the
-// CUDA cores in f32, so f32 FMA throughput (67 TFLOP/s on an H100 SXM)
-// and shared-memory traffic set its time; PERF.md has it against the
-// bound at the serving shapes.
+// chunks the bytes of q and o do.  This variant computes on the CUDA
+// cores in f32, so f32 FMA throughput (67 TFLOP/s on an H100 SXM) and
+// shared-memory traffic set its time; PERF.md has it against the bound.
 //
 // Design.  One block per (batch * head, 64-query tile), 128 threads as a
 // 16 x 8 grid.  The q tile sits in shared memory for the block's life;
@@ -37,8 +44,6 @@
 // at the last visible key.  Query tiles are issued last-first so the
 // longest causal rows start earliest, and consecutive blocks are the
 // heads of one KV group, which share K/V through L2.
-//
-// Tensor cores (wgmma), TMA loads and a bf16 cache are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +73,7 @@ struct Tile {
 constexpr int kErrHeadDim = -1;   // head dims built: 16 (reduced), 128
 constexpr int kErrHeads = -2;
 constexpr int kErrDtype = -3;
+constexpr int kErrTensorMap = -4;  // from flash_wgmma_launch
 
 __device__ __forceinline__ void load4(const float* p, float out[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -268,20 +274,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
+// flash_attention_wgmma.cu
+int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                       bool kv_f32, int B, int Sq, int Skv, int H, int Hkv,
+                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                       int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                       int64_t v_ss, int64_t v_sh, int64_t o_sb,
+                       int64_t o_ss, int64_t o_sh, int causal, int q_offset,
+                       float scale, cudaStream_t stream);
+
 // dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements; the
-// last (head-dim) axis is contiguous.  Returns 0, a cudaError_t, or a
-// negative code for arguments the kernel does not take.
+// last (head-dim) axis is contiguous.  Sets *variant to the kernel chosen
+// (0: CUDA cores, f32; 1: tensor cores, wgmma) before launching it.
+// Returns 0, a cudaError_t, or a negative code for arguments the kernel
+// does not take.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int q_dtype,
     int kv_dtype, int B, int Sq, int Skv, int H, int Hkv, int head_dim,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
     int64_t o_ss, int64_t o_sh, int causal, int q_offset, float scale,
-    void* stream) {
+    void* stream, int* variant) {
   if (Hkv <= 0 || H % Hkv != 0) return kErrHeads;
   if (q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 1)
     return kErrDtype;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 1 && head_dim == 128) {
+    *variant = 1;
+    return flash_wgmma_launch(q, k, v, o, kv_dtype == 0, B, Sq, Skv, H, Hkv,
+                              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                              v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale,
+                              st);
+  }
+  *variant = 0;
 #define FA_ARGS q, k, v, o, B, Sq, Skv, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, \
     k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale, st
 #define FA_DTYPES(D)                                                        \
@@ -303,6 +328,9 @@ extern "C" const char* flash_attention_error_string(int code) {
     case kErrHeadDim: return "head_dim must be 16 or 128";
     case kErrHeads: return "num_heads must be a multiple of num_kv_heads";
     case kErrDtype: return "dtypes must be float32 or bfloat16";
+    case kErrTensorMap:
+      return "no TMA tensor map for a K/V view (libcuda's encoder is "
+             "missing or refused the view's strides)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

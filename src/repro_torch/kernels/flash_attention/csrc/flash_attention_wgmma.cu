@@ -1,0 +1,617 @@
+// Causal flash-attention forward on Hopper's tensor cores (sm_90a): the
+// variant for a bf16 query with head_dim 128, over an f32 or a bf16
+// cache.  That is every prefill chunk of the full-width serve path.
+//
+// Replaces, like flash_attention.cu, the Pallas TPU kernel
+// `flash_attention_bhsd` / `_flash_kernel` in
+// src/repro/kernels/flash_attention/kernel.py.  flash_attention.cu keeps
+// the f32-query kernel (held to 1e-4, which bf16 products cannot meet)
+// and the reduced head dim 16; its C entry `flash_attention_fwd` calls
+// `flash_wgmma_launch` below for q bf16 with D 128, by type and never as
+// a fallback.
+//
+// Function.  q (B, Sq, H, D) bf16; k/v (B, Skv, Hkv, D) f32 or bf16,
+// strided views (a layer of the stacked cache arena); o (B, Sq, H, D)
+// bf16.  Query head h reads KV head h / (H / Hkv).  Query row i sits at
+// absolute position q_offset + i and sees keys at positions <= that
+// (causal) and < Skv.  The Pallas kernel's arithmetic for a bf16 cache:
+// S = Q.K^T as bf16 products with f32 accumulation, scaled and
+// soft-maxed online in f32, then P rounded to bf16 and O += P.V again in
+// f32; a row that sees no key writes 0.  An f32 cache is rounded to bf16
+// as it enters shared memory (K and V each once per block).
+//
+// What bounds it.  At the serve path's late chunk (Sq 256 at offset
+// 3840, 64/8 heads) the work is 4 * 64 * 128 * 1,015,936 = 3.3e10 FLOPs,
+// 0.034 ms at the bf16 tensor-core peak, against 42 MB of q, o and f32
+// K/V prefix, 0.013 ms at the memory rate (H100 SXM data sheet at its
+// 700 W limit: 989 TFLOP/s, 3.35 TB/s): the tensor cores set the least
+// time.  PERF.md has the measured times against it.
+//
+// Design.
+// - Block: 3 warpgroups.  Warpgroups 0 and 1 are consumers, each owning
+//   64 query rows of one head (128 rows a block); warpgroup 2 is the
+//   producer.  Over an f32 cache `setmaxnreg` moves registers from the
+//   producer (56) to the consumers (224); over a bf16 cache every thread
+//   keeps 168.  Each was the faster choice on an H100 for its cache type.
+//   Grid (B * H, Sq / 128): consecutive blocks are the heads of one KV
+//   group, which read the same K/V through L2; query tiles run last-first
+//   so the longest causal rows start earliest.
+// - Products: `wgmma.mma_async` m64nNk16 bf16 -> f32, accumulators in
+//   registers.  Q lives in registers for the block's life, already in
+//   wgmma's A-fragment layout (32 registers a thread), so S = Q.K^T
+//   (m64n64, 8 k-steps over D) reads only K from shared memory.  P is
+//   converted to bf16 in registers, and its S-accumulator fragment is
+//   exactly the A fragment of O += P.V (m64n128, 4 k-steps over 64
+//   keys): P never goes through shared memory.  K is B in K-major form;
+//   V [keys][d] is B in MN-major form through the transpose bit that
+//   16-bit types allow.
+// - Shared layout: a K or V tile is 64 keys x 128 d in bf16 as two
+//   64-column halves of 64 rows x 128 bytes, 128-byte swizzled (TMA's
+//   SWIZZLE_128B; 1024-byte aligned atoms of 8 rows).  K descriptors:
+//   K-major, SBO 1024 (8 rows), a k-step moves 32 bytes inside the atom
+//   or to the other half.  V descriptors: MN-major, LBO 8192 (the other
+//   64-column half), SBO 1024 (8 keys), a k-step moves 16 keys.
+// - Loads: a ring of K/V stages in shared memory with full/empty
+//   mbarriers, so the producer fills the next tiles while the consumers
+//   compute.  A bf16 cache: one producer thread issues TMA loads straight
+//   into the swizzled ring (4 boxes of 64 x 64 a stage), 4 stages.  An f32
+//   cache: TMA cannot convert, so one thread TMA-loads f32 K and V tiles
+//   (32 KB each, unswizzled) into 2 staging slots, two tiles ahead, and
+//   the whole producer warpgroup converts each tile to bf16 into the
+//   swizzled ring (2 stages), one float4 a thread a step so that reads
+//   and 8-byte writes are free of bank conflicts.  Staging through TMA
+//   keeps 64-128 KB of loads in flight an SM with 56 registers a producer
+//   thread; loading through the producer's registers instead (32 float4s
+//   a thread, 64 KB in flight) was measured slower.  What bounds this
+//   path is the staging's shared-memory traffic (f32 written and read
+//   again, on top of the bf16 writes and the wgmma reads): without the
+//   conversion it ran at the bf16 cache's speed.  Tensor maps are
+//   encoded on the host at every launch (the serve path's arena views
+//   move each step), with `cuTensorMapEncodeTiled` looked up in the
+//   libcuda the CUDA runtime has already loaded.
+// - Masking: the tensor maps end at the launch's last visible key
+//   (min(Skv, q_offset + Sq) when causal), so TMA zero-fills every key
+//   past it: garbage in unwritten cache pages never meets a masked
+//   probability as 0 * NaN.  The consumers mask keys >= Skv and keys > a
+//   row's position only on the tiles that hold any (the last one or
+//   two), so the rest run unmasked.  KV tiles past the block's last
+//   query are never loaded (the causal skip).
+// - A barrier wait that spins for ~2^24 polls traps, so a protocol fault
+//   ends the launch with an error instead of hanging the card.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace fa_wgmma {
+
+constexpr int D = 128;
+constexpr int BM = 64;                          // query rows a consumer
+constexpr int CONSUMERS = 2;
+constexpr int BQ = BM * CONSUMERS;              // query rows a block
+constexpr int BK = 64;                          // keys a tile
+constexpr int NTHREADS = 128 * (CONSUMERS + 1);
+constexpr int HALF_BYTES = BK * 64 * 2;         // 64 keys x 64 d bf16: 8 KB
+constexpr int TILE_BYTES = 2 * HALF_BYTES;      // K or V tile, bf16: 16 KB
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;     // K + V: 32 KB
+constexpr int F32_TILE_BYTES = BK * D * 4;      // K or V tile, f32: 32 KB
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <bool F32KV>
+struct Plan {
+  static constexpr int RING = F32KV ? 2 : 4;          // bf16 K/V stages
+  static constexpr int STAGING = F32KV ? 2 : 0;       // f32 K/V slots
+  static constexpr int FULL_COUNT = F32KV ? 128 : 1;  // arrivals a fill
+  static constexpr int BARRIERS = 2 * RING + STAGING;
+  static constexpr int SMEM = 1024 /* alignment slack */
+      + RING * STAGE_BYTES + STAGING * 2 * F32_TILE_BYTES + 8 * BARRIERS;
+};
+
+// ---------------------------------------------------------------- PTX --
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spins > (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void producer_bar_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  Offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+      | (static_cast<uint64_t>(lbo >> 4) << 16)
+      | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (the registers are in flight until the wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define F16(a, i) F4(a, i), F4(a, i + 4), F4(a, i + 8), F4(a, i + 12)
+
+// d[64 x 64] (+)= A[64 x 16] (registers) . B[16 x 64] (K-major in smem).
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+// d[64 x 128] += A[64 x 16] (registers) . B[16 x 128] (MN-major in smem).
+__device__ __forceinline__ void wgmma_m64n128_tb(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+#undef F16
+#undef F4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------ kernel --
+
+struct Args {
+  const __nv_bfloat16* q;
+  __nv_bfloat16* o;
+  int Sq, Skv, H, group, causal, q_offset;
+  int64_t q_sb, q_ss, q_sh, o_sb, o_ss, o_sh;
+  float scale_log2;            // softmax scale * log2(e): exp2 domain
+};
+
+// Producer: fill ring stage j % RING with K/V tile j.
+template <bool F32KV>
+__device__ __forceinline__ void produce(const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v,
+                                        uint8_t* ring, uint8_t* staging,
+                                        uint64_t* full, uint64_t* empty,
+                                        uint64_t* staged, int n_tiles, int hk,
+                                        int b) {
+  using P = Plan<F32KV>;
+  const int tid = threadIdx.x % 128;
+  if constexpr (!F32KV) {
+    if (tid != 0) return;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int r = j % P::RING;
+      mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
+      mbar_expect_tx(&full[r], STAGE_BYTES);
+      uint8_t* kdst = ring + r * STAGE_BYTES;
+      uint8_t* vdst = kdst + TILE_BYTES;
+      for (int half = 0; half < 2; ++half) {
+        tma_load_4d(kdst + half * HALF_BYTES, tm_k, &full[r], 64 * half, hk,
+                    j * BK, b);
+        tma_load_4d(vdst + half * HALF_BYTES, tm_v, &full[r], 64 * half, hk,
+                    j * BK, b);
+      }
+    }
+  } else {
+    auto stage = [&](int j) {       // f32 K and V tile j -> slot j & 1
+      uint8_t* dst = staging + (j & 1) * 2 * F32_TILE_BYTES;
+      mbar_expect_tx(&staged[j & 1], 2 * F32_TILE_BYTES);
+      tma_load_4d(dst, tm_k, &staged[j & 1], 0, hk, j * BK, b);
+      tma_load_4d(dst + F32_TILE_BYTES, tm_v, &staged[j & 1], 0, hk, j * BK,
+                  b);
+    };
+    if (tid == 0) {
+      for (int j = 0; j < 2 && j < n_tiles; ++j) stage(j);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int r = j % P::RING;
+      mbar_wait(&staged[j & 1], (j >> 1) & 1);
+      mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
+      const uint8_t* src = staging + (j & 1) * 2 * F32_TILE_BYTES;
+      uint8_t* dst = ring + r * STAGE_BYTES;
+      // A warp converts one 128-value row a step: 32 float4 reads of 512
+      // contiguous bytes, 32 8-byte writes to the row's two swizzled
+      // 128-byte lines.
+#pragma unroll 4
+      for (int i = 0; i < 2 * BK * D / 4 / 128; ++i) {
+        const int it = tid + 128 * i;
+        const int kv = it / (BK * D / 4);             // 0: K, 1: V
+        const int row = (it / (D / 4)) % BK;
+        const int f = it % (D / 4);                   // float4 in the row
+        const float4 x = *reinterpret_cast<const float4*>(
+            src + kv * F32_TILE_BYTES + row * D * 4 + f * 16);
+        const int half = f / 16, chunk = (f % 16) / 2, sub = f % 2;
+        uint8_t* out = dst + kv * TILE_BYTES + half * HALF_BYTES + row * 128
+                       + ((chunk ^ (row & 7)) << 4) + sub * 8;
+        *reinterpret_cast<uint2*>(out) =
+            make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+      }
+      fence_proxy_async();       // the generic writes, before wgmma reads
+      mbar_arrive(&full[r]);
+      producer_bar_sync();       // every thread is done with the slot
+      if (tid == 0 && j + 2 < n_tiles) stage(j + 2);
+    }
+  }
+}
+
+// Consumer warpgroup `wg`: query rows q0 + 64 wg .. + 63 of head h.
+template <bool F32KV>
+__device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        int n_tiles, int wg, int b, int h,
+                                        int q0) {
+  using P = Plan<F32KV>;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  // This thread's two rows in every m64 fragment.
+  const int rr0 = q0 + wg * BM + warp * 16 + g;
+  const int rows[2] = {rr0, rr0 + 8};
+
+  // Q in the A-fragment layout: k-step kk holds columns 16 kk .. + 15;
+  // register e holds row rows[e & 1], columns 16 kk + 8 (e >> 1) + 2t, +1.
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool ok = rows[e] < a.Sq;
+    const __nv_bfloat16* qrow =
+        a.q + b * a.q_sb + static_cast<int64_t>(ok ? rows[e] : 0) * a.q_ss
+        + h * a.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        qf[kk][e + 2 * hi] =
+            ok ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 * hi
+                                                    + 2 * t)
+               : 0u;
+      }
+    }
+  }
+
+  // Keys a row sees: < lim[e]; every row of this warpgroup sees keys
+  // < mask_from, so tiles below it need no mask.
+  int lim[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    lim[e] = a.causal ? min(a.Skv, a.q_offset + rows[e] + 1) : a.Skv;
+  }
+  const int mask_from = a.causal
+      ? min(a.Skv, a.q_offset + q0 + wg * BM + 1) : a.Skv;
+
+  float acc[D / 2];            // O: 64 rows x 128 d, m64n128 layout
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};     // this thread's share of the row sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int r = j % P::RING;
+    mbar_wait(&full[r], (j / P::RING) & 1);
+    const uint32_t kaddr = smem_u32(ring + r * STAGE_BYTES);
+    const uint32_t vaddr = kaddr + TILE_BYTES;
+
+    // S = Q . K^T.  Element i of s: row rows[(i >> 1) & 1], key
+    // 8 (i >> 2) + 2t + (i & 1) of the tile.
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_m64n64(s, qf[kk],
+                   sw128_desc(kaddr + (kk / 4) * HALF_BYTES + (kk % 4) * 32,
+                              16, 1024),
+                   kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    const int k0 = j * BK;
+    if (k0 + BK > mask_from) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (key >= lim[(i >> 1) & 1]) s[i] = -INFINITY;
+      }
+    }
+
+    // Online softmax in the exp2 domain; a row's 64 scores sit on the
+    // 4 threads of a quad.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] *= a.scale_log2;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      const float m_new = fmaxf(m[e], mx[e]);
+      mu[e] = (m_new == -INFINITY) ? 0.f : m_new;
+      alpha[e] = exp2f(m[e] - mu[e]);     // 0 while the row saw nothing
+      m[e] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = exp2f(s[i] - mu[(i >> 1) & 1]);   // masked: exp2(-inf) = 0
+      rs[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + rs[e];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // P in bf16: the S fragment of keys 16 kk .. + 15 is the A fragment.
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      }
+    }
+
+    // O += P . V.
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_m64n128_tb(acc, pf[kk],
+                       sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES, 1024));
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&empty[r]);
+  }
+
+  // Epilogue: O / l in bf16.  Element i of acc: row rows[(i >> 1) & 1],
+  // column 8 (i >> 2) + 2t + (i & 1).
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    inv[e] = 1.f / (l[e] == 0.f ? 1.f : l[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (rows[e] >= a.Sq) continue;
+    __nv_bfloat16* orow = a.o + b * a.o_sb
+        + static_cast<int64_t>(rows[e]) * a.o_ss + h * a.o_sh;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int i = 4 * c + 2 * e;
+      *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
+          pack_bf16(acc[i] * inv[e], acc[i + 1] * inv[e]);
+    }
+  }
+}
+
+template <bool F32KV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ Args a) {
+  using P = Plan<F32KV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* staging = ring + P::RING * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      staging + P::STAGING * 2 * F32_TILE_BYTES);
+  uint64_t* empty = full + P::RING;
+  uint64_t* staged = empty + P::RING;
+
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  int kv_end = a.Skv;                  // keys the block's last row sees
+  if (a.causal) {
+    kv_end = max(0, min(a.Skv, a.q_offset + min(q0 + BQ, a.Sq)));
+  }
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::RING; ++s) {
+      mbar_init(&full[s], P::FULL_COUNT);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    for (int s = 0; s < P::STAGING; ++s) mbar_init(&staged[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    if constexpr (F32KV) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    }
+    produce<F32KV>(&tm_k, &tm_v, ring, staging, full, empty, staged,
+                   n_tiles, h / a.group, b);
+  } else {
+    if constexpr (F32KV) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    }
+    consume<F32KV>(a, ring, full, empty, n_tiles, wg, b, h, q0);
+  }
+}
+
+// ------------------------------------------------------------- host --
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's encoder, from the copy the CUDA runtime has loaded: no link
+// against libcuda, and no entry-point API that differs by toolkit.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A 4-d map over keys [0, n_keys) of one K or V view (B, Skv, Hkv, 128),
+// innermost first; boxes of 64 keys x one head x 64 d (bf16, 128-byte
+// swizzle) or x 128 d (f32, unswizzled).  Strides of size-1 axes may be 0
+// and are replaced.
+int encode_kv(CUtensorMap* map, const void* base, bool f32, int B,
+              int n_keys, int Hkv, int64_t sb, int64_t ss, int64_t sh) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return -1;
+  const uint64_t es = f32 ? 4 : 2;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                        static_cast<cuuint64_t>(Hkv),
+                        static_cast<cuuint64_t>(n_keys),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * es,
+                           static_cast<cuuint64_t>(ss) * es,
+                           static_cast<cuuint64_t>(sb) * es};
+  if (strides[0] == 0) strides[0] = D * es;
+  if (strides[1] == 0) strides[1] = strides[0] * dims[1];
+  if (strides[2] == 0) strides[2] = strides[1] * dims[2];
+  cuuint32_t box[4] = {f32 ? 128u : 64u, 1u, static_cast<cuuint32_t>(BK),
+                       1u};
+  cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  const CUresult res = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -2;
+}
+
+template <bool F32KV>
+int launch(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Args& a,
+           int B, cudaStream_t stream) {
+  constexpr int smem = Plan<F32KV>::SMEM;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<F32KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B * a.H, (a.Sq + BQ - 1) / BQ);
+  flash_wgmma_kernel<F32KV><<<grid, NTHREADS, smem, stream>>>(tm_k, tm_v, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fa_wgmma
+
+// Called by flash_attention.cu's C entry for q bf16, D 128.  Strides in
+// elements.  Returns 0, a cudaError_t, or kErrTensorMap (-4) when a K/V
+// view gets no TMA tensor map from libcuda.
+int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                       bool kv_f32, int B, int Sq, int Skv, int H, int Hkv,
+                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                       int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                       int64_t v_ss, int64_t v_sh, int64_t o_sb,
+                       int64_t o_ss, int64_t o_sh, int causal, int q_offset,
+                       float scale, cudaStream_t stream) {
+  using namespace fa_wgmma;
+  // Keys any query of the launch sees; TMA zero-fills past them.  (With
+  // none, no tile is loaded and the map's one key is never read.)
+  const int n_keys = max(1, causal ? min(Skv, q_offset + Sq) : Skv);
+  CUtensorMap tm_k, tm_v;
+  if (encode_kv(&tm_k, k, kv_f32, B, n_keys, Hkv, k_sb, k_ss, k_sh) != 0
+      || encode_kv(&tm_v, v, kv_f32, B, n_keys, Hkv, v_sb, v_ss, v_sh) != 0) {
+    return -4;
+  }
+  Args a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.Sq = Sq; a.Skv = Skv; a.H = H; a.group = H / Hkv;
+  a.causal = causal; a.q_offset = q_offset;
+  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
+  a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
+  a.scale_log2 = scale * LOG2E;
+  return kv_f32 ? launch<true>(tm_k, tm_v, a, B, stream)
+                : launch<false>(tm_k, tm_v, a, B, stream);
+}

@@ -10,6 +10,12 @@ this module builds nothing.
 The kernel launches on the current CUDA stream and allocates nothing;
 the wrapper checks every argument, allocates the output, and raises if
 the launch returns an error.
+
+Two kernels share the library, chosen by type in the C entry: a bf16
+query with head dim 128 (the full-width serve path) runs on the tensor
+cores (``csrc/flash_attention_wgmma.cu``, variant ``"wgmma"``); any other
+query runs on the CUDA cores in f32 (``csrc/flash_attention.cu``, variant
+``"simt"``).  ``launch`` returns the variant the C entry reports.
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ import torch
 
 from repro_torch.kernels import build as B
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
 HEAD_DIMS = (16, 128)       # the head dims the library is built for
+VARIANTS = ("simt", "wgmma")   # as the C entry reports them: 0, 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -33,13 +40,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_int64] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = B.Library("flash_attention", [SOURCE], _declare)
+LIBRARY = B.Library("flash_attention", SOURCES, _declare)
 
 
 def load() -> B.Built:
@@ -77,6 +84,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) CUDA tensors, D in
     ``HEAD_DIMS`` -> (B, Sq, H, D) in q's dtype.  ``q_offset`` is a
     runtime int: one compiled kernel serves every chunk position."""
+    return launch(q, k, v, causal=causal, sm_scale=sm_scale,
+                  q_offset=q_offset)[0]
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, sm_scale: float | None = None,
+           q_offset: int = 0) -> tuple[torch.Tensor, str]:
+    """``flash_attention``, and the variant that ran (``VARIANTS``)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -97,14 +112,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     lib = LIBRARY.lib
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], b, sq, skv, h, hkv,
             d, *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-            int(causal), q_offset, scale, stream)
+            int(causal), q_offset, scale, stream, ctypes.byref(variant))
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd failed ({err}): {msg}")
-    return o
+    return o, VARIANTS[variant.value]

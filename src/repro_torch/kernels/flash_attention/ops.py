@@ -6,9 +6,12 @@ tensors' device: a CUDA tensor goes to the hand-written kernel
 version (``ref.attention``).  There is no fallback from one to the other.
 
 ``counter`` counts kernel launches made through this op (and nothing
-else), so a run can show its prefill went through the kernel; it is
-thread-safe, since ranks launch from threads.  Read it as
-``counter.value`` or through ``repro_torch.kernels.counter.counts()``.
+else), so a run can show its prefill went through the kernel;
+``tc_counter`` counts those of them that ran the tensor-core variant, as
+the C entry reports it (``kernel.VARIANTS``).  Both are thread-safe,
+since ranks launch from threads.  Read them as ``.value`` or through
+``repro_torch.kernels.counter.counts()`` ("flash_attention",
+"flash_attention_tc").
 """
 
 from __future__ import annotations
@@ -19,19 +22,23 @@ from repro_torch.kernels.counter import LaunchCounter
 from repro_torch.kernels.flash_attention import kernel, ref
 
 counter = LaunchCounter("flash_attention")
-
+tc_counter = LaunchCounter("flash_attention_tc")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: float | None = None,
               q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in
-    q's dtype.  Scores, softmax and P·V run in float32 whatever the input
-    dtypes; ``q_offset`` is the absolute position of query 0."""
+    q's dtype; ``q_offset`` is the absolute position of query 0.  The
+    softmax runs in float32; on the card a bf16 query with head dim 128
+    takes bf16 products (K, V and P rounded to bf16, as the reference's
+    kernel does for a bf16 cache), every other query f32 ones."""
     if q.device.type == "cuda":
-        out = kernel.flash_attention(q, k, v, causal=causal,
+        out, variant = kernel.launch(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
         counter.add()
+        if variant == "wgmma":
+            tc_counter.add()
         return out
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,

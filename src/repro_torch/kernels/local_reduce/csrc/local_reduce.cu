@@ -15,16 +15,30 @@
 // the f32 sum rounded once, which is what a bf16 `a + b` computes.
 //
 // What bounds it.  Each output value reads k inputs and writes one
-// value and does k - 1 additions, so bytes set the least time: 12 n bytes
-// at k = 2 in f32 over 3.35 TB/s.
+// value and does k - 1 additions, so bytes set the least time: 6 n bytes
+// at k = 2 in bf16 (12 n in f32) over 3.35 TB/s (H100 SXM data sheet).
 //
-// Design.  A grid-stride loop over the flat (ragged) length; no padding
-// to the TPU's (8, 128) tiles.  When every operand is f32 and 16-byte
-// aligned, each thread moves four values at a time as float4 (the body),
-// and a scalar loop takes the tail; other types and alignments take the
-// scalar loop throughout.  The k input pointers travel in the kernel's
-// parameter block, so the k chunks need not be stacked into one buffer.
-// The additions are __fadd_rn so no compiler contraction can change them.
+// Design.  Every dtype pair moves 16-byte vectors: a thread takes one
+// group of E values (8 when either side is bf16, 4 for f32 -> f32), read
+// as one or two 16-byte loads an input (k is a template parameter, so
+// the k loads issue before the first add) and written as one or two
+// 16-byte stores.  Loads carry the L2 256-byte prefetch hint and stores
+// are streaming (`__stcs`): each chunk is read once and the sum written
+// once.  A block of 1024 threads (512 where a thread loads more than two
+// words) takes as many consecutive groups and the grid covers the whole
+// length, so every load instruction of a warp reads 512 contiguous bytes
+// and the blocks stream through memory in order; no device query sizes
+// the grid.  (On H100s this layout beat a grid-stride loop with 4 groups
+// a thread in flight, 1024-thread blocks beat 512, and the prefetch hint
+// beat streaming loads on one card and tied on others: all of it at the
+// DRAM limit `torch.add` reaches.)
+// A scalar head and tail take the values before the first 16-byte
+// boundary and after the last whole group when every pointer sits at the
+// same offset from one; pointers at different offsets take the scalar
+// path throughout, 4 values a thread in flight.  The k input pointers
+// travel in the kernel's parameter block, so the chunks need not be
+// stacked.  The additions are __fadd_rn so no compiler contraction can
+// change them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,7 +47,8 @@
 namespace {
 
 constexpr int kMaxChunks = 8;
-constexpr int kThreads = 256;
+constexpr int64_t kMaxGrid = 1 << 30;
+constexpr int kScalarIlp = 4;         // scalar values a thread keeps going
 constexpr int kErrChunks = -1;
 constexpr int kErrDtype = -2;
 
@@ -57,58 +72,138 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(kThreads)
-    sum_chunks_kernel(ChunkPtrs in, int k, TO* __restrict__ out, int64_t n,
-                      int64_t n_vec4) {
+// E values of type T as 16-byte words.
+template <typename T, int E>
+struct Vec {
+  static constexpr int WORDS = E * static_cast<int>(sizeof(T)) / 16;
+  uint4 w[WORDS];
+
+  // Each chunk is read once: ask L2 to fetch whole 256-byte blocks.
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) {
+      asm volatile("ld.global.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(w[i].x), "=r"(w[i].y), "=r"(w[i].z), "=r"(w[i].w)
+                   : "l"(reinterpret_cast<const uint4*>(p) + i));
+    }
+  }
+  __device__ __forceinline__ void store(T* p) const {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i)
+      __stcs(reinterpret_cast<uint4*>(p) + i, w[i]);
+  }
+  __device__ __forceinline__ T get(int e) const {
+    return reinterpret_cast<const T*>(w)[e];
+  }
+  __device__ __forceinline__ void set(int e, T v) {
+    reinterpret_cast<T*>(w)[e] = v;
+  }
+};
+
+template <typename TI, typename TO, int K>
+struct Shape {
+  static constexpr int E = (sizeof(TI) == 2 || sizeof(TO) == 2) ? 8 : 4;
+  // 1024 threads a block where a thread loads at most two 16-byte words
+  // (k = 2 in bf16 or f32 -> f32; 64 registers a thread suffice), 512
+  // where it loads more.
+  static constexpr int THREADS =
+      K * E * static_cast<int>(sizeof(TI)) <= 32 ? 1024 : 512;
+};
+
+template <typename TI, typename TO, int K>
+__global__ void __launch_bounds__(Shape<TI, TO, K>::THREADS)
+    sum_chunks_kernel(ChunkPtrs in, TO* __restrict__ out, int64_t n,
+                      int64_t head, int64_t n_groups) {
+  constexpr int E = Shape<TI, TO, K>::E;
   const int64_t tid =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  int64_t body = 0;
-  if constexpr (sizeof(TI) == 4 && sizeof(TO) == 4) {
-    // n_vec4 > 0 only when all pointers are 16-byte aligned (host side).
-    for (int64_t v = tid; v < n_vec4; v += stride) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int j = 0; j < k; ++j) {
-        const float4 x = reinterpret_cast<const float4*>(in.p[j])[v];
-        acc.x = __fadd_rn(acc.x, x.x);
-        acc.y = __fadd_rn(acc.y, x.y);
-        acc.z = __fadd_rn(acc.z, x.z);
-        acc.w = __fadd_rn(acc.w, x.w);
-      }
-      reinterpret_cast<float4*>(out)[v] = acc;
+
+  // Body: group g holds elements head + E g .. + E - 1.
+  for (int64_t g = tid; g < n_groups; g += stride) {
+    Vec<TI, E> v[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      v[j].load(static_cast<const TI*>(in.p[j]) + head + g * E);
+    Vec<TO, E> r;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) acc = __fadd_rn(acc, to_f32(v[j].get(e)));
+      r.set(e, from_f32<TO>(acc));
     }
-    body = 4 * n_vec4;
+    r.store(out + head + g * E);
   }
-  for (int64_t i = body + tid; i < n; i += stride) {
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j)
-      acc = __fadd_rn(acc, to_f32(static_cast<const TI*>(in.p[j])[i]));
-    out[i] = from_f32<TO>(acc);
+
+  // Head [0, head) and tail [head + E n_groups, n): kScalarIlp values a
+  // thread, a grid apart so that each load of a warp is contiguous.
+  const int64_t tail0 = head + E * n_groups;
+  const int64_t rest = head + (n - tail0);
+  for (int64_t r0 = tid; r0 < rest; r0 += stride * kScalarIlp) {
+    float acc[kScalarIlp];
+#pragma unroll
+    for (int u = 0; u < kScalarIlp; ++u) {
+      const int64_t r = r0 + u * stride;
+      const int64_t i = r < head ? r : tail0 + (r - head);
+      acc[u] = 0.0f;
+      if (r < rest) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          acc[u] = __fadd_rn(acc[u],
+                             to_f32(static_cast<const TI*>(in.p[j])[i]));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScalarIlp; ++u) {
+      const int64_t r = r0 + u * stride;
+      if (r < rest) {
+        out[r < head ? r : tail0 + (r - head)] = from_f32<TO>(acc[u]);
+      }
+    }
   }
 }
 
-int grid_for(int64_t work) {
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int64_t want = (work + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * 8;
-  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+template <typename TI, typename TO, int K>
+int launch(const ChunkPtrs& in, void* out, int64_t n, cudaStream_t stream) {
+  constexpr int E = Shape<TI, TO, K>::E;
+  constexpr int T = Shape<TI, TO, K>::THREADS;
+  // Head: values before input 0 reaches a 16-byte boundary.  The vector
+  // body needs every input and the output 16-byte aligned from there.
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(in.p[0]);
+  int64_t head = 0, n_groups = 0;
+  if (a0 % sizeof(TI) == 0) {
+    head = static_cast<int64_t>((16 - a0 % 16) % 16 / sizeof(TI));
+    bool vec = head < n;
+    for (int j = 0; j < K; ++j)
+      vec = vec && reinterpret_cast<uintptr_t>(in.p[j]) % 16 == a0 % 16;
+    vec = vec && (reinterpret_cast<uintptr_t>(out) + head * sizeof(TO)) % 16
+                     == 0;
+    if (vec) n_groups = (n - head) / E;
+  }
+  if (n_groups == 0) head = 0;
+  const int64_t scalar = (n - E * n_groups + kScalarIlp - 1) / kScalarIlp;
+  const int64_t work = n_groups > scalar ? n_groups : scalar;
+  const int64_t want = (work + T - 1) / T;
+  const int grid = static_cast<int>(want < kMaxGrid ? want : kMaxGrid);
+  sum_chunks_kernel<TI, TO, K><<<grid, T, 0, stream>>>(
+      in, static_cast<TO*>(out), n, head, n_groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TI, typename TO>
-int launch(const ChunkPtrs& in, int k, void* out, int64_t n,
-           cudaStream_t stream) {
-  bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  for (int j = 0; j < k; ++j)
-    aligned = aligned && reinterpret_cast<uintptr_t>(in.p[j]) % 16 == 0;
-  const int64_t n_vec4 =
-      (sizeof(TI) == 4 && sizeof(TO) == 4 && aligned) ? n / 4 : 0;
-  const int64_t work = n_vec4 > 0 ? n_vec4 : n;
-  sum_chunks_kernel<TI, TO><<<grid_for(work), kThreads, 0, stream>>>(
-      in, k, static_cast<TO*>(out), n, n_vec4);
-  return static_cast<int>(cudaGetLastError());
+int launch_k(const ChunkPtrs& in, int k, void* out, int64_t n,
+             cudaStream_t st) {
+  switch (k) {
+    case 1: return launch<TI, TO, 1>(in, out, n, st);
+    case 2: return launch<TI, TO, 2>(in, out, n, st);
+    case 3: return launch<TI, TO, 3>(in, out, n, st);
+    case 4: return launch<TI, TO, 4>(in, out, n, st);
+    case 5: return launch<TI, TO, 5>(in, out, n, st);
+    case 6: return launch<TI, TO, 6>(in, out, n, st);
+    case 7: return launch<TI, TO, 7>(in, out, n, st);
+    default: return launch<TI, TO, 8>(in, out, n, st);
+  }
 }
 
 }  // namespace
@@ -124,12 +219,12 @@ extern "C" int local_reduce_sum_chunks(const void* const* chunks, int k,
   for (int j = 0; j < k; ++j) in.p[j] = chunks[j];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0 && out_dtype == 0)
-    return launch<float, float>(in, k, out, n, st);
+    return launch_k<float, float>(in, k, out, n, st);
   if (in_dtype == 0 && out_dtype == 1)
-    return launch<float, __nv_bfloat16>(in, k, out, n, st);
+    return launch_k<float, __nv_bfloat16>(in, k, out, n, st);
   if (in_dtype == 1 && out_dtype == 0)
-    return launch<__nv_bfloat16, float>(in, k, out, n, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(in, k, out, n, st);
+    return launch_k<__nv_bfloat16, float>(in, k, out, n, st);
+  return launch_k<__nv_bfloat16, __nv_bfloat16>(in, k, out, n, st);
 }
 
 extern "C" const char* local_reduce_error_string(int code) {

@@ -71,11 +71,16 @@ def sum_chunks(chunks: Sequence[torch.Tensor], dtype=None) -> torch.Tensor:
         return out
     lib = LIBRARY.lib
     ptrs = (ctypes.c_void_p * len(chunks))(*[x.data_ptr() for x in chunks])
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream(first.device).cuda_stream
-        err = lib.local_reduce_sum_chunks(
-            ptrs, len(chunks), out.data_ptr(), n, _DTYPE_CODE[first.dtype],
-            _DTYPE_CODE[dtype], stream)
+    args = (ptrs, len(chunks), out.data_ptr(), n, _DTYPE_CODE[first.dtype],
+            _DTYPE_CODE[dtype],
+            torch.cuda.current_stream(first.device).cuda_stream)
+    # The kernel launches on the current device: switch only if the
+    # chunks lie elsewhere, since the switch is host time on every call.
+    if first.device.index == torch.cuda.current_device():
+        err = lib.local_reduce_sum_chunks(*args)
+    else:
+        with torch.cuda.device(first.device):
+            err = lib.local_reduce_sum_chunks(*args)
     if err != 0:
         msg = lib.local_reduce_error_string(err).decode()
         raise RuntimeError(f"local_reduce_sum_chunks failed ({err}): {msg}")

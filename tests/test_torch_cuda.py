@@ -13,12 +13,22 @@ so they run on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance: a share of the plain output's largest magnitude.  The kernel
-and the plain version both compute in float32 and round once to q's
-dtype.  Two bf16 roundings differ by at most 2**-7 of the largest value,
-so a bf16 output is held to 2**-6 of it; an f32 output differs only by
-summation order and is held to 1e-4 of it, which a dropped key tile, a
-mis-masked edge or probabilities rounded to bf16 exceed.
+Flash attention has two variants, chosen by the query's type: a bf16
+query with head dim 128 runs on the tensor cores (``wgmma``), any other
+on the CUDA cores in f32 (``simt``).  ``kernel.launch`` returns the
+variant that ran and ``ops.tc_counter`` counts the tensor-core launches,
+so these tests pick a variant by the dtype of q and check that it ran.
+
+Tolerance: a share of the plain output's largest magnitude.  The plain
+version computes in float32 and rounds once to q's dtype.  The
+tensor-core variant also rounds K, V and P to bf16 (2**-9 of each value
+at most, errors that average over a row's keys) besides the output's
+own rounding; written out in plain torch that arithmetic holds 2**-6 of
+the largest value at these shapes
+(``tests/test_torch_flash_attention_tc.py``), and a bf16 output is held
+to 2**-6 of it here too.  The f32 variant differs only by summation order and is
+held to 1e-4, which a dropped key tile, a mis-masked edge or
+probabilities rounded to bf16 exceed.
 """
 
 import numpy as np
@@ -101,6 +111,63 @@ def test_kernel_takes_strided_cache_views(cuda):
     _assert_matches(got, ref.attention(q, k, v, q_offset=64))
 
 
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(8, 1), (64, 8)])
+@pytest.mark.parametrize("sq,skv,off", [(77, 300, 100), (130, 4096, 3841),
+                                        (64, 1000, 936), (200, 523, 0),
+                                        (5, 4096, 3841)])
+def test_tensor_core_kernel_at_ragged_shapes(cuda, kv_dtype, h, hkv, sq,
+                                             skv, off):
+    """Offsets that are not tile multiples, Sq and Skv that are not
+    multiples of 64, GQA 8/1 and 64/8, both cache types."""
+    q, k, v = _qkv(sq + off + h, sq, skv, h, hkv, 128, torch.bfloat16,
+                   kv_dtype, cuda)
+    before = ops.tc_counter.value
+    got = ops.attention(q, k, v, q_offset=off)
+    assert ops.tc_counter.value == before + 1
+    _assert_matches(got, ref.attention(q, k, v, q_offset=off))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(8, 1), (64, 8)])
+def test_tensor_core_kernel_takes_strided_arena_views(cuda, kv_dtype, h,
+                                                      hkv):
+    """One layer of a stacked (B, S, layers, Hkv, D) arena, batch 2, as
+    the serve path hands it; the keys past the chunk hold NaN, as pages
+    not yet written may, and must never reach the output."""
+    sq, skv, off = 100, 640, 300
+    q, k, v = _qkv(h + 5, 2 * sq, skv, h, hkv, 128, torch.bfloat16,
+                   kv_dtype, cuda)
+    q = q.reshape(2, sq, h, 128)
+    k = k.expand(2, -1, -1, -1).contiguous()
+    v = v.expand(2, -1, -1, -1).contiguous()
+    stack_k = torch.full((2, skv, 3, hkv, 128), float("nan"), device=cuda,
+                         dtype=kv_dtype)
+    stack_v = stack_k.clone()
+    stack_k[:, :off + sq, 2], stack_v[:, :off + sq, 2] = (k[:, :off + sq],
+                                                          v[:, :off + sq])
+    out, variant = kernel.launch(q, stack_k[:, :, 2], stack_v[:, :, 2],
+                                 q_offset=off)
+    assert variant == "wgmma"
+    assert torch.isfinite(out).all()
+    _assert_matches(out, ref.attention(q, k[:, :off + sq], v[:, :off + sq],
+                                       q_offset=off))
+
+
+@pytest.mark.parametrize("q_dtype,d,variant", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.float32, 16, "simt")])
+def test_variant_follows_the_query_type(cuda, q_dtype, d, variant):
+    q, k, v = _qkv(d, 70, 90, 8, 2, d, q_dtype, torch.float32, cuda)
+    before = (ops.counter.value, ops.tc_counter.value)
+    ops.attention(q, k, v, q_offset=20)
+    assert ops.counter.value == before[0] + 1
+    assert ops.tc_counter.value == before[1] + (variant == "wgmma")
+    got, ran = kernel.launch(q, k, v, q_offset=20)
+    assert ran == variant
+    _assert_matches(got, ref.attention(q, k, v, q_offset=20))
+
+
 def test_kernel_refuses_unsupported_head_dim(cuda):
     q, k, v = _qkv(0, 8, 8, 4, 2, 64, torch.float32, torch.float32, cuda)
     with pytest.raises(ValueError, match="D in"):
@@ -148,6 +215,31 @@ def test_sum_chunks_kernel_matches_plain_bits(cuda, n, dtype):
     m = min(a.numel(), b.numel())
     _bits_equal(lops.sum_chunks([a[:m], b[:m]]),
                 lref.sum_chunks([a[:m], b[:m]]))
+
+
+DTYPE_PAIRS = [(torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16),
+               (torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("in_dtype,out_dtype", DTYPE_PAIRS)
+def test_sum_chunks_bits_at_every_offset_and_length(cuda, in_dtype,
+                                                    out_dtype, k):
+    """Lengths of every residue mod 8, chunks at 0, 1 and 8 elements past
+    a 16-byte boundary (the scalar head and tail around the vector
+    body), and chunks at different offsets (the scalar path)."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(k, 1040, generator=gen, device=cuda).to(in_dtype)
+    for n in [1, 3, 7, 8, 9] + list(range(1000, 1008)):
+        for off in (0, 1, 8):
+            chunks = [x[j, off:off + n] for j in range(k)]
+            _bits_equal(lops.sum_chunks(chunks, out_dtype),
+                        lref.sum_chunks(chunks, out_dtype))
+        mixed = [x[j, j % 3:j % 3 + n] for j in range(k)]
+        _bits_equal(lops.sum_chunks(mixed, out_dtype),
+                    lref.sum_chunks(mixed, out_dtype))
 
 
 def _quant_input(n, cuda):

@@ -1,0 +1,108 @@
+"""The tensor-core flash variant's arithmetic fits the kernel's tolerance.
+
+On the card a bf16 query with head dim 128 runs the tensor-core kernel
+(``csrc/flash_attention_wgmma.cu``): q, K, V and P rounded to bf16, f32
+accumulation, an online softmax over 64-key tiles.  It is held to the
+plain f32 version within ``REL_TOL`` x max|plain|, the limit of
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  The kernel cannot run
+here, so these tests run its arithmetic written out in plain torch
+(``ref.attention_bf16_products``) on the same seeded inputs and hold it
+to the port's plain version and to the JAX package's ``chunk_attention``
+(chunked prefill) and ``flash_attention_jnp`` (one-shot prefill): shapes
+with GQA 8/1 and 64/8, D 128, 512-1024 keys, offsets 0, 100 and late,
+query counts that are not tile multiples, and both cache dtypes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as JL
+from repro_torch.kernels.flash_attention import ref
+
+REL_TOL = 2.0 ** -6     # of max|plain|, for a bf16 output
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _inputs(seed, sq, skv, h, hkv, kv_dtype, q_gain=1.0):
+    rng = np.random.RandomState(seed)
+    q = (q_gain * rng.randn(1, sq, h, 128)).astype(np.float32)
+    k = rng.randn(1, skv, hkv, 128).astype(np.float32)
+    v = rng.randn(1, skv, hkv, 128).astype(np.float32)
+    # q as served (bf16); the cache in its own dtype
+    return (torch.from_numpy(q).to(torch.bfloat16),
+            torch.from_numpy(k).to(kv_dtype),
+            torch.from_numpy(v).to(kv_dtype))
+
+
+def _within(got, want):
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    tol = REL_TOL * np.abs(want).max()
+    assert err <= tol, (err, tol)
+    return err / np.abs(want).max()
+
+
+# (H, Hkv, Sq, Skv, q_offset, cache dtype, q gain): chunks of queries
+# against the whole cache; q gain 4 makes the softmax peaked.
+CHUNK_CASES = [
+    (8, 1, 77, 512, 0, torch.float32, 1.0),
+    (8, 1, 130, 1024, 100, torch.bfloat16, 1.0),
+    (8, 1, 64, 1024, 960, torch.float32, 4.0),
+    (64, 8, 100, 1024, 924, torch.float32, 1.0),
+    (64, 8, 61, 512, 100, torch.bfloat16, 1.0),
+    (64, 8, 200, 768, 568, torch.bfloat16, 4.0),
+]
+
+
+@pytest.mark.parametrize("h,hkv,sq,skv,off,kv_dtype,gain", CHUNK_CASES)
+def test_bf16_products_match_plain_and_chunk_attention(h, hkv, sq, skv, off,
+                                                       kv_dtype, gain):
+    q, k, v = _inputs(sq + off + h, sq, skv, h, hkv, kv_dtype, gain)
+    got = ref.attention_bf16_products(q, k, v, q_offset=off)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    plain = ref.attention(q, k, v, q_offset=off)
+    _within(got, plain.float().numpy())
+    q_pos = jnp.arange(sq)[None, :] + off
+    want = JL.chunk_attention(jnp.asarray(q.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(k.float().numpy(), JDT[kv_dtype]),
+                              jnp.asarray(v.float().numpy(), JDT[kv_dtype]),
+                              q_pos)
+    _within(got, np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("h,hkv,seq,kv_dtype", [
+    (8, 1, 600, torch.float32), (64, 8, 515, torch.bfloat16)])
+def test_bf16_products_match_plain_and_flash_attention_jnp(h, hkv, seq,
+                                                           kv_dtype):
+    """One-shot prefill (offset 0, Sq = Skv, not a tile multiple)."""
+    q, k, v = _inputs(seq + h, seq, seq, h, hkv, kv_dtype)
+    got = ref.attention_bf16_products(q, k, v)
+    _within(got, ref.attention(q, k, v).float().numpy())
+    want = JL.flash_attention_jnp(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16),
+        jnp.asarray(k.float().numpy(), JDT[kv_dtype]),
+        jnp.asarray(v.float().numpy(), JDT[kv_dtype]), block_k=128)
+    _within(got, np.asarray(want.astype(jnp.float32)))
+
+
+def test_bf16_products_are_exact_where_nothing_rounds():
+    """A query at position 0 sees one key, whose probability is 1: with
+    a bf16 cache nothing is rounded but the output, so the emulation
+    gives the plain version's bits."""
+    q, k, v = _inputs(7, 1, 64, 4, 1, torch.bfloat16)
+    got = ref.attention_bf16_products(q, k, v, q_offset=0)
+    want = ref.attention(q, k, v, q_offset=0)
+    assert torch.equal(got, want)
+
+
+def test_bf16_products_never_read_keys_past_the_last_query():
+    """Keys past the chunk's last position never enter, not even inside
+    the last tile as masked products: garbage there (NaN, as unwritten
+    pages may hold) leaves the result unchanged."""
+    q, k, v = _inputs(3, 40, 512, 8, 1, torch.float32)
+    want = ref.attention_bf16_products(q, k, v, q_offset=100)
+    k[:, 140:], v[:, 140:] = float("nan"), float("nan")
+    got = ref.attention_bf16_products(q, k, v, q_offset=100)
+    assert torch.equal(got, want)
