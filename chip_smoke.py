@@ -65,6 +65,23 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              at lr 1e-5, must lower the loss: at lr 1e-3 the first AdamW
              step moves every weight of these 6144-wide layers by about
              1e-3, and the loss rises.
+8. train (sync) — the same workload's sync three more ways, 3 steps a
+             run, each run against the one it must equal bit for bit
+             (losses and parameters): composed in fused dtype buckets,
+             overlapped through the schedule IR (depth 2) against
+             blocking; compressed in buckets, overlapped against
+             blocking, its EF residual in bucket layout; ZeRO-1
+             (composed, overlapped) against the per-leaf composed run,
+             both at clip_norm 0 (p = 2 is a power of two), ZeRO's
+             optimizer state a rank exactly half the unsharded state
+             plus padding.  Each run prints its step time, tokens/s and
+             peak memory, and each sync kernel's launches must equal the
+             plan's count.
+9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
+             steps, an async sharded save of its CUDA tensors, a restore
+             onto 2 ranks (``allow_resize_1d``) whose gathered logical
+             state equals the saved one bit for bit, one more step with a
+             finite loss, and no ``.tmp`` directory left.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -596,16 +613,21 @@ def phase_collectives():
     return rows
 
 
-def planned_launches(engine, grads, loss, p: int, compress: bool):
+def planned_launches(engine, synced, scalars, p: int, compress: bool):
     """Launches of each sync kernel on one rank in one step, as the
-    session's plan predicts them, with the formula for each."""
+    session's plan predicts them, with the formula for each.  ``synced``:
+    the tensors the gradient sync reduces (the leaves, or one flat
+    tensor a bucket; ``meta`` tensors do); ``scalars``: the other
+    all-reduced tensors of the step (the loss, ZeRO's squared norm).  A
+    ZeRO reduce-scatter runs the planned all-reduce's own reduce-scatter
+    half, so it combines as that all-reduce does; its all-gather adds
+    nothing."""
     from repro_torch.core import costmodel, layers, registry
-    from repro_torch.tree import leaves
     combine = {costmodel.RING: lambda chunk: p - 1,
                costmodel.BIDIR_RING: lambda chunk: (p - 1) * (
                    1 if chunk % 2 else 2)}
     n_combine, terms, protocols = 0, [], []
-    reduced = [loss] if compress else leaves(grads) + [loss]
+    reduced = list(scalars) if compress else list(synced) + list(scalars)
     for t in reduced:
         proto = engine.protocol_for(registry.ALL_REDUCE, layers.nbytes(t),
                                     "data")
@@ -614,24 +636,24 @@ def planned_launches(engine, grads, loss, p: int, compress: bool):
         n_combine += k
         protocols.append((tuple(t.shape), str(t.dtype).split(".")[-1],
                           proto, k))
-    out = {"sum_chunks": (n_combine, "sum over all-reduced leaves of "
+    out = {"sum_chunks": (n_combine, "sum over all-reduced tensors of "
                           "(p-1) per ring, 2(p-1) per bidir ring with an "
                           "even chunk, 0 for recursive protocols")}
     if compress:
-        n = len(leaves(grads))
-        out["quantize"] = (n * (p + 1), f"{n} leaves x (p+1): p-1 ring "
+        n = len(synced)
+        out["quantize"] = (n * (p + 1), f"{n} units x (p+1): p-1 ring "
                            "hops + the all-gather payload + the residual")
-        out["dequantize"] = (n * p, f"{n} leaves x p: the own chunk + "
+        out["dequantize"] = (n * p, f"{n} units x p: the own chunk + "
                              "p-1 all-gather hops")
-        out["dequant_add"] = (n * p, f"{n} leaves x p: p-1 receive steps "
+        out["dequant_add"] = (n * p, f"{n} units x p: p-1 receive steps "
                               "+ the residual")
     return out, protocols
 
 
-def _adamw(lr: float):
+def _adamw(lr: float, **kw):
     from repro_torch.optim import cosine_schedule, make_optimizer
     return make_optimizer("adamw", lr=cosine_schedule(
-        lr, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS))
+        lr, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS), **kw)
 
 
 def train_workload():
@@ -662,16 +684,18 @@ def train_workload():
     return model, init, mesh, ds, _adamw(TRAIN_LR)
 
 
-def train_run(model, init, mesh, ds, opt, sync: str):
+def train_run(model, init, mesh, ds, opt, sync: str, **cfg):
     """A fresh session (the §2.2 scan through ``build_session``), fresh
-    replicas of ``init`` and the step function for one run."""
+    replicas of ``init`` and the step function for one run; ``cfg``: the
+    other ``TrainCfg`` fields (buckets, overlap, ZeRO)."""
     from repro_torch.launch.train import build_session
     from repro_torch.train import trainer
     from repro_torch.tree import map_tree
-    tcfg = trainer.TrainCfg(sync_mode=sync)
+    tcfg = trainer.TrainCfg(sync_mode=sync, **cfg)
     session = build_session(mesh, model, opt, ds, tcfg)
     states = trainer.replicate(trainer.make_train_state(
-        model, opt, map_tree(lambda t: t.clone(), init), tcfg), mesh.size)
+        model, opt, map_tree(lambda t: t.clone(), init), tcfg, mesh=mesh),
+        mesh.size)
     return session, states, trainer.make_train_step(model, opt, tcfg,
                                                     comm=session.world)
 
@@ -790,10 +814,9 @@ def phase_train():
             if not peak < 0.95 * torch.cuda.get_device_properties(
                     0).total_memory:
                 raise AssertionError(f"{tag}: peak {peak} near the card")
-            grads_like = states[0]["params"]
             plan, protocols = planned_launches(
-                session.engine, grads_like, metrics["loss"], p,
-                sync == "compressed")
+                session.engine, leaves(states[0]["params"]),
+                [metrics["loss"]], p, sync == "compressed")
             main = ("sum_chunks",) if sync == "composed" else (
                 "quantize", "dequantize", "dequant_add")
             for name in SYNC_KERNELS:
@@ -844,6 +867,214 @@ def phase_train():
     return out
 
 
+def _sync_run(model, init, mesh, ds, opt, tag, sync, **cfg):
+    """One run of the train workload through ``train_run``: TRAIN_STEPS
+    steps, the launch counters set to 0 just before and read just after,
+    each sync kernel's launches held to the plan's count.  Returns the
+    run's record (rank 0's params kept for a bit comparison)."""
+    from repro_torch.kernels import counter
+    from repro_torch.train import trainer
+    from repro_torch.tree import leaves
+    p = mesh.size
+    session, states, step_fn = train_run(model, init, mesh, ds, opt, sync,
+                                         **cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.reset_all()
+    states, losses, times, metrics = _train_steps(step_fn, states, ds)
+    counts = counter.counts()
+    peak = torch.cuda.max_memory_allocated()
+    same = all(_bits_equal(a, b) for st in states[1:] for a, b in
+               zip(leaves(states[0]["params"]), leaves(st["params"])))
+    step_s = float(np.mean(times[1:]))
+    print(f"[train] {tag}: losses {losses}; step {step_s * 1e3:.1f} ms "
+          f"(steps 2-{TRAIN_STEPS}; first {times[0] * 1e3:.1f} ms) = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak allocated "
+          f"{peak / 2**30:.2f} GiB; replicas identical: {same}")
+    if not all(np.isfinite(losses)) or not same:
+        raise AssertionError(f"{tag}: losses {losses}, replicas identical "
+                             f"{same}")
+    if not peak < 0.95 * torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError(f"{tag}: peak {peak} near the card")
+    tcfg = trainer.TrainCfg(sync_mode=sync, **cfg)
+    if tcfg.bucket_grads:
+        synced = [torch.empty(b.size, dtype=b.wire_dtype, device="meta")
+                  for b in trainer.grad_bucket_plan(model.abstract_params(),
+                                                    tcfg)]
+    else:
+        synced = leaves(model.abstract_params())
+    # ZeRO all-reduces the squared gradient norm, a 0-d f32 like the loss
+    scalars = [metrics["loss"]] * (2 if tcfg.zero else 1)
+    plan, _ = planned_launches(session.engine, synced, scalars, p,
+                               sync == "compressed")
+    main = ("sum_chunks",) if sync == "composed" else (
+        "quantize", "dequantize", "dequant_add")
+    for name in SYNC_KERNELS:
+        per, formula = plan.get(name, (0, "not on this path"))
+        want = per * p * TRAIN_STEPS
+        if per:
+            print(f"[train]   {name}: {counts[name]} launches; plan {want} "
+                  f"= {per} a rank a step x {p} ranks x {TRAIN_STEPS} steps "
+                  f"({formula})")
+        if counts[name] != want or (name in main and not want):
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} "
+                                 f"times, plan {want}")
+    st = states[0]
+    record = dict(tag=tag, losses=losses, params=leaves(st["params"]),
+                  step_ms=step_s * 1e3, peak_gib=peak / 2**30,
+                  launches={n: counts[n] for n in main},
+                  opt_bytes=_nbytes(leaves(st["opt"])),
+                  ef_sizes=[e.numel() for e in st["ef"]]
+                  if isinstance(st.get("ef"), tuple) else None,
+                  n_units=len(synced))
+    del session, states, step_fn, metrics, st
+    return record
+
+
+def _same_run(a, b) -> bool:
+    same = a["losses"] == b["losses"] and all(
+        _bits_equal(x, y) for x, y in zip(a["params"], b["params"]))
+    print(f"[train] {a['tag']} and {b['tag']}: bit-identical losses and "
+          f"parameters: {same}")
+    if not same:
+        raise AssertionError(f"{a['tag']} and {b['tag']} differ")
+    return same
+
+
+def phase_train_sync():
+    """The train workload's sync run three more ways, each against the
+    run it must equal bit for bit: composed in fused buckets, overlapped
+    (depth 2) against blocking; compressed in buckets, overlapped against
+    blocking, its EF residual in bucket layout; and ZeRO-1 (composed,
+    overlapped) against the per-leaf composed run, both at clip_norm 0,
+    with ZeRO's optimizer state half the unsharded state plus padding a
+    rank.  Returns {path: {kernel: launches}} and the runs' numbers."""
+    import gc
+    from repro_torch.train import trainer
+    from repro_torch.tree import leaves
+    model, init, mesh, ds, opt = train_workload()
+    p = mesh.size
+    bucket = dict(bucket_grads=True)
+    pairs = [
+        ("composed, bucketed", "composed", opt, bucket,
+         dict(bucket, overlap=True, overlap_depth=2)),
+        ("compressed, bucketed", "compressed", opt, bucket,
+         dict(bucket, overlap=True, overlap_depth=2)),
+        ("composed, clip_norm 0", "composed", _adamw(TRAIN_LR,
+                                                     clip_norm=0.0),
+         {}, dict(zero=True, overlap=True, overlap_depth=2))]
+    launches, numbers = {}, {}
+    for name, sync, run_opt, base_cfg, new_cfg in pairs:
+        runs = []
+        for cfg in (base_cfg, new_cfg):
+            kind = ("ZeRO-1, overlapped" if cfg.get("zero") else
+                    "overlapped" if cfg.get("overlap") else
+                    "blocking" if cfg else "per leaf")
+            runs.append(_sync_run(model, init, mesh, ds, run_opt,
+                                  f"{name}, {kind}", sync, **cfg))
+            gc.collect()
+            torch.cuda.empty_cache()
+        base, new = runs
+        _same_run(base, new)
+        key = ("zero" if new_cfg.get("zero") else
+               f"{sync}_bucketed")
+        launches[key] = new["launches"]
+        numbers[key] = dict(step_ms=new["step_ms"], peak_gib=new["peak_gib"],
+                            base_step_ms=base["step_ms"],
+                            base_peak_gib=base["peak_gib"])
+        if sync == "compressed":
+            plan = [b.size for b in trainer.grad_bucket_plan(
+                model.abstract_params(), trainer.TrainCfg(
+                    sync_mode=sync, **new_cfg))]
+            print(f"[train] {name}: EF residual in bucket layout: "
+                  f"{new['ef_sizes'] == plan} ({len(plan)} flat f32 "
+                  f"residuals of sizes {plan})")
+            if new["ef_sizes"] != plan:
+                raise AssertionError(f"EF layout {new['ef_sizes']} is not "
+                                     f"the bucket plan {plan}")
+        if new_cfg.get("zero"):
+            n = [t.numel() for t in leaves(model.abstract_params())]
+            want = 8 * sum(trainer._zero_pad_len(k, p) for k in n) // p + 4
+            print(f"[train] ZeRO-1 optimizer state a rank: "
+                  f"{new['opt_bytes']:,d} B against {base['opt_bytes']:,d} B "
+                  f"unsharded (half of it plus padding: {want:,d} B)")
+            if new["opt_bytes"] != want or base["opt_bytes"] != 8 * sum(
+                    n) + 4:
+                raise AssertionError("ZeRO optimizer-state bytes")
+            numbers[key].update(opt_bytes=new["opt_bytes"],
+                                base_opt_bytes=base["opt_bytes"])
+        del runs, base, new
+        gc.collect()
+        torch.cuda.empty_cache()
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def phase_ckpt():
+    """The reduced granite-34b as ZeRO-1 over 4 thread ranks on the card
+    for 2 steps, an async sharded save of its CUDA tensors, a restore onto
+    2 ranks (``allow_resize_1d``) whose gathered logical state must equal
+    the saved one bit for bit, one more step with a finite loss, and no
+    ``.tmp`` directory left."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, load_manifest
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import build_session
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.train import trainer
+    from repro_torch.tree import flatten, map_tree
+    cfg = get_config("granite-34b", reduced=True)
+    model = build_model(cfg)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                            seq_len=SMALL_TRAIN_SEQ, global_batch=4, seed=0)
+    opt = _adamw(TRAIN_LR)
+    tcfg = trainer.TrainCfg(zero=True, overlap=True)
+    _, states, step_fn = train_run(model, init, substrate.make_host_mesh(
+        4, device="cuda"), ds, opt, "composed", zero=True, overlap=True)
+    for step in range(2):
+        states, _ = step_fn(states, ds.host_batch(step))
+    saved = trainer.gather_state(states, tcfg)
+    want = map_tree(lambda t: t.clone(), trainer.logical_state(saved))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(HERE, "build"))
+    try:
+        mgr = CheckpointManager(root, every=1, async_=True, sharded=True)
+        mgr.maybe_save(2, saved)
+        mgr.wait()
+        names = sorted(os.listdir(root))
+        shards = sum(len(e.get("shards", ())) for e in
+                     load_manifest(root)["leaves"])
+        mesh2 = substrate.make_host_mesh(2, device="cuda")
+        tree, step = mgr.restore_latest(
+            trainer.global_abstract_state(model, opt, tcfg, mesh2),
+            device="cuda", allow_resize_1d=True)
+        restored = trainer.scatter_state(tree, tcfg, mesh2)
+        got = trainer.logical_state(trainer.gather_state(restored, tcfg))
+        (gl, gp), (wl, wp) = flatten(got), flatten(want)
+        same = gp == wp and all(_bits_equal(a, b) for a, b in zip(gl, wl))
+        session = build_session(mesh2, model, opt, ds, tcfg)
+        step_fn2 = trainer.make_train_step(model, opt, tcfg,
+                                           comm=session.world)
+        restored, metrics = step_fn2(restored, ds.host_batch(step))
+        loss = metrics["loss"].item()
+        print(f"[ckpt] ZeRO-1 reduced granite-34b, 4 ranks, 2 steps: async "
+              f"sharded save ({shards} shard files); "
+              f"directory holds {names}; restored at step {step} onto 2 "
+              f"ranks: logical state bit-identical {same}; step {step + 1} "
+              f"loss {loss:.4f}")
+        if not same or not np.isfinite(loss) or names != [
+                f"step_{2:08d}"] or not shards:
+            raise AssertionError("checkpoint round trip onto 2 ranks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -859,10 +1090,11 @@ SYNC_SOURCES = {
                     "src/repro/kernels/quantize/kernel.py:90")}
 
 
-def _sync_entry(name, sync_rows, train):
+def _sync_entry(name, sync_rows, train, by_path):
     """The kernels-line entry of a sync kernel: times at its largest
     main-path call (the combine chunk in the gradients' bf16, the
-    compressed chunk in f32), launches from the training run."""
+    compressed chunk in f32), launches from the per-leaf training run
+    and, by path, from the bucketed and ZeRO runs."""
     key = ((name, "combine chunk", "bfloat16") if name == "sum_chunks"
            else (name, "compressed chunk", "float32"))
     row = sync_rows[key]
@@ -870,6 +1102,8 @@ def _sync_entry(name, sync_rows, train):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/" + source,
             "replaces": replaces, "launches": train[name],
+            "launches_by_path": {path: counts[name] for path, counts
+                                 in by_path.items() if name in counts},
             "max_abs_err": max(r["max_abs_err"] for k, r in
                                sync_rows.items() if k[0] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -898,6 +1132,8 @@ def main() -> int:
     sync_rows = phase_collectives()
     phase_train_small()
     train = phase_train()
+    by_path, _ = phase_train_sync()
+    phase_ckpt()
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s")
 
     card = subprocess.run(
@@ -924,7 +1160,8 @@ def main() -> int:
         "plain_ms_bf16_cache": bf16_row["plain_ms"],
         "bound_ms_bf16_cache": bf16_row["bound_ms"],
         "library_ms_bf16_cache": bf16_row["library_ms"]}] + [
-            _sync_entry(name, sync_rows, train) for name in SYNC_KERNELS]}))
+            _sync_entry(name, sync_rows, train, by_path)
+            for name in SYNC_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,10 @@ facade.  Counterpart of ``repro.comm``.
 """
 
 from repro_torch.comm import collectives
-from repro_torch.comm.session import (Communicator, Session,
-                                      SessionFinalizedError)
+from repro_torch.comm.session import (Communicator, HandleRevokedError,
+                                      InFlightHandleError, PersistentHandle,
+                                      Session, SessionFinalizedError)
 
-__all__ = ["Communicator", "Session", "SessionFinalizedError",
+__all__ = ["Communicator", "HandleRevokedError", "InFlightHandleError",
+           "PersistentHandle", "Session", "SessionFinalizedError",
            "collectives"]

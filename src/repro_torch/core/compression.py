@@ -46,6 +46,14 @@ class EFState:
                                             device=x.device))
 
 
+def bucket_ef_zeros(buckets, device=None) -> tuple:
+    """Error-feedback residual layout for dtype-grouped gradient buckets
+    (``plan.plan_buckets``): one flat f32 residual per bucket, whatever
+    the bucket's wire dtype (as the reference lays it out)."""
+    return tuple(torch.zeros((b.size,), dtype=torch.float32, device=device)
+                 for b in buckets)
+
+
 # ---------------------------------------------------------------------------
 # The protocol: int8-on-the-wire ring all-reduce
 # ---------------------------------------------------------------------------

@@ -6,13 +6,16 @@ gradient sync needs: planned dispatch of ``all_reduce`` (ring,
 bidirectional ring, Rabenseifner, recursive doubling) with its
 start/progress/wait arms — the blocking call is literally
 ``wait(start(x))`` — the error-feedback ``compressed_all_reduce`` with
-its arms, ``sync_gradients`` (one collective per leaf), and
-``EngineConfig``.  The reference's two kernel switches
+its arms, the two-phase gradient-sync arms (``sync_gradient_*``), the
+ZeRO-1 seam (``zero_reduce_scatter_*``, ``zero_all_gather_*``),
+persistent bindings (``bind_persistent``), ``sync_gradients`` (one
+collective per leaf), ``sync_gradients_bucketed`` (fused dtype-grouped
+buckets) and ``EngineConfig``.  The reference's two kernel switches
 (``use_quantize_kernel``, ``use_local_reduce_kernel``) have no
 counterpart: the ring combine and the int8 ops always go through their
 ``ops``, which take the CUDA kernels on the card and the plain versions
-on the CPU.  Bucketed sync, ZeRO arms, persistent bindings and the
-monolithic baseline arrive with later slices.
+on the CPU.  Multi-axis all-reduce and the monolithic baseline are not
+ported.
 
 Construction mirrors the paper's pipeline:
 
@@ -32,7 +35,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -90,6 +94,20 @@ class InFlight:
     scale: Optional[float] = None
     waited: bool = False
     stepper: Any = None
+
+
+@dataclasses.dataclass
+class SyncInFlight:
+    """An in-flight gradient-sync collective: one bucket (or leaf) whose
+    start phase has run.  ``sync_gradient_wait`` consumes it: the
+    remaining stages, the compressed path's cross-axis reductions, the
+    mean scale and (compressed only) the error-feedback residual."""
+
+    inner: Any                  # InFlight | compression.CompressedInFlight
+    compress: bool
+    axes: Tuple[str, ...]
+    scale: Optional[float]
+    waited: bool = False
 
 
 class CollectiveEngine:
@@ -283,7 +301,7 @@ class CollectiveEngine:
         tok = self._allreduce_1d_start(x, axes[0])
         if mean:
             tok.scale = self.mean_scale(axes)
-        self.stats.record_phase(fn, "start", tok.start_bytes)
+        self._record_phase(fn, "start", tok.start_bytes)
         return tok
 
     def all_reduce_wait(self, token: InFlight) -> torch.Tensor:
@@ -308,7 +326,7 @@ class CollectiveEngine:
         if k:
             moved = token.wait_bytes * k // remaining_before
             token.wait_bytes -= moved
-            self.stats.record_phase(token.fn, "progress", moved)
+            self._record_phase(token.fn, "progress", moved)
         return k
 
     def _wait_inflight(self, token: InFlight) -> torch.Tensor:
@@ -317,7 +335,7 @@ class CollectiveEngine:
                 f"in-flight {token.fn} token was already waited — each "
                 f"start() produces exactly one wait()able reduction")
         token.waited = True
-        self.stats.record_phase(token.fn, "wait", token.wait_bytes)
+        self._record_phase(token.fn, "wait", token.wait_bytes)
         y = token.finish()
         if token.scale is not None:
             y = scale_by(y, token.scale)
@@ -344,7 +362,7 @@ class CollectiveEngine:
         tok = compression.compressed_all_reduce_start(x, axis_name, state)
         sb, _ = plan_mod.phase_wire_bytes(
             costmodel.RING, tok.p, compressed_wire_bytes(x.numel()))
-        self.stats.record_phase(fn, "start", sb)
+        self._record_phase(fn, "start", sb)
         return tok
 
     def compressed_all_reduce_progress(self, token, stages: int = 1) -> int:
@@ -363,7 +381,7 @@ class CollectiveEngine:
         if k:
             moved = token.wait_bytes_left * k // remaining_before
             token.wait_bytes_left -= moved
-            self.stats.record_phase(fn, "progress", moved)
+            self._record_phase(fn, "progress", moved)
         return k
 
     def compressed_all_reduce_wait(self, token):
@@ -373,10 +391,13 @@ class CollectiveEngine:
         else:
             _, wb = plan_mod.phase_wire_bytes(
                 costmodel.RING, token.p, compressed_wire_bytes(token.n))
-        self.stats.record_phase(fn, "wait", wb)
+        self._record_phase(fn, "wait", wb)
         return layers.tier_output(self.tier(fn),
                                   compression.compressed_all_reduce_wait(
                                       token))
+
+    def _record_phase(self, fn: str, phase: str, nbytes: int) -> None:
+        self.stats.record_phase(fn, phase, nbytes, c.rank())
 
     # -- setup / rank queries ----------------------------------------------
 
@@ -453,6 +474,379 @@ class CollectiveEngine:
                 y = self.all_reduce(y, ax)
             out.append(scale_by(y, scale) if mean else y)
         return unflatten(paths, out), unflatten(paths, states)
+
+
+    def sync_gradients_bucketed(
+        self, grads: Any, axis_name, *, mean: bool = True,
+        bucket_bytes: Optional[int] = plan_mod.DEFAULT_BUCKET_BYTES,
+        compress: bool = False, ef_state: Any = None,
+    ):
+        """Fused, dtype-grouped, size-capped gradient sync: leaves are
+        grouped by dtype (bf16 stays bf16 on the wire), each group is
+        split into buckets of at most ``bucket_bytes``, and each bucket is
+        one collective with its own planned protocol.
+
+        ``ef_state`` (compress only) is a tuple of per-bucket flat f32
+        residuals matching ``plan.plan_buckets`` on these leaves (None to
+        init; ``compression.bucket_ef_zeros`` builds it; its residuals are
+        updated in place).  Returns (synced_grads, new_ef_state)."""
+        leaves, paths = flatten(grads)
+        if not leaves:
+            return grads, ef_state
+        axes = _as_axes(axis_name)
+        buckets = plan_mod.plan_buckets(leaves, bucket_bytes)
+        scale = self.mean_scale(axes) if mean else 1.0
+        out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        new_ef: List[Any] = []
+        if compress:
+            if ef_state is None:
+                ef_state = compression.bucket_ef_zeros(
+                    buckets, device=leaves[0].device)
+            else:
+                check_bucket_ef(ef_state, buckets)
+        for bi, bucket in enumerate(buckets):
+            flat = plan_mod.gather_bucket(leaves, bucket)
+            if compress:
+                self.stats.record(SYNC_STATS_KEY,
+                                  compressed_wire_bytes(bucket.size))
+                st = compression.EFState(residual=ef_state[bi])
+                y, st2 = self.compressed_all_reduce(flat, axes[0], st)
+                for ax in axes[1:]:
+                    y = self.all_reduce(y, ax)
+                # in place, as the per-leaf path does: a second set of
+                # f32 residuals is never alive
+                ef_state[bi].copy_(st2.residual)
+                new_ef.append(ef_state[bi])
+            else:
+                self.stats.record(SYNC_STATS_KEY, bucket.nbytes)
+                y = self.all_reduce(flat, axes if len(axes) > 1 else axes[0])
+            if mean:
+                y = scale_by(y, scale)
+            plan_mod.scatter_bucket(y, bucket, out)
+        return (unflatten(paths, out),
+                tuple(new_ef) if compress else ef_state)
+
+    # -- two-phase gradient sync (what the overlapped trainer drives) -----
+
+    def sync_gradient_start(self, g: torch.Tensor, axis_name, *,
+                            mean: bool = True, compress: bool = False,
+                            ef_residual: Optional[torch.Tensor] = None
+                            ) -> SyncInFlight:
+        """Issue the start phase of ONE gradient tensor's sync (a fused
+        bucket or a leaf).  Records wire bytes under ``SYNC_STATS_KEY``
+        as the blocking ``sync_gradients[_bucketed]`` paths do, so
+        overlapped and blocking runs report the same traffic."""
+        axes = _as_axes(axis_name)
+        scale = self.mean_scale(axes) if mean else None
+        if compress:
+            self.stats.record(SYNC_STATS_KEY,
+                              compressed_wire_bytes(g.numel()))
+            state = (compression.EFState(residual=ef_residual)
+                     if ef_residual is not None else None)
+            inner = self.compressed_all_reduce_start(g, axes[0], state)
+        else:
+            self.stats.record(SYNC_STATS_KEY, layers.nbytes(g))
+            inner = self.all_reduce_start(
+                g, axes if len(axes) > 1 else axes[0])
+        return SyncInFlight(inner=inner, compress=compress, axes=axes,
+                            scale=scale)
+
+    def sync_gradient_progress(self, token: SyncInFlight,
+                               stages: int = 1) -> int:
+        """Advance one in-flight gradient sync by up to ``stages``
+        wait-phase protocol stages without finalizing it (the schedule
+        IR's ``progress`` op).  EF residuals and the mean scale stay
+        untouched: they belong to wait."""
+        if token.waited:
+            raise RuntimeError(
+                "cannot progress an already-waited gradient sync")
+        if token.compress:
+            return self.compressed_all_reduce_progress(token.inner, stages)
+        return self._progress_inflight(token.inner, stages)
+
+    def sync_gradient_wait(self, token: SyncInFlight):
+        """Finalize one in-flight gradient sync: remaining stages, the
+        compressed path's cross-axis reductions, the mean scale and the
+        EF-residual update (residuals change here and ONLY here).
+        Returns (synced, new_ef_residual | None)."""
+        if token.waited:
+            raise RuntimeError("in-flight gradient sync was already waited")
+        token.waited = True
+        new_residual = None
+        if token.compress:
+            y, st = self.compressed_all_reduce_wait(token.inner)
+            for ax in token.axes[1:]:
+                y = self.all_reduce(y, ax)
+            if st is not None:
+                new_residual = st.residual
+        else:
+            y = self._wait_inflight(token.inner)
+        if token.scale is not None:
+            y = scale_by(y, token.scale)
+        return y, new_residual
+
+    # -- the ZeRO-1 seam: RS-only grad sync + updated-param all-gather --
+    #
+    # Every planned all-reduce protocol decomposes into a reduce-scatter
+    # arm and an all-gather arm; ZeRO-1 stops the gradient sync at that
+    # seam (each rank keeps its reduced chunk and runs the elementwise
+    # optimizer update on it) and all-gathers the *updated params*
+    # instead.  The RS half below IS the planned all-reduce's own start
+    # phase — same protocol, same padding, same stage order — so the
+    # chunk is bit-identical to the matching rows of the all-reduce.
+
+    def zero_protocols(self, nbytes: int, axis: str) -> Tuple[str, str]:
+        """(rs_protocol, ag_protocol) of the ZeRO seam for an ``nbytes``
+        payload on ``axis``: the PLANNED all-reduce protocol's halves.
+        Seamless protocols (recursive doubling) have no RS/AG split: the
+        RS arm then runs the whole planned all-reduce and slices, and the
+        gather side takes the ring all-gather."""
+        ar = self.protocol_for(registry.ALL_REDUCE, nbytes, axis)
+        ag = {costmodel.RING: costmodel.RING,
+              costmodel.BIDIR_RING: costmodel.BIDIR_RING,
+              costmodel.RECURSIVE_HALVING: costmodel.RECURSIVE_DOUBLING,
+              }.get(ar, costmodel.RING)
+        return ar, ag
+
+    def _zero_rs_start(self, x: torch.Tensor, axis: str) -> InFlight:
+        """The RS half of the planned all-reduce of ``x`` on one axis; the
+        token's finish yields this rank's reduced padded-flat chunk.  No
+        stats here: the public and persistent arms record."""
+        fn = registry.REDUCE_SCATTER
+        p = self._axis_size(axis)
+        if p == 1:
+            flat = x.reshape(-1)
+            return InFlight(fn, (axis,), lambda: flat, protocol="local")
+        nb = layers.nbytes(x)
+        proto = self.zero_protocols(nb, axis)[0]
+        sb, _ = plan_mod.phase_wire_bytes(proto, p, nb, fn)
+        x2d, _, _ = self._chunked(x, p)
+        if proto == costmodel.RING:
+            chunk = ring.ring_reduce_scatter_flat(x2d, axis)
+        elif proto == costmodel.BIDIR_RING:
+            chunk = ring.bidir_ring_reduce_scatter_flat(x2d, axis)
+        elif proto == costmodel.RECURSIVE_HALVING:
+            chunk = recursive.halving_reduce_scatter_flat(x2d, axis)
+        else:
+            # no seam: the planned all-reduce whole, then this rank's rows
+            # (the same bits, billed at the full all-reduce's share)
+            y = self._allreduce_1d(x, axis, proto=proto)
+            y2d, _, _ = self._chunked(y, p)
+            chunk = c.dyn_chunk(y2d, c.axis_index(axis))
+        return InFlight(fn, (axis,), lambda: chunk, proto, sb, 0)
+
+    def _zero_ag_start(self, shard: torch.Tensor, axis: str) -> InFlight:
+        """The AG half: the per-rank updated chunks back into the full
+        padded-flat vector (data movement only: every gather order gives
+        the same bits).  ``finish`` yields the flat (p*chunk,) vector."""
+        fn = registry.ALL_GATHER
+        p = self._axis_size(axis)
+        flat = shard.reshape(-1)
+        if p == 1:
+            return InFlight(fn, (axis,), lambda: flat, protocol="local")
+        full = layers.nbytes(shard) * p
+        proto = self.zero_protocols(full, axis)[1]
+        sb, _ = plan_mod.phase_wire_bytes(proto, p, full, fn)
+        if proto == costmodel.RECURSIVE_DOUBLING:
+            buf = recursive.doubling_all_gather_flat(flat, axis)
+        elif proto == costmodel.BIDIR_RING:
+            buf = ring.bidir_ring_all_gather_flat(flat, axis)
+        else:
+            buf = ring.ring_all_gather_flat(flat, axis)
+        return InFlight(fn, (axis,), lambda: buf.reshape(-1), proto, sb, 0)
+
+    def zero_reduce_scatter_start(self, g: torch.Tensor, axis_name, *,
+                                  mean: bool = True) -> InFlight:
+        """ZeRO-1 gradient sync stopped at the RS/AG seam: only the
+        reduce-scatter half of the PLANNED all-reduce runs; the wait arm
+        yields this rank's reduced padded-flat chunk with the mean scale
+        applied.  ``SYNC_STATS_KEY`` records the RS phase share alone."""
+        fn = registry.REDUCE_SCATTER
+        self._check(fn)
+        axes = _as_axes(axis_name)
+        if len(axes) != 1:
+            raise ValueError(f"zero_reduce_scatter runs over exactly one "
+                             f"data axis, got {axes}")
+        g = layers.tier_input(fn, self.tier(fn), g, axes[0], self.stats,
+                              sanitize=self.config.sanitize_checked)
+        tok = self._zero_rs_start(g, axes[0])
+        if mean:
+            tok.scale = self.mean_scale(axes)
+        self.stats.record(SYNC_STATS_KEY, tok.start_bytes)
+        self._record_phase(fn, "start", tok.start_bytes)
+        return tok
+
+    def zero_reduce_scatter_wait(self, token: InFlight) -> torch.Tensor:
+        return self._wait_inflight(token)
+
+    def zero_all_gather_start(self, shard: torch.Tensor,
+                              axis_name) -> InFlight:
+        """Start the updated-param all-gather of a ZeRO step; the wait
+        arm yields the full padded-flat vector (callers unpad)."""
+        fn = registry.ALL_GATHER
+        self._check(fn)
+        axes = _as_axes(axis_name)
+        if len(axes) != 1:
+            raise ValueError(f"zero_all_gather runs over exactly one "
+                             f"data axis, got {axes}")
+        shard = layers.tier_input(fn, self.tier(fn), shard, axes[0],
+                                  self.stats,
+                                  sanitize=self.config.sanitize_checked)
+        tok = self._zero_ag_start(shard, axes[0])
+        self._record_phase(fn, "start", tok.start_bytes)
+        return tok
+
+    def zero_all_gather_wait(self, token: InFlight) -> torch.Tensor:
+        return self._wait_inflight(token)
+
+    # -- persistent bindings (MPI Advance's MPIX_*_init analogue) ----------
+
+    def bind_persistent(self, fn: str, shape: Sequence[int], dtype,
+                        axis_name, *, mean: bool = False,
+                        sync_stats: bool = False,
+                        zero: bool = False) -> "PersistentBinding":
+        """Resolve everything one collective call site needs (protocol,
+        tier stack, mean scale) ONCE for a fixed (shape, dtype, axis)
+        signature.  The binding's ``call`` does no lookup; its
+        ``start``/``wait``/``progress`` arms split the same schedule, so
+        ``call(x)`` and ``wait(start(x))`` give the same bits.
+
+        ``sync_stats=True`` marks a gradient-sync call site: every call
+        or start records its wire bytes under ``SYNC_STATS_KEY`` as the
+        planned ``sync_gradients*`` paths do.  ``zero=True`` binds the
+        ZeRO-1 seam arms of ``reduce_scatter`` (the planned all-reduce's
+        RS half; output: this rank's padded-flat chunk) and
+        ``all_gather`` (the chunk back to the padded-flat vector).  The
+        port binds ``all_reduce`` over one axis and these two arms."""
+        axes = _as_axes(axis_name)
+        self._check(fn)
+        if zero and fn not in (registry.REDUCE_SCATTER, registry.ALL_GATHER):
+            raise ValueError(f"zero=True binds the ZeRO-1 seam arms; only "
+                             f"reduce_scatter/all_gather support it, "
+                             f"not {fn!r}")
+        if sync_stats and fn != registry.ALL_REDUCE and \
+                not (zero and fn == registry.REDUCE_SCATTER):
+            raise ValueError(f"sync_stats=True marks a gradient-sync "
+                             f"all_reduce handle, not {fn!r}")
+        for ax in axes:
+            if ax not in self.topology.axis_sizes:
+                raise ValueError(
+                    f"cannot bind persistent {fn!r}: axis {ax!r} is not in "
+                    f"the engine topology "
+                    f"({sorted(self.topology.axis_sizes)})")
+        if mean and fn != registry.ALL_REDUCE and \
+                not (zero and fn == registry.REDUCE_SCATTER):
+            raise ValueError(f"mean=True is only supported for all_reduce, "
+                             f"not {fn!r}")
+        if len(axes) != 1:
+            raise NotImplementedError(
+                f"persistent {fn!r} over {axes}: multi-axis protocols "
+                "are not ported")
+        shape = tuple(int(s) for s in shape)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        nbytes = math.prod(shape) * itemsize
+        sync_nbytes = nbytes            # what sync_stats records per call
+        ax0 = axes[0]
+        if fn == registry.ALL_REDUCE:
+            proto = self.protocol_for(fn, nbytes, ax0)
+            target = lambda x: self._allreduce_1d(x, ax0, proto=proto)
+            start_impl = lambda x: self._allreduce_1d_start(x, ax0,
+                                                            proto=proto)
+        elif fn == registry.REDUCE_SCATTER and zero:
+            proto = self.zero_protocols(nbytes, ax0)[0]
+            target = lambda x: self._zero_rs_start(x, ax0).finish()
+            start_impl = lambda x: self._zero_rs_start(x, ax0)
+            sync_nbytes = plan_mod.phase_wire_bytes(
+                proto, self._axis_size(ax0), nbytes, fn)[0]
+        elif fn == registry.ALL_GATHER and zero:
+            # the binding shape is the CHUNK; planning happens at the
+            # gathered size
+            proto = self.zero_protocols(nbytes * self._axis_size(ax0),
+                                        ax0)[1]
+            target = lambda x: self._zero_ag_start(x, ax0).finish()
+            start_impl = lambda x: self._zero_ag_start(x, ax0)
+        else:
+            raise NotImplementedError(
+                f"persistent {fn!r}: the port binds all_reduce and the "
+                "ZeRO seam arms (zero=True)")
+        protocols = ((ax0, proto),)
+        scale = self.mean_scale(axes) if mean else None
+        if scale is not None:
+            def target(x, _inner=target, _s=scale):
+                return scale_by(_inner(x), _s)
+
+        tier = self.tier(fn)
+        if tier >= 2:
+            wrapped = layers.wrap_tier(
+                fn, tier, lambda x, _axis, **_: target(x), self.stats,
+                sanitize=self.config.sanitize_checked)
+            call = lambda x, _w=wrapped: _w(x, ax0)
+        else:
+            call = target
+        if sync_stats:
+            def call(x, _inner=call, _nb=sync_nbytes):
+                self.stats.record(SYNC_STATS_KEY, _nb)
+                return _inner(x)
+
+        def start(x, _impl=start_impl, _tier=tier, _nb=sync_nbytes,
+                  _s=scale):
+            if sync_stats:
+                self.stats.record(SYNC_STATS_KEY, _nb)
+            x = layers.tier_input(fn, _tier, x, ax0, self.stats,
+                                  sanitize=self.config.sanitize_checked)
+            tok = _impl(x)
+            if _s is not None:
+                tok.scale = _s
+            self._record_phase(fn, "start", tok.start_bytes)
+            return tok
+
+        return PersistentBinding(
+            fn=fn, axes=axes, protocols=protocols, tier=tier,
+            nbytes=nbytes, mean_scale=scale,
+            fingerprint=self.topology.fingerprint(), call=call,
+            start=start, wait=self._wait_inflight,
+            progress=self._progress_inflight, sync_stats=sync_stats)
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentBinding:
+    """A fully-resolved collective call site, the output of
+    ``CollectiveEngine.bind_persistent``.  ``call`` takes the tensor and
+    nothing else; ``start``/``wait``/``progress`` are the two-phase arms
+    of the same schedule (``call(x)`` gives ``wait(start(x))``'s bits);
+    ``wait`` is where unpad and the mean scale happen.  ``fingerprint``
+    is the topology it was resolved against."""
+
+    fn: str
+    axes: Tuple[str, ...]
+    protocols: Tuple[Tuple[str, str], ...]   # (axis-label, protocol)
+    tier: int
+    nbytes: int
+    mean_scale: Optional[float]
+    fingerprint: Any
+    call: Callable
+    start: Optional[Callable] = None      # x -> InFlight
+    wait: Optional[Callable] = None       # InFlight -> tensor
+    progress: Optional[Callable] = None   # (InFlight, stages) -> int
+    sync_stats: bool = False              # records SYNC_STATS_KEY per call
+
+    def describe(self) -> str:
+        protos = ", ".join(f"{a}:{p}" for a, p in self.protocols)
+        return (f"{self.fn}@{'+'.join(self.axes)} "
+                f"[{protos}] tier=L{self.tier} {self.nbytes}B"
+                + (f" mean={self.mean_scale:.4g}"
+                   if self.mean_scale is not None else ""))
+
+
+def check_bucket_ef(ef_state, buckets) -> None:
+    """Raise unless ``ef_state`` is the bucketed EF layout of
+    ``buckets`` (one flat residual per bucket, of the bucket's size)."""
+    if (len(ef_state) != len(buckets)
+            or any(e.shape[-1] != b.size for e, b in zip(ef_state, buckets))):
+        raise ValueError(
+            f"ef_state layout {[e.shape[-1] for e in ef_state]} does not "
+            f"match the bucket plan {[b.size for b in buckets]} — was it "
+            f"built with the same bucket_bytes?")
 
 
 def compressed_wire_bytes(size: int) -> int:

@@ -20,7 +20,7 @@ import dataclasses
 import logging
 import threading
 from collections import Counter
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -71,14 +71,17 @@ class CommStats:
 
     ``phase_bytes`` attributes wire bytes to the two-phase split of the
     nonblocking collectives (``"<fn>.start"``, ``"<fn>.wait"``,
-    ``"<fn>.progress"``).  Ranks are threads sharing one engine, so every
-    update takes a lock."""
+    ``"<fn>.progress"``), summed over the ranks; ``rank_phase_bytes[r]``
+    is the share of rank r (as its caller names it), what a schedule's
+    per-rank prediction compares with.  Ranks may share one engine, so
+    every update takes a lock."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.calls: Counter = Counter()
         self.bytes: Counter = Counter()
         self.phase_bytes: Counter = Counter()
+        self.rank_phase_bytes: Dict[int, Counter] = {}
         self.events: list = []
 
     def record(self, fn: str, nbytes: int) -> None:
@@ -86,9 +89,13 @@ class CommStats:
             self.calls[fn] += 1
             self.bytes[fn] += nbytes
 
-    def record_phase(self, fn: str, phase: str, nbytes: int) -> None:
+    def record_phase(self, fn: str, phase: str, nbytes: int,
+                     rank: Optional[int] = None) -> None:
+        """``rank``: the caller's rank in its mesh, None outside one."""
         with self._lock:
             self.phase_bytes[f"{fn}.{phase}"] += nbytes
+            self.rank_phase_bytes.setdefault(
+                rank, Counter())[f"{fn}.{phase}"] += nbytes
 
     def event(self, what: str) -> None:
         with self._lock:

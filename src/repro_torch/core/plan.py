@@ -1,8 +1,7 @@
 """Plan-once communication runtime (paper §3/§4): the protocol dispatch
 table and gradient bucket planning.
 
-Counterpart of ``repro.core.plan`` without its schedule-IR passes (which
-arrive with the schedule-IR slice).  The arithmetic is the reference's:
+Counterpart of ``repro.core.plan``.  The arithmetic is the reference's:
 
 * ``CommPlan`` — a per-engine protocol dispatch table keyed on
   ``(function, axis, pow2 size-bucket)``, precomputed from the cost model
@@ -14,6 +13,10 @@ arrive with the schedule-IR slice).  The arithmetic is the reference's:
   split into buckets of at most ``bucket_bytes``.  Dtypes are grouped
   and ordered by their numpy names ("bfloat16", "float32"), as the
   reference orders them.
+
+* Schedule-IR passes — ``reverse_layout_pass``, ``interleave_pass(depth)``
+  and ``hoist_starts_pass``, composed by ``canonical_overlap_passes`` and
+  applied by ``run_passes``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import costmodel, registry
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.costmodel import ProtocolChoice
 from repro_torch.core.topology import Topology
 
@@ -413,3 +417,185 @@ def scatter_bucket(flat: torch.Tensor, bucket: GradBucket,
     for s in bucket.slots:
         out[s.index] = (flat[s.offset:s.offset + s.size]
                         .reshape(s.shape).to(s.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Schedule-IR rewrite passes: the planner's legal transformations of a
+# comm/compute program.  Every overlapped execution order of the port is
+# one of these passes applied to the canonical blocking schedule — never a
+# hand-written loop.  Op for op the reference's.
+# ---------------------------------------------------------------------------
+
+
+def _split_blocking(sched: "schedule_mod.Schedule"):
+    """Split ops into (prefix, unit-order, suffix) where the comm region is
+    strictly blocking ``start; wait`` pairs.  Raises ValueError if the
+    schedule was already pipelined (passes compose on blocking form)."""
+    ops = list(sched.ops)
+    first = next((i for i, op in enumerate(ops)
+                  if isinstance(op, schedule_mod.CommOp)), len(ops))
+    prefix, rest = ops[:first], ops[first:]
+    order: List[str] = []
+    suffix: List[Any] = []
+    i = 0
+    while i < len(rest):
+        op = rest[i]
+        if not isinstance(op, schedule_mod.CommOp):
+            suffix.append(op)
+            i += 1
+            continue
+        if (op.kind != schedule_mod.START or i + 1 >= len(rest)
+                or not isinstance(rest[i + 1], schedule_mod.CommOp)
+                or rest[i + 1].kind != schedule_mod.WAIT
+                or rest[i + 1].unit != op.unit):
+            raise ValueError(
+                "pass expects a blocking schedule (start; wait pairs); "
+                f"got {op.kind}<{op.unit}> at comm position {i}")
+        order.append(op.unit)
+        i += 2
+    return prefix, order, suffix
+
+
+def reverse_layout_pass(sched: "schedule_mod.Schedule"
+                        ) -> "schedule_mod.Schedule":
+    """Reverse the bucket issue order.  Backprop produces the *last*
+    layers' gradients first, so issuing buckets in reverse layout order
+    lets the earliest-ready collectives start first."""
+    prefix, order, suffix = _split_blocking(sched)
+    by_name = {u.name: u for u in sched.units}
+    ops = list(prefix)
+    for name in reversed(order):
+        u = by_name[name]
+        ops.append(schedule_mod.CommOp(
+            kind=schedule_mod.START, unit=name, stages=u.start_stages,
+            bytes=u.start_bytes, uses=u.uses))
+        ops.append(schedule_mod.CommOp(
+            kind=schedule_mod.WAIT, unit=name, stages=u.wait_stages,
+            bytes=u.wait_bytes, defs=u.defs))
+    ops.extend(suffix)
+    out = schedule_mod.Schedule(units=sched.units, ops=tuple(ops),
+                                meta=dict(sched.meta))
+    return out.validate()
+
+
+def interleave_pass(depth: int = 2):
+    """Depth-``depth`` software pipelining of the comm region.
+
+    Keeps up to ``depth`` collectives in flight: start unit k, and once
+    ``depth`` are live, wait the oldest.  ``depth=2`` is the classic
+    software pipeline (start one ahead, no progress hops).  ``depth>=3``
+    also emits a one-stage ``progress`` hop on every younger in-flight
+    unit before each wait, draining wait-phase stages early so the final
+    wait has less exposed work — the *MPI Progress For All* move.
+
+    Progress byte accounting matches the engine's conservation rule
+    (``moved = bytes_left * k // stages_left``), so predicted phase
+    bytes stay exact.
+    """
+    if depth < 1:
+        raise ValueError(f"interleave depth must be >= 1, got {depth}")
+
+    def run(sched: "schedule_mod.Schedule") -> "schedule_mod.Schedule":
+        prefix, order, suffix = _split_blocking(sched)
+        by_name = {u.name: u for u in sched.units}
+        stages_left = {n: by_name[n].wait_stages for n in order}
+        bytes_left = {n: by_name[n].wait_bytes for n in order}
+        ops = list(prefix)
+        inflight: List[str] = []
+
+        def emit_progress(name: str) -> None:
+            if depth < 3 or stages_left[name] <= 0:
+                return
+            moved = bytes_left[name] // stages_left[name]
+            ops.append(schedule_mod.CommOp(
+                kind=schedule_mod.PROGRESS, unit=name, stages=1,
+                bytes=moved))
+            stages_left[name] -= 1
+            bytes_left[name] -= moved
+
+        def emit_wait(name: str) -> None:
+            u = by_name[name]
+            ops.append(schedule_mod.CommOp(
+                kind=schedule_mod.WAIT, unit=name,
+                stages=stages_left[name], bytes=bytes_left[name],
+                defs=u.defs))
+
+        for name in order:
+            u = by_name[name]
+            ops.append(schedule_mod.CommOp(
+                kind=schedule_mod.START, unit=name, stages=u.start_stages,
+                bytes=u.start_bytes, uses=u.uses))
+            inflight.append(name)
+            if len(inflight) > depth - 1:
+                oldest = inflight.pop(0)
+                for younger in inflight:
+                    emit_progress(younger)
+                emit_wait(oldest)
+        while inflight:
+            oldest = inflight.pop(0)
+            for younger in inflight:
+                emit_progress(younger)
+            emit_wait(oldest)
+        ops.extend(suffix)
+        out = schedule_mod.Schedule(units=sched.units, ops=tuple(ops),
+                                    meta=dict(sched.meta))
+        return out.validate()
+
+    run.__name__ = f"interleave_pass(depth={depth})"
+    return run
+
+
+def hoist_starts_pass(sched: "schedule_mod.Schedule"
+                      ) -> "schedule_mod.Schedule":
+    """Hoist ``start`` ops upward across overlappable compute.
+
+    A start may cross a ``ComputeOp`` iff the compute is marked
+    ``overlappable`` and defines none of the collective's operands (SSA
+    legality).  The crossed start is annotated ``overlaps=<tag>`` so the
+    predicted timeline knows which compute hides its launch (the peeled
+    microbatch of the overlapped train step)."""
+    ops = list(sched.ops)
+    by_name = {u.name: u for u in sched.units}
+    changed = True
+    while changed:
+        changed = False
+        for i in range(1, len(ops)):
+            op = ops[i]
+            if (not isinstance(op, schedule_mod.CommOp)
+                    or op.kind != schedule_mod.START):
+                continue
+            prev = ops[i - 1]
+            if (not isinstance(prev, schedule_mod.ComputeOp)
+                    or not prev.overlappable):
+                continue
+            operands = set(op.uses) | set(by_name[op.unit].uses)
+            if operands & set(prev.defs):
+                continue
+            ops[i - 1], ops[i] = (dataclasses.replace(op, overlaps=prev.tag),
+                                  prev)
+            changed = True
+    out = schedule_mod.Schedule(units=sched.units, ops=tuple(ops),
+                                meta=dict(sched.meta))
+    return out.validate()
+
+
+def canonical_overlap_passes(depth: int = 2):
+    """The overlapped train step's pass pipeline: reverse layout order,
+    depth-``depth`` interleaving, start hoisting."""
+    return (
+        ("reverse_layout", reverse_layout_pass),
+        (f"interleave_depth{depth}", interleave_pass(depth)),
+        ("hoist_starts", hoist_starts_pass),
+    )
+
+
+def run_passes(sched: "schedule_mod.Schedule", passes
+               ) -> Tuple["schedule_mod.Schedule", Dict[str, float]]:
+    """Apply (name, pass) pairs in order, validating after each.
+    Returns the rewritten schedule and per-pass wall time in µs."""
+    timings: Dict[str, float] = {}
+    for name, p in passes:
+        t0 = time.perf_counter()
+        sched = p(sched).validate()
+        timings[name] = (time.perf_counter() - t0) * 1e6
+    return sched, timings

@@ -10,7 +10,7 @@ choices are plain branches.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +23,11 @@ def axis_size(axis_name: str) -> int:
 
 def axis_index(axis_name: str) -> int:
     return substrate.axis_index(axis_name)
+
+
+def rank() -> Optional[int]:
+    """The caller's rank in its mesh, None outside one."""
+    return substrate.current_rank()
 
 
 def ppermute(x: torch.Tensor, axis_name: str, perm) -> torch.Tensor:

@@ -9,16 +9,20 @@ computes and no memory is allocated, and every hop (``ppermute``, with
 its bytes) and rank query (``axis_index``) is recorded as a call site —
 the primitives the reference's jaxpr holds for the same step.  The
 result is the function set 𝓕 plus the counts that drive tier
-assignment (paper §3).  ``TraceReport.to_schedule`` waits for the
-schedule-IR slice.
+assignment (paper §3), and, through ``TraceReport.to_schedule``, the
+step's program order as a comm schedule.  The recording transport sees
+hops, not the compute between them, so the port's scanned schedule has
+no compute barriers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
+from repro_torch.core import registry
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.runtime import substrate
 
 
@@ -70,6 +74,50 @@ class TraceReport:
         for fn in sorted(freq, key=lambda f: -freq[f]):
             lines.append(f"{fn:<18s} {int(freq[fn]):>8d} {byt[fn]:>16,d}")
         return "\n".join(lines)
+
+    def to_schedule(self, plan=None, topology=None) -> schedule_mod.Schedule:
+        """The scanned program as a schedule, annotated through a
+        ``CommPlan``: each unit gets the planned protocol, its (start,
+        wait) stage split for its function and the cost model's per-phase
+        wire bytes.  Without a plan, the scanner's default annotation."""
+        base = _sites_schedule(self.sites)
+        if plan is None:
+            return base
+        topo = topology if topology is not None else plan.topology
+
+        def resolve(u: schedule_mod.CommUnit) -> schedule_mod.CommUnit:
+            from repro_torch.core import plan as plan_mod
+            axis = u.axes[0] if u.axes else None
+            nbytes = u.start_bytes + u.wait_bytes
+            if axis is None or topo is None or axis not in topo.axis_sizes:
+                return u
+            entry = plan.entry_for(u.fn, nbytes, axis)
+            p = topo.axis_sizes[axis]
+            sb, wb = plan_mod.phase_wire_bytes(entry.protocol, p, nbytes,
+                                               u.fn)
+            return dataclasses.replace(
+                u, protocol=entry.protocol,
+                start_stages=entry.start_stages,
+                wait_stages=entry.wait_stages,
+                start_bytes=sb, wait_bytes=wb)
+
+        return schedule_mod.annotate(base, resolve)
+
+
+def _sites_schedule(sites: List[CallSite]) -> schedule_mod.Schedule:
+    """Default-annotated schedule of a scanned step: every collective an
+    ``xla_default`` single-stage unit (the pre-plan view), in program
+    order; rank queries are not messages and are dropped."""
+    evs: List[Tuple[str, Any]] = []
+    for s in sites:
+        if s.function == registry.AXIS_INDEX:
+            continue
+        n = len(evs)
+        evs.append(("comm", schedule_mod.sync_unit(
+            name=f"{s.function}#{n}", index=n, fn=s.function,
+            axes=s.axes, protocol="xla_default", start_stages=1,
+            wait_stages=0, start_bytes=s.nbytes, wait_bytes=0)))
+    return schedule_mod.schedule_from_events(evs)
 
 
 def scan_step(fn: Callable, *args, **kwargs) -> TraceReport:

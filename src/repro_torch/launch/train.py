@@ -3,11 +3,17 @@ in-process ranks on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-34b --reduced --sync composed --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch granite-34b --reduced --sync composed --zero --overlap \\
+        --ckpt-dir /tmp/ck --ckpt-sharded
 
-Counterpart of the non-elastic path of ``repro.launch.train`` without
-checkpoints: synthetic data -> the §2.2 scan and composed session
-(``build_session``) -> ``--data`` ranks running the train step through
-the session's communicator.  Runs on ``cuda`` unless ``--device cpu``;
+Counterpart of the non-elastic path of ``repro.launch.train``: synthetic
+data -> the §2.2 scan and composed session (``build_session``) ->
+``--data`` ranks running the train step through the session's
+communicator, per leaf or in fused buckets (``--bucket-grads``), blocking
+or as an overlapped schedule-IR program (``--overlap``), or as ZeRO-1
+(``--zero``), with atomic async checkpoints (``--ckpt-dir``) that restore
+onto another ``--data`` width.  Runs on ``cuda`` unless ``--device cpu``;
 raises without CUDA.
 """
 
@@ -19,9 +25,11 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.comm import Session
 from repro_torch.configs import ARCH_IDS, get_config, with_num_layers
 from repro_torch.core.engine import EngineConfig
+from repro_torch.core.plan import DEFAULT_BUCKET_BYTES
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -45,7 +53,8 @@ def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
     probe = Session.probe(PROBE_SHAPE, ("data",))
     probe_step = trainer.make_train_step(model, opt, tcfg,
                                          comm=probe.world)
-    abstate = trainer.abstract_state(model, opt, tcfg)
+    # with ZeRO the state's chunks follow the probe's width
+    abstate = trainer.abstract_state(model, opt, tcfg, mesh=probe.mesh)
     abatch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
                              device="meta")
               for k, v in ds.host_batch(0).items()}
@@ -71,6 +80,34 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--sync", choices=["composed", "compressed"],
                     default="composed")
+    ap.add_argument("--bucket-grads", action="store_true",
+                    help="sync gradients in fused dtype-grouped buckets")
+    ap.add_argument("--bucket-bytes", type=int,
+                    default=DEFAULT_BUCKET_BYTES,
+                    help="size cap per gradient bucket")
+    ap.add_argument("--overlap", action="store_true", default=False,
+                    help="run the sync as an overlapped schedule-IR "
+                         "program (start/progress/wait; the same bits as "
+                         "the blocking sync)")
+    ap.add_argument("--no-overlap", dest="overlap", action="store_false",
+                    help="the blocking sync")
+    ap.add_argument("--overlap-depth", type=int, default=2,
+                    help="collectives the interleave pass keeps in "
+                         "flight (2 = software pipeline; >= 3 adds "
+                         "progress hops)")
+    ap.add_argument("--zero", action="store_true", default=False,
+                    help="ZeRO-1: sync gradients with the reduce-scatter "
+                         "half of the planned all-reduce, update each "
+                         "rank's chunk of the optimizer state, all-gather "
+                         "the params (needs --sync composed, excludes "
+                         "--bucket-grads)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory: restore the latest step "
+                         "from it, save into it")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-sharded", action="store_true", default=False,
+                    help="write ZeRO optimizer leaves per rank chunk "
+                         "(shard files with global indices)")
     ap.add_argument("--data", type=int, default=2,
                     help="data-parallel ranks (threads on one device)")
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -78,6 +115,12 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
+    if args.zero and args.sync != "composed":
+        ap.error("--zero needs --sync composed (the RS/AG seam only "
+                 "exists on the composed planned-collective path)")
+    if args.zero and args.bucket_grads:
+        ap.error("--zero runs one RS/AG pair per parameter leaf and is "
+                 "incompatible with --bucket-grads")
 
     logging.basicConfig(level=logging.INFO)
     cfg = get_config(args.arch, reduced=args.reduced,
@@ -92,25 +135,47 @@ def main(argv=None) -> None:
         "adamw", lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 1),
                                     total=args.steps))
     tcfg = trainer.TrainCfg(microbatches=args.microbatches,
-                            sync_mode=args.sync)
+                            sync_mode=args.sync,
+                            bucket_grads=args.bucket_grads,
+                            bucket_bytes=args.bucket_bytes,
+                            overlap=args.overlap,
+                            overlap_depth=args.overlap_depth,
+                            zero=args.zero)
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                             global_batch=args.global_batch, seed=args.seed)
     session = build_session(mesh, model, opt, ds, tcfg)
     logger.info("composed session:\n%s", session.describe())
 
-    gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
-    states = trainer.replicate(
-        trainer.make_train_state(model, opt, model.init(gen), tcfg),
-        mesh.size)
+    ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every,
+                              sharded=args.ckpt_sharded)
+            if args.ckpt_dir else None)
+    restored, start = None, 0
+    if ckpt is not None:
+        restored, rstep = ckpt.restore_latest(
+            trainer.global_abstract_state(model, opt, tcfg, mesh),
+            allow_resize_1d=tcfg.zero)
+    if restored is not None:
+        states, start = trainer.scatter_state(restored, tcfg, mesh), rstep
+        logger.info("restored checkpoint at step %d", start)
+    else:
+        gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
+        states = trainer.replicate(trainer.make_train_state(
+            model, opt, model.init(gen), tcfg, mesh=mesh), mesh.size)
     step_fn = trainer.make_train_step(model, opt, tcfg, comm=session.world)
     t0 = time.time()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         states, metrics = step_fn(states, ds.host_batch(step))
+        if ckpt is not None:
+            ckpt.maybe_save(step + 1, trainer.gather_state(states, tcfg))
         if step % args.log_every == 0 or step == args.steps - 1:
             logger.info("step %4d  loss %.4f  |g| %.3f  lr %.2e  "
                         "(%.2fs/step)", step, float(metrics["loss"]),
                         float(metrics["grad_norm"]), float(metrics["lr"]),
-                        (time.time() - t0) / (step + 1))
+                        (time.time() - t0) / (step - start + 1))
+    if ckpt is not None:
+        ckpt.maybe_save(args.steps, trainer.gather_state(states, tcfg),
+                        force=True)
+        ckpt.wait()
     logger.info("session stats:\n%s", session.finalize())
 
 

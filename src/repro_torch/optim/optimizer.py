@@ -12,6 +12,13 @@ given (the reference returns new trees), slice by slice, clipping each
 slice's gradient as it goes: a replica of a large model then never holds
 two copies of its params, moments or gradients, nor f32 temporaries of
 more than one slice.  It runs under ``torch.no_grad``.
+
+The update is elementwise (clipping aside), so it runs unchanged on
+ZeRO-1's flat, padded per-rank chunks (``repro_torch.train.trainer``):
+``init`` over the chunk leaves gives a rank its 1/p of the moments, and
+``update(..., global_norm_fn=...)`` takes the norm the ranks computed
+together.  Padding stays zero: a zero gradient moves a zero param by
+nothing.
 """
 
 from __future__ import annotations

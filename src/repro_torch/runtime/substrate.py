@@ -145,6 +145,13 @@ def _as_rank(transport, rank: int, mesh: Mesh):
         _local.rank = prev
 
 
+def current_rank() -> Optional[int]:
+    """The calling thread's rank in its ``run_spmd``, or None outside
+    one."""
+    ctx = getattr(_local, "rank", None)
+    return None if ctx is None else ctx.rank
+
+
 def axis_size(axis: str) -> int:
     ctx = _current()
     if axis not in ctx.coords:

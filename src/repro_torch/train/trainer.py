@@ -5,32 +5,61 @@ Counterpart of ``repro.train.trainer`` for the two composed sync modes:
   composed   — every rank computes the loss and gradients of its rows of
                the batch, and gradients are synced through a
                ``repro_torch.comm`` communicator whose per-function
-               protocols are cost-model selected (``_leaf_sync``: one
-               collective per leaf).
+               protocols are cost-model selected.
   compressed — composed + the int8 error-feedback compressed all-reduce;
                the EF residual lives in the train state across steps.
 
+and the reference's ways of running that sync:
+
+  per leaf   — one collective per gradient leaf (``_leaf_sync``).
+  bucketed   — ``TrainCfg.bucket_grads``: leaves grouped by dtype (bf16
+               stays bf16 on the wire) into buckets of at most
+               ``TrainCfg.bucket_bytes``, one collective each, through
+               persistent handles bound once (``_bucket_sync``).
+  overlapped — ``TrainCfg.overlap``.  Every sync is a schedule-IR
+               program: the communicator's canonical blocking program,
+               which ``schedule.execute`` turns into start / progress /
+               wait calls.  With ``overlap`` the planner's passes rewrite
+               it first (reverse layout order, depth-``overlap_depth``
+               interleaving, start hoisting).  Each unit's arithmetic is
+               the same either way, so the bits are the same.  On one
+               card the ranks share one stream and an in-process
+               transport: the program sets the order of the hops, not
+               concurrency.
+  ZeRO-1     — ``TrainCfg.zero``: gradients sync with only the reduce-
+               scatter half of the planned all-reduce, each rank updates
+               its chunk of a flat, padded optimizer state, and the
+               updated param chunks all-gather back; both halves are
+               schedule-IR programs over persistent handles.  The update
+               is elementwise, so at ``clip_norm=0`` on a power-of-two
+               width the losses are bit-identical to the per-leaf path.
+
 The reference's ``auto`` mode (collectives inserted by the compiler)
-has no counterpart here.  Bucketed sync, overlap, ZeRO-1 and the
-elastic ``TrainSession`` arrive with later slices.
+has no counterpart here, nor does its elastic ``TrainSession``.
 
 Ranks are the threads of ``substrate.run_spmd``.  Each holds its own
-replica of the state (a list, one per rank); ``train_step(states,
-batch)`` gives every rank its rows of the global batch, as the
-reference's ``shard_map`` splits the batch over the data axes.
+state (a list, one per rank); ``train_step(states, batch)`` gives every
+rank its rows of the global batch, as the reference's ``shard_map``
+splits the batch over the data axes.  Handles, schedules and the bucket
+layout are static in (param shapes, dtypes, data-parallel width) and are
+built once per ``make_train_step``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ShardedTensor
 from repro_torch.comm import Communicator
-from repro_torch.core.compression import EFState
-from repro_torch.core.engine import scale_by
+from repro_torch.core import plan as plan_mod
+from repro_torch.core import schedule as schedule_mod
+from repro_torch.core.compression import bucket_ef_zeros
+from repro_torch.core.engine import check_bucket_ef, scale_by
 from repro_torch.runtime import substrate
 from repro_torch.tree import flatten, leaves, map_tree, unflatten
 
@@ -43,6 +72,14 @@ class TrainCfg:
     sync_mode: str = "composed"          # composed | compressed
     data_axes: Tuple[str, ...] = ("data",)
     grad_dtype: Any = torch.float32      # accumulation dtype (microbatches)
+    bucket_grads: bool = False           # fused dtype-grouped buckets
+    bucket_bytes: int = plan_mod.DEFAULT_BUCKET_BYTES  # cap per bucket
+    overlap: bool = False                # schedule-IR start/wait sync
+    # in-flight collectives the interleave pass keeps live: 2 is the
+    # classic software pipeline (no progress hops); >= 3 adds per-stage
+    # progress hops on the younger in-flight units
+    overlap_depth: int = 2
+    zero: bool = False                   # ZeRO-1 optimizer-state sharding
 
     def __post_init__(self):
         if self.sync_mode not in ("composed", "compressed"):
@@ -52,23 +89,106 @@ class TrainCfg:
                 "no counterpart)")
         if self.microbatches < 1:
             raise ValueError(f"microbatches={self.microbatches}")
+        if not self.zero:
+            return
+        if self.sync_mode != "composed":
+            raise ValueError(
+                f"zero=True shards the optimizer update on the planned "
+                f"all-reduce's RS/AG seam, which only the composed sync "
+                f"path exposes (compression's EF residual would defeat "
+                f"the sharding); got sync_mode={self.sync_mode!r}")
+        if self.bucket_grads:
+            raise ValueError(
+                "zero=True runs one RS/AG pair per parameter leaf — "
+                "fused buckets cross leaf boundaries and have no "
+                "per-param shard to update; disable bucket_grads")
+
+
+def _grad_structs(params, cfg: TrainCfg) -> List[torch.Tensor]:
+    """``meta`` leaves with the dtype gradients have in the step: the
+    accumulation casts to ``grad_dtype``; one microbatch keeps each
+    param's own dtype."""
+    return [torch.empty(l.shape, dtype=cfg.grad_dtype
+                        if cfg.microbatches > 1 else l.dtype, device="meta")
+            for l in leaves(params)]
+
+
+def grad_bucket_plan(params, cfg: TrainCfg) -> tuple:
+    """The dtype-grouped bucket layout of the step's fused sync
+    (deterministic in shapes, dtypes, order and ``bucket_bytes``)."""
+    return plan_mod.plan_buckets(_grad_structs(params, cfg), cfg.bucket_bytes)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 state layout (it depends on the data-parallel width)
+# ---------------------------------------------------------------------------
+
+def zero_layout(cfg: TrainCfg, mesh) -> Tuple[str, int]:
+    """(axis, size) of the single data axis ZeRO-1 shards over."""
+    if mesh is None:
+        raise ValueError("zero=True makes the optimizer-state layout "
+                         "data-parallel-width dependent; pass mesh=")
+    sizes = dict(mesh.shape)
+    axes = tuple(a for a in cfg.data_axes if a in sizes)
+    if len(axes) != 1:
+        raise ValueError(
+            f"zero=True shards optimizer state over exactly ONE data "
+            f"axis; cfg.data_axes={cfg.data_axes} resolves to {axes} on "
+            f"mesh axes {tuple(sizes)}")
+    return axes[0], int(sizes[axes[0]])
+
+
+def _zero_pad_len(n: int, p: int) -> int:
+    return ((int(n) + p - 1) // p) * p
+
+
+def _zero_chunk(x: torch.Tensor, p: int, idx: int) -> torch.Tensor:
+    """Rank ``idx``'s chunk of ``x`` flattened and zero-padded to a
+    multiple of ``p``: the pad-and-split layout of the RS protocols, so
+    param chunks line up with the reduced gradient chunks.  A copy."""
+    flat = x.reshape(-1)
+    c = _zero_pad_len(flat.numel(), p) // p
+    out = flat.new_zeros(c)
+    lo, hi = idx * c, min((idx + 1) * c, flat.numel())
+    if hi > lo:
+        out[:hi - lo] = flat[lo:hi]
+    return out
 
 
 def make_train_state(model, optimizer, params: Params,
-                     cfg: TrainCfg = TrainCfg()) -> Dict[str, Any]:
-    """One replica's {"params", "opt", "step"[, "ef"]}.  Optimizer moments
-    and the EF residual start at zero, as in the reference."""
-    state = {"params": params, "opt": optimizer.init(params),
+                     cfg: TrainCfg = TrainCfg(), mesh=None
+                     ) -> Dict[str, Any]:
+    """One rank's {"params", "opt", "step"[, "ef"]}.  Optimizer moments
+    and the EF residual start at zero, as in the reference.  With
+    ``cfg.zero`` the optimizer state covers this rank's flat padded chunk
+    of every param (``mesh=`` gives the width); it starts at zero on
+    every rank, so one state replicates to all."""
+    device = leaves(params)[0].device
+    if cfg.zero:
+        p = zero_layout(cfg, mesh)[1]
+        opt = optimizer.init(map_tree(lambda l: torch.empty(
+            (_zero_pad_len(l.numel(), p) // p,), dtype=l.dtype,
+            device=device), params))
+    else:
+        opt = optimizer.init(params)
+    state = {"params": params, "opt": opt,
              "step": torch.zeros((), dtype=torch.int32)}
     if cfg.sync_mode == "compressed":
-        state["ef"] = map_tree(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        if cfg.bucket_grads:
+            state["ef"] = bucket_ef_zeros(grad_bucket_plan(params, cfg),
+                                          device=device)
+        else:
+            state["ef"] = map_tree(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
     return state
 
 
-def abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg()):
-    """The state as ``meta`` tensors (shapes and dtypes, no memory)."""
-    return make_train_state(model, optimizer, model.abstract_params(), cfg)
+def abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg(),
+                   mesh=None):
+    """One rank's state as ``meta`` tensors (shapes and dtypes, no
+    memory)."""
+    return make_train_state(model, optimizer, model.abstract_params(), cfg,
+                            mesh=mesh)
 
 
 def replicate(state: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
@@ -76,6 +196,94 @@ def replicate(state: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     return [state] + [map_tree(lambda t: t.clone(), state)
                       for _ in range(n - 1)]
 
+
+# ---------------------------------------------------------------------------
+# The run's state as one tree: the checkpoint layout
+# ---------------------------------------------------------------------------
+
+def _zero_opt_leaf(path) -> bool:
+    """ZeRO shards every optimizer leaf but its step counter."""
+    return path[0] == "opt" and path[1:] != ("step",)
+
+
+def global_abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg(),
+                          mesh=None):
+    """The checkpoint layout as ``meta`` tensors: one rank's state, except
+    that with ``cfg.zero`` each optimizer leaf is the whole flat leaf
+    padded to a multiple of the width (the reference's global layout)."""
+    st = abstract_state(model, optimizer, cfg, mesh)
+    if not cfg.zero:
+        return st
+    p = zero_layout(cfg, mesh)[1]
+    ls, paths = flatten(st)
+    return unflatten(paths, [
+        torch.empty((l.shape[0] * p,), dtype=l.dtype, device="meta")
+        if _zero_opt_leaf(path) else l for path, l in zip(paths, ls)])
+
+
+def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg) -> Any:
+    """The run's state as one tree (what a checkpoint saves): rank 0's
+    replicated leaves (the EF residual is each rank's own; like the
+    reference's checkpoint, this keeps rank 0's), and with ``cfg.zero``
+    each optimizer leaf as a ``ShardedTensor`` of the ranks' chunks with
+    their global indices.  No copies are made."""
+    if not cfg.zero:
+        return states[0]
+    paths = flatten(states[0])[1]
+    per_rank = [flatten(st)[0] for st in states]
+    out = []
+    for i, (path, l) in enumerate(zip(paths, per_rank[0])):
+        if not _zero_opt_leaf(path):
+            out.append(l)
+            continue
+        c = l.shape[0]
+        out.append(ShardedTensor(
+            (c * len(states),), l.dtype,
+            [([[r * c, (r + 1) * c]], ls[i])
+             for r, ls in enumerate(per_rank)]))
+    return unflatten(paths, out)
+
+
+def scatter_state(tree: Any, cfg: TrainCfg, mesh) -> List[Dict[str, Any]]:
+    """Per-rank states on ``mesh`` from a tree in the checkpoint layout
+    (``global_abstract_state`` for this mesh's width): with ``cfg.zero``
+    rank r takes chunk r of every optimizer leaf, everything else is
+    copied to each rank.  Tensors go to the mesh's device, the step
+    counters to the host, where ``make_train_state`` puts them."""
+    ls, paths = flatten(tree)
+    states = []
+    for r in range(mesh.size):
+        out = []
+        for path, l in zip(paths, ls):
+            dev = "cpu" if path[-1] == "step" else mesh.device
+            if cfg.zero and _zero_opt_leaf(path):
+                c = l.shape[0] // mesh.size
+                l = l[r * c:(r + 1) * c]
+            out.append(l.to(dev, copy=True))
+        states.append(unflatten(paths, out))
+    return states
+
+
+def logical_state(tree) -> Any:
+    """A tree in the checkpoint layout with each ``ShardedTensor`` made
+    dense and each flat optimizer leaf cut to its param's size: ZeRO's
+    padding dropped, so the states of two widths compare leaf for
+    leaf."""
+    ls, paths = flatten(tree)
+    sizes = {path[1:]: l.numel() for path, l in zip(paths, ls)
+             if path[0] == "params"}
+    out = []
+    for path, l in zip(paths, ls):
+        if isinstance(l, ShardedTensor):
+            l = l.dense(device=l.shards[0][1].device)
+        n = sizes.get(path[2:]) if path[0] == "opt" else None
+        out.append(l[:n] if n is not None and l.ndim == 1 else l)
+    return unflatten(paths, out)
+
+
+# ---------------------------------------------------------------------------
+# Grad accumulation over microbatches
+# ---------------------------------------------------------------------------
 
 def _split_micro(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
@@ -98,30 +306,119 @@ def _accumulate_grads(model, params: Params, batch, n_micro: int,
     if n_micro == 1:
         loss, grads = one(batch)
         return loss, unflatten(paths, grads)
-    loss_sum = None
     acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
            for p in ps]
-    for mb in _split_micro(batch, n_micro):
+    loss_sum = None
+
+    def add(mb):
+        nonlocal acc, loss_sum
         loss, grads = one(mb)
         acc = [a + g.to(grad_dtype) for a, g in zip(acc, grads)]
         loss_sum = loss if loss_sum is None else loss_sum + loss
+
+    for mb in _split_micro(batch, n_micro):
+        add(mb)
     inv = 1.0 / n_micro
     return loss_sum * inv, unflatten(paths, [g * inv for g in acc])
 
 
-def _leaf_sync(dcomm: Communicator, axis_comms, grads, compress: bool,
-               ef_tree):
-    """One collective per gradient leaf (the reference's ``_leaf_sync``)."""
-    if not compress:
-        synced, _ = dcomm.sync_gradients(grads, mean=True)
-        return synced, ef_tree
-    ef_states = map_tree(lambda r: EFState(residual=r), ef_tree)
-    synced, new_states = axis_comms[0].sync_gradients(
-        grads, mean=True, compress=True, ef_state=ef_states)
-    for acomm in axis_comms[1:]:
-        synced = map_tree(lambda g, _c=acomm: _c.all_reduce(g, mean=True),
-                          synced)
-    return synced, map_tree(lambda s: s.residual, new_states)
+# ---------------------------------------------------------------------------
+# Gradient sync flavours (all scale through the communicator's mean_scale)
+# ---------------------------------------------------------------------------
+
+def _sync_program(base: schedule_mod.Schedule, overlap: bool,
+                  depth: int) -> schedule_mod.Schedule:
+    """The blocking program ``base``, rewritten by the canonical overlap
+    pass pipeline when ``overlap`` is set."""
+    if not overlap:
+        return base
+    sched, timings = plan_mod.run_passes(
+        base, plan_mod.canonical_overlap_passes(depth))
+    sched.meta["depth"] = depth
+    sched.meta["pass_us"] = timings
+    return sched
+
+
+def _bucket_sync(dcomm, axis_comms, handles, buckets, grads, compress, ef,
+                 sched):
+    """Fused dtype-grouped buckets (the reference's ``_bucket_sync``), in
+    the order of the program ``sched``: uncompressed buckets go through
+    persistent handles, compressed ones through the communicator's
+    two-phase sync (the EF residual changes in its wait arm, in place,
+    nowhere else)."""
+    gl, paths = flatten(grads)
+    out = [None] * len(gl)
+    if compress:
+        if ef is None:
+            ef = bucket_ef_zeros(buckets, device=gl[0].device)
+        else:
+            check_bucket_ef(ef, buckets)
+
+    def start(u):
+        flat = plan_mod.gather_bucket(gl, buckets[u.index])
+        if compress:
+            # mean=False: as engine.sync_gradients_bucketed, scale once,
+            # over all data axes, after the cross-axis reductions
+            return axis_comms[0].sync_gradient_start(
+                flat, mean=False, compress=True, ef_residual=ef[u.index])
+        return handles[u.index].start(flat)
+
+    def progress(u, tok, stages):
+        if compress:
+            axis_comms[0].sync_gradient_progress(tok, stages)
+        else:
+            handles[u.index].progress(tok, stages)
+        return tok
+
+    def wait(u, tok):
+        bi = u.index
+        if compress:
+            y, res = axis_comms[0].sync_gradient_wait(tok)
+            for acomm in axis_comms[1:]:
+                y = acomm.all_reduce(y)
+            y = scale_by(y, dcomm.mean_scale())
+            ef[bi].copy_(res)
+        else:
+            y = handles[bi].wait(tok)
+        plan_mod.scatter_bucket(y, buckets[bi], out)
+        return None
+
+    schedule_mod.execute(sched, start=start, wait=wait, progress=progress)
+    return unflatten(paths, out), ef
+
+
+def _leaf_sync(dcomm, axis_comms, grads, compress, ef_tree, sched):
+    """One collective per gradient leaf (the reference's ``_leaf_sync``):
+    one two-phase sync per leaf, in the order of the program
+    ``sched``."""
+    gl, paths = flatten(grads)
+    out = [None] * len(gl)
+    ef_leaves = flatten(ef_tree)[0] if compress else None
+    comm = axis_comms[0] if compress else dcomm
+
+    def start(u):
+        i = u.index
+        if compress:
+            return comm.sync_gradient_start(gl[i], compress=True,
+                                            ef_residual=ef_leaves[i])
+        return comm.sync_gradient_start(gl[i])
+
+    def progress(u, tok, stages):
+        comm.sync_gradient_progress(tok, stages)
+        return tok
+
+    def wait(u, tok):
+        i = u.index
+        y, res = comm.sync_gradient_wait(tok)
+        if compress:
+            for acomm in axis_comms[1:]:
+                y = acomm.all_reduce(y, mean=True)
+            ef_leaves[i].copy_(res)
+        out[i] = y
+        return None
+
+    schedule_mod.execute(sched, start=start, wait=wait, progress=progress)
+    return unflatten(paths, out), ef_tree
 
 
 def _rank_rows(x, lo: int, hi: int, device) -> torch.Tensor:
@@ -132,14 +429,20 @@ def _rank_rows(x, lo: int, hi: int, device) -> torch.Tensor:
     return x.to(device)
 
 
+# ---------------------------------------------------------------------------
+# Step builder
+# ---------------------------------------------------------------------------
+
 def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
                     comm: Communicator) -> Callable:
     """Returns ``train_step(states, batch) -> (states, metrics)``.
 
-    ``states``: one replica per rank of the communicator's mesh;
+    ``states``: one state per rank of the communicator's mesh;
     ``batch``: the global batch (numpy arrays or tensors, rows first),
     split over the data axes.  ``metrics`` are rank 0's (every rank
-    holds the same all-reduced loss)."""
+    holds the same all-reduced loss).  ``train_step.schedule`` is the
+    executed sync program (ZeRO: its RS half; the AG half is
+    ``train_step.ag_schedule``, None without ZeRO)."""
     mesh = comm.mesh
     if mesh is None:
         raise ValueError("the communicator's session has no mesh")
@@ -153,6 +456,113 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     dcomm = comm.split(*data_axes)
     axis_comms = tuple(comm.split(a) for a in data_axes)
     n_data = dcomm.size
+    overlap, depth = bool(cfg.overlap), int(cfg.overlap_depth)
+    params_abs = model.abstract_params()
+    gstructs = _grad_structs(params_abs, cfg)
+
+    # The unit layout is static, so the sync program is built (and, with
+    # ``overlap``, rewritten) once, and uncompressed buckets get
+    # persistent handles bound once (sync_stats: their starts record the
+    # wire bytes of the planned call).
+    buckets, bucket_handles, sched = (), (), None
+    if cfg.bucket_grads:
+        buckets = grad_bucket_plan(params_abs, cfg)
+        if not compress:
+            bucket_handles = tuple(
+                dcomm.persistent("all_reduce", (b.size,), b.wire_dtype,
+                                 mean=True, sync_stats=True)
+                for b in buckets)
+        specs = [(f"bucket{i}", b.size, b.wire_dtype)
+                 for i, b in enumerate(buckets)]
+    else:
+        specs = [(f"leaf{i}", math.prod(s.shape), s.dtype)
+                 for i, s in enumerate(gstructs)]
+    if not cfg.zero:
+        sched = _sync_program(dcomm.sync_schedule(specs, compress=compress),
+                              overlap, depth)
+
+    # ZeRO-1: two persistent arms a leaf (RS of the grad, AG of the
+    # updated param chunk) and the two programs sequencing them; the
+    # optimizer update sits between the programs.
+    rs_handles = ag_handles = ()
+    rs_sched = ag_sched = None
+    if cfg.zero:
+        _, zp = zero_layout(cfg, mesh)
+        zcomm = axis_comms[0]
+        pleaves_abs = leaves(params_abs)
+        chunk_sizes = [_zero_pad_len(g.numel(), zp) // zp for g in gstructs]
+        rs_handles = tuple(
+            zcomm.persistent("reduce_scatter", g.shape, g.dtype,
+                             mean=True, sync_stats=True, zero=True)
+            for g in gstructs)
+        ag_handles = tuple(
+            zcomm.persistent("all_gather", (csz,), l.dtype, zero=True)
+            for csz, l in zip(chunk_sizes, pleaves_abs))
+        rs_sched = _sync_program(zcomm.zero_sync_schedule(
+            [(f"leaf{i}", math.prod(g.shape), g.dtype)
+             for i, g in enumerate(gstructs)], kind="rs"), overlap, depth)
+        # the AG's compute op models the NEXT step's forward, which the
+        # passes place the AG starts ahead of
+        ag_sched = _sync_program(zcomm.zero_sync_schedule(
+            [(f"param{i}", csz * zp, l.dtype)
+             for i, (csz, l) in enumerate(zip(chunk_sizes, pleaves_abs))],
+            kind="ag", compute=(("next_forward", True),)), overlap, depth)
+
+    def zero_inner(st, loss, gl, gpaths):
+        """The ZeRO-1 step body of one rank: RS-program the gradient
+        leaves ``gl`` down to this rank's chunks, update the local state
+        chunk, AG-program the new param chunks back into the params (in
+        place)."""
+        chunks = [None] * len(gl)
+
+        def rs_start(u):
+            return rs_handles[u.index].start(gl[u.index])
+
+        def rs_progress(u, tok, stages):
+            rs_handles[u.index].progress(tok, stages)
+            return tok
+
+        def rs_wait(u, tok):
+            chunks[u.index] = rs_handles[u.index].wait(tok)
+            gl[u.index] = None           # the full gradient is done with
+            return None
+
+        schedule_mod.execute(rs_sched, start=rs_start, wait=rs_wait,
+                             progress=rs_progress)
+        for acomm in axis_comms:
+            loss = acomm.all_reduce(loss)
+        loss = scale_by(loss, dcomm.mean_scale())
+        # the global grad norm from chunk-local sums and one scalar
+        # all-reduce: the unsharded path's value up to summation order,
+        # so bit-identical losses need clip_norm=0 (a metric only)
+        sq = sum(torch.sum(torch.square(ch.float())) for ch in chunks)
+        gsq = zcomm.all_reduce(sq)
+        idx = zcomm.axis_index()
+        pleaves = leaves(st["params"])
+        pchunks = [_zero_chunk(l, zp, idx) for l in pleaves]
+        new_pc, new_opt, om = optimizer.update(
+            unflatten(gpaths, chunks), st["opt"],
+            unflatten(gpaths, pchunks),
+            global_norm_fn=lambda _tree: torch.sqrt(gsq))
+        npc = leaves(new_pc)
+
+        def ag_start(u):
+            return ag_handles[u.index].start(npc[u.index])
+
+        def ag_progress(u, tok, stages):
+            ag_handles[u.index].progress(tok, stages)
+            return tok
+
+        def ag_wait(u, tok):
+            y = ag_handles[u.index].wait(tok)
+            ref = pleaves[u.index]
+            ref.copy_(y[:ref.numel()].view(ref.shape))
+            return None
+
+        schedule_mod.execute(ag_sched, start=ag_start, wait=ag_wait,
+                             progress=ag_progress)
+        return ({"params": st["params"], "opt": new_opt,
+                 "step": st["step"] + 1}, {"loss": loss, **om})
 
     def rank_step(st, host_batch, lo, hi):
         dev = leaves(st["params"])[0].device
@@ -161,8 +571,18 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)
         with torch.no_grad():
-            grads, new_ef = _leaf_sync(dcomm, axis_comms, grads, compress,
-                                       st.get("ef"))
+            if cfg.zero:
+                gl, gpaths = flatten(grads)
+                del grads                # each leaf goes once it is reduced
+                return zero_inner(st, loss, gl, gpaths)
+            ef = st.get("ef")
+            if cfg.bucket_grads:
+                grads, new_ef = _bucket_sync(
+                    dcomm, axis_comms, bucket_handles, buckets, grads,
+                    compress, ef, sched)
+            else:
+                grads, new_ef = _leaf_sync(dcomm, axis_comms, grads,
+                                           compress, ef, sched)
             for acomm in axis_comms:
                 loss = acomm.all_reduce(loss)
             loss = scale_by(loss, dcomm.mean_scale())
@@ -190,4 +610,6 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         out = substrate.run_spmd(rank_step, args, mesh)
         return [o[0] for o in out], out[0][1]
 
+    train_step.schedule = rs_sched if cfg.zero else sched
+    train_step.ag_schedule = ag_sched
     return train_step

@@ -7,6 +7,11 @@ them: the ``lm_head`` gradient's bidirectional-ring combine chunk at two
 ranks (n/4 of 6144 x 49152) and its compressed-ring chunk (n/2), a
 6144-value norm, and a ragged length.
 
+The composed sync's ZeRO seam (reduce-scatter and all-gather) and its
+bucketed ring run on CUDA thread ranks, each ring hop's combine a launch
+of the CUDA ``sum_chunks``, and give the bits of the same calls on CPU
+ranks.
+
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
 so they run on a machine that has only the port's dependencies:
@@ -42,7 +47,7 @@ from repro_torch.kernels.local_reduce import ref as lref
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.kernels.quantize import ref as qref
 from repro_torch.models import build_model
-from repro_torch.tree import map_tree
+from repro_torch.tree import leaves, map_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -267,3 +272,75 @@ def test_quantize_kernels_match_plain_bits(cuda, n):
         device=cuda).manual_seed(1), device=cuda)
     _bits_equal(qops.dequant_add(acc, q, s), qref.dequant_add(acc, q, s))
     _bits_equal(qops.dequant_add(acc, q, -s), qref.dequant_add(acc, q, -s))
+
+
+# ---------------------------------------------------------------------------
+# The ZeRO seam and the bucketed ring on CUDA thread ranks
+# ---------------------------------------------------------------------------
+
+def _ranks_run(device, p, fn, inputs, proto="ring"):
+    """``fn`` on ``p`` thread ranks on ``device`` (a session whose
+    all-reduce is forced onto ``proto``); returns the per-rank results
+    on the CPU and the combine launches."""
+    from repro_torch.comm import Session
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.runtime import substrate
+    sess = Session(mesh=substrate.make_mesh((p,), ("data",), device=device),
+                   config=EngineConfig(force_protocol={"all_reduce": proto}))
+    d = sess.split("data")
+    before = lops.counter.value
+    out = substrate.run_spmd(
+        lambda x: fn(d, x), [(map_tree(lambda t: t.to(device), x),)
+                             for x in inputs], sess.mesh)
+    return map_tree(lambda t: t.cpu(), out), lops.counter.value - before
+
+
+def _grad_inputs(p, dtype):
+    gen = torch.Generator().manual_seed(p)
+    return [{"a": torch.randn(4096, 3, generator=gen).to(dtype),
+             "b": torch.randn(1001, generator=gen).to(dtype),
+             "c": torch.randn(77, 5, generator=gen).to(dtype)}
+            for _ in range(p)]
+
+
+@pytest.mark.parametrize("proto", ["ring", "bidir_ring"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_seam_on_cuda_ranks_matches_cpu_bits(cuda, dtype, proto):
+    """The ZeRO reduce-scatter (through the CUDA ``sum_chunks``) and the
+    all-gather of its chunks on 2 CUDA thread ranks, against the same
+    calls on CPU ranks."""
+    p = 2
+
+    def zero(d, x):
+        chunks = {k: d.zero_reduce_scatter_wait(d.zero_reduce_scatter_start(v))
+                  for k, v in x.items()}
+        gathered = {k: d.zero_all_gather_wait(d.zero_all_gather_start(v))
+                    for k, v in chunks.items()}
+        return chunks, gathered
+
+    inputs = _grad_inputs(p, dtype)
+    want, cpu_launches = _ranks_run("cpu", p, zero, inputs, proto)
+    got, launches = _ranks_run(cuda, p, zero, inputs, proto)
+    assert cpu_launches == 0 and launches > 0
+    for g, w in zip(leaves(got), leaves(want)):
+        _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucketed_ring_on_cuda_ranks_matches_cpu_bits(cuda, dtype):
+    """The bucketed sync (ring, 3 ranks, several buckets) on CUDA thread
+    ranks: every ring hop's combine is one CUDA ``sum_chunks`` launch."""
+    p = 3
+
+    def bucketed(d, x):
+        return d.sync_gradients_bucketed(x, bucket_bytes=16 * 1024)[0]
+
+    inputs = _grad_inputs(p, dtype)
+    want, _ = _ranks_run("cpu", p, bucketed, inputs)
+    got, launches = _ranks_run(cuda, p, bucketed, inputs)
+    from repro_torch.core import plan as plan_mod
+    n_buckets = len(plan_mod.plan_buckets(leaves(inputs[0]), 16 * 1024))
+    assert n_buckets > 1
+    assert launches == n_buckets * (p - 1) * p      # p-1 hops a rank
+    for g, w in zip(leaves(got), leaves(want)):
+        _bits_equal(g, w)

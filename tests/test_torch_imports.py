@@ -1,7 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
-serving and training entry points leaves ``jax`` out of
-``sys.modules``."""
+serving and training entry points, the schedule IR and the checkpoint
+store leaves ``jax`` out of ``sys.modules``."""
 
 import ast
 import os
@@ -58,3 +58,10 @@ def test_training_entry_points_import_without_jax():
     _imports_without_jax(["repro_torch.launch.train", "repro_torch.comm",
                           "repro_torch.kernels.local_reduce.ops",
                           "repro_torch.kernels.quantize.ops"])
+
+
+def test_schedule_and_checkpoint_modules_import_without_jax():
+    _imports_without_jax(["repro_torch.core.schedule",
+                          "repro_torch.core.plan",
+                          "repro_torch.checkpoint",
+                          "repro_torch.train.trainer"])

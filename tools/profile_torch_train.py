@@ -5,13 +5,16 @@
 
 Builds the workload of ``chip_smoke.py``'s train phase
 (``chip_smoke.train_workload``: granite-34b at its published widths, 2
-of 88 layers, 2 thread ranks, seq 2048, global batch 4) and, for
-``--sync composed`` and ``compressed`` (the sync through its kernels), runs
-two warm-up steps and then one step under ``torch.profiler``: device
-time by kernel, the gradient-sync kernels' share, and the share of the
-step's wall time the device was busy (``DIR/train_<sync>_trace.json``
-holds the timeline).  All ranks launch on one stream, so kernels do not
-overlap and their summed time is the busy time.
+of 88 layers, 2 thread ranks, seq 2048, global batch 4) and, for each
+run (``--sync composed`` and ``compressed`` per leaf; with ``--runs``
+also ``bucketed`` (composed, fused buckets, overlapped depth 2) and
+``zero`` (ZeRO-1, overlapped, with its per-leaf twin ``leaf0``, both at
+clip_norm 0)), runs two warm-up steps and then one step under
+``torch.profiler``: device time by kernel, the gradient-sync kernels'
+share, and the share of the step's wall time the device was busy
+(``DIR/train_<run>_trace.json`` holds the timeline).  All ranks launch
+on one stream, so kernels do not overlap and their summed time is the
+busy time.
 
 Exits non-zero when CUDA is unavailable.
 """
@@ -40,6 +43,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"),
                     help="directory for the profiler's timelines")
+    ap.add_argument("--runs", default="composed,compressed",
+                    help="comma-separated: composed, compressed, "
+                         "bucketed, leaf0, zero")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_train: CUDA is not available", file=sys.stderr)
@@ -51,9 +57,19 @@ def main(argv=None) -> int:
     model, init, mesh, ds, opt = chip_smoke.train_workload()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for sync in ("composed", "compressed"):
+    runs = {"composed": ("composed", opt, {}),
+            "compressed": ("compressed", opt, {}),
+            "bucketed": ("composed", opt, dict(bucket_grads=True,
+                                               overlap=True)),
+            "leaf0": ("composed", chip_smoke._adamw(
+                chip_smoke.TRAIN_LR, clip_norm=0.0), {}),
+            "zero": ("composed", chip_smoke._adamw(
+                chip_smoke.TRAIN_LR, clip_norm=0.0), dict(zero=True,
+                                                          overlap=True))}
+    for sync in args.runs.split(","):
+        kind, run_opt, cfg = runs[sync]
         session, states, step_fn = chip_smoke.train_run(
-            model, init, mesh, ds, opt, sync)
+            model, init, mesh, ds, run_opt, kind, **cfg)
         for step in range(2):
             states, _ = step_fn(states, ds.host_batch(step))
         torch.cuda.synchronize()
