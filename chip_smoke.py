@@ -82,6 +82,49 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
              state equals the saved one bit for bit, one more step with a
              finite loss, and no ``.tmp`` directory left.
+10. elastic_train — the train workload (granite-34b, 2 of 88 layers) as
+             ZeRO-1 over 4 thread ranks, 1 row a rank, under
+             ``ElasticController`` with async sharded checkpoints every 2
+             steps (``keep=1``) in a temporary directory under ``build/``
+             and ``lose@3:2``: the step-2 checkpoint restores onto the 2
+             survivors and the run goes on to step 5.  A fresh 2-rank run
+             from the same checkpoint (the host tree the recovery read
+             from it, kept by this script before ``keep=1`` collects the
+             files) trains steps 2-4 and must give the same losses and
+             gathered logical state bit for bit.  The 4-rank steps run
+             again from the same seed with the combine patched to its
+             plain version (``ref.sum_chunks``, as in [train]) and must
+             give the same losses, and at step 2 the same state as the
+             checkpoint, bit for bit: the p = 4 combines (chunks of an
+             eighth of a leaf) held against their plain version.  The
+             plan is rebuilt once; ``sum_chunks`` launches equal the
+             plan's count at p = 4 and at p = 2.  Prints the recovery's
+             seconds, each step's time before and after (flagged where a
+             save was being written meanwhile), peak memory, and each
+             full-width save's bytes, its wait for the previous save, its
+             call time and its time until durable.
+11. elastic_serve — the serve workload over a serving session of 4 data
+             thread ranks (batch 8) under ``ServeController`` with
+             ``lose@8:2``: the batch shrinks to 4, the drained slots
+             re-splice, and all 16 requests complete.  First, 8 requests
+             decode 16 tokens at batch 8 and at batch 4: if their logits
+             are equal bit for bit, the streams must equal an
+             uninterrupted run on the survivors (data 2, batch 4) bit for
+             bit; if not, the reduced f32 model's elastic streams must
+             equal its survivor run's on the card, and each full-width
+             stream must agree up to the first position where the
+             survivor run's top-2 logit gap is at most twice the largest
+             logit difference measured between the two batch sizes, and
+             at least half of all tokens must be held so (each stream's
+             held length is printed).
+             Checks pool integrity after the recovery, the mesh history,
+             that every prefill chunk took the tensor-core kernel and
+             that the flash launches equal 4 layers x (the prompts'
+             chunks + the chunks of requests that were mid-prefill at the
+             drain, which prefill again as in the reference): no
+             request that was decoding is prefilled again.  Prints the
+             recovery's seconds, snapshot bytes paged against
+             contiguous, and tokens/s before and after.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -135,6 +178,15 @@ F32_OPS_PER_VALUE = {"sum_chunks": 2, "quantize": 6, "dequantize": 1,
 SERVE_LAYERS = 4
 SERVE_REQUESTS = 16
 SERVE_MAX_NEW = 32
+ELASTIC_TRAIN_RANKS = 4                 # 1 row a rank of the global 4
+ELASTIC_TRAIN_STEPS = 5
+ELASTIC_TRAIN_FAULTS = "lose@3:2"
+ELASTIC_SERVE_RANKS = 4
+ELASTIC_SERVE_FAULTS = "lose@8:2"
+ROWS_PROMPTS = 8       # requests decoded at batch 8 and at batch 4
+ROWS_MAX_NEW = 16
+MIN_HELD_SHARE = 0.5   # of the full-width elastic tokens, equal to the
+                       # survivor run's where the streams can be held
 CHECK_RIDS = (0, 1)    # requests whose every chunk is held against plain
 
 
@@ -1075,6 +1127,493 @@ def phase_ckpt():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _writing(saves, a: float, b: float) -> bool:
+    """Was one of ``saves`` (``CheckpointManager.saves``) being written
+    between wall times ``a`` and ``b``?"""
+    return any(sv["t_called"] < b and sv.get("t_durable", b) > a
+               for sv in saves)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_elastic_train():
+    """The train workload as ZeRO-1 over ELASTIC_TRAIN_RANKS thread ranks
+    under ``ElasticController`` with ELASTIC_TRAIN_FAULTS, against a
+    fresh 2-rank run restored from the same checkpoint.  Returns
+    ({"sum_chunks": launches}, numbers)."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.kernels import counter
+    from repro_torch.launch.train import build_session
+    from repro_torch.runtime import substrate
+    from repro_torch.runtime.controller import ElasticController, FaultPlan
+    from repro_torch.train import trainer
+    from repro_torch.tree import flatten, leaves
+    model, init, _, ds, opt = train_workload()
+    del init                                  # the controller inits
+    tcfg = trainer.TrainCfg(zero=True)
+    sess = trainer.TrainSession(model, opt, tcfg)
+    mesh = substrate.make_host_mesh(ELASTIC_TRAIN_RANKS, device="cuda")
+    comm = build_session(mesh, model, opt, ds, tcfg)
+    synced = leaves(model.abstract_params())
+    scalars = [torch.empty((), device="meta")] * 2   # loss, squared norm
+    plan4, _ = planned_launches(comm.engine, synced, scalars, mesh.size,
+                                False)
+    state_bytes = _nbytes(leaves(sess.abstract_state(mesh=mesh)))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="elastic_",
+                            dir=os.path.join(HERE, "build"))
+    free = shutil.disk_usage(root).free
+    print(f"[elastic_train] checkpoint directory {os.path.relpath(root, HERE)}"
+          f": {free:,d} bytes free; one save {state_bytes:,d} bytes (params "
+          f"bf16 + ZeRO f32 moments + step counters)")
+    if free < 2 * state_bytes:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"{free} bytes free < two saves")
+    try:
+        ctl = ElasticController(
+            sess, ds, mesh, total_steps=ELASTIC_TRAIN_STEPS, ckpt_dir=root,
+            comm=comm, ckpt_every=2, ckpt_keep=1, ckpt_sharded=True,
+            rng_seed=0,
+            fault_plan=FaultPlan.parse(ELASTIC_TRAIN_FAULTS, seed=0),
+            watchdog_timeout=600.0)
+        saves = ctl.ckpt.saves
+        marks = []          # (step, mesh size, wall time, sum_chunks, loss)
+        restored = {}       # step -> the host tree a restore read
+        restore_latest = ctl.ckpt.restore_latest
+
+        def keeping_restore(abstract, **kw):
+            # this script's hook: the tree the recovery restores, kept
+            # (the baseline starts from it; keep=1 collects its files)
+            tree, step = restore_latest(abstract, **kw)
+            if tree is not None:
+                restored[step] = tree
+            return tree, step
+
+        def on_step(step, loss):
+            torch.cuda.synchronize()
+            marks.append((step, ctl.mesh.size, time.perf_counter(),
+                          counter.counts()["sum_chunks"], loss))
+
+        ctl.ckpt.restore_latest = keeping_restore
+        ctl.on_step = on_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter.reset_all()
+        t_start = time.perf_counter()
+        report = ctl.run()
+        torch.cuda.synchronize()
+        launches = counter.counts()["sum_chunks"]
+        peak4 = torch.cuda.max_memory_allocated()
+        rec = report.recoveries[0]
+        plan2, _ = planned_launches(comm.engine, synced, scalars, 2, False)
+        last = saves[-1]
+        save_bytes = _dir_bytes(os.path.join(root,
+                                             f"step_{last['step']:08d}"))
+        final = flatten(trainer.logical_state(sess.gather(ctl.states)))[0]
+        losses = report.losses
+        losses4 = {m[0]: m[4] for m in marks if m[1] == ELASTIC_TRAIN_RANKS}
+        del ctl, comm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the 4-rank steps again from the same seed with the plain
+        # combine: the same losses, and at the restored step the same
+        # state as the checkpoint the recovery read
+        states = sess.init_state(torch.Generator(device="cuda").manual_seed(
+            0), mesh=mesh)
+        step_fn = sess.step_fn(build_session(mesh, model, opt, ds,
+                                             tcfg).world)
+        plain4, same_ckpt = {}, None
+        with plain_sync_ops():
+            for s in sorted(losses4):
+                states, m = step_fn(states, ds.host_batch(s))
+                plain4[s] = m["loss"].item()
+                if s + 1 == rec.restored_step:
+                    got = flatten(trainer.logical_state(sess.gather(
+                        states)))[0]
+                    want = flatten(trainer.logical_state(
+                        restored[rec.restored_step]))[0]
+                    same_ckpt = len(got) == len(want) and all(
+                        _bits_equal(a, b.to(a.device))
+                        for a, b in zip(got, want))
+                    del got, want
+        same_plain = plain4 == losses4
+        del states, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # baseline: a fresh 2-rank run from the same step-2 checkpoint
+        mesh2 = substrate.make_mesh((2,), ("data",), device="cuda",
+                                    members=rec.healthy_after)
+        states = sess.scatter(restored.pop(rec.restored_step), mesh2)
+        step_fn = sess.step_fn(build_session(mesh2, model, opt, ds,
+                                             tcfg).world)
+        base = {}
+        for s in range(rec.restored_step, ELASTIC_TRAIN_STEPS):
+            states, m = step_fn(states, ds.host_batch(s))
+            base[s] = m["loss"].item()
+        want = flatten(trainer.logical_state(sess.gather(states)))[0]
+        same_state = len(final) == len(want) and all(
+            _bits_equal(a, b) for a, b in zip(final, want))
+        del states, step_fn, want, final, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def step_seconds(ms):
+        """(seconds, a save was being written meanwhile) of each step
+        between two marks, less the save calls that fell between them."""
+        out = []
+        for (_, _, a, _, _), (_, _, b, _, _) in zip(ms, ms[1:]):
+            held = sum(sv["t_called"] - sv["t0"] for sv in saves
+                       if a <= sv["t0"] < b)
+            out.append((b - a - held, _writing(saves, a, b)))
+        return out
+
+    before = [m for m in marks if m[1] == ELASTIC_TRAIN_RANKS]
+    after = [m for m in marks if m[1] == 2]
+    n4 = before[-1][3]
+    n2 = launches - n4
+    want4 = plan4["sum_chunks"][0] * ELASTIC_TRAIN_RANKS * len(before)
+    want2 = plan2["sum_chunks"][0] * 2 * len(after)
+    steps4, steps2 = step_seconds(before), step_seconds(after)
+    step4 = float(np.mean([t for t, _ in steps4]))
+    step2 = float(np.mean([t for t, _ in steps2]))
+    same_losses = {s: losses[s] for s in base} == base
+    print(f"[elastic_train] {ELASTIC_TRAIN_FAULTS}: {report.describe()}")
+    print(f"[elastic_train] recovery: restore {rec.restore_s:.3f}s, "
+          f"re-mesh {rec.remesh_s:.3f}s, re-plan {rec.replan_s:.3f}s "
+          f"(total {rec.total_s:.3f}s), restored step {rec.restored_step}, "
+          f"survivors {rec.healthy_after}; plan rebuilds "
+          f"{report.plan_rebuilds}")
+    print(f"[elastic_train] losses {[losses[s] for s in sorted(losses)]}; "
+          f"baseline (2 ranks from step 2) {[base[s] for s in sorted(base)]}"
+          f": bit-identical {same_losses}; final logical state "
+          f"bit-identical {same_state}")
+    print(f"[elastic_train] the {ELASTIC_TRAIN_RANKS}-rank steps again "
+          f"with the plain combine (ref.sum_chunks): losses "
+          f"{[plain4[s] for s in sorted(plain4)]}, bit-identical "
+          f"{same_plain}; state at step {rec.restored_step} bit-identical "
+          f"to the checkpoint the recovery restored: {same_ckpt}")
+    def listed(steps, marks_):
+        return ", ".join(f"step {m[0]} {t * 1e3:.1f} ms"
+                         + (" (a save being written)" if w else "")
+                         for (t, w), m in zip(steps, marks_[1:]))
+
+    print(f"[elastic_train] step {step4 * 1e3:.1f} ms at 4 ranks "
+          f"({listed(steps4, before)}), {step2 * 1e3:.1f} ms at 2 ranks "
+          f"({listed(steps2, after)}), host clock less the save calls; "
+          f"peak allocated {peak4 / 2**30:.2f} GiB; whole run "
+          f"{marks[-1][2] - t_start:.1f}s")
+    print(f"[elastic_train] sum_chunks launches {n4} at p=4 (plan "
+          f"{want4} = {plan4['sum_chunks'][0]} a rank a step x 4 x "
+          f"{len(before)}) and {n2} at p=2 (plan {want2} = "
+          f"{plan2['sum_chunks'][0]} x 2 x {len(after)})")
+    for sv in saves:
+        print(f"[elastic_train] save at step {sv['step']}: waited "
+              f"{sv['wait_s']:.3f}s for the previous save, call "
+              f"{sv['call_s']:.3f}s, durable "
+              f"{sv.get('durable_s', float('nan')):.3f}s after the call "
+              f"began")
+    print(f"[elastic_train] one full-width save: {save_bytes:,d} bytes on "
+          f"disk")
+    if not (same_losses and same_state):
+        raise AssertionError("elastic run differs from its baseline")
+    if not (same_plain and same_ckpt):
+        raise AssertionError(f"the {ELASTIC_TRAIN_RANKS}-rank steps differ "
+                             "from their plain-combine twin")
+    if report.plan_rebuilds != 1 or report.mesh_history != [
+            (ELASTIC_TRAIN_RANKS,), (2,)] or rec.restored_step != 2:
+        raise AssertionError(report.describe())
+    if n4 != want4 or n2 != want2 or not (n4 and n2):
+        raise AssertionError(f"sum_chunks {n4}/{n2}, plan {want4}/{want2}")
+    if not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"losses {losses}")
+    if not all("durable_s" in sv for sv in saves):
+        raise AssertionError(f"a save never became durable: {saves}")
+    return {"sum_chunks": launches}, dict(
+        restore_s=rec.restore_s, remesh_s=rec.remesh_s,
+        replan_s=rec.replan_s, step_ms_4=step4 * 1e3, step_ms_2=step2 * 1e3,
+        peak_gib=peak4 / 2**30, save_bytes=save_bytes, saves=saves)
+
+
+@contextlib.contextmanager
+def _record_logits(into):
+    """Record, by (rid, position), each logits row that a request's token
+    is picked from while the block runs: a prefill's last row, and the
+    rows of the slots each decode step decodes (free slots and slots
+    still prefilling are passed over).  This script's hooks on
+    ``serve.engine._pick_tokens`` and ``PagePool.bind_decode``."""
+    from repro_torch.serve import engine, paging
+    pick, bind = engine._pick_tokens, paging.PagePool.bind_decode
+    decoding = []       # the decode step under way: its rows' rids or None
+
+    def recording(logits, cfg, rids, pos):
+        rows = decoding[-1] if decoding else torch.as_tensor(rids).tolist()
+        for i, (rid, p) in enumerate(zip(rows, torch.as_tensor(
+                pos).tolist())):
+            if rid is not None:
+                if (rid, p) in into:
+                    raise AssertionError(f"rid {rid} position {p} twice")
+                into[(rid, p)] = logits[i].detach().float().cpu()
+        return pick(logits, cfg, rids, pos)
+
+    def bind_decode(pool, decode_fn):
+        run = bind(pool, decode_fn)
+
+        def recorded(params, tok, rids, pos, slot_rids, active_mask):
+            decoding.append([r if a else None
+                             for r, a in zip(slot_rids, active_mask)])
+            try:
+                return run(params, tok, rids, pos, slot_rids, active_mask)
+            finally:
+                decoding.pop()
+        return recorded
+
+    engine._pick_tokens, paging.PagePool.bind_decode = recording, bind_decode
+    try:
+        yield into
+    finally:
+        engine._pick_tokens, paging.PagePool.bind_decode = pick, bind
+
+
+def _decode_rows_equal(model, params, scfg, vocab):
+    """ROWS_PROMPTS requests decoded ROWS_MAX_NEW tokens at batch 8 and
+    at batch 4 (the first half and the second each in a batch of their
+    own), through the scheduler.  Returns (are the logits of each
+    (request, position) whose tokens so far agree equal bit for bit, the
+    largest |difference| between them, how many such rows)."""
+    import dataclasses
+    from repro_torch.serve import BatchScheduler, Request
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, vocab, size=64).tolist()
+               for _ in range(ROWS_PROMPTS)]
+
+    def run(rids, batch):
+        got = {}
+        sched = BatchScheduler(model, params, dataclasses.replace(
+            scfg, batch=batch), device="cuda")
+        reqs = [Request(rid=r, prompt=prompts[r], max_new=ROWS_MAX_NEW)
+                for r in rids]
+        with _record_logits(got):
+            for r in reqs:
+                sched.submit(r)
+            sched.run()
+        return got, {r.rid: r.generated for r in reqs}
+
+    half = ROWS_PROMPTS // 2
+    at8, tok8 = run(range(ROWS_PROMPTS), 8)
+    lo, lo_tok = run(range(half), 4)
+    hi, hi_tok = run(range(half, ROWS_PROMPTS), 4)
+    at4, tok4 = {**lo, **hi}, {**lo_tok, **hi_tok}
+    keys = [(r, p) for r in range(ROWS_PROMPTS) for p in range(
+        1, ROWS_MAX_NEW) if tok8[r][:p] == tok4[r][:p]]
+    equal = all(_bits_equal(at8[k], at4[k]) for k in keys)
+    diff = max((at8[k] - at4[k]).abs().max().item() for k in keys)
+    return equal, diff, len(keys)
+
+
+def _elastic_serve_run(model, params, scfg, prompts, ranks, faults,
+                       members=None):
+    """Serve ``prompts`` under ``ServeController`` over a session of
+    ``ranks`` data thread ranks (``faults`` = None: a plain scheduler on
+    that session, the survivor baseline).  Returns (report or scheduler,
+    requests, [(wall time, tokens so far) after each step])."""
+    from repro_torch.comm import Session
+    from repro_torch.runtime import substrate
+    from repro_torch.runtime.controller import FaultPlan
+    from repro_torch.serve import BatchScheduler, Request, ServeController
+    comm = Session(mesh=substrate.make_mesh(
+        (ranks,), ("data",), device="cuda", members=members)).world
+    reqs = [Request(rid=rid, prompt=p, max_new=SERVE_MAX_NEW)
+            for rid, p in enumerate(prompts)]
+    log = []
+    step = BatchScheduler.step
+
+    def logged(self):
+        out = step(self)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter(),
+                    sum(len(r.generated) for r in reqs)))
+        return out
+
+    BatchScheduler.step = logged
+    try:
+        if faults is None:
+            runner = BatchScheduler(model, params, scfg, comm=comm)
+        else:
+            runner = ServeController(
+                model, params, scfg, comm=comm,
+                fault_plan=FaultPlan.parse(faults, seed=0),
+                watchdog_timeout=600.0)
+        log.append((time.perf_counter(), 0))
+        for r in reqs:
+            runner.submit(r)
+        runner.run()
+    finally:
+        BatchScheduler.step = step
+    return runner, reqs, log
+
+
+def _small_elastic_serve():
+    """The reduced qwen2-72b (f32, 8-token pages) served over 4 data ranks
+    with ``lose@3:2`` on the card and over the 2 survivors uninterrupted:
+    are the streams equal?"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeCfg
+    model = build_model(get_config("qwen2-72b", reduced=True))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, size=rng.randint(3, 50)).tolist()
+               for _ in range(12)]
+    cfg = ServeCfg(max_len=64 + SERVE_MAX_NEW, batch=8, page_tokens=8,
+                   cache_dtype=torch.float32)
+    import dataclasses
+    ctl, _, _ = _elastic_serve_run(model, params, cfg, prompts, 4,
+                                   "lose@3:2")
+    rec = ctl.report.recoveries[0]
+    base, _, _ = _elastic_serve_run(model, params, dataclasses.replace(
+        cfg, batch=4), prompts, 2, None, members=rec.healthy_after)
+    return ctl.report.tokens() == {r.rid: r.generated
+                                   for r in base.completed}
+
+
+def phase_elastic_serve():
+    """The serve workload over ELASTIC_SERVE_RANKS data thread ranks under
+    ``ServeController`` with ELASTIC_SERVE_FAULTS, against an
+    uninterrupted run on the survivors.  Returns
+    ({"flash_attention": launches}, numbers)."""
+    import dataclasses
+    import gc
+    from repro_torch.kernels import counter
+    from repro_torch.serve import plan_serve_batch
+    model, params, scfg, prompts = serve_workload()
+    cfg = model.cfg
+    rows_equal, row_diff, n_rows = _decode_rows_equal(model, params, scfg,
+                                                      cfg.vocab_size)
+    print(f"[elastic_serve] decode logits of the same requests at batch 8 "
+          f"and batch 4 ({n_rows} (request, position) rows): bit-identical "
+          f"{rows_equal}, largest |difference| {row_diff:.6g}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.reset_all()
+    ctl, reqs, log = _elastic_serve_run(model, params, scfg, prompts,
+                                        ELASTIC_SERVE_RANKS,
+                                        ELASTIC_SERVE_FAULTS)
+    launches = counter.counts()["flash_attention"]
+    tc_launches = counter.counts()["flash_attention_tc"]
+    peak = torch.cuda.max_memory_allocated()
+    report = ctl.report
+    rec = report.recoveries[0]
+    ctl.sched.pool.check_integrity()
+    lens = [len(p) for p in prompts]
+    n_chunks = sum(-(-n // scfg.page_tokens) for n in lens)
+    want_launches = SERVE_LAYERS * (n_chunks + rec.requeued_chunks)
+    # tokens/s before the drain and after the re-admission: the steps
+    # before the fault, and those after it (the recovery's own seconds
+    # between them are not counted)
+    k = rec.step
+    t_before = log[k][0] - log[0][0]
+    tok_before = log[k][1]
+    t_after = log[-1][0] - log[k + 1][0]
+    tok_after = log[-1][1] - log[k + 1][1]
+    tokens = report.tokens()
+    del ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base_cfg = dataclasses.replace(scfg, batch=plan_serve_batch(
+        scfg.batch, ELASTIC_SERVE_RANKS, 2))
+    gaps = {}
+    with _record_logits(gaps):
+        base, _, _ = _elastic_serve_run(model, params, base_cfg, prompts, 2,
+                                        None, members=rec.healthy_after)
+    baseline = {r.rid: r.generated for r in base.completed}
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[elastic_serve] {ELASTIC_SERVE_FAULTS}: {report.describe()}")
+    print(f"[elastic_serve] recovery: snapshot {rec.snapshot_s:.3f}s, "
+          f"re-mesh {rec.remesh_s:.3f}s, rebuild {rec.rebuild_s:.3f}s "
+          f"(total {rec.total_s:.3f}s); resumed {rec.resumed}, parked "
+          f"{rec.parked}, back to the queue mid-prefill {rec.requeued} "
+          f"({rec.requeued_chunks} chunks run again); snapshot "
+          f"{rec.snapshot_bytes:,d} bytes paged against "
+          f"{rec.snapshot_bytes_contiguous:,d} contiguous")
+    print(f"[elastic_serve] {len(report.completed)}/{SERVE_REQUESTS} done, "
+          f"{len(report.shed)} shed; {tok_before} tokens in {t_before:.2f}s "
+          f"= {tok_before / t_before:.1f} tok/s before the drain (batch "
+          f"{rec.batch_before}), {tok_after} in {t_after:.2f}s = "
+          f"{tok_after / t_after:.1f} tok/s after (batch {rec.batch_after}); "
+          f"peak allocated {peak / 2**30:.2f} GiB")
+    print(f"[elastic_serve] flash launches {launches} = {SERVE_LAYERS} "
+          f"layers x ({n_chunks} prompt chunks + {rec.requeued_chunks} "
+          f"re-run): {launches == want_launches}; on the tensor-core "
+          f"variant: {tc_launches}")
+    if rows_equal:
+        same = tokens == baseline
+        print(f"[elastic_serve] streams equal to the survivor run's "
+              f"(data 2, batch {base_cfg.batch}) bit for bit: {same}")
+    else:
+        small = _small_elastic_serve()
+        print(f"[elastic_serve] reduced f32 model on the card: elastic "
+              f"streams equal to its survivor run's: {small}")
+        # a near-tie: a top-2 gap that the batch-size difference measured
+        # above can close (each of the two logits may move by row_diff)
+        tie = 2 * row_diff
+        held, ok = {}, True
+        for rid, want in sorted(baseline.items()):
+            got = tokens[rid]
+            first_tie = next((p for p in range(len(want))
+                              if _top2_gap(gaps[(rid, p)]) <= tie),
+                             len(want))
+            held[rid] = next((p for p in range(len(want))
+                              if got[p] != want[p]), len(want))
+            ok &= held[rid] >= first_tie
+        n_held = sum(held.values())
+        need = MIN_HELD_SHARE * SERVE_REQUESTS * SERVE_MAX_NEW
+        same = small and ok and n_held >= need
+        print(f"[elastic_serve] full-width streams: tokens equal to the "
+              f"survivor run's, by rid: {held}; "
+              f"{sum(h < SERVE_MAX_NEW for h in held.values())} of "
+              f"{len(baseline)} differ, each only at or after its first "
+              f"near-tie (top-2 gap <= {tie:.6g}): {ok}; {n_held} of "
+              f"{SERVE_REQUESTS * SERVE_MAX_NEW} tokens held (at least "
+              f"{need:.0f})")
+    if len(report.completed) != SERVE_REQUESTS or report.shed:
+        raise AssertionError("not every request completed")
+    for r in report.completed:
+        if len(r.generated) != SERVE_MAX_NEW:
+            raise AssertionError(f"rid {r.rid}: {r.generated}")
+    if report.mesh_history != [(ELASTIC_SERVE_RANKS,), (2,)] or \
+            report.batch_history != [scfg.batch, base_cfg.batch]:
+        raise AssertionError(report.describe())
+    if tc_launches != launches or launches != want_launches:
+        raise AssertionError(f"flash launches {launches} (tensor-core "
+                             f"{tc_launches}), want {want_launches}")
+    if not same:
+        raise AssertionError("elastic streams differ from the survivors'")
+    return {"flash_attention": launches}, dict(
+        snapshot_s=rec.snapshot_s, remesh_s=rec.remesh_s,
+        rebuild_s=rec.rebuild_s, tok_s_before=tok_before / t_before,
+        tok_s_after=tok_after / t_after, peak_gib=peak / 2**30,
+        rows_equal=rows_equal, row_diff=row_diff)
+
+
+def _top2_gap(row: torch.Tensor) -> float:
+    top = torch.topk(row, 2).values
+    return (top[0] - top[1]).item()
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1111,6 +1650,14 @@ def _sync_entry(name, sync_rows, train, by_path):
             "library_ms": row["library_ms"]}
 
 
+def timed(name, fn, *args):
+    """Run one phase and print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1125,15 +1672,21 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build([kernel.LIBRARY, lkernel.LIBRARY, qkernel.LIBRARY])
-    rows = phase_kernels(kernel, ref)
-    phase_small()
-    serve = phase_serve(ref)
-    sync_rows = phase_collectives()
-    phase_train_small()
-    train = phase_train()
-    by_path, _ = phase_train_sync()
-    phase_ckpt()
+    timed("build", phase_build, [kernel.LIBRARY, lkernel.LIBRARY,
+                                 qkernel.LIBRARY])
+    rows = timed("kernels", phase_kernels, kernel, ref)
+    timed("small", phase_small)
+    serve = timed("serve", phase_serve, ref)
+    sync_rows = timed("collectives", phase_collectives)
+    timed("train_small", phase_train_small)
+    train = timed("train", phase_train)
+    by_path, _ = timed("train (sync)", phase_train_sync)
+    timed("ckpt", phase_ckpt)
+    by_path["elastic_train"], _ = timed("elastic_train",
+                                        phase_elastic_train)
+    flash_by_path = {}
+    flash_by_path["elastic_serve"] = timed(
+        "elastic_serve", phase_elastic_serve)[0]["flash_attention"]
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s")
 
     card = subprocess.run(
@@ -1151,6 +1704,7 @@ def main() -> int:
                   "flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
         "launches": serve["launches"],
+        "launches_by_path": flash_by_path,
         "max_abs_err": max(serve["max_abs_err"],
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -304,7 +304,14 @@ def restore_checkpoint(directory: str, abstract_tree: Any,
 
 
 class CheckpointManager:
-    """Every-N-steps async checkpointing with retention."""
+    """Every-N-steps async checkpointing with retention.
+
+    ``saves`` records each save's times on the host clock: ``wait_s``
+    (the call waiting for the previous save, one being in flight at
+    most), ``call_s`` (the rest of the call: the copy to host on the
+    caller's thread) and ``durable_s`` (from the end of the wait until
+    the rename is durable), with the wall times ``t0``, ``t_called`` and
+    ``t_durable``."""
 
     def __init__(self, directory: str, every: int = 100, keep: int = 3,
                  async_: bool = True, sharded: bool = False):
@@ -315,6 +322,7 @@ class CheckpointManager:
         self.sharded = sharded
         self._pending: Optional[threading.Thread] = None
         self.last_restore_seconds: float = 0.0
+        self.saves: List[dict] = []
 
     def latest(self) -> Optional[int]:
         return latest_step(self.directory)
@@ -322,14 +330,26 @@ class CheckpointManager:
     def maybe_save(self, step: int, tree: Any, force: bool = False) -> bool:
         if not force and (self.every <= 0 or step % self.every != 0):
             return False
+        t0 = time.perf_counter()
         self.wait()                          # one outstanding save at most
-        # async: gc as soon as the writer publishes, so retention never
-        # exceeds `keep` between rare saves
-        done = self._gc if self.async_ else None
+        t1 = time.perf_counter()
+        record = {"step": step, "t0": t0, "wait_s": t1 - t0}
+
+        def done():
+            record["t_durable"] = time.perf_counter()
+            record["durable_s"] = record["t_durable"] - t1
+            # async: gc as soon as the writer publishes, so retention
+            # never exceeds `keep` between rare saves
+            if self.async_:
+                self._gc()
+
         self._pending = save_checkpoint(self.directory, step, tree,
                                         async_=self.async_,
                                         sharded=self.sharded,
                                         on_complete=done)
+        record["t_called"] = time.perf_counter()
+        record["call_s"] = record["t_called"] - t1
+        self.saves.append(record)
         if not self.async_:
             self._gc()
         return True

@@ -8,8 +8,10 @@ mesh or a topology, ``probe``, ``from_application(config=...)``,
 ``all_reduce`` and its start/progress/wait arms, the gradient-sync and
 ZeRO-1 arms, ``compressed_all_reduce``, ``sync_gradients[_bucketed]``,
 ``sync_schedule``, ``zero_sync_schedule``, ``persistent``,
-``axis_index``, ``mean_scale``) and ``PersistentHandle``.
-``remesh_over`` (survivor devices and health) is not ported.
+``axis_index``, ``mean_scale``) and ``PersistentHandle``; for the
+elastic controllers ``adopt`` (wrap a built engine), ``activate`` (the
+session's mesh as the active one) and ``remesh_over`` (plan the
+survivors' mesh, then ``remesh``).
 
     sess = Session((2,), ("data",), device="cuda")   # builds the mesh
     sess = Session(mesh=my_mesh)                     # adopts a mesh
@@ -19,14 +21,17 @@ ZeRO-1 arms, ``compressed_all_reduce``, ``sync_gradients[_bucketed]``,
 
 Invalidation has exactly ONE path: ``Session.remesh(mesh)`` re-``init``s
 the engine (the topology-fingerprint rule decides the CommPlan rebuild)
-and revokes and rebinds every outstanding persistent handle.
+and revokes and rebinds every outstanding persistent handle;
+``remesh_over`` only plans the mesh it hands to ``remesh``.
 
 Collective methods run inside a rank of ``substrate.run_spmd``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import threading
 import weakref
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
@@ -454,7 +459,8 @@ class Session:
                  topology: Optional[Topology] = None,
                  config: Optional[EngineConfig] = None,
                  library: Optional[ComposedLibrary] = None,
-                 frequencies: Optional[Mapping[str, float]] = None) -> None:
+                 frequencies: Optional[Mapping[str, float]] = None,
+                 _engine: Optional[CollectiveEngine] = None) -> None:
         if mesh_shape is not None:
             if mesh is not None:
                 raise ValueError("pass mesh_shape or mesh, not both")
@@ -468,6 +474,9 @@ class Session:
         self._finalized = False
         self.generation = 0          # fingerprint-changing remeshes
         self.trace_report: Optional[trace.TraceReport] = None
+        if _engine is not None:      # adopt(): wrap an existing engine
+            self._engine = _engine
+            return
         if topology is None:
             if mesh is None:
                 raise ValueError("Session needs mesh_shape+axis_names, "
@@ -479,6 +488,14 @@ class Session:
             frequencies=frequencies, config=config or EngineConfig())
         if mesh is not None and not mesh.abstract:
             self._engine.init(mesh)
+
+    @classmethod
+    def adopt(cls, engine: CollectiveEngine,
+              mesh: Optional[substrate.Mesh] = None) -> "Session":
+        """Wrap an already-built engine (for callers still holding a
+        ``CollectiveEngine``): the session takes over its lifecycle but
+        does not re-``init`` it."""
+        return cls(mesh=mesh, _engine=engine)
 
     @classmethod
     def probe(cls, mesh_shape: Sequence[int] = (4,),
@@ -610,6 +627,39 @@ class Session:
         for h in handles:
             h._rebind(fingerprint_changed=rebuilt)
         return rebuilt
+
+    def remesh_over(self, members: Sequence[int], *,
+                    model_parallel: Optional[int] = None,
+                    pods: Optional[int] = None):
+        """Plan the survivors' mesh and ``remesh`` onto it in one call —
+        the serving tier's recovery surface.  ``members``: the surviving
+        member ids, in the order their ranks take.  ``model_parallel`` /
+        ``pods``: the ORIGINAL layout to aim back at (defaults read off
+        the current mesh).  The new mesh keeps the axis names and device
+        and stands for the first ``prod(shape)`` members.  Returns
+        ``(mesh, plan_rebuilt)``."""
+        from repro_torch.runtime import elastic    # no import cycle
+        if self._mesh is None or self._mesh.abstract:
+            raise ValueError("remesh_over needs a session over a concrete "
+                             "mesh")
+        sizes = self._mesh.shape
+        mp = model_parallel if model_parallel is not None \
+            else sizes.get("model", 1)
+        pd = pods if pods is not None else sizes.get("pod", 1)
+        members = list(members)
+        shape = elastic.plan_mesh_shape(len(members), mp, pods=pd,
+                                        ndim=len(sizes))
+        mesh = elastic.make_mesh_from_shape(
+            shape, self._mesh.axis_names,
+            members=members[:math.prod(shape)], device=self._mesh.device)
+        return mesh, self.remesh(mesh)
+
+    def activate(self):
+        """Context manager making the session's mesh the active one
+        (``substrate.set_mesh``: its card the current CUDA device)."""
+        if self._mesh is None or self._mesh.abstract:
+            return contextlib.nullcontext()
+        return substrate.set_mesh(self._mesh)
 
     def finalize(self) -> str:
         """MPI_Session_finalize: permanently revoke handles, flush stats."""

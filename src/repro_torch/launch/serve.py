@@ -1,5 +1,7 @@
-"""Serving launcher of the port: continuous-batching generation on one
-device (counterpart of the non-elastic path of ``repro.launch.serve``).
+"""Serving launcher of the port: continuous-batching generation over a
+serving session of ``--data`` thread ranks on one device, optionally
+supervised by the elastic ``ServeController`` (counterpart of
+``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 \
         --batch 4 --max-new 12                       # reduced, on CUDA
@@ -11,8 +13,9 @@ device (counterpart of the non-elastic path of ``repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --num-layers 4 --max-len 4096 --page-tokens 256 --batch 8
 
-Elastic serving (``--elastic``, ``--fault-*``, ``--ctrl-*``) arrives
-with the port's elastic-serving slice and is refused here.
+    # elastic: 4 data ranks, lose 2 at step 3 (batch 4 -> 2)
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --data 4 --elastic --fault-plan lose@3:2
 """
 
 from __future__ import annotations
@@ -25,18 +28,20 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.comm import Session
 from repro_torch.configs import ARCH_IDS, get_config, with_num_layers
+from repro_torch.launch._elastic import (add_elastic_args,
+                                         check_elastic_args,
+                                         elastic_signals)
 from repro_torch.models import build_model
-from repro_torch.serve import BatchScheduler, Request, ServeCfg
+from repro_torch.runtime import substrate
+from repro_torch.runtime.controller import FaultPlan
+from repro_torch.serve import (BatchScheduler, Request, ServeCfg,
+                               ServeController)
 
 logger = logging.getLogger("repro_torch.serve")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-# Flags of the reference launcher that need the elastic-serving slice.
-_LATER = ("elastic", "fault_plan", "fault_seed", "max_recoveries",
-          "watchdog_timeout", "snapshot_dir", "ctrl_peers", "ctrl_port",
-          "ctrl_host", "ctrl_member", "heartbeat_interval", "ctrl_fault_plan")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -71,17 +76,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-chunked-prefill", action="store_true",
                     help="run prompts' chunks back to back at admission "
                          "instead of interleaved with decode")
-    later = ap.add_argument_group(
-        "elastic serving (refused: arrives with the elastic-serving slice)")
-    later.add_argument("--elastic", action="store_true")
-    for flag in _LATER[1:]:
-        later.add_argument("--" + flag.replace("_", "-"), default=None)
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks of the serving session "
+                         "(threads on one device); the batch splits over "
+                         "them")
+    add_elastic_args(ap, what="serving")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="persist each drained scheduler snapshot here "
+                         "(with --elastic)")
     args = ap.parse_args(argv)
-    used = [f for f in _LATER if getattr(args, f) not in (None, False)]
-    if used:
-        ap.error(f"{', '.join('--' + f.replace('_', '-') for f in used)}: "
-                 "elastic serving arrives with the port's elastic-serving "
-                 "slice (after the collective slice brings Session)")
+    check_elastic_args(ap, args)
+    if args.snapshot_dir and not args.elastic:
+        ap.error("--snapshot-dir needs --elastic")
     return args
 
 
@@ -112,12 +118,38 @@ def main(argv=None) -> None:
                 max_new=args.max_new)
         for rid in range(args.requests)]
 
+    # The session owns the serving mesh; the scheduler serves on it.
+    session = Session(mesh=substrate.make_host_mesh(args.data,
+                                                    device=device))
+    logger.info("serving session: %s", session.world.describe())
     t0 = time.time()
-    sched = BatchScheduler(model, params, scfg, device=device)
-    for req in requests:
-        sched.submit(req)
-    done, shed = sched.run(), sched.shed
-    pool = sched.pool
+    if args.elastic:
+        preemption, membership = elastic_signals(args, session.mesh)
+        try:
+            ctl = ServeController(
+                model, params, scfg, comm=session.world,
+                fault_plan=(FaultPlan.parse(args.fault_plan,
+                                            seed=args.fault_seed)
+                            if args.fault_plan else None),
+                max_recoveries=args.max_recoveries,
+                watchdog_timeout=args.watchdog_timeout,
+                snapshot_dir=args.snapshot_dir, preemption=preemption,
+                membership=membership)
+            for req in requests:
+                ctl.submit(req)
+            report = ctl.run()
+        finally:
+            if membership is not None:
+                membership.close()
+        done, shed = report.completed, report.shed
+        pool = ctl.sched.pool
+        logger.info("%s", report.describe())
+    else:
+        sched = BatchScheduler(model, params, scfg, comm=session.world)
+        for req in requests:
+            sched.submit(req)
+        done, shed = sched.run(), sched.shed
+        pool = sched.pool
     dt = time.time() - t0
     logger.info("page pool: %d-token pages, %d/%d allocated at exit, "
                 "%d bytes resident (contiguous layout: %d)",

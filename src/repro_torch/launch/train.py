@@ -6,15 +6,20 @@ in-process ranks on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-34b --reduced --sync composed --zero --overlap \\
         --ckpt-dir /tmp/ck --ckpt-sharded
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch granite-34b --reduced --data 4 --zero --elastic \\
+        --fault-plan lose@3:2 --ckpt-dir /tmp/ck --ckpt-sharded --steps 8
 
-Counterpart of the non-elastic path of ``repro.launch.train``: synthetic
-data -> the §2.2 scan and composed session (``build_session``) ->
-``--data`` ranks running the train step through the session's
-communicator, per leaf or in fused buckets (``--bucket-grads``), blocking
-or as an overlapped schedule-IR program (``--overlap``), or as ZeRO-1
-(``--zero``), with atomic async checkpoints (``--ckpt-dir``) that restore
-onto another ``--data`` width.  Runs on ``cuda`` unless ``--device cpu``;
-raises without CUDA.
+Counterpart of ``repro.launch.train``: synthetic data -> the §2.2 scan
+and composed session (``build_session``) -> ``--data`` ranks running the
+train step through the session's communicator, per leaf or in fused
+buckets (``--bucket-grads``), blocking or as an overlapped schedule-IR
+program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
+checkpoints (``--ckpt-dir``) that restore onto another ``--data`` width.
+``--elastic`` hands the loop to ``ElasticController``: injected faults
+(``--fault-plan``), SIGTERM as a preemption notice, and with
+``--ctrl-peers`` the control plane's epoch-fenced vote.  Runs on
+``cuda`` unless ``--device cpu``; raises without CUDA.
 """
 
 from __future__ import annotations
@@ -33,7 +38,11 @@ from repro_torch.core.plan import DEFAULT_BUCKET_BYTES
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
+from repro_torch.launch._elastic import (add_elastic_args,
+                                         check_elastic_args,
+                                         elastic_signals)
 from repro_torch.runtime import substrate
+from repro_torch.runtime.controller import ElasticController, FaultPlan
 from repro_torch.train import trainer
 
 logger = logging.getLogger("repro_torch.train")
@@ -64,7 +73,6 @@ def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
@@ -114,6 +122,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
+    add_elastic_args(ap, what="training")
     args = ap.parse_args(argv)
     if args.zero and args.sync != "composed":
         ap.error("--zero needs --sync composed (the RS/AG seam only "
@@ -121,6 +130,10 @@ def main(argv=None) -> None:
     if args.zero and args.bucket_grads:
         ap.error("--zero runs one RS/AG pair per parameter leaf and is "
                  "incompatible with --bucket-grads")
+    check_elastic_args(ap, args)
+    if args.elastic and not args.ckpt_dir:
+        ap.error("--elastic needs --ckpt-dir (recovery restores from the "
+                 "atomic checkpoint store)")
 
     logging.basicConfig(level=logging.INFO)
     cfg = get_config(args.arch, reduced=args.reduced,
@@ -145,6 +158,31 @@ def main(argv=None) -> None:
                             global_batch=args.global_batch, seed=args.seed)
     session = build_session(mesh, model, opt, ds, tcfg)
     logger.info("composed session:\n%s", session.describe())
+
+    if args.elastic:
+        preemption, membership = elastic_signals(args, mesh)
+        try:
+            ctl = ElasticController(
+                trainer.TrainSession(model, opt, tcfg), ds, mesh,
+                total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                comm=session, ckpt_every=args.ckpt_every,
+                ckpt_sharded=args.ckpt_sharded,
+                fault_plan=(FaultPlan.parse(args.fault_plan,
+                                            seed=args.fault_seed)
+                            if args.fault_plan else None),
+                max_recoveries=args.max_recoveries,
+                watchdog_timeout=args.watchdog_timeout, rng_seed=args.seed,
+                preemption=preemption, membership=membership,
+                on_step=lambda s, l: (s % args.log_every == 0 and
+                                      logger.info("step %4d  loss %.4f",
+                                                  s, l)))
+            report = ctl.run()
+        finally:
+            if membership is not None:
+                membership.close()
+        logger.info("elastic run done:\n%s", report.describe())
+        logger.info("session stats:\n%s", session.finalize())
+        return
 
     ckpt = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every,
                               sharded=args.ckpt_sharded)

@@ -1,1 +1,3 @@
-"""Runtime of the port: in-process ranks (``substrate``)."""
+"""Runtime of the port: in-process ranks (``substrate``) and the elastic
+runtime around them (``watchdog``, ``health``, ``ctrlplane``,
+``elastic``, ``controller``)."""

@@ -46,17 +46,29 @@ DEFAULT_TIMEOUT = 300.0
 class Mesh:
     """Named axes of in-process ranks; ``device`` is where every rank
     computes (``None`` for an abstract mesh, which only the application
-    scan runs over)."""
+    scan runs over).
+
+    ``members`` names, for each rank in rank order, the member id it
+    stands for (default ``0..size-1``): the reference's device ids.  A
+    survivor mesh keeps the ids of the original ranks that survive, so
+    a fault can always be traced back to the rank it hit."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: Optional[torch.device] = None
+    members: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
             raise ValueError(f"{self.axis_names} vs {self.axis_sizes}")
         if any(s < 1 for s in self.axis_sizes):
             raise ValueError(f"axis sizes must be >= 1: {self.axis_sizes}")
+        members = (tuple(range(self.size)) if self.members is None
+                   else tuple(int(m) for m in self.members))
+        if len(members) != self.size or len(set(members)) != self.size:
+            raise ValueError(f"{self.size} ranks need {self.size} distinct "
+                             f"member ids, got {members}")
+        object.__setattr__(self, "members", members)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -87,18 +99,32 @@ class Mesh:
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
-              device="cuda") -> Mesh:
+              device="cuda", members: Optional[Sequence[int]] = None
+              ) -> Mesh:
     """A mesh of ``prod(shape)`` in-process ranks on ``device`` (raises
     when CUDA is asked for and missing; ``cuda`` without an index means
-    the caller's current card)."""
+    the caller's current card).  ``members``: the member ids of the
+    ranks, in rank order (default ``0..size-1``)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(tuple(axis_names), tuple(int(s) for s in shape), dev)
+    return Mesh(tuple(axis_names), tuple(int(s) for s in shape), dev,
+                None if members is None else tuple(members))
 
 
 def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     return Mesh(tuple(axis_names), tuple(int(s) for s in shape), None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Mesh):
+    """Run the block with ``mesh``'s card as the current CUDA device (the
+    reference's ``substrate.set_mesh``; ranks, and so collectives, are
+    bound by ``run_spmd``, not by a context).  Yields the mesh."""
+    dev = mesh.device
+    with (torch.cuda.device(dev) if dev is not None and dev.type == "cuda"
+          else contextlib.nullcontext()):
+        yield mesh
 
 
 def make_host_mesh(data: int = 2, *, device="cuda") -> Mesh:
@@ -114,6 +140,24 @@ def make_host_mesh(data: int = 2, *, device="cuda") -> Mesh:
 
 class SpmdAbort(RuntimeError):
     """A rank left a hop because a peer failed or the wait timed out."""
+
+
+class RankFailure(RuntimeError):
+    """A rank of ``run_spmd`` failed.  ``rank`` is its rank in the mesh,
+    ``member`` the member id it stands for, ``exc`` its own error (the
+    ``__cause__`` too).  When every error was a peer's ``SpmdAbort`` (a
+    rank never reached its hop), ``rank`` is the rank the others waited
+    for and ``exc`` the first abort."""
+
+    def __init__(self, rank: int, member: int, size: int,
+                 exc: BaseException, *, hung: bool = False):
+        what = "did not reach its hop" if hung else "failed"
+        super().__init__(f"rank {rank} of {size} {what}: "
+                         f"{type(exc).__name__}: {exc}")
+        self.rank = rank
+        self.member = member
+        self.exc = exc
+        self.hung = hung
 
 
 @dataclasses.dataclass
@@ -275,8 +319,9 @@ def run_spmd(fn: Callable, per_rank_args: Sequence[Sequence[Any]],
              mesh: Mesh, *, timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
     """Run ``fn(*per_rank_args[r])`` as rank r of ``mesh``, one thread per
     rank, and return the results in rank order.  If any rank raises, the
-    others fail at their next hop and the first rank's own error (not a
-    peer's abort) is raised here."""
+    others fail at their next hop and a ``RankFailure`` naming the first
+    rank with an error of its own (never a peer's abort) is raised here,
+    from that error."""
     if len(per_rank_args) != mesh.size:
         raise ValueError(f"{len(per_rank_args)} argument sets for "
                          f"{mesh.size} ranks")
@@ -319,7 +364,14 @@ def run_spmd(fn: Callable, per_rank_args: Sequence[Sequence[Any]],
     failed = [(r, e) for r, e in enumerate(errors) if e is not None]
     if failed:
         own = [(r, e) for r, e in failed if not isinstance(e, SpmdAbort)]
-        rank, err = (own or failed)[0]
-        raise RuntimeError(f"rank {rank} of {mesh.size} failed: "
-                           f"{type(err).__name__}: {err}") from err
+        if own:
+            rank, err = own[0]
+            raise RankFailure(rank, mesh.members[rank], mesh.size,
+                              err) from err
+        # only aborts: name a rank the others waited for, if one is left
+        stuck = [r for r, t in enumerate(threads)
+                 if t.is_alive() and errors[r] is None]
+        rank, err = (stuck[0], failed[0][1]) if stuck else failed[0]
+        raise RankFailure(rank, mesh.members[rank], mesh.size, err,
+                          hung=bool(stuck)) from err
     return results

@@ -15,9 +15,29 @@ prompt never stalls the batch.  Models without a chunked-prefill path
 fall back to one-shot prefill; the pool adopts the finished row page by
 page.
 
-Placement: the scheduler runs on one ``device`` (``cuda`` unless the
-caller says otherwise) — the reference's ``comm=None`` path.  Sessions
-and meshes arrive with the collective slice.
+Placement goes through the ``repro_torch.comm`` facade as in the
+reference: pass ``comm=`` (a ``Communicator``, e.g. ``Session(mesh=
+...).world``) and the scheduler serves on the session's mesh — its card,
+with every step under ``Session.activate`` — and the mesh's data extent
+(pod x data ranks) splits the batch: ``cfg.batch`` is rows a rank x data
+ranks, and must divide.  This is the mesh the ``ServeController``
+re-meshes.  On one card model parallelism is 1 and serving runs no
+collective, so the rows of every data rank run in ONE batched call, as
+the reference's one program runs them over its devices.  ``device=``
+alone (no session: the reference's ``comm=None`` path) serves on that
+device, ``cuda`` unless the caller says otherwise.
+
+Elasticity contract (driven by ``repro_torch.serve.controller.
+ServeController``): the scheduler only mutates at decode-step
+boundaries, so ``snapshot()`` at any boundary is a *drained* image —
+queue, per-slot requests with their generated tokens, and per-slot
+caches, page-granular (``PagePool.extract``).  Mid-prefill requests
+return to the queue head (no tokens emitted yet; re-prefilling them is
+token-identical).  ``from_snapshot`` rebuilds a scheduler from that
+image on a different (usually smaller) batch over a re-meshed session:
+in-flight requests re-splice their pages and continue decoding where
+they left off — no re-prefill, no token replay — and the ones the
+shrunk batch cannot hold wait *parked* for a freed slot.
 
 Determinism: every request's token stream is a pure function of
 ``(cfg.seed, rid, position)`` — independent of batch composition, slot
@@ -30,6 +50,7 @@ not reproduce the reference's threefry draws.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -129,6 +150,18 @@ def generate(model, params, prompts: torch.Tensor, max_new: int,
     return torch.cat([prompts.long(), torch.stack(out, dim=1)], dim=1)
 
 
+def _mesh_scope(comm) -> contextlib.AbstractContextManager:
+    """The communicator's mesh context (no-op without a communicator)."""
+    return comm.session.activate() if comm is not None \
+        else contextlib.nullcontext()
+
+
+def data_extent(mesh) -> int:
+    """Data ranks a serving mesh splits the batch over (pod x data)."""
+    sizes = mesh.shape
+    return sizes.get("pod", 1) * sizes.get("data", 1)
+
+
 # ---------------------------------------------------------------------------
 # Continuous batching over the page pool
 # ---------------------------------------------------------------------------
@@ -187,11 +220,28 @@ class BatchScheduler:
     shed.
     """
 
-    def __init__(self, model, params, cfg: ServeCfg, device="cuda"):
+    def __init__(self, model, params, cfg: ServeCfg, device="cuda",
+                 comm=None):
         self.model = model
         self.params = params
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.comm = comm          # repro_torch.comm Communicator (mesh)
+        if comm is not None:
+            mesh = comm.mesh
+            if mesh is None or mesh.abstract:
+                raise ValueError("serving needs a session over a concrete "
+                                 "mesh")
+            self.data_ranks = data_extent(mesh)
+            if cfg.batch % self.data_ranks:
+                raise ValueError(
+                    f"batch {cfg.batch} does not split over "
+                    f"{self.data_ranks} data ranks (rows a rank x data "
+                    f"ranks)")
+            self.device = mesh.device
+        else:
+            self.data_ranks = 1
+            self.device = resolve_device(device)
+        self.rows_per_rank = cfg.batch // self.data_ranks
         self.queue: deque = deque()
         self.parked: deque = deque()   # SlotSnapshots awaiting a slot
         self.slots: List[Optional[Request]] = [None] * cfg.batch
@@ -230,7 +280,8 @@ class BatchScheduler:
             return False
         self.queue.append(req)
         if self._has_free_slot():
-            self._admit()
+            with _mesh_scope(self.comm):
+                self._admit()
         return True
 
     def _has_free_slot(self) -> bool:
@@ -415,8 +466,12 @@ class BatchScheduler:
 
     def step(self) -> int:
         """Admit + advance prefill chunks + one decode step for all
-        decoding slots.  Returns the number of in-flight requests
-        touched."""
+        decoding slots (under the comm session's mesh when there is one).
+        Returns the number of in-flight requests touched."""
+        with _mesh_scope(self.comm):
+            return self._step()
+
+    def _step(self) -> int:
         before = set(self._prefills)
         n_done = len(self.completed)
         self._admit()
@@ -503,12 +558,13 @@ class BatchScheduler:
 
     @classmethod
     def from_snapshot(cls, model, params, cfg: ServeCfg, snap,
-                      device="cuda") -> "BatchScheduler":
+                      device="cuda", comm=None) -> "BatchScheduler":
         """Rebuild a scheduler from a drained snapshot on a (possibly
-        smaller) batch.  In-flight requests re-splice their pages in slot
+        smaller) batch, over ``comm``'s (re-meshed) session or on
+        ``device``.  In-flight requests re-splice their pages in slot
         order; the ones past ``cfg.batch`` stay parked for freed slots;
         the queue tail past the ``max_queue`` backlog bound is shed."""
-        sched = cls(model, params, cfg, device=device)
+        sched = cls(model, params, cfg, device=device, comm=comm)
         sched.decode_steps = snap.decode_steps
         sched.completed = list(snap.completed)
         sched.shed = list(snap.shed)
@@ -524,5 +580,6 @@ class BatchScheduler:
                 sched.shed.extend(queue[allowed:])
                 queue = queue[:allowed]
         sched.queue = deque(queue)
-        sched._admit()              # re-admit up to cfg.batch slots NOW
+        with _mesh_scope(comm):
+            sched._admit()          # re-admit up to cfg.batch slots NOW
         return sched

@@ -200,6 +200,22 @@ class RequestCache:
                    for t in list(self.pages) + list(self.state))
 
 
+def abstract_request_cache(layout: PageLayout, tokens: int
+                           ) -> RequestCache:
+    """The ``meta`` image of an extracted request with ``tokens`` cache
+    positions — what a snapshot restore is shaped by, built from the
+    probed layout instead of a stored tree."""
+    n = -(-tokens // layout.page_tokens) if tokens > 0 else 0
+    pages = [torch.empty((n, layout.page_tokens,
+                          *layout.leaves[i].rest()),
+                         dtype=layout.leaves[i].dtype, device="meta")
+             for i in layout.token_leaf_ids]
+    state = [torch.empty(layout.leaves[i].shape,
+                         dtype=layout.leaves[i].dtype, device="meta")
+             for i in layout.state_leaf_ids]
+    return RequestCache(pages=pages, state=state, tokens=tokens)
+
+
 # ---------------------------------------------------------------------------
 # The pool
 # ---------------------------------------------------------------------------

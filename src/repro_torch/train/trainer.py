@@ -35,7 +35,8 @@ and the reference's ways of running that sync:
                width the losses are bit-identical to the per-leaf path.
 
 The reference's ``auto`` mode (collectives inserted by the compiler)
-has no counterpart here, nor does its elastic ``TrainSession``.
+has no counterpart here.  ``TrainSession`` bundles what survives a
+re-mesh (model, optimizer, ``TrainCfg``) for the elastic controller.
 
 Ranks are the threads of ``substrate.run_spmd``.  Each holds its own
 state (a list, one per rank); ``train_step(states, batch)`` gives every
@@ -49,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -613,3 +614,63 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     train_step.schedule = rs_sched if cfg.zero else sched
     train_step.ag_schedule = ag_sched
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# TrainSession: one (model, optimizer, cfg) bundle, many meshes
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainSession:
+    """Everything about a training run that survives a re-mesh (the
+    reference's ``TrainSession``).
+
+    The elastic controller rebuilds the mesh-bound pieces (the per-rank
+    states, the step function, the communicator's plan) after every
+    topology change; the pieces that must NOT change across a recovery —
+    model, optimizer, ``TrainCfg``, and through them the state structure
+    and bucket layout — live here, so the launcher and the controller
+    build them once and the same way.  ``mesh=`` is required with
+    ``cfg.zero`` (the state layout depends on the data-parallel width).
+    """
+
+    model: Any
+    optimizer: Any
+    cfg: TrainCfg = TrainCfg()
+
+    def abstract_state(self, mesh=None):
+        """The run's state in the checkpoint layout as ``meta`` tensors
+        (``global_abstract_state``): what a restore is shaped by."""
+        return global_abstract_state(self.model, self.optimizer, self.cfg,
+                                     mesh=mesh)
+
+    def init_state(self, gen: Optional[torch.Generator] = None, mesh=None
+                   ) -> List[Dict[str, Any]]:
+        """Fresh per-rank states on ``mesh``'s device: weights from
+        ``model.init(gen)``, replicated to every rank."""
+        if mesh is None:
+            raise ValueError("init_state needs the mesh its ranks run on")
+        if gen is None:
+            gen = torch.Generator(device=mesh.device).manual_seed(0)
+        return replicate(make_train_state(
+            self.model, self.optimizer, self.model.init(gen), self.cfg,
+            mesh=mesh), mesh.size)
+
+    def step_fn(self, comm: Communicator) -> Callable:
+        """The topology-bound train step over ``comm`` (the session's
+        world communicator); built again after every re-mesh."""
+        return make_train_step(self.model, self.optimizer, self.cfg,
+                               comm=comm)
+
+    def gather(self, states: List[Dict[str, Any]]) -> Any:
+        """The per-rank states as one tree in the checkpoint layout."""
+        return gather_state(states, self.cfg)
+
+    def scatter(self, tree: Any, mesh) -> List[Dict[str, Any]]:
+        """Per-rank states on ``mesh`` from a checkpoint-layout tree."""
+        return scatter_state(tree, self.cfg, mesh)
+
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Axes the global batch splits over (filtered to the mesh's
+        axes by the step)."""
+        return tuple(self.cfg.data_axes)

@@ -6,7 +6,7 @@ two packages.
   truncates or zero-pads 1-D leaves only; a compressed+bucketed restore
   with another ``bucket_bytes`` names both bucket layouts; the manager's
   gc keeps ``keep`` steps, skips stray names and reclaims an orphaned
-  ``.tmp``.
+  ``.tmp``, and it records each save's wait, call and durable times.
 - ZeRO: a run on 4 thread ranks saved per shard (async, while the
   caller goes on) restores onto 2 ranks and a run on 2 onto 4: the
   gathered logical state equals the saved one bit for bit, and the next
@@ -142,6 +142,23 @@ def test_gc_skips_stray_names_and_reclaims_orphan_tmp(tmp_path):
     assert mgr.maybe_save(4, {"x": torch.zeros(2)})
     tree, step = mgr.restore_latest({"x": torch.empty(2, device="meta")})
     assert step == 4 and torch.equal(tree["x"], torch.zeros(2))
+
+
+@pytest.mark.parametrize("async_", [False, True], ids=["sync", "async"])
+def test_manager_records_each_save(tmp_path, async_):
+    mgr = CheckpointManager(str(tmp_path / "ck"), every=2, keep=1,
+                            async_=async_)
+    for s in range(5):
+        mgr.maybe_save(s, {"x": torch.full((64,), float(s))})
+    mgr.maybe_save(5, {"x": torch.zeros(64)}, force=True)
+    mgr.wait()
+    assert [sv["step"] for sv in mgr.saves] == [0, 2, 4, 5]
+    for sv in mgr.saves:
+        assert min(sv["wait_s"], sv["call_s"], sv["durable_s"]) >= 0
+        assert sv["t0"] <= sv["t_called"]
+        assert sv["t_durable"] >= sv["t0"] + sv["wait_s"]
+    assert mgr.latest() == 5 and os.listdir(str(tmp_path / "ck")) == [
+        "step_00000005"]
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,15 @@ bucketed ring run on CUDA thread ranks, each ring hop's combine a launch
 of the CUDA ``sum_chunks``, and give the bits of the same calls on CPU
 ranks.
 
+The elastic paths on CUDA thread ranks: the reduced granite-34b under
+``ElasticController`` (ZeRO-1, 4 -> 2 ranks) gives, bit for bit, the
+losses of a run started on the 2 survivors from the same checkpoint on
+the card, and the CPU's elastic losses within 1e-4 (the card's GEMMs
+sum in another order than the CPU's, so bits cannot cross devices);
+the reduced qwen2-72b under ``ServeController`` (data 4 -> 2) gives the
+CPU's greedy streams; a rank that raises on the card surfaces from
+``run_spmd`` as a ``RankFailure`` naming it.
+
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
 so they run on a machine that has only the port's dependencies:
@@ -344,3 +353,108 @@ def test_bucketed_ring_on_cuda_ranks_matches_cpu_bits(cuda, dtype):
     assert launches == n_buckets * (p - 1) * p      # p-1 hops a rank
     for g, w in zip(leaves(got), leaves(want)):
         _bits_equal(g, w)
+
+
+def _elastic_train(device, tmp):
+    from repro_torch.configs import get_config as gc
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import build_session
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import substrate
+    from repro_torch.runtime.controller import ElasticController, FaultPlan
+    from repro_torch.train import trainer
+    cfg = gc("granite-34b", reduced=True)
+    model = build_model(cfg)
+    opt = make_optimizer("adamw", lr=1e-3, clip_norm=0.0)
+    tcfg = trainer.TrainCfg(zero=True)
+    sess = trainer.TrainSession(model, opt, tcfg)
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=64,
+                            global_batch=4)
+    mesh = substrate.make_host_mesh(4, device=device)
+    # both devices start from the same weights, drawn on the CPU: the
+    # controller restores this step-0 checkpoint instead of drawing its
+    # own (a CUDA generator draws other numbers than a CPU one)
+    from repro_torch.checkpoint import save_checkpoint
+    save_checkpoint(str(tmp), 0, sess.gather(sess.init_state(
+        torch.Generator().manual_seed(0),
+        mesh=substrate.make_host_mesh(4, device="cpu"))), sharded=True)
+    ctl = ElasticController(
+        sess, ds, mesh, total_steps=5, ckpt_dir=str(tmp), ckpt_every=2,
+        ckpt_keep=0, ckpt_sharded=True,
+        comm=build_session(mesh, model, opt, ds, tcfg),
+        fault_plan=FaultPlan.parse("lose@3:2", seed=0),
+        watchdog_timeout=600.0)
+    report = ctl.run()
+    assert all(t.device.type == torch.device(device).type
+               for st in ctl.states for t in leaves(st["params"]))
+    mesh2 = substrate.make_mesh((2,), ("data",), device=device,
+                                members=report.recoveries[0].healthy_after)
+    from repro_torch.checkpoint import restore_checkpoint
+    states = sess.scatter(restore_checkpoint(
+        str(tmp), sess.abstract_state(mesh=mesh2), step=2,
+        allow_resize_1d=True), mesh2)
+    step = sess.step_fn(build_session(mesh2, model, opt, ds, tcfg).world)
+    baseline = {}
+    for s in range(2, 5):
+        states, m = step(states, ds.host_batch(s))
+        baseline[s] = m["loss"].item()
+    return report, baseline
+
+
+def test_elastic_train_on_cuda_ranks(cuda, tmp_path):
+    report, baseline = _elastic_train(cuda, tmp_path / "cuda")
+    assert report.mesh_history == [(4,), (2,)]
+    assert report.plan_rebuilds == 1
+    assert {s: report.losses[s] for s in baseline} == baseline
+    cpu, _ = _elastic_train("cpu", tmp_path / "cpu")
+    for s in range(5):
+        assert abs(report.losses[s] - cpu.losses[s]) <= \
+            1e-4 * abs(cpu.losses[s]), s
+
+
+def test_elastic_serve_on_cuda_gives_the_cpu_streams(cuda):
+    from repro_torch.comm import Session
+    from repro_torch.runtime import substrate
+    from repro_torch.runtime.controller import FaultPlan
+    from repro_torch.serve import Request, ServeCfg, ServeController
+    model = build_model(get_config("qwen2-72b", reduced=True))
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, size=rng.randint(3, 50)).tolist()
+               for _ in range(12)]
+
+    def run(device, params):
+        ctl = ServeController(
+            model, params, ServeCfg(max_len=64, batch=8, page_tokens=8,
+                                    cache_dtype=torch.float32),
+            comm=Session(mesh=substrate.make_host_mesh(
+                4, device=device)).world,
+            fault_plan=FaultPlan.parse("lose@3:2", seed=0),
+            watchdog_timeout=600.0)
+        for rid, p in enumerate(prompts):
+            ctl.submit(Request(rid=rid, prompt=p, max_new=6))
+        report = ctl.run()
+        ctl.sched.pool.check_integrity()
+        return report
+
+    got = run(cuda, map_tree(lambda t: t.to(cuda), cpu_params))
+    want = run("cpu", cpu_params)
+    assert got.mesh_history == [(4,), (2,)] and got.batch_history == [8, 4]
+    assert got.tokens() == want.tokens()
+
+
+def test_a_rank_raising_on_the_card_is_named(cuda):
+    from repro_torch.runtime import health, substrate
+
+    def body(r):
+        x = torch.ones(1024, device=cuda) * r
+        if r == 1:
+            raise RuntimeError("CUDA error: GPU has fallen off the bus")
+        return substrate.ppermute(x, "data", [(0, 2), (2, 0)])
+
+    mesh = substrate.make_mesh((3,), ("data",), device=cuda,
+                               members=(5, 6, 7))
+    with pytest.raises(substrate.RankFailure) as ei:
+        substrate.run_spmd(body, [(r,) for r in range(3)], mesh, timeout=60)
+    assert (ei.value.rank, ei.value.member) == (1, 6)
+    assert health.classify_failure(ei.value) == (6,)

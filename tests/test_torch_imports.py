@@ -1,7 +1,9 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
-serving and training entry points, the schedule IR and the checkpoint
-store leaves ``jax`` out of ``sys.modules``."""
+serving and training entry points, the schedule IR, the checkpoint
+store and the elastic runtime leaves ``jax`` out of ``sys.modules``.
+The elastic launchers, like the others, run on ``cuda`` unless asked for
+the CPU, and raise without CUDA."""
 
 import ast
 import os
@@ -9,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -65,3 +68,26 @@ def test_schedule_and_checkpoint_modules_import_without_jax():
                           "repro_torch.core.plan",
                           "repro_torch.checkpoint",
                           "repro_torch.train.trainer"])
+
+
+def test_elastic_entry_points_import_without_jax():
+    _imports_without_jax(["repro_torch.runtime.controller",
+                          "repro_torch.runtime.ctrlplane",
+                          "repro_torch.runtime.health",
+                          "repro_torch.runtime.elastic",
+                          "repro_torch.runtime.watchdog",
+                          "repro_torch.serve.controller",
+                          "repro_torch.serve.state"])
+
+
+@pytest.mark.parametrize("launcher,argv", [
+    ("train", ["--elastic", "--fault-plan", "lose@1:1", "--ckpt-dir",
+               "unused", "--steps", "1"]),
+    ("serve", ["--elastic", "--data", "2", "--fault-plan", "lose@1:1"])])
+def test_elastic_launchers_run_on_cuda_unless_asked(launcher, argv):
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA refusal")
+    import importlib
+    mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)

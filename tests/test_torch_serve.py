@@ -204,11 +204,14 @@ def test_launcher_serves_on_cpu():
     assert "served 4 requests (0 shed)" in proc.stderr
 
 
-@pytest.mark.parametrize("flags", [["--elastic"],
+@pytest.mark.parametrize("flags", [["--snapshot-dir", "snap"],
                                    ["--ctrl-peers", "a:1,b:2"],
                                    ["--fault-plan", "lose@3:2"]])
 def test_launcher_refuses_elastic_flags(flags, capsys):
+    """Elastic flags without ``--elastic`` would be ignored: refused."""
     with pytest.raises(SystemExit) as ei:
         launch_serve.parse_args(["--device", "cpu", *flags])
     assert ei.value.code == 2
-    assert "elastic-serving slice" in capsys.readouterr().err
+    assert "needs --elastic" in capsys.readouterr().err
+    assert launch_serve.parse_args(["--device", "cpu", "--elastic",
+                                    *flags]).elastic
