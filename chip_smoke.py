@@ -43,6 +43,20 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              plain and one-PyTorch-call times and the bound; the kernel and
              its PyTorch call are timed in turns (kernel, call, kernel,
              call) and each keeps its faster turn.
+5b. collectives_lib — the whole collective library on CUDA thread
+             ranks: every function (all_reduce, reduce_scatter,
+             all_gather, all_to_all, broadcast, permute, send_recv) on
+             every protocol of its cost-model menu that takes p, through a
+             composed session with the protocol forced, and on the generic
+             path through a monolithic one; p in {2, 4} at a full-width
+             granite-34b MLP leaf (6144 x 24576 bf16, 302 MB a rank), p in
+             {3, 8} at 6144 x 3072.  Data movement must equal its plain
+             rearrangement on the card and reductions the same schedule
+             rerun with the plain combine (``plain_sync_ops``), bit for
+             bit; each rank's recorded phase bytes must equal
+             ``plan.phase_wire_bytes``; ``sum_chunks`` launches must equal
+             the schedule's count.  Prints each call's time and the wire
+             bytes a rank, as the transport measured them.
 6. train_small — the reduced granite-34b (f32) trained over 2 thread
              ranks for 3 steps, composed and compressed, through the sync
              kernels on the card and through the plain path on the CPU,
@@ -77,6 +91,16 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              plus padding.  Each run prints its step time, tokens/s and
              peak memory, and each sync kernel's launches must equal the
              plan's count.
+8b. train_auto — the same workload as ``sync="auto"``, the conventional
+             stack: each gradient leaf and the loss averaged by
+             ``collectives.pmean`` through the monolithic default session,
+             3 steps from [train]'s weights and batches.  Checks finite
+             losses, identical replicas, the losses within 1e-4 relative
+             of [train]'s composed run (the tolerance the port holds
+             composed training to the reference), the default session's
+             average layer number 2.0 (printed beside the composed
+             session's) and ``sum_chunks`` launches as the generic ring
+             counts them.  Prints step time and peak memory.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -106,8 +130,14 @@ Phases (any failure exits non-zero; the last stdout line is the result):
 11. elastic_serve — the serve workload over a serving session of 4 data
              thread ranks (batch 8) under ``ServeController`` with
              ``lose@8:2``: the batch shrinks to 4, the drained slots
-             re-splice, and all 16 requests complete.  First, 8 requests
-             decode 16 tokens at batch 8 and at batch 4: if their logits
+             re-splice, and all 16 requests complete.  First, one decode
+             step of 8 requests is called on the model directly (no row
+             blocks) at batch 8 and at batch 4 with every GEMM and batched
+             product recorded, and the ones whose rows differ are printed
+             (which op makes a row depend on the batch).  Then 8 requests
+             decode 16 tokens at batch 8 and at batch 4 through the
+             scheduler, whose decode runs blocks of ``DECODE_ROWS`` rows:
+             if their logits
              are equal bit for bit, the streams must equal an
              uninterrupted run on the survivors (data 2, batch 4) bit for
              bit; if not, the reduced f32 model's elastic streams must
@@ -188,6 +218,12 @@ ROWS_MAX_NEW = 16
 MIN_HELD_SHARE = 0.5   # of the full-width elastic tokens, equal to the
                        # survivor run's where the streams can be held
 CHECK_RIDS = (0, 1)    # requests whose every chunk is held against plain
+LIB_FULL = (6144, 24576)   # a full-width granite-34b MLP leaf: 302 MB bf16
+LIB_SMALL = (6144, 3072)
+LIB_RANKS = ((2, LIB_FULL), (4, LIB_FULL), (3, LIB_SMALL), (8, LIB_SMALL))
+LIB_FUNCTIONS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
+                 "broadcast", "permute", "send_recv")
+AUTO_LOSS_RTOL = 1e-4  # LOSS_RTOL["composed"], tests/test_torch_train.py
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -702,6 +738,165 @@ def planned_launches(engine, synced, scalars, p: int, compress: bool):
     return out, protocols
 
 
+def _lib_kwargs(fn: str, p: int) -> dict:
+    return {"reduce_scatter": {"dim": 0}, "all_gather": {"dim": 0},
+            "all_to_all": {"split_dim": 0, "concat_dim": 1},
+            "broadcast": {"root": 1}, "permute": {"shift": 1},
+            "send_recv": {"pairs": [(j, j + 1) for j in range(p - 1)]},
+            }.get(fn, {})
+
+
+def _lib_expected(fn: str, xs, r: int, p: int, kw: dict):
+    """The plain rearrangement a data-movement call must give rank r."""
+    if fn == "all_gather":
+        return torch.cat(xs, dim=kw["dim"])
+    if fn == "all_to_all":
+        return torch.cat([x.chunk(p, kw["split_dim"])[r] for x in xs],
+                         dim=kw["concat_dim"])
+    if fn == "broadcast":
+        return xs[kw["root"]]
+    if fn == "permute":
+        return xs[(r - kw["shift"]) % p]
+    src = [a for a, b in kw["pairs"] if b == r]
+    return xs[src[0]] if src else torch.zeros_like(xs[0])
+
+
+def _lib_combines(fn: str, proto: str, p: int, n: int) -> int:
+    """``sum_chunks`` launches one rank makes in one call of ``fn`` on
+    ``n`` values: p-1 a ring reduce-scatter (2(p-1) for a bidirectional
+    one on an even chunk), the generic path's sums included; none for
+    the recursive protocols (their adds are the reference's plain
+    ``+``) or data movement."""
+    from repro_torch.core import costmodel
+    if proto == costmodel.XLA_DEFAULT:
+        return p - 1 if fn in ("all_reduce", "reduce_scatter",
+                               "broadcast") else 0
+    if fn not in ("all_reduce", "reduce_scatter"):
+        return 0
+    chunk = -(-n // p)
+    return {costmodel.RING: p - 1,
+            costmodel.BIDIR_RING: (p - 1) * (1 if chunk % 2 else 2)
+            }.get(proto, 0)
+
+
+def _lib_call(mesh, fn: str, proto: str, mode: str, xs):
+    """One call of ``fn`` on every rank of ``mesh`` through a fresh
+    session (``proto`` forced when composed), checked: data movement
+    against its plain rearrangement and reductions against the same
+    schedule rerun with the plain combine, bit for bit; the recorded
+    phase bytes of each rank against ``plan.phase_wire_bytes``; the
+    ``sum_chunks`` launches against the schedule's count.  Then timed
+    once more.  Returns the call's row."""
+    from repro_torch.comm import Session
+    from repro_torch.core import layers
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.kernels.local_reduce import ops as lops
+    from repro_torch.runtime import substrate
+    p = mesh.size
+    kw = _lib_kwargs(fn, p)
+    sess = Session(mesh=mesh, config=EngineConfig(
+        mode=mode, force_protocol={fn: proto} if mode == "composed"
+        else {}))
+    d = sess.split("data")
+
+    def call(x):
+        w0 = substrate.sent_bytes()
+        y = (d.all_reduce_wait(d.all_reduce_start(x)) if fn == "all_reduce"
+             else getattr(d, fn)(x, **kw))
+        return y, substrate.sent_bytes() - w0
+
+    def run():
+        out = substrate.run_spmd(call, [(x,) for x in xs], mesh)
+        torch.cuda.synchronize()
+        return out
+
+    c0 = lops.counter.value
+    out = run()
+    launches = lops.counter.value - c0
+    want_launches = p * _lib_combines(fn, proto, p, xs[0].numel())
+    phase = [dict(sess.engine.stats.rank_phase_bytes.get(r, {}))
+             for r in range(p)]
+    nb = layers.nbytes(xs[0])
+    billed = plan_mod.phase_wire_bytes(
+        proto, p, nb * p if fn == "all_gather" else nb, fn)
+    recorded = {(ph.get(f"{fn}.start", 0), ph.get(f"{fn}.wait", 0))
+                for ph in phase}
+    sent = [w for _, w in out]
+    if fn in ("all_reduce", "reduce_scatter"):
+        check = "plain-combine rerun"
+        with plain_sync_ops():
+            plain = run()
+        same = all(_bits_equal(a[0], b[0]) for a, b in zip(out, plain))
+        del plain
+    else:
+        check = "plain rearrangement"
+        same = all(_bits_equal(y, _lib_expected(fn, xs, r, p, kw))
+                   for r, (y, _) in enumerate(out))
+    shape = tuple(out[0][0].shape)
+    del out
+    t0 = time.perf_counter()
+    run()
+    ms = (time.perf_counter() - t0) * 1e3
+    row = dict(p=p, fn=fn, mode=mode, protocol=proto, ms=ms, shape=shape,
+               sent=sent, billed=billed, recorded=sorted(recorded),
+               launches=launches, want_launches=want_launches, same=same)
+    exact = "" if set(sent) == {sum(billed)} else " (transport != billed)"
+    print(f"[collectives_lib] p={p} {fn:14s} {mode:10s} {proto:18s} "
+          f"{ms:8.3f} ms; wire bytes a rank {sorted(set(sent))}{exact}; "
+          f"billed (start, wait) {billed}, recorded {sorted(recorded)}; "
+          f"sum_chunks {launches} (schedule {want_launches}); "
+          f"{check}: {same}")
+    if recorded != {billed}:
+        raise AssertionError(f"{fn} {proto} p={p}: phase bytes {recorded} "
+                             f"!= {billed}")
+    if launches != want_launches:
+        raise AssertionError(f"{fn} {proto} p={p}: {launches} sum_chunks "
+                             f"launches, schedule {want_launches}")
+    if not same:
+        raise AssertionError(f"{fn} {proto} p={p} differs from its {check}")
+    return row
+
+
+def phase_collectives_lib():
+    """Every function of the library on every protocol of its menu that
+    takes p, and on the generic path (the monolithic engine), on CUDA
+    thread ranks: p in {2, 4} at a full-width granite-34b MLP leaf
+    (6144 x 24576 bf16, 302 MB a rank), p in {3, 8} at 6144 x 3072.
+    Returns ({"sum_chunks": launches}, rows)."""
+    import gc
+    import math
+    from repro_torch.comm import Session
+    from repro_torch.core import costmodel, layers
+    from repro_torch.kernels import counter
+    from repro_torch.runtime import substrate
+    rows = []
+    counter.reset_all()
+    for p, shape in LIB_RANKS:
+        mesh = substrate.make_mesh((p,), ("data",), device="cuda")
+        topo = Session(mesh=mesh).engine.topology
+        gen = torch.Generator(device="cuda").manual_seed(p)
+        xs = [torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(p)]
+        nb = layers.nbytes(xs[0])
+        for fn in LIB_FUNCTIONS:
+            plan_nb = nb * p if fn == "all_gather" else nb
+            menu = costmodel.protocol_menu(fn)
+            variants = [(proto, "composed") for proto, cost in menu.items()
+                        if not math.isinf(cost(plan_nb, topo, "data"))]
+            for proto, mode in variants + [(costmodel.XLA_DEFAULT,
+                                            "monolithic")]:
+                rows.append(_lib_call(mesh, fn, proto, mode, xs))
+                gc.collect()
+        del xs
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = counter.counts()["sum_chunks"]
+    print(f"[collectives_lib] {len(rows)} calls checked; sum_chunks "
+          f"launches {launches}")
+    return {"sum_chunks": launches}, rows
+
+
 def _adamw(lr: float, **kw):
     from repro_torch.optim import cosine_schedule, make_optimizer
     return make_optimizer("adamw", lr=cosine_schedule(
@@ -743,8 +938,11 @@ def train_run(model, init, mesh, ds, opt, sync: str, **cfg):
     from repro_torch.launch.train import build_session
     from repro_torch.train import trainer
     from repro_torch.tree import map_tree
+    from repro_torch.comm import Session
     tcfg = trainer.TrainCfg(sync_mode=sync, **cfg)
-    session = build_session(mesh, model, opt, ds, tcfg)
+    # auto: the conventional stack, as the launcher builds it
+    session = (Session(mesh=mesh, mode="monolithic") if sync == "auto"
+               else build_session(mesh, model, opt, ds, tcfg))
     states = trainer.replicate(trainer.make_train_state(
         model, opt, map_tree(lambda t: t.clone(), init), tcfg, mesh=mesh),
         mesh.size)
@@ -891,6 +1089,8 @@ def phase_train():
                           f"({k} combine launches a rank a step)")
                 out[f"{sync}_step_ms"] = step_s * 1e3
                 out[f"{sync}_peak_gib"] = peak / 2**30
+                out[f"{sync}_losses"] = losses
+                out[f"{sync}_avg_layer"] = session.average_layer_number()
             # rank 0's params, no longer written once its run is over
             results[(sync, on)] = (losses, leaves(states[0]["params"]))
             del states, step_fn, session, metrics
@@ -917,6 +1117,66 @@ def phase_train():
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def phase_train_auto(train):
+    """The train workload as ``sync="auto"``: each gradient leaf (and the
+    loss) averaged by ``collectives.pmean`` through the monolithic
+    default session, TRAIN_STEPS steps from the same weights and batches
+    as [train]'s composed run (``train``: its numbers).  Returns
+    ({"sum_chunks": launches}, numbers)."""
+    import gc
+    from repro_torch.comm import collectives
+    from repro_torch.kernels import counter
+    from repro_torch.tree import leaves
+    model, init, mesh, ds, opt = train_workload()
+    p = mesh.size
+    session, states, step_fn = train_run(model, init, mesh, ds, opt, "auto")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.reset_all()
+    states, losses, times, _ = _train_steps(step_fn, states, ds)
+    counts = counter.counts()
+    peak = torch.cuda.max_memory_allocated()
+    same = all(_bits_equal(a, b) for st in states[1:] for a, b in
+               zip(leaves(states[0]["params"]), leaves(st["params"])))
+    step_s = float(np.mean(times[1:]))
+    want = train["composed_losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    default = collectives.session()
+    mono_avg = default.average_layer_number()
+    n_leaves = len(leaves(model.abstract_params()))
+    plan = (n_leaves + 1) * (p - 1) * p * TRAIN_STEPS
+    print(f"[train_auto] auto (monolithic default session, "
+          f"{'composed' if default.engine.composed else 'monolithic'}): "
+          f"losses {losses}; composed {want}; max rel err {err:.3e} (tol "
+          f"{AUTO_LOSS_RTOL}); bit-identical {losses == want}; replicas "
+          f"identical: {same}")
+    print(f"[train_auto] step {step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; "
+          f"first {times[0] * 1e3:.1f} ms) = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, peak allocated "
+          f"{peak / 2**30:.2f} GiB; composed {train['composed_step_ms']:.1f}"
+          f" ms, {train['composed_peak_gib']:.2f} GiB")
+    print(f"[train_auto] average layer number: monolithic {mono_avg:.3f}, "
+          f"composed {train['composed_avg_layer']:.6f}")
+    print(f"[train_auto]   sum_chunks: {counts['sum_chunks']} launches; "
+          f"generic schedule {plan} = ({n_leaves} leaves + the loss) x "
+          f"(p-1) ring combines x {p} ranks x {TRAIN_STEPS} steps")
+    if not all(np.isfinite(losses)) or not same:
+        raise AssertionError(f"auto: losses {losses}, replicas {same}")
+    if not err <= AUTO_LOSS_RTOL:
+        raise AssertionError(f"auto losses {losses} vs composed {want}")
+    if default.engine.composed or mono_avg != 2.0:
+        raise AssertionError(f"default session: {default.describe()}")
+    if counts["sum_chunks"] != plan or any(
+            counts[k] for k in ("quantize", "dequantize", "dequant_add")):
+        raise AssertionError(f"auto launches {counts}, plan {plan}")
+    numbers = dict(step_ms=step_s * 1e3, peak_gib=peak / 2**30,
+                   losses=losses, mono_avg=mono_avg)
+    del states, step_fn, session, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": counts["sum_chunks"]}, numbers
 
 
 def _sync_run(model, init, mesh, ds, opt, tag, sync, **cfg):
@@ -1355,7 +1615,14 @@ def _record_logits(into):
     decoding = []       # the decode step under way: its rows' rids or None
 
     def recording(logits, cfg, rids, pos):
-        rows = decoding[-1] if decoding else torch.as_tensor(rids).tolist()
+        # a decode step calls the model once a block of rows: each call
+        # takes the next rows of its step (padding rows have no slot)
+        n = logits.shape[0]
+        if decoding:
+            rows = decoding[-1][:n]
+            del decoding[-1][:n]
+        else:
+            rows = torch.as_tensor(rids).tolist()
         for i, (rid, p) in enumerate(zip(rows, torch.as_tensor(
                 pos).tolist())):
             if rid is not None:
@@ -1364,8 +1631,8 @@ def _record_logits(into):
                 into[(rid, p)] = logits[i].detach().float().cpu()
         return pick(logits, cfg, rids, pos)
 
-    def bind_decode(pool, decode_fn):
-        run = bind(pool, decode_fn)
+    def bind_decode(pool, decode_fn, *args):
+        run = bind(pool, decode_fn, *args)
 
         def recorded(params, tok, rids, pos, slot_rids, active_mask):
             decoding.append([r if a else None
@@ -1397,11 +1664,13 @@ def _decode_rows_equal(model, params, scfg, vocab):
 
     def run(rids, batch):
         got = {}
-        sched = BatchScheduler(model, params, dataclasses.replace(
-            scfg, batch=batch), device="cuda")
         reqs = [Request(rid=r, prompt=prompts[r], max_new=ROWS_MAX_NEW)
                 for r in rids]
         with _record_logits(got):
+            # built under the hook, so its decode binding is the hooked
+            # one and only decoding slots' rows are recorded
+            sched = BatchScheduler(model, params, dataclasses.replace(
+                scfg, batch=batch), device="cuda")
             for r in reqs:
                 sched.submit(r)
             sched.run()
@@ -1417,6 +1686,67 @@ def _decode_rows_equal(model, params, scfg, vocab):
     equal = all(_bits_equal(at8[k], at4[k]) for k in keys)
     diff = max((at8[k] - at4[k]).abs().max().item() for k in keys)
     return equal, diff, len(keys)
+
+
+def _batch_dependent_ops(model, params, scfg, vocab):
+    """Which op makes a decode row depend on the batch: one decode step of
+    ROWS_PROMPTS requests (64-token prompts, prefilled once at batch 8)
+    called on the model directly at batch 8, and on the first half of
+    the same caches at batch 4, with every GEMM and batched product
+    (``mm``, ``addmm``, ``bmm``, ``baddbmm``) recorded in call order.
+    Returns [(index, op, shape at 8, shape at 4, largest |difference|)]
+    of the ops whose batch-4 rows differ from the batch-8 rows (read
+    batch-major, and for a batched product also head-major), and
+    whether the logits are equal."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.serve.paging import layout_for
+    from repro_torch.tree import flatten, unflatten
+    aten = torch.ops.aten
+    gemms = {aten.mm.default, aten.addmm.default, aten.bmm.default,
+             aten.baddbmm.default}
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in gemms:
+                self.ops.append((func.__name__, out.detach().float().cpu()))
+            return out
+
+    b, half = ROWS_PROMPTS, ROWS_PROMPTS // 2
+    rng = np.random.RandomState(7)
+    toks = torch.tensor(rng.randint(0, vocab, size=(b, 64)), device="cuda")
+    caches = model.init_caches(b, scfg.max_len, dtype=scfg.cache_dtype,
+                               device="cuda")
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": toks}, caches)
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        ls, paths = flatten(caches)
+        caches4 = unflatten(paths, [
+            l.narrow(lay.batch_axis, 0, half).contiguous()
+            for l, lay in zip(ls, layout_for(model, scfg).leaves)])
+        out = {}
+        for n, cs in ((b, caches), (half, caches4)):
+            rec = Recorder()
+            with rec:
+                lg, _ = model.decode_step(params, {"tokens": nxt[:n]}, cs)
+            out[n] = (lg.float().cpu(), rec.ops)
+    (lg8, ops8), (lg4, ops4) = out[b], out[half]
+    differ = []
+    for i, ((name, o8), (_, o4)) in enumerate(zip(ops8, ops4)):
+        views = [(o8.reshape(b, -1)[:half], o4.reshape(half, -1))]
+        if o8.dim() == 3 and o8.shape[0] % b == 0:
+            views.append((o8.reshape(-1, b, *o8.shape[1:])[:, :half],
+                          o4.reshape(-1, half, *o4.shape[1:])))
+        if not any(torch.equal(x, y) for x, y in views):
+            differ.append((i, name, tuple(o8.shape), tuple(o4.shape),
+                           min((x - y).abs().max().item() for x, y in views)))
+    del caches, caches4
+    torch.cuda.empty_cache()
+    return differ, len(ops8), torch.equal(lg8[:half], lg4)
 
 
 def _elastic_serve_run(model, params, scfg, prompts, ranks, faults,
@@ -1494,12 +1824,23 @@ def phase_elastic_serve():
     import gc
     from repro_torch.kernels import counter
     from repro_torch.serve import plan_serve_batch
+    from repro_torch.serve.engine import DECODE_ROWS
     model, params, scfg, prompts = serve_workload()
     cfg = model.cfg
+    differ, n_ops, direct_equal = _batch_dependent_ops(model, params, scfg,
+                                                       cfg.vocab_size)
+    print(f"[elastic_serve] one decode step called on the model directly "
+          f"(no row blocks) at batch 8 and 4: logits equal {direct_equal}; "
+          f"{len(differ)} of {n_ops} GEMMs / batched products differ"
+          + (f", first #{differ[0][0]} {differ[0][1]} {differ[0][2]} vs "
+             f"{differ[0][3]} (|diff| {differ[0][4]:.6g}); all: "
+             f"{[(i, n, s8) for i, n, s8, _, _ in differ]}" if differ
+             else ""))
     rows_equal, row_diff, n_rows = _decode_rows_equal(model, params, scfg,
                                                       cfg.vocab_size)
     print(f"[elastic_serve] decode logits of the same requests at batch 8 "
-          f"and batch 4 ({n_rows} (request, position) rows): bit-identical "
+          f"and batch 4 through the scheduler (blocks of {DECODE_ROWS} "
+          f"rows; {n_rows} (request, position) rows): bit-identical "
           f"{rows_equal}, largest |difference| {row_diff:.6g}")
 
     torch.cuda.synchronize()
@@ -1561,8 +1902,11 @@ def phase_elastic_serve():
           f"variant: {tc_launches}")
     if rows_equal:
         same = tokens == baseline
+        n_same = sum(sum(a == b for a, b in zip(tokens[rid], want))
+                     for rid, want in baseline.items())
         print(f"[elastic_serve] streams equal to the survivor run's "
-              f"(data 2, batch {base_cfg.batch}) bit for bit: {same}")
+              f"(data 2, batch {base_cfg.batch}) bit for bit: {same}; "
+              f"{n_same} of {SERVE_REQUESTS * SERVE_MAX_NEW} tokens equal")
     else:
         small = _small_elastic_serve()
         print(f"[elastic_serve] reduced f32 model on the card: elastic "
@@ -1606,7 +1950,7 @@ def phase_elastic_serve():
         snapshot_s=rec.snapshot_s, remesh_s=rec.remesh_s,
         rebuild_s=rec.rebuild_s, tok_s_before=tok_before / t_before,
         tok_s_after=tok_after / t_after, peak_gib=peak / 2**30,
-        rows_equal=rows_equal, row_diff=row_diff)
+        rows_equal=rows_equal, row_diff=row_diff, ops_differ=differ)
 
 
 def _top2_gap(row: torch.Tensor) -> float:
@@ -1678,12 +2022,15 @@ def main() -> int:
     timed("small", phase_small)
     serve = timed("serve", phase_serve, ref)
     sync_rows = timed("collectives", phase_collectives)
+    lib_launches, _ = timed("collectives_lib", phase_collectives_lib)
     timed("train_small", phase_train_small)
     train = timed("train", phase_train)
     by_path, _ = timed("train (sync)", phase_train_sync)
+    by_path["train_auto"], _ = timed("train_auto", phase_train_auto, train)
     timed("ckpt", phase_ckpt)
     by_path["elastic_train"], _ = timed("elastic_train",
                                         phase_elastic_train)
+    by_path["collectives_lib"] = lib_launches
     flash_by_path = {}
     flash_by_path["elastic_serve"] = timed(
         "elastic_serve", phase_elastic_serve)[0]["flash_attention"]

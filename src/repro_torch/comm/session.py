@@ -4,9 +4,12 @@ and engine (the paper's single-entity thesis applied to the public API).
 Counterpart of ``repro.comm.session``: ``Session`` (construction from a
 mesh or a topology, ``probe``, ``from_application(config=...)``,
 ``schedule_for``, ``timeline_diff``, ``remesh``, ``finalize``,
-``describe``), the ``Communicator`` it hands out (``split``,
-``all_reduce`` and its start/progress/wait arms, the gradient-sync and
-ZeRO-1 arms, ``compressed_all_reduce``, ``sync_gradients[_bucketed]``,
+``describe``, ``mode="monolithic"`` for the conventional baseline), the
+``Communicator`` it hands out (``split``, ``all_reduce`` and its
+start/progress/wait arms, ``reduce_scatter``, ``all_gather``,
+``all_to_all``, ``broadcast``, ``permute``, ``send_recv``, ``barrier``,
+``checkpoint_fence``, the gradient-sync and ZeRO-1 arms,
+``compressed_all_reduce``, ``sync_gradients[_bucketed]``,
 ``sync_schedule``, ``zero_sync_schedule``, ``persistent``,
 ``axis_index``, ``mean_scale``) and ``PersistentHandle``; for the
 elastic controllers ``adopt`` (wrap a built engine), ``activate`` (the
@@ -239,7 +242,10 @@ def _itemsize(dtype) -> int:
 
 class Communicator:
     """An axis-scoped view of a session: every collective runs over the
-    communicator's own axes — no axis arguments, no engine exposure."""
+    communicator's own axes — no axis arguments, no engine exposure.
+    ``strict=False`` accepts axes the session's topology lacks; their
+    sizes resolve against the calling rank's live mesh (what the
+    ``collectives`` facade needs for its default session)."""
 
     def __init__(self, session: "Session", axes: Sequence[str], *,
                  strict: bool = True) -> None:
@@ -265,7 +271,7 @@ class Communicator:
 
     @property
     def size(self) -> int:
-        return self._engine.topology.size(self.axes)
+        return math.prod(self._engine._axis_size(a) for a in self.axes)
 
     def _single_axis(self, what: str) -> str:
         if len(self.axes) != 1:
@@ -328,9 +334,40 @@ class Communicator:
     def zero_all_gather_wait(self, token):
         return self._engine.zero_all_gather_wait(token)
 
+    def reduce_scatter(self, x, dim: int = 0):
+        return self._engine.reduce_scatter(
+            x, self._single_axis("reduce_scatter"), dim=dim)
+
+    def all_gather(self, x, dim: int = 0):
+        return self._engine.all_gather(
+            x, self._single_axis("all_gather"), dim=dim)
+
+    def all_to_all(self, x, split_dim: int = 0, concat_dim: int = 0):
+        return self._engine.all_to_all(
+            x, self._single_axis("all_to_all"),
+            split_dim=split_dim, concat_dim=concat_dim)
+
+    def broadcast(self, x, root: int = 0):
+        return self._engine.broadcast(
+            x, self._single_axis("broadcast"), root=root)
+
+    def permute(self, x, shift: int = 1):
+        return self._engine.permute(
+            x, self._single_axis("permute"), shift=shift)
+
+    def send_recv(self, x, pairs):
+        return self._engine.send_recv(
+            x, self._single_axis("send_recv"), pairs)
+
     def compressed_all_reduce(self, x, state=None):
         return self._engine.compressed_all_reduce(
             x, self._single_axis("compressed_all_reduce"), state)
+
+    def barrier(self, token=None):
+        return self._engine.barrier(self._axis_arg, token)
+
+    def checkpoint_fence(self, tree):
+        return self._engine.checkpoint_fence(tree)
 
     def axis_index(self) -> int:
         return self._engine.axis_index(self._single_axis("axis_index"))
@@ -450,13 +487,16 @@ class Communicator:
 class Session:
     """An initialized communication session: owns the mesh, the
     topology/cost model, the ``CommPlan`` and the ``CollectiveEngine``;
-    hands out ``Communicator``s."""
+    hands out ``Communicator``s.  ``mode="monolithic"`` (or a
+    monolithic ``config``) is the conventional-stack baseline: every
+    function present, the generic protocols, uniform tier depth."""
 
     def __init__(self, mesh_shape: Optional[Sequence[int]] = None,
                  axis_names: Optional[Sequence[str]] = None, *,
                  mesh: Optional[substrate.Mesh] = None,
                  device="cuda",
                  topology: Optional[Topology] = None,
+                 mode: str = "composed",
                  config: Optional[EngineConfig] = None,
                  library: Optional[ComposedLibrary] = None,
                  frequencies: Optional[Mapping[str, float]] = None,
@@ -482,10 +522,15 @@ class Session:
                 raise ValueError("Session needs mesh_shape+axis_names, "
                                  "mesh=, or topology=")
             topology = topology_from_mesh(mesh)
-        self._engine = CollectiveEngine(
-            topology,
-            library=library or compose_mod.compose(registry.ALL_FUNCTIONS),
-            frequencies=frequencies, config=config or EngineConfig())
+        cfg = config or EngineConfig(mode=mode)
+        if cfg.mode == "monolithic":
+            self._engine = CollectiveEngine(topology, config=cfg)
+        else:
+            self._engine = CollectiveEngine(
+                topology,
+                library=library or compose_mod.compose(
+                    registry.ALL_FUNCTIONS),
+                frequencies=frequencies, config=cfg)
         if mesh is not None and not mesh.abstract:
             self._engine.init(mesh)
 

@@ -1,21 +1,34 @@
 """The CollectiveEngine: a dynamically composed, tiered, per-function-
 protocol communication library (paper §2+§3+§4 as one object).
 
-Counterpart of ``repro.core.engine``, cut to what the data-parallel
-gradient sync needs: planned dispatch of ``all_reduce`` (ring,
+Counterpart of ``repro.core.engine``: planned dispatch of the
+reference's nine functions over one axis — ``all_reduce`` (ring,
 bidirectional ring, Rabenseifner, recursive doubling) with its
-start/progress/wait arms — the blocking call is literally
-``wait(start(x))`` — the error-feedback ``compressed_all_reduce`` with
-its arms, the two-phase gradient-sync arms (``sync_gradient_*``), the
-ZeRO-1 seam (``zero_reduce_scatter_*``, ``zero_all_gather_*``),
-persistent bindings (``bind_persistent``), ``sync_gradients`` (one
-collective per leaf), ``sync_gradients_bucketed`` (fused dtype-grouped
-buckets) and ``EngineConfig``.  The reference's two kernel switches
+start/progress/wait arms (the blocking call is literally
+``wait(start(x))``), ``reduce_scatter``, ``all_gather``, ``all_to_all``
+(Bruck, pairwise), ``broadcast`` (binomial tree, van de Geijn),
+``permute``, ``send_recv``, ``barrier`` and the error-feedback
+``compressed_all_reduce`` — plus ``checkpoint_fence``, the two-phase
+gradient-sync arms (``sync_gradient_*``), the ZeRO-1 seam
+(``zero_reduce_scatter_*``, ``zero_all_gather_*``), persistent bindings
+(``bind_persistent``), ``sync_gradients`` (one collective per leaf),
+``sync_gradients_bucketed`` (fused dtype-grouped buckets) and
+``EngineConfig``.  The reference's two kernel switches
 (``use_quantize_kernel``, ``use_local_reduce_kernel``) have no
 counterpart: the ring combine and the int8 ops always go through their
 ``ops``, which take the CUDA kernels on the card and the plain versions
-on the CPU.  Multi-axis all-reduce and the monolithic baseline are not
-ported.
+on the CPU.  Composed multi-axis all-reduce (two-phase, hierarchical)
+is not ported yet.
+
+``mode="monolithic"`` is the conventional baseline: every function
+present (no composition), every function at the conventional tier,
+every call through the one generic path (``protocols.xla``) — the
+"TCP/IP stack" of the paper's Fig 2.
+
+Every blocking call of the functions other than ``all_reduce`` records
+its wire bytes by phase (``CommStats.rank_phase_bytes``, the start and
+wait shares of ``plan.phase_wire_bytes`` for the protocol that ran), as
+the two-phase arms do.
 
 Construction mirrors the paper's pipeline:
 
@@ -40,13 +53,15 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional,
 
 import torch
 
+from repro_torch.core import compose as compose_mod
 from repro_torch.core import compression, costmodel, layers, registry
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.compose import ComposedLibrary
 from repro_torch.core.protocols import common as c
-from repro_torch.core.protocols import recursive, ring
+from repro_torch.core.protocols import bruck, recursive, ring, tree, xla
+from repro_torch.runtime import substrate
 from repro_torch.core.topology import Topology, topology_from_mesh
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, map_tree, unflatten
 
 #: stats key the gradient-sync paths record wire-payload bytes under.
 SYNC_STATS_KEY = "sync_gradients"
@@ -65,7 +80,7 @@ def scale_by(y: torch.Tensor, scale: float) -> torch.Tensor:
 
 @dataclasses.dataclass
 class EngineConfig:
-    mode: str = "composed"               # only "composed" in this slice
+    mode: str = "composed"               # "composed" | "monolithic"
     tier_policy: layers.TierPolicy = dataclasses.field(
         default_factory=layers.TierPolicy)
     sanitize_checked: bool = False       # L2+: finite-guard op
@@ -73,10 +88,8 @@ class EngineConfig:
     plan: bool = True                    # False: per-call selection
 
     def __post_init__(self):
-        if self.mode != "composed":
-            raise ValueError(
-                f"engine mode {self.mode!r}: only 'composed' is ported; the "
-                "monolithic baseline arrives with the port of xla.py")
+        if self.mode not in ("composed", "monolithic"):
+            raise ValueError(f"unknown engine mode: {self.mode!r}")
 
 
 @dataclasses.dataclass
@@ -125,23 +138,30 @@ class CollectiveEngine:
         self.last_init_rebuilt = False
         self._invoked = set()
         self._lock = threading.Lock()
-        if library is None:
-            raise ValueError("a composed engine needs a ComposedLibrary "
-                             "(use repro_torch.comm.Session)")
-        self.library = library
-        self.frequencies = dict(frequencies or registry.DEFAULT_FREQUENCIES)
-        self.tiers = layers.assign_tiers(
-            {fn: self.frequencies.get(
-                fn, registry.DEFAULT_FREQUENCIES.get(fn, 1.0))
-             for fn in library.provided},
-            self.config.tier_policy)
+        if self.config.mode == "monolithic":
+            # the conventional library: everything present, uniform depth
+            self.library = compose_mod.compose(registry.ALL_FUNCTIONS)
+            self.frequencies = dict(registry.DEFAULT_FREQUENCIES)
+            self.tiers = layers.conventional_tiers(registry.ALL_FUNCTIONS)
+        else:
+            if library is None:
+                raise ValueError("a composed engine needs a ComposedLibrary "
+                                 "(use repro_torch.comm.Session)")
+            self.library = library
+            self.frequencies = dict(frequencies
+                                    or registry.DEFAULT_FREQUENCIES)
+            self.tiers = layers.assign_tiers(
+                {fn: self.frequencies.get(
+                    fn, registry.DEFAULT_FREQUENCIES.get(fn, 1.0))
+                 for fn in library.provided},
+                self.config.tier_policy)
         self._build_plan()
 
     # -- introspection ---------------------------------------------------
 
     @property
     def composed(self) -> bool:
-        return True
+        return self.config.mode == "composed"
 
     def tier(self, fn: str) -> int:
         return self.tiers.get(fn, layers.CONVENTIONAL_TIER)
@@ -168,7 +188,7 @@ class CollectiveEngine:
 
     def _build_plan(self) -> None:
         self.plan = plan_mod.CommPlan(
-            self.topology, composed=True,
+            self.topology, composed=self.composed,
             force=self.config.force_protocol, enabled=self.config.plan,
             warm_functions=tuple(self.library.provided))
         self._rebind_dispatch()
@@ -195,7 +215,20 @@ class CollectiveEngine:
         return d
 
     def _impl_for(self, fn: str) -> Optional[Callable]:
-        return {registry.ALL_REDUCE: self._allreduce_composed,
+        """The protocol-level implementation (before the tier wrap) of
+        ``fn``; None for functions with no tensor schedule (init,
+        finalize, the rank queries, the checkpoint fence)."""
+        starts = {registry.REDUCE_SCATTER: self._reduce_scatter_start,
+                  registry.ALL_GATHER: self._all_gather_start,
+                  registry.ALL_TO_ALL: self._all_to_all_start,
+                  registry.BROADCAST: self._broadcast_start,
+                  registry.PERMUTE: self._permute_start,
+                  registry.SEND_RECV: self._send_recv_start}
+        if fn in starts:
+            start = starts[fn]
+            return lambda x, axis, **kw: self._run(start(x, axis, **kw))
+        return {registry.ALL_REDUCE: self._allreduce_impl,
+                registry.BARRIER: self._barrier_impl,
                 registry.COMPRESSED_ALL_REDUCE: self._compressed_impl,
                 }.get(fn)
 
@@ -240,13 +273,22 @@ class CollectiveEngine:
         axes = _as_axes(axis_name)
         return self.dispatcher(fn)(x, axes if len(axes) > 1 else axes[0])
 
-    def _allreduce_composed(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def _allreduce_impl(self, x: torch.Tensor, axes) -> torch.Tensor:
         axes = _as_axes(axes)
+        if not self.composed:
+            return self._allreduce_mono(x, axes)
         if len(axes) > 1:
             raise NotImplementedError(
                 f"all_reduce over {axes}: multi-axis protocols (two-phase, "
                 "hierarchical) arrive with the port of twophase.py")
         return self._allreduce_1d(x, axes[0])
+
+    @staticmethod
+    def _allreduce_mono(x: torch.Tensor, axes) -> torch.Tensor:
+        """The generic path, one axis after another."""
+        for ax in axes:
+            x = xla.all_reduce(x, ax)
+        return x
 
     def _allreduce_1d(self, x: torch.Tensor, axis: str,
                       proto: Optional[str] = None) -> torch.Tensor:
@@ -264,6 +306,9 @@ class CollectiveEngine:
         if proto is None:
             proto = self.protocol_for(fn, nb, axis)
         sb, wb = plan_mod.phase_wire_bytes(proto, p, nb)
+        if proto == costmodel.XLA_DEFAULT:
+            y = xla.all_reduce(x, axis)
+            return InFlight(fn, (axis,), lambda: y, proto, sb, wb)
         if proto == costmodel.RECURSIVE_DOUBLING:
             y = recursive.recursive_doubling_all_reduce(x, axis)
             return InFlight(fn, (axis,), lambda: y, proto, sb, wb)
@@ -294,11 +339,20 @@ class CollectiveEngine:
                               axes if len(axes) > 1 else axes[0],
                               self.stats,
                               sanitize=self.config.sanitize_checked)
-        if len(axes) != 1:
+        if not self.composed:
+            # the generic path has no stage seam: it runs whole in start,
+            # so blocking and two-phase calls give the same bits
+            y = self._allreduce_mono(x, axes)
+            sb = sum(plan_mod.phase_wire_bytes(
+                costmodel.XLA_DEFAULT, self._axis_size(ax),
+                layers.nbytes(x))[0] for ax in axes)
+            tok = InFlight(fn, axes, lambda: y, costmodel.XLA_DEFAULT, sb, 0)
+        elif len(axes) != 1:
             raise NotImplementedError(
                 f"all_reduce_start over {axes}: multi-axis protocols arrive "
                 "with the port of twophase.py")
-        tok = self._allreduce_1d_start(x, axes[0])
+        else:
+            tok = self._allreduce_1d_start(x, axes[0])
         if mean:
             tok.scale = self.mean_scale(axes)
         self._record_phase(fn, "start", tok.start_bytes)
@@ -398,6 +452,217 @@ class CollectiveEngine:
 
     def _record_phase(self, fn: str, phase: str, nbytes: int) -> None:
         self.stats.record_phase(fn, phase, nbytes, c.rank())
+
+    # -- the rest of the function set -------------------------------------
+    #
+    # Each function below has a start arm that runs its schedule's first
+    # stage(s) and returns an ``InFlight`` (the ``_start`` methods); the
+    # blocking call is ``_run`` of that token.  Monolithic engines route
+    # every one through ``protocols.xla``; composed ones through the
+    # planned protocol, and through ``xla`` where the protocol cannot run
+    # (a dimension that does not split over the axis).
+
+    def _run(self, tok: InFlight) -> torch.Tensor:
+        """A blocking call: both phases of ``tok`` recorded, then run."""
+        self._record_phase(tok.fn, "start", tok.start_bytes)
+        self._record_phase(tok.fn, "wait", tok.wait_bytes)
+        return tok.finish()
+
+    def _generic(self, fn: str, axis: str, nbytes: int, run: Callable
+                 ) -> InFlight:
+        """A token of the generic path: ``run()`` now, whole in start,
+        billed as the cost model bills ``XLA_DEFAULT`` for ``fn``."""
+        y = run()
+        sb, wb = plan_mod.phase_wire_bytes(costmodel.XLA_DEFAULT,
+                                           self._axis_size(axis), nbytes, fn)
+        return InFlight(fn, (axis,), lambda: y, costmodel.XLA_DEFAULT,
+                        sb, wb)
+
+    @staticmethod
+    def _local(fn: str, axis: str, y: torch.Tensor) -> InFlight:
+        return InFlight(fn, (axis,), lambda: y, protocol="local")
+
+    def reduce_scatter(self, x: torch.Tensor, axis_name: str, dim: int = 0
+                       ) -> torch.Tensor:
+        """Tiled semantics: the output is ``x`` with ``dim`` shrunk by
+        p."""
+        fn = registry.REDUCE_SCATTER
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, dim=dim)
+
+    def _reduce_scatter_start(self, x, axis: str, dim: int = 0,
+                              proto: Optional[str] = None) -> InFlight:
+        fn = registry.REDUCE_SCATTER
+        p = self._axis_size(axis)
+        if p == 1:
+            return self._local(fn, axis, x)
+        nb = layers.nbytes(x)
+        if not self.composed or x.shape[dim] % p:
+            return self._generic(fn, axis, nb,
+                                 lambda: xla.reduce_scatter(x, axis, dim))
+        if proto is None:
+            proto = self.protocol_for(fn, nb, axis)
+        xm = torch.movedim(x, dim, 0)
+        x2d = xm.reshape(p, -1)
+        if proto == costmodel.RECURSIVE_HALVING:
+            shard = recursive.halving_reduce_scatter_flat(x2d, axis)
+        elif proto == costmodel.BIDIR_RING:
+            shard = ring.bidir_ring_reduce_scatter_flat(x2d, axis)
+        else:
+            shard = ring.ring_reduce_scatter_flat(x2d, axis)
+        out = torch.movedim(shard.reshape(
+            (xm.shape[0] // p,) + tuple(xm.shape[1:])), 0, dim)
+        sb, wb = plan_mod.phase_wire_bytes(proto, p, nb, fn)
+        return InFlight(fn, (axis,), lambda: out, proto, sb, wb)
+
+    def all_gather(self, x: torch.Tensor, axis_name: str, dim: int = 0
+                   ) -> torch.Tensor:
+        """Tiled semantics: the output is ``x`` with ``dim`` grown by
+        p."""
+        fn = registry.ALL_GATHER
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, dim=dim)
+
+    def _all_gather_start(self, x, axis: str, dim: int = 0,
+                          proto: Optional[str] = None) -> InFlight:
+        fn = registry.ALL_GATHER
+        p = self._axis_size(axis)
+        if p == 1:
+            return self._local(fn, axis, x)
+        full = layers.nbytes(x) * p       # planned at the gathered size
+        if not self.composed:
+            return self._generic(fn, axis, full,
+                                 lambda: xla.all_gather(x, axis, dim))
+        if proto is None:
+            proto = self.protocol_for(fn, full, axis)
+        xm = torch.movedim(x, dim, 0)
+        shard = xm.reshape(-1)
+        if proto == costmodel.BRUCK:
+            buf = recursive.doubling_all_gather_flat(shard, axis)
+        elif proto == costmodel.BIDIR_RING:
+            buf = ring.bidir_ring_all_gather_flat(shard, axis)
+        else:
+            buf = ring.ring_all_gather_flat(shard, axis)
+        out = torch.movedim(buf.reshape(
+            (p * xm.shape[0],) + tuple(xm.shape[1:])), 0, dim)
+        sb, wb = plan_mod.phase_wire_bytes(proto, p, full, fn)
+        return InFlight(fn, (axis,), lambda: out, proto, sb, wb)
+
+    def all_to_all(self, x: torch.Tensor, axis_name: str,
+                   split_dim: int = 0, concat_dim: int = 0) -> torch.Tensor:
+        """Tiled semantics of ``lax.all_to_all``."""
+        fn = registry.ALL_TO_ALL
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, split_dim=split_dim,
+                                   concat_dim=concat_dim)
+
+    def _all_to_all_start(self, x, axis: str, split_dim: int = 0,
+                          concat_dim: int = 0,
+                          proto: Optional[str] = None) -> InFlight:
+        fn = registry.ALL_TO_ALL
+        p = self._axis_size(axis)
+        if p == 1:
+            return self._local(fn, axis, x)
+        nb = layers.nbytes(x)
+        if not self.composed or x.shape[split_dim] % p:
+            return self._generic(fn, axis, nb, lambda: xla.all_to_all(
+                x, axis, split_dim, concat_dim))
+        if proto is None:
+            proto = self.protocol_for(fn, nb, axis)
+        exchange = (bruck.bruck_all_to_all if proto == costmodel.BRUCK
+                    else bruck.pairwise_all_to_all)
+        out = xla.tiled_all_to_all(x, axis, split_dim, concat_dim, exchange)
+        sb, wb = plan_mod.phase_wire_bytes(proto, p, nb, fn)
+        return InFlight(fn, (axis,), lambda: out, proto, sb, wb)
+
+    def broadcast(self, x: torch.Tensor, axis_name: str, root: int = 0
+                  ) -> torch.Tensor:
+        fn = registry.BROADCAST
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, root=root)
+
+    def _broadcast_start(self, x, axis: str, root: int = 0,
+                         proto: Optional[str] = None) -> InFlight:
+        """Stage-split broadcast: van de Geijn starts with its binomial
+        scatter and finishes with the ring all-gather; the binomial tree
+        has no seam and runs whole in start."""
+        fn = registry.BROADCAST
+        p = self._axis_size(axis)
+        nb = layers.nbytes(x)
+        if not self.composed:
+            return self._generic(fn, axis, nb,
+                                 lambda: xla.broadcast(x, axis, root))
+        if proto is None:
+            proto = self.protocol_for(fn, nb, axis)
+        if proto == costmodel.RING and c.is_pow2(p) and p > 1:
+            sb, wb = plan_mod.phase_wire_bytes(proto, p, nb, fn)
+            x2d, n, shape = self._chunked(x, p)
+            chunk = tree.scatter_allgather_start(x2d, axis, root)
+            fin = lambda: c.unpad(tree.scatter_allgather_finish(
+                chunk, axis, root).reshape(-1), n, shape)
+            return InFlight(fn, (axis,), fin, proto, sb, wb)
+        y = tree.binomial_broadcast(x, axis, root)
+        sb, wb = plan_mod.phase_wire_bytes(costmodel.BINOMIAL_TREE, p, nb,
+                                           fn)
+        return InFlight(fn, (axis,), lambda: y, costmodel.BINOMIAL_TREE,
+                        sb, wb)
+
+    def permute(self, x: torch.Tensor, axis_name: str, shift: int = 1
+                ) -> torch.Tensor:
+        fn = registry.PERMUTE
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, shift=shift)
+
+    def _permute_start(self, x, axis: str, shift: int = 1) -> InFlight:
+        """One hop in both modes (the reference's ``xla.permute``),
+        billed as the plan's protocol for it."""
+        return self._hop(registry.PERMUTE, x, axis,
+                         lambda: xla.permute(x, axis, shift))
+
+    def send_recv(self, x: torch.Tensor, axis_name: str,
+                  pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """Explicit (src, dst) exchange — the MPI_Send/MPI_Recv analogue;
+        a rank that no pair sends to receives zeros."""
+        fn = registry.SEND_RECV
+        self._check(fn)
+        return self.dispatcher(fn)(x, axis_name, pairs=tuple(pairs))
+
+    def _send_recv_start(self, x, axis: str, pairs=()) -> InFlight:
+        return self._hop(registry.SEND_RECV, x, axis,
+                         lambda: c.ppermute(x, axis, list(pairs)))
+
+    def _hop(self, fn: str, x, axis: str, run: Callable) -> InFlight:
+        p = self._axis_size(axis)
+        nb = layers.nbytes(x)
+        proto = self.protocol_for(fn, nb, axis)
+        y = run()
+        sb, wb = plan_mod.phase_wire_bytes(proto, p, nb, fn)
+        return InFlight(fn, (axis,), lambda: y, proto, sb, wb)
+
+    def barrier(self, axis_name, token: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """A zero-valued sum over every axis, then a fence (the
+        reference's ``psum * 0`` and optimization barrier)."""
+        fn = registry.BARRIER
+        self._check(fn)
+        dev = substrate.current_mesh().device
+        t = token if token is not None else torch.zeros(
+            (), dtype=torch.float32, device=dev if dev is not None
+            else "meta")
+        axes = _as_axes(axis_name)
+        return self.dispatcher(fn)(t, axes if len(axes) > 1 else axes[0])
+
+    def _barrier_impl(self, t, axes):
+        for ax in _as_axes(axes):
+            t = xla.all_reduce(t, ax) * 0.0
+        return layers.fence(t)
+
+    def checkpoint_fence(self, tree_: Any) -> Any:
+        """Fence every tensor of ``tree_`` (a synchronize of the current
+        CUDA stream; the reference's optimization barrier)."""
+        self._check(registry.CHECKPOINT_FENCE)
+        self.stats.event("checkpoint_fence")
+        return map_tree(layers.fence, tree_)
 
     # -- setup / rank queries ----------------------------------------------
 
@@ -704,22 +969,26 @@ class CollectiveEngine:
     def bind_persistent(self, fn: str, shape: Sequence[int], dtype,
                         axis_name, *, mean: bool = False,
                         sync_stats: bool = False,
-                        zero: bool = False) -> "PersistentBinding":
+                        **kw) -> "PersistentBinding":
         """Resolve everything one collective call site needs (protocol,
         tier stack, mean scale) ONCE for a fixed (shape, dtype, axis)
         signature.  The binding's ``call`` does no lookup; its
         ``start``/``wait``/``progress`` arms split the same schedule, so
-        ``call(x)`` and ``wait(start(x))`` give the same bits.
+        ``call(x)`` and ``wait(start(x))`` give the same bits.  ``kw``:
+        the function's own options (``dim``, ``split_dim`` /
+        ``concat_dim``, ``root``, ``shift``, ``pairs``) and ``zero``.
 
         ``sync_stats=True`` marks a gradient-sync call site: every call
         or start records its wire bytes under ``SYNC_STATS_KEY`` as the
         planned ``sync_gradients*`` paths do.  ``zero=True`` binds the
         ZeRO-1 seam arms of ``reduce_scatter`` (the planned all-reduce's
         RS half; output: this rank's padded-flat chunk) and
-        ``all_gather`` (the chunk back to the padded-flat vector).  The
-        port binds ``all_reduce`` over one axis and these two arms."""
+        ``all_gather`` (the chunk back to the padded-flat vector).
+        Every function binds over one axis; a monolithic all-reduce also
+        over several (the generic path axis by axis)."""
         axes = _as_axes(axis_name)
         self._check(fn)
+        zero = bool(kw.pop("zero", False))
         if zero and fn not in (registry.REDUCE_SCATTER, registry.ALL_GATHER):
             raise ValueError(f"zero=True binds the ZeRO-1 seam arms; only "
                              f"reduce_scatter/all_gather support it, "
@@ -738,49 +1007,93 @@ class CollectiveEngine:
                 not (zero and fn == registry.REDUCE_SCATTER):
             raise ValueError(f"mean=True is only supported for all_reduce, "
                              f"not {fn!r}")
-        if len(axes) != 1:
-            raise NotImplementedError(
-                f"persistent {fn!r} over {axes}: multi-axis protocols "
-                "are not ported")
+        if len(axes) != 1 and (fn != registry.ALL_REDUCE or self.composed):
+            if fn == registry.ALL_REDUCE:
+                raise NotImplementedError(
+                    f"persistent all_reduce over {axes}: multi-axis "
+                    "protocols arrive with the port of twophase.py")
+            raise ValueError(f"{fn!r} binds over exactly one axis, "
+                             f"got {axes}")
         shape = tuple(int(s) for s in shape)
         itemsize = torch.empty((), dtype=dtype).element_size()
         nbytes = math.prod(shape) * itemsize
         sync_nbytes = nbytes            # what sync_stats records per call
         ax0 = axes[0]
+        p0 = self._axis_size(ax0)
+        xla_tag = costmodel.XLA_DEFAULT
+        start_impl: Optional[Callable] = None
+
         if fn == registry.ALL_REDUCE:
-            proto = self.protocol_for(fn, nbytes, ax0)
-            target = lambda x: self._allreduce_1d(x, ax0, proto=proto)
-            start_impl = lambda x: self._allreduce_1d_start(x, ax0,
-                                                            proto=proto)
+            if not self.composed:
+                proto = xla_tag
+                target = lambda x: self._allreduce_mono(x, axes)
+            else:
+                proto = self.protocol_for(fn, nbytes, ax0)
+                target = lambda x: self._allreduce_1d(x, ax0, proto=proto)
+                start_impl = lambda x: self._allreduce_1d_start(
+                    x, ax0, proto=proto)
         elif fn == registry.REDUCE_SCATTER and zero:
             proto = self.zero_protocols(nbytes, ax0)[0]
             target = lambda x: self._zero_rs_start(x, ax0).finish()
             start_impl = lambda x: self._zero_rs_start(x, ax0)
-            sync_nbytes = plan_mod.phase_wire_bytes(
-                proto, self._axis_size(ax0), nbytes, fn)[0]
+            sync_nbytes = plan_mod.phase_wire_bytes(proto, p0, nbytes, fn)[0]
         elif fn == registry.ALL_GATHER and zero:
             # the binding shape is the CHUNK; planning happens at the
             # gathered size
-            proto = self.zero_protocols(nbytes * self._axis_size(ax0),
-                                        ax0)[1]
+            proto = self.zero_protocols(nbytes * p0, ax0)[1]
             target = lambda x: self._zero_ag_start(x, ax0).finish()
             start_impl = lambda x: self._zero_ag_start(x, ax0)
+        elif fn == registry.BARRIER:
+            proto = xla_tag
+            target = lambda t: self._barrier_impl(t, ax0)
         else:
-            raise NotImplementedError(
-                f"persistent {fn!r}: the port binds all_reduce and the "
-                "ZeRO seam arms (zero=True)")
-        protocols = ((ax0, proto),)
+            # (start arm, its options, whether a protocol can be forced)
+            arms = {registry.REDUCE_SCATTER:
+                        (self._reduce_scatter_start, ("dim",), True),
+                    registry.ALL_GATHER:
+                        (self._all_gather_start, ("dim",), True),
+                    registry.ALL_TO_ALL:
+                        (self._all_to_all_start,
+                         ("split_dim", "concat_dim"), True),
+                    registry.BROADCAST:
+                        (self._broadcast_start, ("root",), True),
+                    registry.PERMUTE:
+                        (self._permute_start, ("shift",), False),
+                    registry.SEND_RECV:
+                        (self._send_recv_start, ("pairs",), False)}
+            if fn not in arms:
+                raise ValueError(f"{fn!r} does not support persistent "
+                                 "binding")
+            arm, opts, planned = arms[fn]
+            fkw = {k: kw.pop(k) for k in opts if k in kw}
+            if fn == registry.SEND_RECV:
+                if "pairs" not in fkw:
+                    raise TypeError("persistent send_recv needs pairs=")
+                fkw["pairs"] = tuple(tuple(pr) for pr in fkw["pairs"])
+            proto = self.protocol_for(
+                fn, nbytes * p0 if fn == registry.ALL_GATHER else nbytes,
+                ax0)
+            if planned:
+                fkw["proto"] = proto
+            start_impl = lambda x: arm(x, ax0, **fkw)
+            target = lambda x: self._run(start_impl(x))
+        if kw:
+            raise TypeError(f"unknown bind options for {fn!r}: {sorted(kw)}")
+        protocols = ((ax0, proto),) if len(axes) == 1 else tuple(
+            (ax, proto) for ax in axes)
+        base_target = target            # unscaled schedule (wait finalizes)
         scale = self.mean_scale(axes) if mean else None
         if scale is not None:
             def target(x, _inner=target, _s=scale):
                 return scale_by(_inner(x), _s)
 
         tier = self.tier(fn)
+        axis_label = axes if len(axes) > 1 else ax0
         if tier >= 2:
             wrapped = layers.wrap_tier(
                 fn, tier, lambda x, _axis, **_: target(x), self.stats,
                 sanitize=self.config.sanitize_checked)
-            call = lambda x, _w=wrapped: _w(x, ax0)
+            call = lambda x, _w=wrapped: _w(x, axis_label)
         else:
             call = target
         if sync_stats:
@@ -788,11 +1101,22 @@ class CollectiveEngine:
                 self.stats.record(SYNC_STATS_KEY, _nb)
                 return _inner(x)
 
+        if start_impl is None:
+            # no seam: the schedule runs whole in start, billed as the
+            # generic path bills it
+            def start_impl(x, _t=base_target):
+                y = _t(x)
+                sb = 0 if fn == registry.BARRIER else sum(
+                    plan_mod.phase_wire_bytes(
+                        xla_tag, self._axis_size(ax), nbytes)[0]
+                    for ax in axes)
+                return InFlight(fn, axes, lambda: y, xla_tag, sb, 0)
+
         def start(x, _impl=start_impl, _tier=tier, _nb=sync_nbytes,
                   _s=scale):
             if sync_stats:
                 self.stats.record(SYNC_STATS_KEY, _nb)
-            x = layers.tier_input(fn, _tier, x, ax0, self.stats,
+            x = layers.tier_input(fn, _tier, x, axis_label, self.stats,
                                   sanitize=self.config.sanitize_checked)
             tok = _impl(x)
             if _s is not None:

@@ -118,7 +118,9 @@ def _validate(fn_name: str, x, axis_name) -> None:
         raise ValueError(f"{fn_name}: axis_name is required")
 
 
-def _fence(x):
+def fence(x):
+    """The L3 fence: a synchronize of the current CUDA stream for a CUDA
+    tensor (identity for values)."""
     if isinstance(x, torch.Tensor) and x.is_cuda:
         torch.cuda.current_stream(x.device).synchronize()
     return x
@@ -140,7 +142,7 @@ def tier_input(fn_name: str, tier: int, x, axis_name,
                      fn_name, axis_name, nbytes(x))
         if stats is not None:
             stats.event(f"{fn_name}@{axis_name}")
-        x = _fence(x)
+        x = fence(x)
     return x
 
 
@@ -149,8 +151,8 @@ def tier_output(tier: int, y):
     the result (impls may return (y, ef_state)).  Identity below L3."""
     if tier >= 3:
         if isinstance(y, tuple):
-            return tuple(map_tree(_fence, v) for v in y)
-        return map_tree(_fence, y)
+            return tuple(map_tree(fence, v) for v in y)
+        return map_tree(fence, y)
     return y
 
 

@@ -47,6 +47,21 @@ def xor_perm(p: int, k: int):
     return [(j, j ^ k) for j in range(p)]
 
 
+def complete_perm(pairs, p: int):
+    """Extend a partial (src, dst) permutation to a full one over p ranks
+    (the reference's helper).  ``ppermute`` carries partial permutations
+    (a rank nobody sends to receives zeros), so the port needs no filler
+    edges; it keeps them where the reference has them, so every rank
+    hands a tensor to the transport in every round, as the reference's
+    byte accounting bills."""
+    pairs = list(pairs)
+    srcs = {s for s, _ in pairs}
+    dsts = {d for _, d in pairs}
+    free_src = [j for j in range(p) if j not in srcs]
+    free_dst = [j for j in range(p) if j not in dsts]
+    return pairs + list(zip(free_src, free_dst))
+
+
 def pad_flat(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
     """Flatten ``x`` and zero-pad to a multiple.  Returns (flat, size)."""
     flat = x.reshape(-1)

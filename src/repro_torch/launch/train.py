@@ -12,14 +12,18 @@ in-process ranks on one device.
 
 Counterpart of ``repro.launch.train``: synthetic data -> the §2.2 scan
 and composed session (``build_session``) -> ``--data`` ranks running the
-train step through the session's communicator, per leaf or in fused
+train step through the session's communicator, or with ``--sync auto``
+the conventional stack (a monolithic session; each gradient leaf
+averaged through ``comm.collectives``), per leaf or in fused
 buckets (``--bucket-grads``), blocking or as an overlapped schedule-IR
 program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
 checkpoints (``--ckpt-dir``) that restore onto another ``--data`` width.
 ``--elastic`` hands the loop to ``ElasticController``: injected faults
 (``--fault-plan``), SIGTERM as a preemption notice, and with
 ``--ctrl-peers`` the control plane's epoch-fenced vote.  Runs on
-``cuda`` unless ``--device cpu``; raises without CUDA.
+``cuda`` unless ``--device cpu``; raises without CUDA.  The default
+``--sync`` is ``composed`` (the reference's is ``auto``), so that
+existing invocations keep their meaning.
 """
 
 from __future__ import annotations
@@ -86,8 +90,12 @@ def main(argv=None) -> None:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--sync", choices=["composed", "compressed"],
-                    default="composed")
+    ap.add_argument("--sync", choices=["auto", "composed", "compressed"],
+                    default="composed",
+                    help="auto: the monolithic stack (each gradient leaf "
+                         "averaged through the generic path); composed: "
+                         "the planned collectives; compressed: the int8 "
+                         "error-feedback sync")
     ap.add_argument("--bucket-grads", action="store_true",
                     help="sync gradients in fused dtype-grouped buckets")
     ap.add_argument("--bucket-bytes", type=int,
@@ -130,6 +138,10 @@ def main(argv=None) -> None:
     if args.zero and args.bucket_grads:
         ap.error("--zero runs one RS/AG pair per parameter leaf and is "
                  "incompatible with --bucket-grads")
+    if args.sync == "auto" and (args.overlap or args.bucket_grads):
+        ap.error("--sync auto is the conventional per-leaf sync: "
+                 "--overlap and --bucket-grads need --sync composed or "
+                 "compressed")
     check_elastic_args(ap, args)
     if args.elastic and not args.ckpt_dir:
         ap.error("--elastic needs --ckpt-dir (recovery restores from the "
@@ -156,8 +168,12 @@ def main(argv=None) -> None:
                             zero=args.zero)
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                             global_batch=args.global_batch, seed=args.seed)
-    session = build_session(mesh, model, opt, ds, tcfg)
-    logger.info("composed session:\n%s", session.describe())
+    if args.sync == "auto":
+        session = Session(mesh=mesh, mode="monolithic")
+    else:
+        session = build_session(mesh, model, opt, ds, tcfg)
+    logger.info("%s session:\n%s", session.engine.config.mode,
+                session.describe())
 
     if args.elastic:
         preemption, membership = elastic_signals(args, mesh)

@@ -196,6 +196,12 @@ def current_rank() -> Optional[int]:
     return None if ctx is None else ctx.rank
 
 
+def current_mesh() -> Mesh:
+    """The mesh of the calling rank's ``run_spmd`` (raises outside
+    one)."""
+    return _current().mesh
+
+
 def axis_size(axis: str) -> int:
     ctx = _current()
     if axis not in ctx.coords:
@@ -218,6 +224,14 @@ def ppermute(x: torch.Tensor, axis: str, perm) -> torch.Tensor:
     sends to receives zeros, as ``lax.ppermute`` gives."""
     ctx = _current()
     return ctx.transport.ppermute(ctx, x, axis, tuple(perm))
+
+
+def sent_bytes() -> int:
+    """Bytes the calling rank has handed to a peer through ``ppermute``
+    in its ``run_spmd`` so far: the wire bytes its hops moved, measured
+    by the transport (a hop to itself moves nothing)."""
+    ctx = _current()
+    return ctx.transport.sent[ctx.rank]
 
 
 def _source(perm, me: int) -> Optional[int]:
@@ -243,6 +257,7 @@ class ThreadTransport:
         self._boxes: List[List[Optional[torch.Tensor]]] = [
             [None] * mesh.size, [None] * mesh.size]
         self._hops = [0] * mesh.size
+        self.sent = [0] * mesh.size      # wire bytes a rank has sent
 
     def note(self, fn: str, nbytes: int, axis: str) -> None:
         pass
@@ -264,15 +279,18 @@ class ThreadTransport:
         self._hops[ctx.rank] += 1
         boxes = self._boxes[gen]
         boxes[ctx.rank] = x
+        me = ctx.coords[axis]
+        if any(s == me and d != me for s, d in perm):
+            self.sent[ctx.rank] += x.numel() * x.element_size()
         self.wait()
-        src = _source(perm, ctx.coords[axis])
+        src = _source(perm, me)
         if src is None:
             out = torch.zeros_like(x)
         else:
             peer = self.mesh.rank_of(dict(ctx.coords, **{axis: src}))
             out = boxes[peer].clone(memory_format=torch.contiguous_format)
             boxes[peer] = None           # this rank is its one receiver
-        if not any(s == ctx.coords[axis] for s, _ in perm):
+        if not any(s == me for s, _ in perm):
             boxes[ctx.rank] = None       # nobody reads this rank's tensor
         return out
 

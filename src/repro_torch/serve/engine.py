@@ -64,6 +64,15 @@ from repro_torch.serve import paging
 from repro_torch.serve.paging import OutOfPages, PagePool
 
 
+#: Rows of every paged decode call.  A step decodes its slots in blocks
+#: of this many rows, the last block padded, so every GEMM, every
+#: batched attention product and the unembedding see one shape whatever
+#: the batch: a row's logits do not depend on how many slots the batch
+#: has (before and after an elastic drain).  Decode reads the weights
+#: once a call, so a padded row costs little.
+DECODE_ROWS = 8
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeCfg:
     max_len: int
@@ -208,7 +217,7 @@ class BatchScheduler:
     chunk per ``step()`` interleaved with decode; other models prefill
     one-shot on a contiguous batch-1 row that the pool then adopts page
     by page (``splice_row``).  Decode runs one step for all slots over an
-    arena gathered from the pool.
+    arena gathered from the pool, in blocks of ``DECODE_ROWS`` rows.
 
     If decode outgrows the pool (overcommitted ``pool_pages``), the most
     recently admitted active slot is preempted — parked page-granular to
@@ -246,7 +255,8 @@ class BatchScheduler:
         self.parked: deque = deque()   # SlotSnapshots awaiting a slot
         self.slots: List[Optional[Request]] = [None] * cfg.batch
         self.pool = PagePool(model, cfg, device=self.device)
-        self._decode = self.pool.bind_decode(make_decode_step(model, cfg))
+        self._decode = self.pool.bind_decode(make_decode_step(model, cfg),
+                                             DECODE_ROWS)
         self._chunkable = bool(getattr(model, "supports_chunked_prefill",
                                        False))
         self._chunk = self.pool.bind_prefill_chunk(

@@ -401,36 +401,67 @@ class PagePool:
                           + tuple(g.shape[2:]))
             self.pool[ti][dst] = g[rows, kk].to(self.pool[ti].dtype)
 
-    def bind_decode(self, decode_fn) -> Callable:
-        """One paged decode step: gather the arena from pages ->
-        ``decode_fn`` -> write each active slot's touched page back.
-        Returns ``run(params, tok, rids, pos, slot_rids, active_mask)``
-        -> next tokens (and commits pool/state)."""
+    def bind_decode(self, decode_fn, rows: int) -> Callable:
+        """One paged decode step: for each block of ``rows`` slots,
+        gather the block's arena from pages -> ``decode_fn`` -> write
+        each active slot's touched page back.  The model always sees
+        ``rows`` rows: padding rows fill the last block, reading the zero
+        page with zeroed state; they write no page and their state is
+        dropped.  Returns ``run(params, tok, rids, pos, slot_rids,
+        active_mask)`` -> next tokens (and commits pool/state)."""
         b = self.cfg.batch
+        n_blocks = -(-b // rows)
+        pad = n_blocks * rows - b
+
+        def padded(t: torch.Tensor, ax: int) -> torch.Tensor:
+            if not pad:
+                return t
+            shape = list(t.shape)
+            shape[ax] = pad
+            return torch.cat([t, t.new_zeros(shape)], dim=ax)
 
         def run(params, tok, rids, pos, slot_rids, active_mask):
-            table = self.table_array(slot_rids)
+            table = self.table_array(list(slot_rids) + [None] * pad)
+            state_ax = [min(self.layout.leaves[li].batch_axis, st.dim() - 1)
+                        for st, li in zip(self.state,
+                                          self.layout.state_leaf_ids)]
+            state = [padded(st, ax) for st, ax in zip(self.state, state_ax)]
+            tok, rids, pos = (padded(t, 0) for t in (tok, rids, pos))
             pt = self.page_tokens
-            slots, pids, ks = [], [], []
-            for i, (r, a) in enumerate(zip(slot_rids, active_mask)):
-                t = self.tables.get(r) if r is not None else None
-                if a and t is not None:
-                    slots.append(i)
-                    pids.append(t.page_of(t.tokens, pt))
-                    ks.append(t.tokens // pt)
-            caches = self._assemble(self.state, table)
-            nxt, new_caches = decode_fn(params, tok, caches, rids, pos)
-            tok_leaves, new_state = self._split(new_caches)
-            self._writeback(tok_leaves, slots, pids, ks)
-            # inactive slots keep their arena state bit-intact
+            nxt, new_state = [], [[] for _ in state]
+            for k in range(n_blocks):
+                lo = k * rows
+                slots, pids, ks = [], [], []
+                for i in range(lo, min(lo + rows, b)):
+                    r = slot_rids[i]
+                    t = self.tables.get(r) if r is not None else None
+                    if active_mask[i] and t is not None:
+                        slots.append(i - lo)
+                        pids.append(t.page_of(t.tokens, pt))
+                        ks.append(t.tokens // pt)
+                caches = self._assemble(
+                    [st.narrow(ax, lo, rows)
+                     for st, ax in zip(state, state_ax)],
+                    table[lo:lo + rows])
+                blk, new_caches = decode_fn(
+                    params, tok[lo:lo + rows], caches, rids[lo:lo + rows],
+                    pos[lo:lo + rows])
+                tok_leaves, blk_state = self._split(new_caches)
+                self._writeback(tok_leaves, slots, pids, ks)
+                nxt.append(blk)
+                for acc, st in zip(new_state, blk_state):
+                    acc.append(st)
+            # inactive slots keep their arena state bit-intact; the
+            # padding rows' state is dropped
             active = torch.tensor(list(active_mask), dtype=torch.bool,
                                   device=self.device)
             out_state = []
             for si, li in enumerate(self.layout.state_leaf_ids):
                 l = self.layout.leaves[li]
-                old = self.state[si]
-                ax = min(l.batch_axis, old.dim() - 1)
-                new = torch.movedim(new_state[si], l.batch_axis, ax)
+                old, ax = self.state[si], state_ax[si]
+                new = torch.cat(new_state[si], dim=l.batch_axis).narrow(
+                    l.batch_axis, 0, b)
+                new = torch.movedim(new, l.batch_axis, ax)
                 mask = torch.movedim(
                     active.reshape((b,) + (1,) * (new.dim() - 1)), 0, ax)
                 out_state.append(torch.where(mask, new.to(old.dtype), old))
@@ -438,7 +469,7 @@ class PagePool:
             for r, a in zip(slot_rids, active_mask):
                 if a and r is not None:
                     self.tables[r].tokens += 1
-            return nxt
+            return torch.cat(nxt)[:b]
 
         return run
 

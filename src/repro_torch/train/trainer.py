@@ -1,7 +1,15 @@
 """Training step: gradient accumulation + communicator-mediated sync.
 
-Counterpart of ``repro.train.trainer`` for the two composed sync modes:
+Counterpart of ``repro.train.trainer`` for its three sync modes:
 
+  auto       — the conventional stack, the counterpart of the
+               reference's compiler-inserted sync: every rank computes
+               the loss and gradients of its rows of the batch, and
+               each gradient leaf is averaged with
+               ``comm.collectives.pmean`` through the monolithic default
+               session (the generic path, what XLA's inserted ``psum`` is
+               to the reference).  One collective per leaf, blocking; no
+               buckets, overlap or ZeRO.
   composed   — every rank computes the loss and gradients of its rows of
                the batch, and gradients are synced through a
                ``repro_torch.comm`` communicator whose per-function
@@ -34,9 +42,8 @@ and the reference's ways of running that sync:
                is elementwise, so at ``clip_norm=0`` on a power-of-two
                width the losses are bit-identical to the per-leaf path.
 
-The reference's ``auto`` mode (collectives inserted by the compiler)
-has no counterpart here.  ``TrainSession`` bundles what survives a
-re-mesh (model, optimizer, ``TrainCfg``) for the elastic controller.
+``TrainSession`` bundles what survives a re-mesh (model, optimizer,
+``TrainCfg``) for the elastic controller.
 
 Ranks are the threads of ``substrate.run_spmd``.  Each holds its own
 state (a list, one per rank); ``train_step(states, batch)`` gives every
@@ -56,7 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ShardedTensor
-from repro_torch.comm import Communicator
+from repro_torch.comm import Communicator, collectives
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.compression import bucket_ef_zeros
@@ -70,7 +77,7 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class TrainCfg:
     microbatches: int = 1
-    sync_mode: str = "composed"          # composed | compressed
+    sync_mode: str = "composed"          # auto | composed | compressed
     data_axes: Tuple[str, ...] = ("data",)
     grad_dtype: Any = torch.float32      # accumulation dtype (microbatches)
     bucket_grads: bool = False           # fused dtype-grouped buckets
@@ -83,13 +90,16 @@ class TrainCfg:
     zero: bool = False                   # ZeRO-1 optimizer-state sharding
 
     def __post_init__(self):
-        if self.sync_mode not in ("composed", "compressed"):
-            raise ValueError(
-                f"sync_mode={self.sync_mode!r}: the port runs 'composed' "
-                "and 'compressed' (the compiler-inserted 'auto' mode has "
-                "no counterpart)")
+        if self.sync_mode not in ("auto", "composed", "compressed"):
+            raise ValueError(f"unknown sync_mode {self.sync_mode!r}")
         if self.microbatches < 1:
             raise ValueError(f"microbatches={self.microbatches}")
+        if self.sync_mode == "auto" and (self.bucket_grads or self.overlap
+                                         or self.zero):
+            raise ValueError(
+                "sync_mode='auto' is the conventional per-leaf sync of the "
+                "monolithic stack: buckets, overlap and ZeRO need "
+                "sync_mode='composed' (or 'compressed')")
         if not self.zero:
             return
         if self.sync_mode != "composed":
@@ -453,10 +463,11 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             f"sync_mode={cfg.sync_mode!r} has nothing to sync over: none "
             f"of cfg.data_axes={cfg.data_axes} exist in the mesh axes "
             f"{mesh.axis_names}")
+    if cfg.sync_mode == "auto":
+        return _auto_train_step(model, optimizer, cfg, mesh, data_axes)
     compress = cfg.sync_mode == "compressed"
     dcomm = comm.split(*data_axes)
     axis_comms = tuple(comm.split(a) for a in data_axes)
-    n_data = dcomm.size
     overlap, depth = bool(cfg.overlap), int(cfg.overlap_depth)
     params_abs = model.abstract_params()
     gstructs = _grad_structs(params_abs, cfg)
@@ -595,6 +606,19 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             new_state["ef"] = new_ef
         return new_state, {"loss": loss, **om}
 
+    train_step = _spmd_step(rank_step, mesh, data_axes)
+    train_step.schedule = rs_sched if cfg.zero else sched
+    train_step.ag_schedule = ag_sched
+    return train_step
+
+
+def _spmd_step(rank_step, mesh, data_axes) -> Callable:
+    """``train_step(states, batch)``: ``rank_step(state, batch, lo, hi)``
+    on every rank of ``mesh``, rank r given its rows [lo, hi) of the
+    global batch (split over ``data_axes``).  Returns the new states and
+    rank 0's metrics."""
+    n_data = math.prod(mesh.shape[a] for a in data_axes)
+
     def train_step(states, batch):
         rows = next(iter(batch.values())).shape[0]
         if rows % n_data:
@@ -611,8 +635,35 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         out = substrate.run_spmd(rank_step, args, mesh)
         return [o[0] for o in out], out[0][1]
 
-    train_step.schedule = rs_sched if cfg.zero else sched
-    train_step.ag_schedule = ag_sched
+    return train_step
+
+
+def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
+                     data_axes) -> Callable:
+    """The ``auto`` step: each rank's gradients of its rows, every leaf
+    (and the loss) averaged over the data axes by
+    ``collectives.pmean`` through the monolithic default session, then
+    the optimizer update, as the reference's step with the compiler's
+    inserted sync."""
+
+    def rank_step(st, host_batch, lo, hi):
+        dev = leaves(st["params"])[0].device
+        batch = {k: _rank_rows(v, lo, hi, dev)
+                 for k, v in host_batch.items()}
+        loss, grads = _accumulate_grads(model, st["params"], batch,
+                                        cfg.microbatches, cfg.grad_dtype)
+        with torch.no_grad():
+            for a in data_axes:
+                grads = map_tree(lambda g: collectives.pmean(g, a), grads)
+                loss = collectives.pmean(loss, a)
+            new_params, new_opt, om = optimizer.update(
+                grads, st["opt"], st["params"])
+        return ({"params": new_params, "opt": new_opt,
+                 "step": st["step"] + 1}, {"loss": loss, **om})
+
+    train_step = _spmd_step(rank_step, mesh, data_axes)
+    train_step.schedule = None
+    train_step.ag_schedule = None
     return train_step
 
 

@@ -21,6 +21,11 @@ the reduced qwen2-72b under ``ServeController`` (data 4 -> 2) gives the
 CPU's greedy streams; a rank that raises on the card surfaces from
 ``run_spmd`` as a ``RankFailure`` naming it.
 
+The whole collective library (composed and monolithic) on CUDA thread
+ranks gives the bits of the same calls on CPU ranks, and the reduced
+qwen2-72b in bf16 decodes the same requests' logits bit for bit at
+batch 8 and at batch 4.
+
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
 so they run on a machine that has only the port's dependencies:
@@ -458,3 +463,108 @@ def test_a_rank_raising_on_the_card_is_named(cuda):
         substrate.run_spmd(body, [(r,) for r in range(3)], mesh, timeout=60)
     assert (ei.value.rank, ei.value.member) == (1, 6)
     assert health.classify_failure(ei.value) == (6,)
+
+
+# ---------------------------------------------------------------------------
+# The collective library and decode at a fixed row count, on the card
+# ---------------------------------------------------------------------------
+
+LIB_CALLS = [("all_reduce", {}), ("reduce_scatter", {"dim": 0}),
+             ("all_gather", {"dim": 1}),
+             ("all_to_all", {"split_dim": 0, "concat_dim": 1}),
+             ("broadcast", {"root": 1}), ("permute", {"shift": 1}),
+             ("send_recv", {"pairs": [(0, 2), (3, 1)]})]
+
+
+@pytest.mark.parametrize("mode", ["composed", "monolithic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_collective_library_on_cuda_ranks_matches_cpu_bits(cuda, dtype,
+                                                           mode):
+    """Every function of the library on 4 CUDA thread ranks, each ring
+    combine a launch of the CUDA ``sum_chunks`` (composed sums forced
+    onto the ring: the plan picks recursive protocols at this size),
+    against the same calls on CPU ranks, bit for bit."""
+    from repro_torch.comm import Session
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.runtime import substrate
+    p = 4
+    gen = torch.Generator().manual_seed(16)
+    xs = [torch.randn(8 * p, 12, generator=gen).to(dtype) for _ in range(p)]
+
+    def run(device):
+        sess = Session(mesh=substrate.make_mesh((p,), ("data",),
+                                                device=device),
+                       config=EngineConfig(mode=mode, force_protocol={
+                           "all_reduce": "ring", "reduce_scatter": "ring"}))
+        d = sess.split("data")
+        before = lops.counter.value
+        out = substrate.run_spmd(
+            lambda x: [getattr(d, fn)(x, **kw) for fn, kw in LIB_CALLS],
+            [(x.to(device),) for x in xs], sess.mesh)
+        return map_tree(lambda t: t.cpu(), out), \
+            lops.counter.value - before
+
+    want, cpu_launches = run("cpu")
+    got, launches = run(cuda)
+    assert cpu_launches == 0 and launches > 0
+    for g, w in zip(leaves(got), leaves(want)):
+        _bits_equal(g, w)
+
+
+def test_decode_logits_equal_at_batch_8_and_4_on_card(cuda):
+    """The reduced qwen2-72b in bf16 on the card: the same requests'
+    decode logits at batch 8 and as two batches of 4 are bit-identical
+    (every decode call runs ``DECODE_ROWS`` rows)."""
+    from repro_torch.serve import BatchScheduler, Request, ServeCfg, engine
+    model = build_model(get_config("qwen2-72b", reduced=True,
+                                   param_dtype=torch.bfloat16))
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 256, size=rng.randint(3, 40)).tolist()
+               for _ in range(8)]
+    pick = engine._pick_tokens
+
+    def run(rids, batch):
+        rows, decoding = {}, []
+
+        def recording(lg, cfg, rids_, pos):
+            if decoding:                  # a decode call: the next rows
+                take = decoding[0][:lg.shape[0]]
+                del decoding[0][:lg.shape[0]]
+                for j, key in enumerate(take):
+                    if key is not None:
+                        rows[key] = lg[j].float().cpu()
+            return pick(lg, cfg, rids_, pos)
+
+        engine._pick_tokens = recording
+        try:
+            sched = BatchScheduler(model, params, ServeCfg(
+                max_len=64, batch=batch, page_tokens=8,
+                cache_dtype=torch.bfloat16), device=cuda)
+            run_decode = sched._decode
+
+            def decode(params_, tok, rids_, pos, slot_rids, active):
+                decoding.append([(r, q) if a else None for r, a, q in zip(
+                    slot_rids, active, pos.tolist())])
+                try:
+                    return run_decode(params_, tok, rids_, pos, slot_rids,
+                                      active)
+                finally:
+                    decoding.pop()
+
+            sched._decode = decode
+            for r in rids:
+                sched.submit(Request(rid=r, prompt=prompts[r], max_new=8))
+            out = {r.rid: r.generated for r in sched.run()}
+        finally:
+            engine._pick_tokens = pick
+        return out, rows
+
+    s8, rows8 = run(range(8), 8)
+    lo, rows_lo = run(range(4), 4)
+    hi, rows_hi = run(range(4, 8), 4)
+    assert s8 == {**lo, **hi}
+    rows4 = {**rows_lo, **rows_hi}
+    assert rows8.keys() == rows4.keys() and len(rows8) == 8 * 7
+    for k in rows8:
+        assert torch.equal(rows8[k], rows4[k]), k

@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
 serving and training entry points, the schedule IR, the checkpoint
-store and the elastic runtime leaves ``jax`` out of ``sys.modules``.
+store, the elastic runtime and the collective library's protocol
+modules leaves ``jax`` out of ``sys.modules``.
 The elastic launchers, like the others, run on ``cuda`` unless asked for
 the CPU, and raise without CUDA."""
 
@@ -91,3 +92,11 @@ def test_elastic_launchers_run_on_cuda_unless_asked(launcher, argv):
     mod = importlib.import_module(f"repro_torch.launch.{launcher}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)
+
+
+def test_collective_library_modules_import_without_jax():
+    _imports_without_jax(["repro_torch.core.protocols.xla",
+                          "repro_torch.core.protocols.tree",
+                          "repro_torch.core.protocols.bruck",
+                          "repro_torch.core.protocols.pipeline",
+                          "repro_torch.comm.collectives"])

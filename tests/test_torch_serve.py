@@ -215,3 +215,116 @@ def test_launcher_refuses_elastic_flags(flags, capsys):
     assert "needs --elastic" in capsys.readouterr().err
     assert launch_serve.parse_args(["--device", "cpu", "--elastic",
                                     *flags]).elastic
+
+
+# ---------------------------------------------------------------------------
+# Decode at a fixed row count: a row's logits do not depend on the batch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch", [1, 3, 4, 8, 12])
+def test_every_decode_forward_sees_the_fixed_row_count(weights, batch,
+                                                       monkeypatch):
+    from repro_torch.serve.engine import DECODE_ROWS
+    _, _, tm, tp = weights
+    rows = []
+    decode = tm.decode_step
+
+    def hooked(params, batch_, caches):
+        rows.append(batch_["tokens"].shape[0])
+        for leaf in leaves(caches):
+            assert DECODE_ROWS in leaf.shape
+        return decode(params, batch_, caches)
+
+    monkeypatch.setattr(tm, "decode_step", hooked)
+    _, got = _serve_port(tm, tp, _prompts(n=batch + 2, seed=3), max_new=4,
+                         batch=batch)
+    assert len(got) == batch + 2
+    assert rows and set(rows) == {DECODE_ROWS}
+
+
+def test_padding_rows_write_no_page_and_keep_slot_state(weights):
+    """Batch 3 (5 padding rows): a decode step changes only the page each
+    active slot writes, never the zero page, and no inactive slot's
+    arena state."""
+    _, _, tm, tp = weights
+    cfg = ServeCfg(max_len=MAX_LEN, batch=3, cache_dtype=torch.float32,
+                   page_tokens=PT)
+    sched = BatchScheduler(tm, tp, cfg, device="cpu")
+    for rid, p in enumerate(_prompts(n=2, seed=4)):
+        sched.submit(Request(rid=rid, prompt=list(p), max_new=6))
+    while sched._prefills:
+        sched.step()
+    pool = sched.pool
+    active = [i for i, s in enumerate(sched.slots) if s is not None]
+    assert active and len(active) < cfg.batch
+    touched = {pool.tables[sched.slots[i].rid].page_of(
+        pool.tables[sched.slots[i].rid].tokens, PT) for i in active}
+    pages = [t.clone() for t in pool.pool]
+    state = [t.clone() for t in pool.state]
+    sched.step()
+    pool.check_integrity()
+    for before, after in zip(pages, pool.pool):
+        changed = {int(i) for i in torch.nonzero(
+            (before != after).flatten(1).any(1)).flatten()}
+        assert changed <= touched and 0 not in changed
+        assert not after[0].any()                  # the zero page
+    inactive = [i for i in range(cfg.batch) if i not in active]
+    for before, after, li in zip(state, pool.state,
+                                 pool.layout.state_leaf_ids):
+        ax = min(pool.layout.leaves[li].batch_axis, before.dim() - 1)
+        for i in inactive:
+            assert torch.equal(before.narrow(ax, i, 1),
+                               after.narrow(ax, i, 1))
+
+
+def test_decode_rows_equal_at_batch_8_and_4(weights, monkeypatch):
+    """The same requests decoded at batch 8 and as two batches of 4 give
+    the same greedy streams, and every decode row's logits bit for bit
+    (rows of decoding slots only: a free or prefilling slot also runs,
+    on stale ids)."""
+    from repro_torch.serve import engine
+    _, _, tm, tp = weights
+    prompts = _prompts(n=8, seed=5)
+    pick = engine._pick_tokens
+
+    def run(rids, batch):
+        rows, decoding = {}, []
+
+        def recording(lg, cfg, rids_, pos):
+            if decoding:                  # a decode call: the next rows
+                take = decoding[0][:lg.shape[0]]
+                del decoding[0][:lg.shape[0]]
+                for j, key in enumerate(take):
+                    if key is not None:
+                        assert key not in rows
+                        rows[key] = lg[j].clone()
+            return pick(lg, cfg, rids_, pos)
+
+        monkeypatch.setattr(engine, "_pick_tokens", recording)
+        cfg = ServeCfg(max_len=MAX_LEN, batch=batch,
+                       cache_dtype=torch.float32, page_tokens=PT)
+        sched = BatchScheduler(tm, tp, cfg, device="cpu")
+        run_decode = sched._decode
+
+        def decode(params, tok, rids_, pos, slot_rids, active):
+            decoding.append([(r, q) if a else None for r, a, q in zip(
+                slot_rids, active, pos.tolist())])
+            try:
+                return run_decode(params, tok, rids_, pos, slot_rids,
+                                  active)
+            finally:
+                decoding.pop()
+
+        sched._decode = decode
+        for r in rids:
+            sched.submit(Request(rid=r, prompt=prompts[r], max_new=6))
+        return {r.rid: r.generated for r in sched.run()}, rows
+
+    s8, rows8 = run(range(8), 8)
+    lo, rows_lo = run(range(4), 4)
+    hi, rows_hi = run(range(4, 8), 4)
+    assert s8 == {**lo, **hi}
+    rows4 = {**rows_lo, **rows_hi}
+    assert rows8.keys() == rows4.keys() and len(rows8) == 8 * 5
+    for k in rows8:
+        assert torch.equal(rows8[k], rows4[k]), k

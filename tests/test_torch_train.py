@@ -12,10 +12,14 @@
   within 1e-5 of the largest value of the reference's (the packages sum
   in different orders).  Their ``block_k`` is 16, so SEQ 32 runs the
   attention over two key blocks.
-- 8 steps of data-parallel training on 4 ranks, ``--sync composed`` and
-  ``compressed``, from the reference's own initial weights: losses
-  within 1e-4 (composed) and 1e-3 (compressed) relative; the int8 ring
-  can round a code the other way after a 1e-7 difference in a gradient.
+- 8 steps of data-parallel training on 4 ranks, ``--sync auto``,
+  ``composed`` and ``compressed``, from the reference's own initial
+  weights: losses within 1e-4 (auto, composed) and 1e-3 (compressed)
+  relative; the int8 ring can round a code the other way after a 1e-7
+  difference in a gradient.  ``auto`` is the reference's
+  compiler-inserted sync (GSPMD over the global batch) against the
+  port's per-leaf ``pmean`` through the monolithic default session: the
+  same mean, summed in another order.
   Replicas are bit-identical across ranks after every step.
   The reference's losses come from one child interpreter with 4 host
   devices that runs both modes from the same weights.
@@ -37,6 +41,7 @@ from repro.models import build_model as jbuild_model
 from repro.models.layers import flash_attention_jnp
 from repro.optim import cosine_schedule as jcosine
 from repro.optim import make_optimizer as jmake_optimizer
+from repro_torch.comm import Session
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.launch import train as launch_train
@@ -50,7 +55,7 @@ from repro_torch.train import trainer
 from repro_torch.tree import flatten, leaves, unflatten
 
 STEPS, SEQ, BATCH, RANKS = 8, 32, 8, 4
-LOSS_RTOL = {"composed": 1e-4, "compressed": 1e-3}
+LOSS_RTOL = {"auto": 1e-4, "composed": 1e-4, "compressed": 1e-3}
 
 
 def _rel_err(got, want) -> float:
@@ -209,14 +214,16 @@ params = model.init(jax.random.PRNGKey(0))
 np.savez({path!r}, **{{"/".join(str(k.key) for k in p): np.asarray(v)
             for p, v in jax.tree_util.tree_flatten_with_path(params)[0]}})
 out = {{}}
-for sync in ("composed", "compressed"):
+for sync in ("auto", "composed", "compressed"):
     args = types.SimpleNamespace(
         microbatches=1, sync=sync, bucket_grads=False, bucket_bytes=32 << 20,
         overlap=False, overlap_depth=2, zero=False)
-    sess = lt.build_session(mesh, model, opt, ds, args)
+    sess = (lt.build_session(mesh, model, opt, ds, args)
+            if sync != "auto" else None)
     tcfg = trainer.TrainCfg(sync_mode=sync)
-    step_fn = jax.jit(trainer.make_train_step(model, opt, tcfg, mesh=mesh,
-                                              comm=sess.world))
+    step_fn = jax.jit(trainer.make_train_step(
+        model, opt, tcfg, mesh=mesh,
+        comm=sess.world if sess is not None else None))
     sspecs = trainer.state_specs(model, opt, tcfg, mesh=mesh)
     with substrate.set_mesh(mesh):
         state = trainer.make_train_state(model, opt, jax.random.PRNGKey(0),
@@ -245,7 +252,7 @@ def reference_run(tmp_path_factory):
     return json.loads(line[len("LOSSES "):]), tree
 
 
-@pytest.mark.parametrize("sync", ["composed", "compressed"])
+@pytest.mark.parametrize("sync", ["auto", "composed", "compressed"])
 def test_data_parallel_training_matches_reference(reference_run, sync):
     ref_losses, tree = reference_run
     cfg = get_config("granite-34b", reduced=True)
@@ -256,7 +263,8 @@ def test_data_parallel_training_matches_reference(reference_run, sync):
                             global_batch=BATCH)
     mesh = substrate.make_host_mesh(RANKS, device="cpu")
     tcfg = trainer.TrainCfg(sync_mode=sync)
-    sess = build_session(mesh, model, opt, ds, tcfg)
+    sess = (Session(mesh=mesh, mode="monolithic") if sync == "auto"
+            else build_session(mesh, model, opt, ds, tcfg))
     states = trainer.replicate(trainer.make_train_state(
         model, opt, params_from_numpy(tree, cfg, device="cpu"), tcfg),
         RANKS)
@@ -280,6 +288,28 @@ def test_train_cli_runs_on_the_cpu(capsys):
                        "--reduced", "--sync", "compressed", "--steps", "2",
                        "--seq-len", "16", "--global-batch", "4",
                        "--log-every", "1"])
+
+
+def test_train_cli_runs_sync_auto_on_the_cpu():
+    launch_train.main(["--device", "cpu", "--arch", "granite-34b",
+                       "--reduced", "--sync", "auto", "--steps", "2",
+                       "--seq-len", "16", "--global-batch", "4",
+                       "--log-every", "1"])
+
+
+@pytest.mark.parametrize("flag", ["--zero", "--overlap", "--bucket-grads"])
+def test_train_cli_refuses_sync_auto_with(flag, capsys):
+    with pytest.raises(SystemExit):
+        launch_train.main(["--device", "cpu", "--sync", "auto", flag,
+                           "--steps", "1"])
+    assert "--sync" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kw", [{"zero": True}, {"overlap": True},
+                                {"bucket_grads": True}])
+def test_train_cfg_refuses_auto_with(kw):
+    with pytest.raises(ValueError):
+        trainer.TrainCfg(sync_mode="auto", **kw)
 
 
 def test_train_entry_points_raise_without_cuda():
