@@ -55,8 +55,15 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              rerun with the plain combine (``plain_sync_ops``), bit for
              bit; each rank's recorded phase bytes must equal
              ``plan.phase_wire_bytes``; ``sum_chunks`` launches must equal
-             the schedule's count.  Prints each call's time and the wire
-             bytes a rank, as the transport measured them.
+             the schedule's count.  Then the multi-axis all-reduce:
+             two-phase on (data 2, model 2) at the MLP leaf and on (4, 2)
+             at 6144 x 3072, hierarchical on (pod 2, data 2) at the MLP
+             leaf and on (pod 3, data 2) at 6144 x 3072; blocking,
+             start/wait and a persistent handle must give the same bits,
+             the plain-combine rerun's, the phase bytes the communicator's
+             ``sync_schedule`` predicts, and the schedule's ``sum_chunks``
+             count.  Prints each call's time and the wire bytes a rank,
+             as the transport measured them.
 6. train_small — the reduced granite-34b (f32) trained over 2 thread
              ranks for 3 steps, composed and compressed, through the sync
              kernels on the card and through the plain path on the CPU,
@@ -101,6 +108,26 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              average layer number 2.0 (printed beside the composed
              session's) and ``sum_chunks`` launches as the generic ring
              counts them.  Prints step time and peak memory.
+8c. train_tp — the train workload (granite-34b, 2 of 88 layers, [train]'s
+             weights and batches) on a (data 2, model 2) mesh: each rank
+             holds its shard (whole heads; granite-34b's one KV head
+             replicated), its backward staged so that the model-axis
+             all-reduces run on the rank threads.  {composed, compressed}
+             x {sync kernels, plain}, 3 steps each: finite losses,
+             identical data replicas and model-replicated leaves, the
+             kernel and plain runs bit-identical, launches as planned
+             (the data sync's plus p-1 a model-axis all-reduce), and the
+             composed losses and gradient norms within ``TP_LOSS_RTOL``
+             and ``TP_NORM_RTOL`` of [train]'s.
+             Prints step time, tokens/s and peak memory.
+8d. train_pod — granite-34b at its widths cut to 1 layer (4 full
+             replicas of 2 layers do not fit in 80 GB) on (pod 2, data 2),
+             composed: every sync unit is the hierarchical all-reduce,
+             replicas identical, ``sum_chunks`` launches as the schedule
+             counts them, losses and gradient norms within
+             ``POD_LOSS_RTOL`` and ``POD_NORM_RTOL`` of a flat data=4 run
+             from the same weights.  Prints step time and
+             peak memory of both.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -224,6 +251,30 @@ LIB_RANKS = ((2, LIB_FULL), (4, LIB_FULL), (3, LIB_SMALL), (8, LIB_SMALL))
 LIB_FUNCTIONS = ("all_reduce", "reduce_scatter", "all_gather", "all_to_all",
                  "broadcast", "permute", "send_recv")
 AUTO_LOSS_RTOL = 1e-4  # LOSS_RTOL["composed"], tests/test_torch_train.py
+# multi-axis all-reduce: (axes, mesh shape, per-rank payload)
+LIB_MULTI = ((("data", "model"), (2, 2), LIB_FULL),
+             (("data", "model"), (4, 2), LIB_SMALL),
+             (("pod", "data"), (2, 2), LIB_FULL),
+             (("pod", "data"), (3, 2), LIB_SMALL))
+TP_MODEL = 2                # [train_tp]: (data TRAIN_RANKS, model TP_MODEL)
+# [train_tp] against [train]'s composed run (no model axis).  In bf16
+# the row-parallel products are summed over "model" after rounding each
+# partial, so the runs differ by bf16 roundings of the activations.  The
+# limits are about ten times this phase's own largest reading on the
+# H100 (PERF.md, PR 17): losses 7.9e-6, 1.7e-4, 5.8e-6 relative, the
+# global gradient norms 4.3e-5, 4.9e-4, 8.8e-6.  The norm engages the
+# clip, so it is held too: with the model ranks' squares counted twice
+# it moves by about 40%, while the losses stay within 1.1e-3.
+TP_LOSS_RTOL = 2e-3
+TP_NORM_RTOL = 5e-3
+POD_LAYERS = 1              # 4 full replicas of 2 layers exceed 80 GB
+# [train_pod] against a flat data=4 run: the same gradients summed in
+# another order (bidir ring over 2 then recursive doubling over 2 pods,
+# against one bidir ring over 4), each sum rounded to bf16.  Readings
+# (PERF.md, PR 17): losses 0, 1.7e-5, 2.3e-4 relative; gradient norms
+# 1.2e-5, 6.6e-5, 1.8e-3 (the third step's, after two updates apart).
+POD_LOSS_RTOL = 2e-3
+POD_NORM_RTOL = 2e-2
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -701,6 +752,21 @@ def phase_collectives():
     return rows
 
 
+def tp_psums(model) -> int:
+    """All-reduces over "model" one rank makes in one step of a
+    model-parallel run (through the monolithic default session's ring,
+    p-1 ``sum_chunks`` launches each): in the forward the embedding's
+    *g*, each layer's two *g*, the loss's sum of exponentials and label
+    logit; in the staged backward each layer's two *f* and the final
+    one; then the partial-sum leaves and the gradient norm."""
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import flatten
+    n_layers = model.cfg.num_layers
+    paths = flatten(model.abstract_params())[1]
+    partial = sum(sharding.partial_sum_leaves(paths, model.layout))
+    return (1 + 2 * n_layers + 2) + (2 * n_layers + 1) + partial + 1
+
+
 def planned_launches(engine, synced, scalars, p: int, compress: bool):
     """Launches of each sync kernel on one rank in one step, as the
     session's plan predicts them, with the formula for each.  ``synced``:
@@ -777,6 +843,99 @@ def _lib_combines(fn: str, proto: str, p: int, n: int) -> int:
     return {costmodel.RING: p - 1,
             costmodel.BIDIR_RING: (p - 1) * (1 if chunk % 2 else 2)
             }.get(proto, 0)
+
+
+def _multiaxis_combines(sizes, axes, n: int) -> int:
+    """``sum_chunks`` launches one rank makes in one composed all-reduce
+    of ``n`` values over several ``axes``: the bidirectional ring reduce-
+    scatters' ((p-1) on an odd chunk, 2(p-1) on an even one) of the
+    hierarchical schedule's intra axes and of the two-phase schedule's
+    two axes, and the padded pod ring's p-1 when the pod axis is not a
+    power of two (recursive doubling adds with a plain ``+``)."""
+    def bidir(p, chunk):
+        return (p - 1) * (1 if chunk % 2 else 2)
+
+    k, m = 0, n
+    if "pod" in axes:
+        for ax in axes:
+            if ax != "pod":
+                m = -(-m // sizes[ax])
+                k += bidir(sizes[ax], m)
+        pp = sizes["pod"]
+        return k + (pp - 1 if pp & (pp - 1) else 0)
+    c0 = -(-n // sizes[axes[0]])
+    return bidir(sizes[axes[0]], c0) + bidir(sizes[axes[1]],
+                                            -(-c0 // sizes[axes[1]]))
+
+
+def _lib_multiaxis(axes, shape, xshape):
+    """One composed all-reduce over every axis of a ``shape`` mesh on
+    CUDA thread ranks, at bf16 ``xshape`` a rank: the sum bit-equal to
+    the same schedule rerun with the plain combine; blocking, start/wait
+    and a persistent handle bit-identical; each rank's recorded phase
+    bytes equal to the communicator's ``sync_schedule`` unit (the cost
+    model's ``phase_wire_bytes``); ``sum_chunks`` launches as the
+    schedule counts them.  Prints the transport's wire bytes a rank
+    beside the billing and the blocking call's ms.  Returns its row."""
+    from repro_torch.comm import Session
+    from repro_torch.kernels.local_reduce import ops as lops
+    from repro_torch.runtime import substrate
+    mesh = substrate.make_mesh(shape, axes, device="cuda")
+    n = mesh.size
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    xs = [torch.randn(xshape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(n)]
+    sess = Session(mesh=mesh)
+    w = sess.world
+    h = w.persistent("all_reduce", xshape, torch.bfloat16)
+    (unit,) = w.sync_schedule([("x", xs[0].numel(), torch.bfloat16)]).units
+    billed = (unit.start_bytes, unit.wait_bytes)
+
+    def split(x):
+        w0 = substrate.sent_bytes()
+        y = w.all_reduce_wait(w.all_reduce_start(x))
+        return y, substrate.sent_bytes() - w0
+
+    def run(fn):
+        out = substrate.run_spmd(fn, [(x,) for x in xs], mesh)
+        torch.cuda.synchronize()
+        return out
+
+    c0 = lops.counter.value
+    out = run(split)
+    launches = lops.counter.value - c0
+    want_launches = n * _multiaxis_combines(mesh.shape, axes, xs[0].numel())
+    recorded = {(ph.get("all_reduce.start", 0), ph.get("all_reduce.wait", 0))
+                for ph in (sess.engine.stats.rank_phase_bytes.get(r, {})
+                           for r in range(n))}
+    sent = sorted({b for _, b in out})
+    ys = [y for y, _ in out]
+    del out
+    same = all(_bits_equal(a, b) for a, b in zip(ys, run(w.all_reduce)))
+    same = same and all(_bits_equal(a, b) for a, b in zip(ys, run(h)))
+    with plain_sync_ops():
+        plain = all(_bits_equal(a, b) for a, b in zip(ys, run(w.all_reduce)))
+    del ys
+    t0 = time.perf_counter()
+    run(w.all_reduce)
+    ms = (time.perf_counter() - t0) * 1e3
+    label = "x".join(f"{a}={p}" for a, p in zip(axes, shape))
+    exact = "" if sent == [sum(billed)] else " (transport != billed)"
+    print(f"[collectives_lib] {label} all_reduce {unit.protocol:14s} "
+          f"{tuple(xshape)} bf16: {ms:8.3f} ms; wire bytes a rank {sent}"
+          f"{exact}; billed (start, wait) {billed}, recorded "
+          f"{sorted(recorded)}; sum_chunks {launches} (schedule "
+          f"{want_launches}); blocking = start/wait = persistent: {same}; "
+          f"= plain-combine rerun: {plain}")
+    if recorded != {billed}:
+        raise AssertionError(f"{label}: phase bytes {recorded} != {billed}")
+    if launches != want_launches:
+        raise AssertionError(f"{label}: {launches} sum_chunks launches, "
+                             f"schedule {want_launches}")
+    if not (same and plain):
+        raise AssertionError(f"{label}: arms or plain rerun differ")
+    return dict(axes=axes, shape=shape, protocol=unit.protocol, ms=ms,
+                sent=sent, billed=billed, launches=launches)
 
 
 def _lib_call(mesh, fn: str, proto: str, mode: str, xs):
@@ -862,7 +1021,10 @@ def phase_collectives_lib():
     """Every function of the library on every protocol of its menu that
     takes p, and on the generic path (the monolithic engine), on CUDA
     thread ranks: p in {2, 4} at a full-width granite-34b MLP leaf
-    (6144 x 24576 bf16, 302 MB a rank), p in {3, 8} at 6144 x 3072.
+    (6144 x 24576 bf16, 302 MB a rank), p in {3, 8} at 6144 x 3072; then
+    the multi-axis all-reduce (``LIB_MULTI``): two-phase on (data 2,
+    model 2) at the MLP leaf and on (4, 2) at 6144 x 3072, hierarchical
+    on (pod 2, data 2) and (pod 3, data 2) likewise.
     Returns ({"sum_chunks": launches}, rows)."""
     import gc
     import math
@@ -889,6 +1051,10 @@ def phase_collectives_lib():
                 rows.append(_lib_call(mesh, fn, proto, mode, xs))
                 gc.collect()
         del xs
+        gc.collect()
+        torch.cuda.empty_cache()
+    for axes, shape, xshape in LIB_MULTI:
+        rows.append(_lib_multiaxis(axes, shape, xshape))
         gc.collect()
         torch.cuda.empty_cache()
     launches = counter.counts()["sum_chunks"]
@@ -978,8 +1144,9 @@ def plain_sync_ops():
 
 def _train_steps(step_fn, states, ds):
     """TRAIN_STEPS steps; returns (states, losses, seconds a step,
-    last metrics)."""
-    losses, times = [], []
+    last metrics with ``grad_norms``: each step's global gradient
+    norm)."""
+    losses, times, norms = [], [], []
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         states, metrics = step_fn(states, ds.host_batch(step))
@@ -987,7 +1154,8 @@ def _train_steps(step_fn, states, ds):
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
-    return states, losses, times, metrics
+        norms.append(metrics["grad_norm"].item())
+    return states, losses, times, dict(metrics, grad_norms=norms)
 
 
 def phase_train_small():
@@ -1090,6 +1258,7 @@ def phase_train():
                 out[f"{sync}_step_ms"] = step_s * 1e3
                 out[f"{sync}_peak_gib"] = peak / 2**30
                 out[f"{sync}_losses"] = losses
+                out[f"{sync}_grad_norms"] = metrics["grad_norms"]
                 out[f"{sync}_avg_layer"] = session.average_layer_number()
             # rank 0's params, no longer written once its run is over
             results[(sync, on)] = (losses, leaves(states[0]["params"]))
@@ -1177,6 +1346,250 @@ def phase_train_auto(train):
     gc.collect()
     torch.cuda.empty_cache()
     return {"sum_chunks": counts["sum_chunks"]}, numbers
+
+
+def _replicas_check(mesh, model, states) -> bool:
+    """Data replicas (one model coordinate) hold the same parameters, and
+    every leaf the model ranks all hold whole is the same on every
+    rank."""
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import flatten, leaves
+    paths = flatten(states[0]["params"])[1]
+    coord = [mesh.coords(r).get("model", 0) for r in range(mesh.size)]
+    ok = True
+    for r, st in enumerate(states):
+        first = states[coord.index(coord[r])]
+        ok = ok and all(_bits_equal(a, b) for a, b in zip(
+            leaves(first["params"]), leaves(st["params"])))
+        if model.layout is not None:
+            ok = ok and all(
+                _bits_equal(a, b) for path, a, b in zip(
+                    paths, leaves(states[0]["params"]),
+                    leaves(st["params"]))
+                if sharding.leaf_split(path, model.layout) is None)
+    return ok
+
+
+def _mesh_run(model, init, mesh, ds, opt, sync, plain=False):
+    """A fresh session and per-rank states (``trainer.init_states``: each
+    rank's shard of ``init``) on ``mesh``, TRAIN_STEPS steps (with the
+    plain sync ops when ``plain``).  Returns (losses, step seconds, peak
+    bytes, launches, session, states, metrics)."""
+    from repro_torch.kernels import counter
+    from repro_torch.launch.train import build_session
+    from repro_torch.train import trainer
+    from repro_torch.tree import map_tree
+    tcfg = trainer.TrainCfg(sync_mode=sync)
+    session = build_session(mesh, model, opt, ds, tcfg)
+    # without a model axis rank 0's state holds the tensors it is given,
+    # which the optimizer updates in place
+    states = trainer.init_states(
+        model, opt, init if model.layout is not None else map_tree(
+            lambda t: t.clone(), init), tcfg, mesh)
+    step_fn = trainer.make_train_step(model, opt, tcfg, comm=session.world)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.reset_all()
+    with (plain_sync_ops() if plain else contextlib.nullcontext()):
+        states, losses, times, metrics = _train_steps(step_fn, states, ds)
+    return (losses, float(np.mean(times[1:])), times[0],
+            torch.cuda.max_memory_allocated(), counter.counts(), session,
+            step_fn, states, metrics)
+
+
+def phase_train_tp(train):
+    """granite-34b at its published widths (TRAIN_LAYERS of 88 layers)
+    on a (data TRAIN_RANKS, model TP_MODEL) mesh of thread ranks:
+    {composed, compressed} x {sync kernels, plain}, TRAIN_STEPS steps a
+    run from [train]'s weights and batches.  Returns ({kernel:
+    launches}, numbers)."""
+    import gc
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import leaves
+    cfg = with_num_layers(get_config("granite-34b"), TRAIN_LAYERS)
+    model = build_model(cfg, model_parallel=TP_MODEL)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
+                                    device="cuda")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=0)
+    lay = model.layout
+    print(f"[train_tp] {cfg.name} {cfg.num_layers} layers on "
+          f"{dict(mesh.shape)}: a rank holds {lay.heads} of "
+          f"{cfg.attn.num_heads} query heads, K/V "
+          f"{'replicated' if lay.kv_replicated else 'split'} "
+          f"({lay.kv_heads} head), {lay.d_ff} of {cfg.mlp.d_ff} FFN "
+          f"columns, {lay.vocab} of {cfg.vocab_size} vocabulary rows; "
+          f"{TRAIN_BATCH // TRAIN_RANKS} rows a data rank, seq {TRAIN_SEQ}")
+    psums = tp_psums(model)
+    out, numbers = {}, {}
+    for sync in ("composed", "compressed"):
+        results = {}
+        for on in (True, False):
+            (losses, step_s, first_s, peak, counts, session, step_fn,
+             states, metrics) = _mesh_run(model, init, mesh, ds,
+                                          _adamw(TRAIN_LR), sync,
+                                          plain=not on)
+            same = _replicas_check(mesh, model, states)
+            tag = f"{sync}, {'kernels' if on else 'plain'}"
+            print(f"[train_tp] {tag}: losses {losses}; step "
+                  f"{step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; first "
+                  f"{first_s * 1e3:.1f} ms) = "
+                  f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+                  f"allocated {peak / 2**30:.2f} GiB; replicas identical: "
+                  f"{same}")
+            if not all(np.isfinite(losses)) or not same:
+                raise AssertionError(f"{tag}: losses {losses}, replicas "
+                                     f"{same}")
+            plan, _ = planned_launches(
+                session.engine, leaves(states[0]["params"]),
+                [metrics["loss"]], TRAIN_RANKS, sync == "compressed")
+            n_sum, formula = plan["sum_chunks"]
+            plan["sum_chunks"] = (
+                n_sum + psums * (TP_MODEL - 1),
+                f"the data sync's {n_sum} ({formula}) + {psums} all-reduces"
+                f" over \"model\" x (p-1)")
+            for name in SYNC_KERNELS:
+                per, formula = plan.get(name, (0, "not on this path"))
+                want = per * mesh.size * TRAIN_STEPS if on else 0
+                if on and per:
+                    print(f"[train_tp]   {name}: {counts[name]} launches; "
+                          f"plan {want} = {per} a rank a step x "
+                          f"{mesh.size} ranks x {TRAIN_STEPS} steps "
+                          f"({formula})")
+                if counts[name] != want:
+                    raise AssertionError(f"{tag}: {name} launched "
+                                         f"{counts[name]} times, plan "
+                                         f"{want}")
+                if on and per:
+                    out[name] = out.get(name, 0) + counts[name]
+            if on:
+                numbers[f"{sync}_step_ms"] = step_s * 1e3
+                numbers[f"{sync}_peak_gib"] = peak / 2**30
+                numbers[f"{sync}_losses"] = losses
+                numbers[f"{sync}_grad_norms"] = metrics["grad_norms"]
+            results[on] = (losses, [leaves(st["params"])
+                                    for st in states[:TP_MODEL]])
+            del states, step_fn, session, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+        (l_on, p_on), (l_off, p_off) = results[True], results[False]
+        same = l_on == l_off and all(
+            _bits_equal(a, b) for ra, rb in zip(p_on, p_off)
+            for a, b in zip(ra, rb))
+        print(f"[train_tp] {sync}: the kernel and plain runs give "
+              f"bit-identical losses and parameters: {same}")
+        if not same:
+            raise AssertionError(f"{sync}: kernel and plain runs differ")
+        del results, p_on, p_off
+    want = train["composed_losses"]
+    got = numbers["composed_losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[train_tp] composed against [train]'s composed (no model "
+          f"axis): {got} vs {want}; rel err {['%.3e' % e for e in errs]} "
+          f"(tol {TP_LOSS_RTOL})")
+    if not max(errs) <= TP_LOSS_RTOL:
+        raise AssertionError(f"model-parallel losses {got} vs {want}")
+    numbers["rel_err"] = errs
+    _norms_check("train_tp", "composed against [train]'s composed",
+                 numbers["composed_grad_norms"],
+                 train["composed_grad_norms"], TP_NORM_RTOL)
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, numbers
+
+
+def phase_train_pod():
+    """granite-34b at its published widths cut to POD_LAYERS layer on a
+    (pod 2, data 2) mesh, composed sync (every unit the hierarchical
+    all-reduce), against a flat data=4 run from the same weights and
+    batches.  Returns ({"sum_chunks": launches}, numbers)."""
+    import gc
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.core import costmodel, layers, registry
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import leaves
+    cfg = with_num_layers(get_config("granite-34b"), POD_LAYERS)
+    model = build_model(cfg)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=0)
+    runs = {}
+    for name, mesh in (
+            ("pod", substrate.make_host_mesh(2, pods=2, device="cuda")),
+            ("flat", substrate.make_host_mesh(4, device="cuda"))):
+        (losses, step_s, first_s, peak, counts, session, step_fn, states,
+         metrics) = _mesh_run(model, init, mesh, ds, _adamw(TRAIN_LR),
+                              "composed")
+        same = _replicas_check(mesh, model, states)
+        units = step_fn.schedule.units
+        protos = sorted({u.protocol for u in units})
+        print(f"[train_pod] {name} {dict(mesh.shape)}, {cfg.num_layers} "
+              f"layer: losses {losses}; step {step_s * 1e3:.1f} ms (steps "
+              f"2-{TRAIN_STEPS}; first {first_s * 1e3:.1f} ms) = "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+              f"allocated {peak / 2**30:.2f} GiB; sync units {protos}; "
+              f"replicas identical: {same}")
+        if not all(np.isfinite(losses)) or not same:
+            raise AssertionError(f"{name}: losses {losses}, replicas {same}")
+        if name == "pod":
+            if protos != [costmodel.HIERARCHICAL]:
+                raise AssertionError(f"pod sync units {protos}")
+            per = sum(_multiaxis_combines(mesh.shape, ("pod", "data"),
+                                          t.numel())
+                      for t in leaves(states[0]["params"]))
+            per += sum(
+                _lib_combines("all_reduce", session.engine.protocol_for(
+                    registry.ALL_REDUCE, layers.nbytes(metrics["loss"]),
+                    ax), mesh.shape[ax], 1)
+                for ax in ("pod", "data"))
+            want = per * mesh.size * TRAIN_STEPS
+            print(f"[train_pod]   sum_chunks: {counts['sum_chunks']} "
+                  f"launches; plan {want} = {per} a rank a step x "
+                  f"{mesh.size} ranks x {TRAIN_STEPS} steps (the "
+                  f"hierarchical schedule's bidir ring reduce-scatter over "
+                  f"\"data\" a leaf; recursive doubling over \"pod\")")
+            if counts["sum_chunks"] != want:
+                raise AssertionError(f"pod: sum_chunks {counts}, plan "
+                                     f"{want}")
+            runs["launches"] = counts["sum_chunks"]
+        runs[name] = dict(losses=losses, step_ms=step_s * 1e3,
+                          peak_gib=peak / 2**30,
+                          grad_norms=metrics["grad_norms"])
+        del states, step_fn, session, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    got, want = runs["pod"]["losses"], runs["flat"]["losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[train_pod] pod against flat: rel err "
+          f"{['%.3e' % e for e in errs]} (tol {POD_LOSS_RTOL}); "
+          f"bit-identical {got == want}")
+    if not max(errs) <= POD_LOSS_RTOL:
+        raise AssertionError(f"pod losses {got} vs flat {want}")
+    _norms_check("train_pod", "pod against flat", runs["pod"]["grad_norms"],
+                 runs["flat"]["grad_norms"], POD_NORM_RTOL)
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": runs.pop("launches")}, runs
+
+
+def _norms_check(phase, what, got, want, rtol):
+    """Each step's global gradient norm against ``want``'s within
+    ``rtol`` relative: the clip scales the update by the norm, and AdamW
+    barely sees a uniform scale, so the losses alone miss a norm that
+    counts a model rank's squares twice or not at all."""
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[{phase}] grad norm {what}: {got} vs {want}; rel err "
+          f"{['%.3e' % e for e in errs]} (tol {rtol})")
+    if not max(errs) <= rtol:
+        raise AssertionError(f"{phase}: grad norms {got} vs {want}")
 
 
 def _sync_run(model, init, mesh, ds, opt, tag, sync, **cfg):
@@ -2027,6 +2440,8 @@ def main() -> int:
     train = timed("train", phase_train)
     by_path, _ = timed("train (sync)", phase_train_sync)
     by_path["train_auto"], _ = timed("train_auto", phase_train_auto, train)
+    by_path["train_tp"], _ = timed("train_tp", phase_train_tp, train)
+    by_path["train_pod"], _ = timed("train_pod", phase_train_pod)
     timed("ckpt", phase_ckpt)
     by_path["elastic_train"], _ = timed("elastic_train",
                                         phase_elastic_train)

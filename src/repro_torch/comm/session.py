@@ -415,12 +415,17 @@ class Communicator:
                 sb, wb = plan_mod.phase_wire_bytes(
                     proto, p0, compressed_wire_bytes(n_elems))
             elif len(self.axes) > 1:
-                # multi-axis schedules are fixed by the axis set
+                # multi-axis schedules are fixed by the axis set; their
+                # phases are billed over the extent the engine bills
+                # (the intra-pod product for the hierarchical schedule:
+                # the reference bills the first axis, the same for pods
+                # as wide as the intra extent)
                 fn = registry.ALL_REDUCE
                 proto = (costmodel.HIERARCHICAL if "pod" in self.axes
                          else costmodel.TWO_PHASE_2D)
-                ss, ws = plan_mod.protocol_stage_counts(proto, p0)
-                sb, wb = plan_mod.phase_wire_bytes(proto, p0, nbytes)
+                pm = eng.multiaxis_extent(self.axes)
+                ss, ws = plan_mod.protocol_stage_counts(proto, pm)
+                sb, wb = plan_mod.phase_wire_bytes(proto, pm, nbytes)
             else:
                 fn = registry.ALL_REDUCE
                 entry = eng.plan.entry_for(fn, nbytes, self.axes[0])

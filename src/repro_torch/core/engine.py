@@ -17,8 +17,10 @@ gradient-sync arms (``sync_gradient_*``), the ZeRO-1 seam
 (``use_quantize_kernel``, ``use_local_reduce_kernel``) have no
 counterpart: the ring combine and the int8 ops always go through their
 ``ops``, which take the CUDA kernels on the card and the plain versions
-on the CPU.  Composed multi-axis all-reduce (two-phase, hierarchical)
-is not ported yet.
+on the CPU.  A composed all-reduce over several axes takes the
+topology-composed schedules of ``protocols.twophase``: hierarchical when
+one axis is "pod", two-phase over two axes, else one planned
+all-reduce an axis.
 
 ``mode="monolithic"`` is the conventional baseline: every function
 present (no composition), every function at the conventional tier,
@@ -58,7 +60,8 @@ from repro_torch.core import compression, costmodel, layers, registry
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.compose import ComposedLibrary
 from repro_torch.core.protocols import common as c
-from repro_torch.core.protocols import bruck, recursive, ring, tree, xla
+from repro_torch.core.protocols import (bruck, recursive, ring, tree,
+                                        twophase, xla)
 from repro_torch.runtime import substrate
 from repro_torch.core.topology import Topology, topology_from_mesh
 from repro_torch.tree import flatten, map_tree, unflatten
@@ -278,9 +281,7 @@ class CollectiveEngine:
         if not self.composed:
             return self._allreduce_mono(x, axes)
         if len(axes) > 1:
-            raise NotImplementedError(
-                f"all_reduce over {axes}: multi-axis protocols (two-phase, "
-                "hierarchical) arrive with the port of twophase.py")
+            return self._allreduce_multiaxis_start(x, axes).finish()
         return self._allreduce_1d(x, axes[0])
 
     @staticmethod
@@ -328,6 +329,74 @@ class CollectiveEngine:
         fin = lambda: c.unpad(run.result().reshape(-1), n, shape)
         return InFlight(fn, (axis,), fin, proto, sb, wb, stepper=run)
 
+    def _allreduce_multiaxis_start(self, x: torch.Tensor,
+                                   axes: Tuple[str, ...]) -> InFlight:
+        """The first stage of a composed all-reduce over several axes:
+        hierarchical when "pod" is one of them (the intra-pod RS), two-
+        phase over two axes (the RS along the first), else the first
+        axis's planned all-reduce (``_allreduce_seq_start``)."""
+        fn = registry.ALL_REDUCE
+        nb = layers.nbytes(x)
+        if "pod" in axes:
+            intra = tuple(a for a in axes if a != "pod")
+            if not intra:
+                return self._allreduce_1d_start(x, "pod")
+            flat, sizes = twophase.hierarchical_start(x, intra)
+            fin = lambda: twophase.hierarchical_finish(
+                flat, sizes, intra, "pod", x.shape)
+            # phase shares follow the full intra-pod extent (the RS spans
+            # every intra axis before the pod hop)
+            sb, wb = plan_mod.phase_wire_bytes(
+                costmodel.HIERARCHICAL, self.multiaxis_extent(axes), nb)
+            return InFlight(fn, axes, fin, costmodel.HIERARCHICAL, sb, wb)
+        if len(axes) == 2:
+            p0 = self._axis_size(axes[0])
+            x2d, n, shape = self._chunked(x, p0)
+            shard = twophase.two_phase_start(x2d, axes[0])
+            fin = lambda: c.unpad(twophase.two_phase_finish(
+                shard, axes[0], axes[1], x2d.shape[0], x2d.shape[1]),
+                n, shape)
+            sb, wb = plan_mod.phase_wire_bytes(costmodel.TWO_PHASE_2D, p0,
+                                               nb)
+            return InFlight(fn, axes, fin, costmodel.TWO_PHASE_2D, sb, wb)
+        return self._allreduce_seq_start(x, tuple((ax, None) for ax in axes))
+
+    def multiaxis_extent(self, axes) -> int:
+        """The extent a multi-axis schedule bills its phases over: the
+        intra-pod axes' product for the hierarchical schedule, the first
+        axis's size otherwise."""
+        if "pod" in axes:
+            return math.prod(self._axis_size(a) for a in axes if a != "pod")
+        return self._axis_size(axes[0])
+
+    def _allreduce_seq_start(self, x: torch.Tensor,
+                             protos: Tuple[Tuple[str, Optional[str]], ...]
+                             ) -> InFlight:
+        """Sequential per-axis chain: start the first axis's protocol; the
+        wait arm finishes it and runs the remaining axes blocking (they
+        depend on the first axis's result, so only the first stage can
+        overlap)."""
+        (ax0, pr0), rest = protos[0], protos[1:]
+        tok0 = self._allreduce_1d_start(x, ax0, proto=pr0)
+
+        def fin():
+            y = tok0.finish()
+            for ax, pr in rest:
+                y = self._allreduce_1d(y, ax, proto=pr)
+            return y
+
+        # unplanned later axes resolve to what the cost model will pick
+        # a call, so the phase accounting matches the real schedule
+        nb = layers.nbytes(x)
+        wait_extra = sum(
+            sum(plan_mod.phase_wire_bytes(
+                pr or self.protocol_for(registry.ALL_REDUCE, nb, ax),
+                self._axis_size(ax), nb))
+            for ax, pr in rest)
+        return InFlight(registry.ALL_REDUCE, tuple(a for a, _ in protos),
+                        fin, tok0.protocol, tok0.start_bytes,
+                        tok0.wait_bytes + wait_extra)
+
     # -- nonblocking two-phase arms ----------------------------------------
 
     def all_reduce_start(self, x: torch.Tensor, axis_name, *,
@@ -347,12 +416,10 @@ class CollectiveEngine:
                 costmodel.XLA_DEFAULT, self._axis_size(ax),
                 layers.nbytes(x))[0] for ax in axes)
             tok = InFlight(fn, axes, lambda: y, costmodel.XLA_DEFAULT, sb, 0)
-        elif len(axes) != 1:
-            raise NotImplementedError(
-                f"all_reduce_start over {axes}: multi-axis protocols arrive "
-                "with the port of twophase.py")
-        else:
+        elif len(axes) == 1:
             tok = self._allreduce_1d_start(x, axes[0])
+        else:
+            tok = self._allreduce_multiaxis_start(x, axes)
         if mean:
             tok.scale = self.mean_scale(axes)
         self._record_phase(fn, "start", tok.start_bytes)
@@ -984,8 +1051,11 @@ class CollectiveEngine:
         ZeRO-1 seam arms of ``reduce_scatter`` (the planned all-reduce's
         RS half; output: this rank's padded-flat chunk) and
         ``all_gather`` (the chunk back to the padded-flat vector).
-        Every function binds over one axis; a monolithic all-reduce also
-        over several (the generic path axis by axis)."""
+        Every function binds over one axis but ``all_reduce``, which
+        also binds over several: the generic path axis by axis when
+        monolithic; composed, the hierarchical or two-phase schedule as
+        one protocol tag (``"+".join(axes)``), else one planned protocol
+        an axis."""
         axes = _as_axes(axis_name)
         self._check(fn)
         zero = bool(kw.pop("zero", False))
@@ -1007,11 +1077,7 @@ class CollectiveEngine:
                 not (zero and fn == registry.REDUCE_SCATTER):
             raise ValueError(f"mean=True is only supported for all_reduce, "
                              f"not {fn!r}")
-        if len(axes) != 1 and (fn != registry.ALL_REDUCE or self.composed):
-            if fn == registry.ALL_REDUCE:
-                raise NotImplementedError(
-                    f"persistent all_reduce over {axes}: multi-axis "
-                    "protocols arrive with the port of twophase.py")
+        if len(axes) != 1 and fn != registry.ALL_REDUCE:
             raise ValueError(f"{fn!r} binds over exactly one axis, "
                              f"got {axes}")
         shape = tuple(int(s) for s in shape)
@@ -1023,15 +1089,32 @@ class CollectiveEngine:
         xla_tag = costmodel.XLA_DEFAULT
         start_impl: Optional[Callable] = None
 
+        protocols = None
         if fn == registry.ALL_REDUCE:
             if not self.composed:
                 proto = xla_tag
                 target = lambda x: self._allreduce_mono(x, axes)
-            else:
+            elif len(axes) == 1:
                 proto = self.protocol_for(fn, nbytes, ax0)
                 target = lambda x: self._allreduce_1d(x, ax0, proto=proto)
                 start_impl = lambda x: self._allreduce_1d_start(
                     x, ax0, proto=proto)
+            elif "pod" in axes or len(axes) == 2:
+                # these schedules are fixed by the axis set: one protocol
+                # tag for the whole binding
+                proto = (costmodel.HIERARCHICAL if "pod" in axes
+                         else costmodel.TWO_PHASE_2D)
+                start_impl = lambda x: self._allreduce_multiaxis_start(
+                    x, axes)
+                target = lambda x, _s=start_impl: _s(x).finish()
+                protocols = (("+".join(axes), proto),)
+            else:
+                protocols = tuple((ax, self.protocol_for(fn, nbytes, ax))
+                                  for ax in axes)
+                start_impl = lambda x, _p=protocols: \
+                    self._allreduce_seq_start(x, _p)
+                target = lambda x, _s=start_impl: _s(x).finish()
+                proto = protocols[0][1]
         elif fn == registry.REDUCE_SCATTER and zero:
             proto = self.zero_protocols(nbytes, ax0)[0]
             target = lambda x: self._zero_rs_start(x, ax0).finish()
@@ -1079,8 +1162,9 @@ class CollectiveEngine:
             target = lambda x: self._run(start_impl(x))
         if kw:
             raise TypeError(f"unknown bind options for {fn!r}: {sorted(kw)}")
-        protocols = ((ax0, proto),) if len(axes) == 1 else tuple(
-            (ax, proto) for ax in axes)
+        if protocols is None:
+            protocols = ((ax0, proto),) if len(axes) == 1 else tuple(
+                (ax, proto) for ax in axes)
         base_target = target            # unscaled schedule (wait finalizes)
         scale = self.mean_scale(axes) if mean else None
         if scale is not None:

@@ -4,6 +4,9 @@ in-process ranks on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-34b --reduced --sync composed --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch granite-34b --reduced --sync composed --data 2 \\
+        --model-parallel 2 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-34b --reduced --sync composed --zero --overlap \\
         --ckpt-dir /tmp/ck --ckpt-sharded
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -11,8 +14,10 @@ in-process ranks on one device.
         --fault-plan lose@3:2 --ckpt-dir /tmp/ck --ckpt-sharded --steps 8
 
 Counterpart of ``repro.launch.train``: synthetic data -> the §2.2 scan
-and composed session (``build_session``) -> ``--data`` ranks running the
-train step through the session's communicator, or with ``--sync auto``
+and composed session (``build_session``) -> ``--data`` x
+``--model-parallel`` ranks (a ``("data", "model")`` mesh, the model split
+over "model" by ``parallel.sharding``) running the train step through
+the session's communicator, or with ``--sync auto``
 the conventional stack (a monolithic session; each gradient leaf
 averaged through ``comm.collectives``), per leaf or in fused
 buckets (``--bucket-grads``), blocking or as an overlapped schedule-IR
@@ -20,7 +25,8 @@ program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
 checkpoints (``--ckpt-dir``) that restore onto another ``--data`` width.
 ``--elastic`` hands the loop to ``ElasticController``: injected faults
 (``--fault-plan``), SIGTERM as a preemption notice, and with
-``--ctrl-peers`` the control plane's epoch-fenced vote.  Runs on
+``--ctrl-peers`` the control plane's epoch-fenced vote; checkpoints and
+``--elastic`` are refused with ``--model-parallel > 1``.  Runs on
 ``cuda`` unless ``--device cpu``; raises without CUDA.  The default
 ``--sync`` is ``composed`` (the reference's is ``auto``), so that
 existing invocations keep their meaning.
@@ -64,6 +70,12 @@ def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
     kernels need no switch: its ops take the CUDA kernels on the card and
     their plain versions on the CPU."""
     probe = Session.probe(PROBE_SHAPE, ("data",))
+    # The probe steps the unsplit model: a model axis's collectives go
+    # through the monolithic default session, never the composed one,
+    # as the reference's GSPMD inserts its own outside the scanned jaxpr
+    # (whose model-axis leaves are global), so the scan is the same.
+    if model.model_parallel > 1:
+        model = build_model(model.cfg)
     probe_step = trainer.make_train_step(model, opt, tcfg,
                                          comm=probe.world)
     # with ZeRO the state's chunks follow the probe's width
@@ -126,6 +138,10 @@ def main(argv=None) -> None:
                          "(shard files with global indices)")
     ap.add_argument("--data", type=int, default=2,
                     help="data-parallel ranks (threads on one device)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel ranks a data rank (the mesh's "
+                         "\"model\" axis; --data x --model-parallel "
+                         "threads)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -142,6 +158,9 @@ def main(argv=None) -> None:
         ap.error("--sync auto is the conventional per-leaf sync: "
                  "--overlap and --bucket-grads need --sync composed or "
                  "compressed")
+    if args.model_parallel > 1 and (args.elastic or args.ckpt_dir):
+        ap.error("--elastic and --ckpt-dir are not ported for model-"
+                 "sharded state: use --model-parallel 1")
     check_elastic_args(ap, args)
     if args.elastic and not args.ckpt_dir:
         ap.error("--elastic needs --ckpt-dir (recovery restores from the "
@@ -152,8 +171,10 @@ def main(argv=None) -> None:
                      param_dtype=_DTYPES.get(args.param_dtype))
     if args.num_layers is not None:
         cfg = with_num_layers(cfg, args.num_layers)
-    model = build_model(cfg)
-    mesh = substrate.make_host_mesh(args.data, device=args.device)
+    model = build_model(cfg, model_parallel=args.model_parallel)
+    mesh = substrate.make_host_mesh(args.data,
+                                    model_parallel=args.model_parallel,
+                                    device=args.device)
     logger.info("mesh: %s  model: %s (%.2fM params)", mesh, model.name,
                 model.param_count() / 1e6)
     opt = make_optimizer(
@@ -213,8 +234,8 @@ def main(argv=None) -> None:
         logger.info("restored checkpoint at step %d", start)
     else:
         gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
-        states = trainer.replicate(trainer.make_train_state(
-            model, opt, model.init(gen), tcfg, mesh=mesh), mesh.size)
+        states = trainer.init_states(model, opt, model.init(gen), tcfg,
+                                     mesh)
     step_fn = trainer.make_train_step(model, opt, tcfg, comm=session.world)
     t0 = time.time()
     for step in range(start, args.steps):

@@ -4,7 +4,9 @@
 arrays (after ``jax.device_get``) and returns the port's params, so both
 packages compute the same function from the same weights.  The tree
 layouts are the same by construction (stacked per stage, ``(in, out)``
-weights); every leaf is checked against the port's own shapes.
+weights); every leaf is checked against the port's own shapes.  It
+always returns the full tree: a model-parallel rank gets its shard from
+``Model.shard`` (which ``trainer.init_states`` calls).
 """
 
 from __future__ import annotations

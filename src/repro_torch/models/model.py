@@ -1,12 +1,18 @@
 """``Model``: the serving API over the decoder stack (counterpart of
 ``repro.models.model``).
 
-  init / abstract_params / param_count          — parameters
-  loss                                          — training
+  init / abstract_params / param_count / shard  — parameters
+  loss / loss_and_grads                         — training
   init_caches / prefill / prefill_chunk / decode_step — serving
 
 Prefill and decode write the caches they are given in place (see
 ``repro_torch.models.layers``) and return them.
+
+``model_parallel > 1`` builds the model a rank of a mesh with a "model"
+axis of that size computes (``parallel.sharding``): ``init`` still gives
+the full params, ``shard`` a rank's block of them, and ``loss`` /
+``loss_and_grads`` run on that block inside the rank.  Serving with a
+model axis is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.tree import leaves
+from repro_torch.parallel import sharding as S
+from repro_torch.tree import flatten, leaves, unflatten
 
 Params = Dict[str, Any]
 
@@ -27,6 +34,13 @@ Params = Dict[str, Any]
 @dataclasses.dataclass
 class Model:
     cfg: T.TransformerCfg
+    model_parallel: int = 1
+
+    def __post_init__(self):
+        self.layout = (S.layout(self.cfg, self.model_parallel)
+                       if self.model_parallel > 1 else None)
+        self.local_cfg = (self.cfg if self.layout is None
+                          else T.local_config(self.cfg, self.layout))
 
     @property
     def name(self) -> str:
@@ -35,28 +49,63 @@ class Model:
     # -- parameters -----------------------------------------------------
 
     def init(self, generator: torch.Generator) -> Params:
-        """Random params on the generator's device."""
+        """Random full params on the generator's device."""
         return T.init_params(generator, self.cfg, generator.device)
 
     def abstract_params(self) -> Params:
-        """Params as ``meta`` tensors: shapes and dtypes, no memory."""
-        return T.init_params(None, self.cfg, torch.device("meta"))
+        """One rank's params as ``meta`` tensors: shapes and dtypes, no
+        memory (its shard with a model axis)."""
+        return T.init_params(None, self.local_cfg, torch.device("meta"))
 
     def param_count(self) -> int:
-        return sum(math.prod(t.shape) for t in leaves(self.abstract_params()))
+        """Parameters of the whole model."""
+        return sum(math.prod(t.shape) for t in leaves(
+            T.init_params(None, self.cfg, torch.device("meta"))))
+
+    def shard(self, params: Params, index: int) -> Params:
+        """Model rank ``index``'s params from the full ``params``: a copy
+        of its shard, or (no model axis) ``params`` itself."""
+        if self.layout is None:
+            return params
+        return S.shard_params(params, self.layout, index)
 
     # -- training ---------------------------------------------------------
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(scalar f32 loss, metrics) of a {"tokens", "labels"} batch,
-        differentiable in ``params``."""
-        return T.loss_fn(params, self.cfg, batch)
+        differentiable in ``params`` (with a model axis: the calling
+        rank's shard)."""
+        if self.layout is None:
+            return T.loss_fn(params, self.cfg, batch)
+        return T.loss_fn(params, self.local_cfg, batch,
+                         tp_index=S.model_index())
+
+    def loss_and_grads(self, params: Params, batch: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Params]:
+        """(detached loss, gradient of every leaf of ``params``).  With a
+        model axis the backward is staged (``sharding.StagedBackward``):
+        its all-reduces run on the rank's own thread."""
+        ps, paths = flatten(params)
+        xs = [p.detach().requires_grad_(True) for p in ps]
+        if self.layout is None:
+            loss, _ = self.loss(unflatten(paths, xs), batch)
+            grads = list(torch.autograd.grad(loss, xs))
+        else:
+            with S.StagedBackward() as tape:
+                loss, _ = self.loss(unflatten(paths, xs), batch)
+            tape.backward(loss)
+            grads = [x.grad if x.grad is not None else torch.zeros_like(x)
+                     for x in xs]
+        return loss.detach(), unflatten(paths, grads)
 
     # -- serving ----------------------------------------------------------
 
     def init_caches(self, batch: int, max_len: int, *,
                     dtype=torch.bfloat16, device="cuda") -> Params:
+        if self.layout is not None:
+            raise NotImplementedError("serving over a model axis is not "
+                                      "ported")
         return T.init_caches(self.cfg, batch, max_len, dtype,
                              resolve_device(device))
 
@@ -101,5 +150,7 @@ class Model:
         return logits[:, 0], new_caches
 
 
-def build_model(cfg: T.TransformerCfg) -> Model:
-    return Model(cfg=cfg)
+def build_model(cfg: T.TransformerCfg, model_parallel: int = 1) -> Model:
+    """The model a rank computes on a mesh whose "model" axis has
+    ``model_parallel`` ranks (1: no model axis)."""
+    return Model(cfg=cfg, model_parallel=model_parallel)

@@ -10,6 +10,15 @@ stacks.
 
 Layer = pre-norm mixer + pre-norm FFN, both residual.  Only the
 ``attn`` mixer and the ``dense`` FFN exist in this slice.
+
+Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
+``cfg`` is then the rank's local config (``local_config``: its heads,
+its FFN columns, its vocabulary block) and the params its shard
+(``parallel.sharding``).  The embedding is vocab-parallel, each pre-norm
+output enters its column-parallel product through *f* and each row-
+parallel product leaves through *g*, the residual stream is cut ahead of
+each norm for the staged backward, and the loss is the vocab-parallel
+cross-entropy over the rank's ``lm_head`` columns.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as S
 from repro_torch.tree import map_tree
 
 Params = Dict[str, Any]
@@ -82,15 +92,40 @@ def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
     return p
 
 
+def local_config(cfg: TransformerCfg, lay: S.TPLayout) -> TransformerCfg:
+    """The config one model rank computes: its query and KV heads, its
+    FFN columns and its vocabulary block (the shapes of its shard)."""
+    return dataclasses.replace(
+        cfg, vocab_size=lay.vocab,
+        attn=dataclasses.replace(cfg.attn, num_heads=lay.heads,
+                                 num_kv_heads=lay.kv_heads),
+        mlp=dataclasses.replace(cfg.mlp, d_ff=lay.d_ff))
+
+
+def _identity(x):
+    return x
+
+
+def _tp_ops(tp: bool):
+    """(cut, f, g): the staged-backward cut and the two Megatron
+    operators with a model axis, identities without."""
+    if tp:
+        return S.cut, S.copy_to_model, S.reduce_from_model
+    return _identity, _identity, _identity
+
+
 def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
                 x: torch.Tensor, *, q_offset: int = 0,
                 cache: Optional[Params] = None, decode: bool = False,
                 chunked: bool = False, valid_len: Optional[int] = None,
-                train: bool = False
+                train: bool = False, tp: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x_out, new_cache)."""
+    """Returns (x_out, new_cache).  ``tp``: the params are a model rank's
+    shard (see the module doc)."""
     _check_spec(spec)
-    h = L.rmsnorm(params["norm_mixer"], x)
+    cut, f, g = _tp_ops(tp)
+    x = cut(x)
+    h = f(L.rmsnorm(params["norm_mixer"], x))
     if decode:
         out, new_cache = L.attention_decode(params["attn"], cfg.attn, h,
                                             cache)
@@ -99,10 +134,11 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
             params["attn"], cfg.attn, h, q_offset=q_offset, kv_cache=cache,
             chunked=chunked, valid_len=valid_len, train=train,
             block_k=cfg.block_k)
-    x = x + out
+    x = x + g(out)
     if spec.ffn == "dense":
-        x = x + L.mlp_forward(params["mlp"], cfg.mlp,
-                              L.rmsnorm(params["norm_ffn"], x))
+        x = cut(x)
+        h = f(L.rmsnorm(params["norm_ffn"], x))
+        x = x + g(L.mlp_forward(params["mlp"], cfg.mlp, h))
     return x, new_cache
 
 
@@ -120,7 +156,7 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 x: torch.Tensor, *, q_offset: int = 0,
                 caches: Optional[Params] = None, decode: bool = False,
                 chunked: bool = False, valid_len: Optional[int] = None,
-                train: bool = False
+                train: bool = False, tp: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the stage's ``repeat`` blocks.  ``caches``: stacked cache tree
     with leading dim = repeat (or None).  K/V rows are written into the
@@ -134,7 +170,7 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
             x, nc = apply_layer(
                 map_tree(lambda t: t[r], params_stage[name]), cfg, spec, x,
                 q_offset=q_offset, cache=cache_r, decode=decode,
-                chunked=chunked, valid_len=valid_len, train=train)
+                chunked=chunked, valid_len=valid_len, train=train, tp=tp)
             if caches is not None:
                 lens[name].append(nc["len"])
     if caches is None:
@@ -176,21 +212,30 @@ def forward(params: Params, cfg: TransformerCfg,
             batch: Dict[str, torch.Tensor], *,
             caches: Optional[Params] = None, q_offset: int = 0,
             decode: bool = False, chunked: bool = False,
-            valid_len: Optional[int] = None, train: bool = False
+            valid_len: Optional[int] = None, train: bool = False,
+            tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (hidden (B, S, D), new_caches).  ``train=True`` is the
-    differentiable training forward (see ``layers.train_attention``)."""
-    h = params["embed"][batch["tokens"].long()]
+    differentiable training forward (see ``layers.train_attention``);
+    ``tp_index`` the rank's model coordinate when ``params`` is its shard
+    (the hidden state then enters the unembedding through *f*)."""
+    tp = tp_index is not None
+    if tp:
+        h = S.vocab_parallel_embed(params["embed"], batch["tokens"],
+                                   tp_index)
+    else:
+        h = params["embed"][batch["tokens"].long()]
     new_caches = {} if caches is not None else None
     for i, stage in enumerate(cfg.stages):
         name = f"stage{i}"
         h, nc = apply_stage(
             params[name], cfg, stage, h, q_offset=q_offset,
             caches=None if caches is None else caches[name], decode=decode,
-            chunked=chunked, valid_len=valid_len, train=train)
+            chunked=chunked, valid_len=valid_len, train=train, tp=tp)
         if new_caches is not None:
             new_caches[name] = nc
-    return L.rmsnorm(params["final_norm"], h), new_caches
+    cut, f, _ = _tp_ops(tp)
+    return f(L.rmsnorm(params["final_norm"], cut(h))), new_caches
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -207,12 +252,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(params: Params, cfg: TransformerCfg,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Language-model loss (the reference's ``loss_fn`` for a dense
-    decoder: no MoE aux loss, no multi-token prediction)."""
-    h, _ = forward(params, cfg, batch, train=True)
-    loss = cross_entropy(_unembed(params, cfg, h), batch["labels"])
+    decoder: no MoE aux loss, no multi-token prediction).  With
+    ``tp_index`` the params are the rank's shard and the loss is the
+    vocab-parallel cross-entropy (the same value on every model rank)."""
+    h, _ = forward(params, cfg, batch, train=True, tp_index=tp_index)
+    logits = _unembed(params, cfg, h)
+    if tp_index is None:
+        loss = cross_entropy(logits, batch["labels"])
+    else:
+        loss = S.vocab_parallel_cross_entropy(logits, batch["labels"],
+                                              tp_index)
     return loss, {"nll": loss, "loss": loss}
 
 

@@ -1,0 +1,292 @@
+"""Tensor parallelism over the "model" axis: the explicit counterpart of
+what GSPMD does for the reference.
+
+The reference annotates every parameter with a ``PartitionSpec``
+(``repro/models/layers.py``, ``repro/models/transformer.py``) and lets
+XLA partition the step and insert its collectives.  The port has no
+partitioner, so it states the same Megatron-style split explicitly:
+
+- ``leaf_split`` — the dim of each parameter a model rank holds, from
+  the reference's specs: ``wq``/``bq``/``w_gate``/``w_up``/``lm_head``
+  split their output columns, ``wo``/``w_down`` their input rows,
+  ``embed`` its vocabulary rows, norms are replicated.
+- Attention splits by whole heads.  The reference's
+  ``fitted_shardings`` drops a spec entry whose dim does not divide; the
+  port instead requires ``num_heads % model == 0`` and replicates
+  ``wk``/``wv``/``bk``/``bv`` when ``num_kv_heads % model != 0``
+  (granite-34b's MQA: one KV head).  That is a storage difference with
+  the same math: each rank computes the shared K/V itself, and their
+  gradients are partial sums that the trainer adds over "model"
+  (``partial_sum_leaves``).
+- ``shard_params`` / ``unshard_params`` give a rank's shard of a full
+  parameter tree and gather the shards back.
+- The two Megatron operators: *f* (``copy_to_model``: identity forward,
+  all-reduce over "model" backward) and *g* (``reduce_from_model``:
+  all-reduce forward, identity backward), as ``torch.autograd.Function``s.
+  Their collectives go through ``comm.collectives``' default session,
+  the monolithic one, as XLA inserts its own under GSPMD: the composed
+  application session never sees them.
+
+**The staged backward.**  The ranks are threads of one process, and
+PyTorch's autograd engine runs every CUDA node of a process on one
+worker thread per device, shared by all threads' graph tasks.  A
+backward node that waits for a peer rank (*f*'s all-reduce) can so wait
+for a node queued behind it on the same thread: on the card that is a
+deadlock, which the transport's timeout turns into a ``RankFailure``
+(``tools/probe_autograd_thread.py`` shows it).  So the trainer runs the
+backward under ``StagedBackward``: in the forward, each *f* (and each
+residual-stream boundary, ``cut``) detaches its input into a leaf; the
+backward then runs segment by segment in reverse, and all-reduces each
+*f* leaf's gradient over "model" on the rank thread between segments.
+*g* and the vocab-parallel loss communicate only in the forward, which
+runs on the rank thread.  Without an active tape *f* is the plain
+autograd function, whose backward all-reduces inside the node: right on
+the CPU, where each thread runs its own backward, and refused on CUDA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.comm import collectives
+from repro_torch.tree import flatten, unflatten
+
+MODEL_AXIS = "model"
+
+#: leaves split by their last dim (output columns; the vocabulary for
+#: ``lm_head``) and by their second-to-last (input rows; the vocabulary
+#: for ``embed``)
+_COLUMN = ("wq", "bq", "w_gate", "w_up", "lm_head", "wk", "wv", "bk", "bv")
+_ROW = ("wo", "w_down", "embed")
+_KV = ("wk", "wv", "bk", "bv")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """How one configuration splits over ``model`` ranks."""
+
+    model: int
+    heads: int              # query heads a rank holds
+    kv_heads: int           # KV heads a rank holds (all when replicated)
+    kv_replicated: bool
+    d_ff: int
+    vocab: int              # vocabulary rows a rank holds
+
+
+def layout(cfg, model: int) -> TPLayout:
+    """The split of ``cfg`` (a ``TransformerCfg``) over ``model`` ranks.
+    Raises where a whole-head, FFN or vocabulary split does not divide."""
+    a = cfg.attn
+    for what, n in (("num_heads", a.num_heads), ("d_ff", cfg.mlp.d_ff),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % model:
+            raise ValueError(f"{cfg.name}: {what}={n} does not split over "
+                             f"{model} model ranks")
+    kv_rep = a.num_kv_heads % model != 0
+    return TPLayout(model=model, heads=a.num_heads // model,
+                    kv_heads=a.num_kv_heads if kv_rep
+                    else a.num_kv_heads // model,
+                    kv_replicated=kv_rep, d_ff=cfg.mlp.d_ff // model,
+                    vocab=cfg.vocab_size // model)
+
+
+def leaf_split(path, lay: TPLayout) -> Optional[int]:
+    """The dim (negative, from the end) of the leaf at ``path`` that a
+    model rank holds a block of, or None for a replicated leaf."""
+    name = path[-1]
+    if lay.model == 1 or (name in _KV and lay.kv_replicated):
+        return None
+    if name in _COLUMN:
+        return -1
+    if name in _ROW:
+        return -2
+    return None
+
+
+def partial_sum_leaves(paths, lay: TPLayout) -> List[bool]:
+    """Per leaf: is its gradient a partial sum over the model ranks?
+    (the K/V projections replicated under MQA: every rank's heads add to
+    them).  Those are summed over "model", without a mean."""
+    return [lay.model > 1 and lay.kv_replicated and p[-1] in _KV
+            for p in paths]
+
+
+def sharded_leaves(paths, lay: TPLayout) -> List[bool]:
+    """Per leaf: does each model rank hold a different block of it?"""
+    return [leaf_split(p, lay) is not None for p in paths]
+
+
+def shard_params(full: Dict[str, Any], lay: TPLayout, index: int
+                 ) -> Dict[str, Any]:
+    """Model rank ``index``'s shard of a full parameter tree, as
+    contiguous copies: a block of every split leaf, every replicated
+    leaf whole."""
+    ls, paths = flatten(full)
+    out = []
+    for path, leaf in zip(paths, ls):
+        d = leaf_split(path, lay)
+        if d is not None:
+            leaf = leaf.chunk(lay.model, dim=d)[index]
+        out.append(leaf.contiguous().clone())
+    return unflatten(paths, out)
+
+
+def unshard_params(shards: List[Dict[str, Any]], lay: TPLayout
+                   ) -> Dict[str, Any]:
+    """The full tree from the model ranks' shards (in model-rank order):
+    split leaves concatenated, replicated leaves from rank 0."""
+    per = [flatten(s) for s in shards]
+    paths = per[0][1]
+    out = []
+    for i, path in enumerate(paths):
+        d = leaf_split(path, lay)
+        out.append(per[0][0][i] if d is None else
+                   torch.cat([ls[i] for ls, _ in per], dim=d))
+    return unflatten(paths, out)
+
+
+# ---------------------------------------------------------------------------
+# The Megatron operators and the staged backward
+# ---------------------------------------------------------------------------
+
+_local = threading.local()
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over "model" through the monolithic default session."""
+    return collectives.psum(x, MODEL_AXIS)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """*g*: all-reduce over "model" forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _CopyToModel(torch.autograd.Function):
+    """*f*: identity forward, all-reduce over "model" backward (inside
+    the autograd node: the thread-local CPU backward only)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.is_cuda:
+            raise RuntimeError(
+                "a CUDA backward cannot all-reduce inside an autograd node "
+                "(every rank thread's CUDA nodes share one engine thread); "
+                "run it under sharding.StagedBackward")
+        return psum(g)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """*g* after a row-parallel product (and the vocab-parallel
+    embedding): the sum of the model ranks' partials."""
+    return _ReduceFromModel.apply(x)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """*f* ahead of a column-parallel product: under an active
+    ``StagedBackward`` a recorded cut whose gradient is all-reduced
+    between segments, else the autograd function."""
+    tape = getattr(_local, "tape", None)
+    if tape is not None:
+        return tape.cut(x, reduce=True)
+    return _CopyToModel.apply(x)
+
+
+def cut(x: torch.Tensor) -> torch.Tensor:
+    """A segment boundary of the staged backward with no reduction (the
+    residual stream at each *f*); the identity without a tape."""
+    tape = getattr(_local, "tape", None)
+    return x if tape is None else tape.cut(x, reduce=False)
+
+
+class StagedBackward:
+    """The cuts of one forward and the backward that runs them in
+    reverse.  ``with tape:`` makes it the calling thread's tape."""
+
+    def __init__(self) -> None:
+        self._cuts: List[Tuple[torch.Tensor, torch.Tensor, bool]] = []
+
+    def __enter__(self) -> "StagedBackward":
+        if getattr(_local, "tape", None) is not None:
+            raise RuntimeError("a StagedBackward is already active")
+        _local.tape = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _local.tape = None
+
+    def cut(self, x: torch.Tensor, reduce: bool) -> torch.Tensor:
+        if not x.requires_grad:
+            return x
+        leaf = x.detach().requires_grad_(True)
+        self._cuts.append((x, leaf, reduce))
+        return leaf
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """Gradients of ``loss`` into the ``.grad`` of every leaf it
+        depends on: the last segment from the loss, then each cut's
+        segment in reverse order, its leaf's gradient complete (and, for
+        an *f* cut, all-reduced over "model") before its segment runs."""
+        loss.backward()
+        while self._cuts:
+            x, leaf, reduce = self._cuts.pop()
+            g = leaf.grad
+            if g is None:
+                continue
+            x.backward(psum(g) if reduce else g)
+
+
+def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,
+                         index: int) -> torch.Tensor:
+    """Rows of this rank's vocabulary block (zeros for tokens outside
+    it), summed over "model": every rank gets the full embedding, the
+    same bits as a lookup in the whole table (one row plus zeros)."""
+    rows = embed.shape[0]
+    local = tokens.long() - index * rows
+    inside = (local >= 0) & (local < rows)
+    e = embed[local.clamp(0, rows - 1)]
+    return reduce_from_model(torch.where(inside[..., None], e,
+                                         torch.zeros((), dtype=e.dtype,
+                                                     device=e.device)))
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 index: int) -> torch.Tensor:
+    """``transformer.cross_entropy`` over logits split by vocabulary
+    block (this rank's ``(..., V / model)``): the forward gathers the row
+    max and all-reduces the sum of exponentials and the label's logit
+    over "model"; the backward is local (``softmax - onehot`` of the
+    rank's block), since *g*'s identity backward gives each rank's block
+    its share of both sums."""
+    lf = logits.float()
+    cols = lf.shape[-1]
+    local_max = lf.detach().amax(dim=-1)
+    m = collectives.all_gather(local_max[None], MODEL_AXIS, dim=0).amax(0)
+    sumexp = reduce_from_model(torch.exp(lf - m[..., None]).sum(dim=-1))
+    local = labels.long() - index * cols
+    inside = (local >= 0) & (local < cols)
+    picked = torch.gather(lf, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    ll = reduce_from_model(torch.where(inside, picked, 0.0))
+    valid = labels >= 0
+    nll = torch.where(valid, torch.log(sumexp) + m - ll, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def model_index() -> int:
+    """This rank's coordinate on "model"."""
+    return collectives.axis_index(MODEL_AXIS)

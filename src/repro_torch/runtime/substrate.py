@@ -127,10 +127,23 @@ def set_mesh(mesh: Mesh):
         yield mesh
 
 
-def make_host_mesh(data: int = 2, *, device="cuda") -> Mesh:
-    """The data-parallel mesh of this slice: ``data`` ranks on one
-    device (the reference's ``make_host_mesh`` with model_parallel=1)."""
-    return make_mesh((data,), ("data",), device=device)
+def make_host_mesh(data: int = 2, *, model_parallel: int = 1,
+                   pods: int = 1, device="cuda") -> Mesh:
+    """``pods x data x model_parallel`` ranks on one device, as the
+    reference's ``make_host_mesh`` lays them out: ``("data",)``, with
+    ``model_parallel > 1`` ``("data", "model")``, with ``pods > 1``
+    ``"pod"`` outermost, "model" always innermost.  The reference sizes
+    "data" from the devices it finds; here ``data`` gives it."""
+    for name, n in (("data", data), ("model_parallel", model_parallel),
+                    ("pods", pods)):
+        if n < 1:
+            raise ValueError(f"{name}={n}: every axis needs a rank")
+    shape, names = [data], ["data"]
+    if pods > 1:
+        shape, names = [pods] + shape, ["pod"] + names
+    if model_parallel > 1:
+        shape, names = shape + [model_parallel], names + ["model"]
+    return make_mesh(shape, names, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,20 @@ and the reference's ways of running that sync:
 ``TrainSession`` bundles what survives a re-mesh (model, optimizer,
 ``TrainCfg``) for the elastic controller.
 
+A mesh with a "model" axis trains a model built for it
+(``build_model(cfg, model_parallel=...)``): each rank holds its shard
+(``init_states``), its backward is staged (``Model.loss_and_grads``),
+and its gradients are local leaves.  Each sync flavour above runs on
+them unchanged over the data axes, with the mean over the data size.
+Two things cross the model axis, through the monolithic default session
+(what XLA inserts for the reference under GSPMD): the gradients of the
+leaves every model rank computes a part of (the K/V projections
+replicated under MQA: ``sharding.partial_sum_leaves``) are summed over
+"model", without a mean, before the sync; and the global gradient norm
+adds the model ranks' squares of the split leaves.  Norm gradients are
+the same on every model rank already: nothing sums them, and
+``TrainCfg.check_model_replicas`` asserts it each step.
+
 Ranks are the threads of ``substrate.run_spmd``.  Each holds its own
 state (a list, one per rank); ``train_step(states, batch)`` gives every
 rank its rows of the global batch, as the reference's ``shard_map``
@@ -68,6 +82,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.compression import bucket_ef_zeros
 from repro_torch.core.engine import check_bucket_ef, scale_by
+from repro_torch.parallel import sharding
 from repro_torch.runtime import substrate
 from repro_torch.tree import flatten, leaves, map_tree, unflatten
 
@@ -78,7 +93,7 @@ Params = Any
 class TrainCfg:
     microbatches: int = 1
     sync_mode: str = "composed"          # auto | composed | compressed
-    data_axes: Tuple[str, ...] = ("data",)
+    data_axes: Tuple[str, ...] = ("pod", "data")   # filtered to the mesh
     grad_dtype: Any = torch.float32      # accumulation dtype (microbatches)
     bucket_grads: bool = False           # fused dtype-grouped buckets
     bucket_bytes: int = plan_mod.DEFAULT_BUCKET_BYTES  # cap per bucket
@@ -88,6 +103,10 @@ class TrainCfg:
     # progress hops on the younger in-flight units
     overlap_depth: int = 2
     zero: bool = False                   # ZeRO-1 optimizer-state sharding
+    # with a model axis: raise unless the gradients of the leaves every
+    # model rank holds whole are bit-equal across "model" (one
+    # all-gather of them a step; a check for tests, off by default)
+    check_model_replicas: bool = False
 
     def __post_init__(self):
         if self.sync_mode not in ("auto", "composed", "compressed"):
@@ -208,6 +227,32 @@ def replicate(state: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
                       for _ in range(n - 1)]
 
 
+def _model_size(mesh) -> int:
+    return dict(mesh.shape).get(sharding.MODEL_AXIS, 1)
+
+
+def init_states(model, optimizer, params: Params, cfg: TrainCfg, mesh
+                ) -> List[Dict[str, Any]]:
+    """One fresh state per rank of ``mesh`` from the full ``params``:
+    replicas of one state without a model axis, else rank r's state over
+    its model coordinate's shard (the data ranks of one model coordinate
+    hold copies)."""
+    if _model_axis(model, mesh) is None:
+        return replicate(make_train_state(model, optimizer, params, cfg,
+                                          mesh=mesh), mesh.size)
+    firsts: Dict[int, Dict[str, Any]] = {}
+    states = []
+    for r in range(mesh.size):
+        idx = mesh.coords(r)[sharding.MODEL_AXIS]
+        if idx not in firsts:
+            firsts[idx] = make_train_state(
+                model, optimizer, model.shard(params, idx), cfg, mesh=mesh)
+            states.append(firsts[idx])
+        else:
+            states.append(map_tree(lambda t: t.clone(), firsts[idx]))
+    return states
+
+
 # ---------------------------------------------------------------------------
 # The run's state as one tree: the checkpoint layout
 # ---------------------------------------------------------------------------
@@ -309,10 +354,8 @@ def _accumulate_grads(model, params: Params, batch, n_micro: int,
     ps, paths = flatten(params)
 
     def one(mb):
-        xs = [p.detach().requires_grad_(True) for p in ps]
-        loss, _ = model.loss(unflatten(paths, xs), mb)
-        grads = torch.autograd.grad(loss, xs)
-        return loss.detach(), list(grads)
+        loss, grads = model.loss_and_grads(params, mb)
+        return loss, leaves(grads)
 
     if n_micro == 1:
         loss, grads = one(batch)
@@ -463,8 +506,9 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             f"sync_mode={cfg.sync_mode!r} has nothing to sync over: none "
             f"of cfg.data_axes={cfg.data_axes} exist in the mesh axes "
             f"{mesh.axis_names}")
+    tp = _model_axis(model, mesh)
     if cfg.sync_mode == "auto":
-        return _auto_train_step(model, optimizer, cfg, mesh, data_axes)
+        return _auto_train_step(model, optimizer, cfg, mesh, data_axes, tp)
     compress = cfg.sync_mode == "compressed"
     dcomm = comm.split(*data_axes)
     axis_comms = tuple(comm.split(a) for a in data_axes)
@@ -547,8 +591,14 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         # the global grad norm from chunk-local sums and one scalar
         # all-reduce: the unsharded path's value up to summation order,
         # so bit-identical losses need clip_norm=0 (a metric only)
-        sq = sum(torch.sum(torch.square(ch.float())) for ch in chunks)
-        gsq = zcomm.all_reduce(sq)
+        if tp is None:
+            sq = sum(torch.sum(torch.square(ch.float())) for ch in chunks)
+            gsq = zcomm.all_reduce(sq)
+        else:
+            # split leaves' squares add over "model" too
+            sq_split, sq_rep = _split_squares(chunks, tp.split)
+            gsq = sharding.psum(zcomm.all_reduce(sq_split)) + \
+                zcomm.all_reduce(sq_rep)
         idx = zcomm.axis_index()
         pleaves = leaves(st["params"])
         pchunks = [_zero_chunk(l, zp, idx) for l in pleaves]
@@ -583,6 +633,10 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)
         with torch.no_grad():
+            if tp is not None:
+                grads = tp.reduce_partials(grads)
+                if cfg.check_model_replicas:
+                    tp.check_replicated(grads)
             if cfg.zero:
                 gl, gpaths = flatten(grads)
                 del grads                # each leaf goes once it is reduced
@@ -599,7 +653,8 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
                 loss = acomm.all_reduce(loss)
             loss = scale_by(loss, dcomm.mean_scale())
             new_params, new_opt, om = optimizer.update(
-                grads, st["opt"], st["params"])
+                grads, st["opt"], st["params"],
+                global_norm_fn=None if tp is None else tp.global_norm)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": st["step"] + 1}
         if compress:
@@ -610,6 +665,70 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     train_step.schedule = rs_sched if cfg.zero else sched
     train_step.ag_schedule = ag_sched
     return train_step
+
+
+@dataclasses.dataclass(frozen=True)
+class _ModelAxis:
+    """What the step does across a model axis, static in the param
+    layout: ``partial`` / ``split`` mark the gradient leaves that are
+    partial sums over the model ranks / a block of a split leaf."""
+
+    partial: Tuple[bool, ...]
+    split: Tuple[bool, ...]
+
+    def reduce_partials(self, grads):
+        """Sum the partial-sum leaves over "model" (no mean)."""
+        gl, paths = flatten(grads)
+        return unflatten(paths, [sharding.psum(g) if p else g
+                                 for g, p in zip(gl, self.partial)])
+
+    def check_replicated(self, grads) -> None:
+        """Raise unless every leaf the model ranks hold whole (norms,
+        and the partial-sum leaves once summed) has the same gradient on
+        every model rank, bit for bit."""
+        gl, paths = flatten(grads)
+        rep = [(p, g) for p, g, s in zip(paths, gl, self.split) if not s]
+        flat = torch.cat([g.reshape(-1).float() for _, g in rep])
+        seen = collectives.all_gather(flat[None], sharding.MODEL_AXIS,
+                                      dim=0)
+        blocks = seen.split([g.numel() for _, g in rep], dim=1)
+        bad = ["/".join(p) for (p, _), b in zip(rep, blocks)
+               if not all(torch.equal(b[0], r) for r in b[1:])]
+        if bad:
+            raise RuntimeError(f"model rank {sharding.model_index()}: the "
+                               f"gradients of {bad} differ across "
+                               f"\"model\"")
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The whole model's gradient norm: the split leaves' squares
+        summed over "model", the replicated leaves' counted once."""
+        sq_split, sq_rep = _split_squares(leaves(grads), self.split)
+        return torch.sqrt(sharding.psum(sq_split) + sq_rep)
+
+
+def _split_squares(gs, split):
+    """(sum of squares of the split leaves, of the replicated ones), in
+    f32 (tensors, ``gs[0]``'s device)."""
+    zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    sq = [torch.sum(torch.square(g.float())) for g in gs]
+    return (sum((q for q, s in zip(sq, split) if s), zero),
+            sum((q for q, s in zip(sq, split) if not s), zero))
+
+
+def _model_axis(model, mesh) -> Optional[_ModelAxis]:
+    """The step's model-axis plan (None without a model axis); raises
+    when the model was built for another model-axis size."""
+    m = _model_size(mesh)
+    if m != model.model_parallel:
+        raise ValueError(f"the mesh's model axis has {m} ranks, the model "
+                         f"is built for {model.model_parallel} "
+                         f"(build_model(cfg, model_parallel={m}))")
+    if m == 1:
+        return None
+    paths = flatten(model.abstract_params())[1]
+    return _ModelAxis(
+        partial=tuple(sharding.partial_sum_leaves(paths, model.layout)),
+        split=tuple(sharding.sharded_leaves(paths, model.layout)))
 
 
 def _spmd_step(rank_step, mesh, data_axes) -> Callable:
@@ -639,7 +758,7 @@ def _spmd_step(rank_step, mesh, data_axes) -> Callable:
 
 
 def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
-                     data_axes) -> Callable:
+                     data_axes, tp: Optional[_ModelAxis]) -> Callable:
     """The ``auto`` step: each rank's gradients of its rows, every leaf
     (and the loss) averaged over the data axes by
     ``collectives.pmean`` through the monolithic default session, then
@@ -653,11 +772,16 @@ def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)
         with torch.no_grad():
+            if tp is not None:
+                grads = tp.reduce_partials(grads)
+                if cfg.check_model_replicas:
+                    tp.check_replicated(grads)
             for a in data_axes:
                 grads = map_tree(lambda g: collectives.pmean(g, a), grads)
                 loss = collectives.pmean(loss, a)
             new_params, new_opt, om = optimizer.update(
-                grads, st["opt"], st["params"])
+                grads, st["opt"], st["params"],
+                global_norm_fn=None if tp is None else tp.global_norm)
         return ({"params": new_params, "opt": new_opt,
                  "step": st["step"] + 1}, {"loss": loss, **om})
 
@@ -703,9 +827,8 @@ class TrainSession:
             raise ValueError("init_state needs the mesh its ranks run on")
         if gen is None:
             gen = torch.Generator(device=mesh.device).manual_seed(0)
-        return replicate(make_train_state(
-            self.model, self.optimizer, self.model.init(gen), self.cfg,
-            mesh=mesh), mesh.size)
+        return init_states(self.model, self.optimizer, self.model.init(gen),
+                           self.cfg, mesh)
 
     def step_fn(self, comm: Communicator) -> Callable:
         """The topology-bound train step over ``comm`` (the session's
@@ -713,12 +836,19 @@ class TrainSession:
         return make_train_step(self.model, self.optimizer, self.cfg,
                                comm=comm)
 
+    def _unsharded(self) -> None:
+        if self.model.model_parallel > 1:
+            raise NotImplementedError(
+                "checkpoints of model-sharded state are not ported")
+
     def gather(self, states: List[Dict[str, Any]]) -> Any:
         """The per-rank states as one tree in the checkpoint layout."""
+        self._unsharded()
         return gather_state(states, self.cfg)
 
     def scatter(self, tree: Any, mesh) -> List[Dict[str, Any]]:
         """Per-rank states on ``mesh`` from a checkpoint-layout tree."""
+        self._unsharded()
         return scatter_state(tree, self.cfg, mesh)
 
     def batch_axes(self) -> Tuple[str, ...]:

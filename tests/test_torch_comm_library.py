@@ -120,18 +120,6 @@ def test_all_nine_functions_dispatch(mode):
         assert callable(eng.dispatcher(fn))
 
 
-def test_composed_multi_axis_still_raises():
-    mesh = S.make_mesh((2, 2), ("pod", AX), device="cpu")
-    sess = Session(mesh=mesh)
-    with pytest.raises(S.RankFailure) as e:
-        S.run_spmd(lambda v: sess.world.all_reduce(v),
-                   [(torch.ones(4),)] * 4, mesh, timeout=30)
-    assert isinstance(e.value.__cause__, NotImplementedError)
-    assert "twophase.py" in str(e.value.__cause__)
-    with pytest.raises(NotImplementedError, match="twophase.py"):
-        sess.world.persistent("all_reduce", (4,), torch.float32)
-
-
 # ---------------------------------------------------------------------------
 # Composed arms against the reference's, bit for bit
 # ---------------------------------------------------------------------------

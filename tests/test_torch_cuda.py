@@ -21,8 +21,12 @@ the reduced qwen2-72b under ``ServeController`` (data 4 -> 2) gives the
 CPU's greedy streams; a rank that raises on the card surfaces from
 ``run_spmd`` as a ``RankFailure`` naming it.
 
-The whole collective library (composed and monolithic) on CUDA thread
-ranks gives the bits of the same calls on CPU ranks, and the reduced
+The whole collective library (composed and monolithic), and the
+two-phase and hierarchical all-reduce, on CUDA thread ranks give the
+bits of the same calls on CPU ranks; one model-parallel train step of
+the reduced granite-34b on a (data 2, model 2) mesh of CUDA thread ranks
+finishes (its backward's model-axis all-reduces run on the rank
+threads) with the CPU's loss; and the reduced
 qwen2-72b in bf16 decodes the same requests' logits bit for bit at
 batch 8 and at batch 4.
 
@@ -568,3 +572,79 @@ def test_decode_logits_equal_at_batch_8_and_4_on_card(cuda):
     assert rows8.keys() == rows4.keys() and len(rows8) == 8 * 7
     for k in rows8:
         assert torch.equal(rows8[k], rows4[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axes,shape", [(("data", "model"), (2, 2)),
+                                        (("data", "model"), (4, 2)),
+                                        (("pod", "data"), (2, 2)),
+                                        (("pod", "data"), (3, 2))])
+def test_multiaxis_all_reduce_on_cuda_ranks_matches_cpu_bits(cuda, dtype,
+                                                             axes, shape):
+    """Two-phase and hierarchical all-reduce on CUDA thread ranks (every
+    ring combine a launch of the CUDA ``sum_chunks``), blocking and
+    start/wait, against the same calls on CPU ranks (the plain combine),
+    bit for bit."""
+    from repro_torch.comm import Session
+    from repro_torch.runtime import substrate
+    n = int(np.prod(shape))
+    gen = torch.Generator().manual_seed(n)
+    xs = [torch.randn(6144 + 7, generator=gen).to(dtype) for _ in range(n)]
+
+    def run(device):
+        sess = Session(mesh=substrate.make_mesh(shape, axes, device=device))
+        w = sess.world
+        before = lops.counter.value
+        out = substrate.run_spmd(
+            lambda x: (w.all_reduce(x),
+                       w.all_reduce_wait(w.all_reduce_start(x))),
+            [(x.to(device),) for x in xs], sess.mesh)
+        return map_tree(lambda t: t.cpu(), out), \
+            lops.counter.value - before
+
+    want, cpu_launches = run("cpu")
+    got, launches = run(cuda)
+    assert cpu_launches == 0 and launches > 0
+    for g, w in zip(leaves(got), leaves(want)):
+        _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("sync", ["composed", "compressed"])
+def test_model_parallel_train_step_on_cuda_ranks(cuda, sync):
+    """One step of the reduced granite-34b on a (data 2, model 2) mesh
+    of CUDA thread ranks: the staged backward's model-axis all-reduces
+    run on the rank threads, so the step finishes well inside the
+    transport's timeout (a backward node waiting for a peer rank would
+    deadlock on the one CUDA autograd thread).  The loss is the CPU's
+    within 1e-4, the data replicas are identical, and the gradients of
+    the leaves both model ranks hold are bit-equal across "model" on the
+    card too (``check_model_replicas``)."""
+    import time
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import build_session
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import substrate
+    from repro_torch.train import trainer
+    cfg = get_config("granite-34b", reduced=True)
+    model = build_model(cfg, model_parallel=2)
+    full = model.init(torch.Generator().manual_seed(0))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=32,
+                            global_batch=4)
+    losses = {}
+    for device in ("cpu", cuda):
+        mesh = substrate.make_host_mesh(2, model_parallel=2, device=device)
+        opt = make_optimizer("adamw", lr=1e-3)
+        tcfg = trainer.TrainCfg(sync_mode=sync, check_model_replicas=True)
+        sess = build_session(mesh, model, opt, ds, tcfg)
+        states = trainer.init_states(model, opt, map_tree(
+            lambda t: t.to(device), full), tcfg, mesh)
+        step = trainer.make_train_step(model, opt, tcfg, comm=sess.world)
+        t0 = time.perf_counter()
+        states, metrics = step(states, ds.host_batch(0))
+        seconds = time.perf_counter() - t0
+        losses[str(device)] = metrics["loss"].item()
+        assert seconds < substrate.DEFAULT_TIMEOUT / 10, seconds
+        for a, b in zip(leaves(states[0]["params"]),
+                        leaves(states[2]["params"])):   # data 1, model 0
+            _bits_equal(a, b)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])

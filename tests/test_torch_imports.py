@@ -1,8 +1,9 @@
 """The port stands alone: nothing under ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
 serving and training entry points, the schedule IR, the checkpoint
-store, the elastic runtime and the collective library's protocol
-modules leaves ``jax`` out of ``sys.modules``.
+store, the elastic runtime, the collective library's protocol
+modules and the multi-axis modules (two-phase protocols, the model
+split) leaves ``jax`` out of ``sys.modules``.
 The elastic launchers, like the others, run on ``cuda`` unless asked for
 the CPU, and raise without CUDA."""
 
@@ -100,3 +101,10 @@ def test_collective_library_modules_import_without_jax():
                           "repro_torch.core.protocols.bruck",
                           "repro_torch.core.protocols.pipeline",
                           "repro_torch.comm.collectives"])
+
+
+def test_multi_axis_modules_import_without_jax():
+    _imports_without_jax(["repro_torch.core.protocols.twophase",
+                          "repro_torch.parallel.sharding",
+                          "repro_torch.models.model",
+                          "repro_torch.models.convert"])
