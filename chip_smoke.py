@@ -34,6 +34,16 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              the checked run's tokens.  Checks completion, pool integrity
              and that every prefill chunk of every layer went through the
              tensor-core kernel.
+4b. serve_moe — qwen3-moe-30b-a3b at its published widths (d_model
+             2048, 32/4 heads, head_dim 128, q/k norm, 128 experts of 768,
+             top-8), depth cut to 4 of 48 layers, random bf16 weights
+             from a seed, served as [serve] serves qwen2-72b (the checked
+             and the timed run, the same checks); then the same requests
+             back to back (``chunked_prefill=False``), whose streams
+             must equal the interleaved run's, and 8 requests decoded at
+             batch 8 and at batch 4, whose decode rows must be equal bit
+             for bit (a block of 8 rows has expert capacity 8: nothing
+             drops).  Prints tokens/s, TTFT and peak memory.
 5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
              ``dequantize``, ``dequant_add``) against their plain versions,
              bit for bit, at the sizes granite-34b's sync gives them: the
@@ -128,6 +138,19 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              ``POD_LOSS_RTOL`` and ``POD_NORM_RTOL`` of a flat data=4 run
              from the same weights.  Prints step time and
              peak memory of both.
+8e. train_moe — qwen3-moe-30b-a3b at its published widths cut to 2 of
+             48 layers, random bf16 weights from a seed, [train]'s data
+             settings: data-parallel over 2 thread ranks, composed, with
+             the sync kernels and plain (bit-identical), and at lr 1e-5
+             (the last loss below the first); then on a (data 2, model
+             2) mesh with the experts split over "model" and
+             ``check_model_replicas`` on (the router's gradient bit-equal
+             across "model"): losses and gradient norms within
+             ``TP_LOSS_RTOL`` and ``TP_NORM_RTOL`` of the data-parallel
+             run.  Every run: finite losses, identical replicas,
+             ``sum_chunks`` launches as planned (17 model-axis
+             all-reduces a rank a step with the model axis).  Prints
+             step time, tokens/s and peak memory.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -275,6 +298,7 @@ POD_LAYERS = 1              # 4 full replicas of 2 layers exceed 80 GB
 # 1.2e-5, 6.6e-5, 1.8e-3 (the third step's, after two updates apart).
 POD_LOSS_RTOL = 2e-3
 POD_NORM_RTOL = 2e-2
+MOE_ARCH = "qwen3-moe-30b-a3b"   # [serve_moe], [train_moe]
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -503,25 +527,34 @@ def phase_small():
         raise AssertionError(f"card disagrees with CPU: {streams}")
 
 
-def serve_workload():
-    """The serving workload, on the card: qwen2-72b at its published
-    widths cut to SERVE_LAYERS layers with random bf16 weights from seed
-    0, the scheduler's config, and SERVE_REQUESTS prompts of 256-3000
-    tokens from ``RandomState(0)``.  Also serves one short request as a
-    warm-up (cuBLAS handles, allocator).  Returns (model, params, scfg,
+def _ffn_desc(cfg) -> str:
+    if cfg.moe is not None:
+        m = cfg.moe
+        return (f"experts={m.num_experts}x{m.d_ff} top-{m.top_k} "
+                f"capacity_factor={m.capacity_factor}")
+    return f"ff={cfg.mlp.d_ff} ({cfg.mlp.activation})"
+
+
+def serve_workload(arch="qwen2-72b", tag="serve"):
+    """The serving workload, on the card: ``arch`` (qwen2-72b for
+    [serve], qwen3-moe-30b-a3b for [serve_moe]) at its published widths
+    cut to SERVE_LAYERS layers with random bf16 weights from seed 0, the
+    scheduler's config, and SERVE_REQUESTS prompts of 256-3000 tokens
+    from ``RandomState(0)``.  Also serves one short request as a warm-up
+    (cuBLAS handles, allocator).  Returns (model, params, scfg,
     prompts)."""
     from repro_torch.configs import get_config, with_num_layers
     from repro_torch.models import build_model
     from repro_torch.serve import ServeCfg
     from repro_torch.tree import leaves
-    cfg = with_num_layers(get_config("qwen2-72b"), SERVE_LAYERS)
+    cfg = with_num_layers(get_config(arch), SERVE_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    print(f"[serve] {cfg.name} d_model={cfg.d_model} heads="
+    print(f"[{tag}] {cfg.name} d_model={cfg.d_model} heads="
           f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} head_dim="
-          f"{cfg.attn.head_dim} ff={cfg.mlp.d_ff} vocab={cfg.vocab_size} "
+          f"{cfg.attn.head_dim} {_ffn_desc(cfg)} vocab={cfg.vocab_size} "
           f"layers={cfg.num_layers}: {model.param_count() / 1e9:.3f}B params, "
           f"{_nbytes(leaves(params)) / 1e9:.2f} GB bf16, init "
           f"{time.perf_counter() - t0:.1f}s")
@@ -575,10 +608,20 @@ def _checked_serve(model, params, scfg, submit, ref):
 
 
 def phase_serve(ref):
+    """[serve]: qwen2-72b served twice (see ``_serve_phase``)."""
+    out = _serve_phase(ref, "qwen2-72b", "serve")
+    del out["run"]
+    return out
+
+
+def _serve_phase(ref, arch, tag):
+    """Serve the workload of ``serve_workload(arch)`` twice: the checked
+    run and the timed one (see the module doc).  Returns the timed run's
+    numbers, with (model, params, scfg, prompts, tokens) under "run"."""
     from repro_torch.kernels import counter
     from repro_torch.serve import BatchScheduler, Request
     from repro_torch.tree import leaves
-    model, params, scfg, prompts = serve_workload()
+    model, params, scfg, prompts = serve_workload(arch, tag)
     cfg = model.cfg
     lens = np.array([len(p) for p in prompts])
     weight_bytes = _nbytes(leaves(params))
@@ -611,23 +654,23 @@ def phase_serve(ref):
     pool = sched.pool
     pool_bytes = _nbytes(pool.pool)
     card = torch.cuda.get_device_properties(0).total_memory
-    print(f"[serve] prompts {sorted(lens.tolist())}")
-    print(f"[serve] {len(done)}/{SERVE_REQUESTS} done, {len(sched.shed)} "
+    print(f"[{tag}] prompts {sorted(lens.tolist())}")
+    print(f"[{tag}] {len(done)}/{SERVE_REQUESTS} done, {len(sched.shed)} "
           f"shed, {n_tokens} tokens in {wall:.2f}s = "
           f"{n_tokens / wall:.1f} tok/s; {sched.decode_steps} decode steps; "
           f"TTFT p50 {np.percentile(ttft, 50):.3f}s p99 "
           f"{np.percentile(ttft, 99):.3f}s")
-    print(f"[serve] flash launches {launches} = {SERVE_LAYERS} layers x "
+    print(f"[{tag}] flash launches {launches} = {SERVE_LAYERS} layers x "
           f"{n_chunks} prefill chunks: {launches == SERVE_LAYERS * n_chunks}"
           f"; on the tensor-core variant: {tc_launches}")
     worst = max(errs, key=lambda e: e[0] / e[1])
     same = {r.rid: r.generated for r in done} == checked
-    print(f"[serve] checked run: {len(errs)} chunk-layer outputs of rids "
+    print(f"[{tag}] checked run: {len(errs)} chunk-layer outputs of rids "
           f"{CHECK_RIDS} vs plain, max err {max(e[0] for e in errs):.3e}; "
           f"worst {worst[0]:.3e} against its tol {worst[1]:.3e} "
           f"({REL_TOL[torch.bfloat16]:.3g} x max|plain|); token streams "
           f"equal to the timed run's: {same}")
-    print(f"[serve] peak allocated {peak / 2**30:.2f} GiB of "
+    print(f"[{tag}] peak allocated {peak / 2**30:.2f} GiB of "
           f"{card / 2**30:.1f} GiB; {base / 2**30:.2f} GiB before the timed "
           f"run (weights {weight_bytes / 2**30:.2f} GiB, page pool "
           f"{pool_bytes / 2**30:.2f} GiB)")
@@ -654,7 +697,44 @@ def phase_serve(ref):
         raise AssertionError("checked and timed runs gave other tokens")
     if not peak < 0.95 * card:
         raise AssertionError(f"peak {peak} exceeds the card")
-    return dict(launches=tc_launches, max_abs_err=max(e[0] for e in errs))
+    return dict(launches=tc_launches, max_abs_err=max(e[0] for e in errs),
+                tokens_per_s=n_tokens / wall,
+                ttft_p50=float(np.percentile(ttft, 50)),
+                ttft_p99=float(np.percentile(ttft, 99)), peak_gib=peak / 2**30,
+                run=(model, params, scfg, prompts, checked))
+
+
+def phase_serve_moe(ref):
+    """[serve_moe]: qwen3-moe-30b-a3b at its published widths (4 of 48
+    layers) served as [serve] serves qwen2-72b (checked run, timed run),
+    then back to back (``chunked_prefill=False``: a prompt's chunks at
+    admission, not interleaved with decode), whose streams must equal
+    the interleaved run's, and ROWS_PROMPTS requests at batch 8 and 4,
+    whose decode rows must be equal bit for bit (a decode block of
+    ``DECODE_ROWS`` rows has expert capacity 8, so no token drops and the
+    rows stay independent).  Returns the timed run's numbers."""
+    import dataclasses
+    import gc
+    out = _serve_phase(ref, MOE_ARCH, "serve_moe")
+    model, params, scfg, prompts, checked = out.pop("run")
+    _, done = _serve(model, params, dataclasses.replace(
+        scfg, chunked_prefill=False), prompts, "cuda", SERVE_MAX_NEW)
+    same = {r.rid: r.generated for r in done} == checked
+    print(f"[serve_moe] back-to-back prefill gives the interleaved run's "
+          f"streams: {same}")
+    if not same:
+        raise AssertionError("back-to-back and interleaved prefill differ")
+    equal, diff, n = _decode_rows_equal(model, params, scfg,
+                                        model.cfg.vocab_size)
+    print(f"[serve_moe] decode rows at batch 8 and 4 through the "
+          f"scheduler: {n} rows, bit-identical: {equal} (largest "
+          f"difference {diff:.3e})")
+    if not equal:
+        raise AssertionError("MoE decode rows depend on the batch")
+    del model, params, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bits_equal(a, b) -> bool:
@@ -756,15 +836,22 @@ def tp_psums(model) -> int:
     """All-reduces over "model" one rank makes in one step of a
     model-parallel run (through the monolithic default session's ring,
     p-1 ``sum_chunks`` launches each): in the forward the embedding's
-    *g*, each layer's two *g*, the loss's sum of exponentials and label
-    logit; in the staged backward each layer's two *f* and the final
-    one; then the partial-sum leaves and the gradient norm."""
+    *g*, each layer's two *g* (attention; the MLP's or the experts'),
+    the loss's sum of exponentials and label logit; in the staged
+    backward each layer's *f* (attention's and the MLP's; a MoE layer's
+    two: its input and its routing weights) and the final one; then the
+    partial-sum leaves (MQA's K/V, qwen3's q/k norms) and the gradient
+    norm."""
     from repro_torch.parallel import sharding
     from repro_torch.tree import flatten
-    n_layers = model.cfg.num_layers
+    specs = [spec for st in model.cfg.stages for _ in range(st.repeat)
+             for spec in st.layers]
+    fwd = 1 + sum(1 + (spec.ffn != "none") for spec in specs) + 2
+    bwd = sum({"dense": 2, "moe": 3, "none": 1}[spec.ffn]
+              for spec in specs) + 1
     paths = flatten(model.abstract_params())[1]
     partial = sum(sharding.partial_sum_leaves(paths, model.layout))
-    return (1 + 2 * n_layers + 2) + (2 * n_layers + 1) + partial + 1
+    return fwd + bwd + partial + 1
 
 
 def planned_launches(engine, synced, scalars, p: int, compress: bool):
@@ -1370,16 +1457,17 @@ def _replicas_check(mesh, model, states) -> bool:
     return ok
 
 
-def _mesh_run(model, init, mesh, ds, opt, sync, plain=False):
+def _mesh_run(model, init, mesh, ds, opt, sync, plain=False, **cfg):
     """A fresh session and per-rank states (``trainer.init_states``: each
     rank's shard of ``init``) on ``mesh``, TRAIN_STEPS steps (with the
-    plain sync ops when ``plain``).  Returns (losses, step seconds, peak
-    bytes, launches, session, states, metrics)."""
+    plain sync ops when ``plain``); ``cfg``: other ``TrainCfg`` fields.
+    Returns (losses, step seconds, first step seconds, peak bytes,
+    launches, session, step function, states, metrics)."""
     from repro_torch.kernels import counter
     from repro_torch.launch.train import build_session
     from repro_torch.train import trainer
     from repro_torch.tree import map_tree
-    tcfg = trainer.TrainCfg(sync_mode=sync)
+    tcfg = trainer.TrainCfg(sync_mode=sync, **cfg)
     session = build_session(mesh, model, opt, ds, tcfg)
     # without a model axis rank 0's state holds the tensors it is given,
     # which the optimizer updates in place
@@ -1501,6 +1589,142 @@ def phase_train_tp(train):
     gc.collect()
     torch.cuda.empty_cache()
     return out, numbers
+
+
+def _train_check(phase, tag, model, mesh, session, states, metrics, counts,
+                 losses, kernels: bool, extra_psums=0):
+    """The checks every [train_moe] run makes: finite losses, identical
+    replicas (and model-replicated leaves), and ``sum_chunks`` launches
+    equal to the plan's count (the data sync's, plus ``extra_psums``
+    model-axis all-reduces of p-1 combines each, a rank a step; 0 for a
+    run with the plain sync ops)."""
+    from repro_torch.tree import leaves
+    same = _replicas_check(mesh, model, states)
+    plan, _ = planned_launches(session.engine, leaves(states[0]["params"]),
+                               [metrics["loss"]], TRAIN_RANKS, False)
+    per = plan["sum_chunks"][0] + extra_psums * (TP_MODEL - 1)
+    want = per * mesh.size * TRAIN_STEPS if kernels else 0
+    print(f"[{phase}]   {tag}: sum_chunks {counts['sum_chunks']} launches; "
+          f"plan {want} = {per} a rank a step ({plan['sum_chunks'][0]} "
+          f"data sync + {extra_psums} model-axis all-reduces x "
+          f"{TP_MODEL - 1}) x {mesh.size} ranks x {TRAIN_STEPS} steps; "
+          f"replicas identical: {same}")
+    if not all(np.isfinite(losses)) or not same:
+        raise AssertionError(f"{tag}: losses {losses}, replicas {same}")
+    if counts["sum_chunks"] != want:
+        raise AssertionError(f"{tag}: sum_chunks launched "
+                             f"{counts['sum_chunks']} times, plan {want}")
+
+
+def phase_train_moe():
+    """[train_moe]: qwen3-moe-30b-a3b at its published widths cut to
+    TRAIN_LAYERS of 48 layers, random bf16 weights from seed 0, [train]'s
+    data settings.  Data-parallel over TRAIN_RANKS thread ranks, composed,
+    with the sync kernels and plain (bit-identical), and at LOW_LR (the
+    last step's loss below the first's); then expert-parallel on (data
+    TRAIN_RANKS, model TP_MODEL), composed, with ``check_model_replicas`` (the router's
+    gradient bit-equal across "model"), whose losses and gradient norms
+    must follow the data-parallel run's within ``TP_LOSS_RTOL`` and
+    ``TP_NORM_RTOL``.  Returns ({"sum_chunks": launches}, numbers)."""
+    import gc
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import leaves
+    cfg = with_num_layers(get_config(MOE_ARCH), TRAIN_LAYERS)
+    model = build_model(cfg)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    mesh = substrate.make_host_mesh(TRAIN_RANKS, device="cuda")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=0)
+    print(f"[train_moe] {cfg.name} d_model={cfg.d_model} heads="
+          f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} head_dim="
+          f"{cfg.attn.head_dim} {_ffn_desc(cfg)} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers}: {model.param_count() / 1e9:.3f}B params"
+          f" ({_nbytes(leaves(init)) / 1e9:.2f} GB); {TRAIN_RANKS} ranks, "
+          f"seq {TRAIN_SEQ}, global batch {TRAIN_BATCH}")
+    numbers, launches, kept = {}, 0, {}
+    for tag, on, lr in (("data-parallel, kernels", True, TRAIN_LR),
+                        ("data-parallel, plain", False, TRAIN_LR),
+                        (f"data-parallel, kernels, lr {LOW_LR}", True,
+                         LOW_LR)):
+        (losses, step_s, first_s, peak, counts, session, step_fn, states,
+         metrics) = _mesh_run(model, init, mesh, ds, _adamw(lr),
+                              "composed", plain=not on)
+        print(f"[train_moe] {tag}: losses {losses}; step "
+              f"{step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; first "
+              f"{first_s * 1e3:.1f} ms) = "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+              f"allocated {peak / 2**30:.2f} GiB")
+        _train_check("train_moe", tag, model, mesh, session, states,
+                     metrics, counts, losses, on)
+        if on and lr == TRAIN_LR:
+            launches += counts["sum_chunks"]
+            numbers.update(dp_step_ms=step_s * 1e3, dp_peak_gib=peak / 2**30,
+                           dp_losses=losses,
+                           dp_grad_norms=metrics["grad_norms"])
+        if lr == TRAIN_LR:
+            kept[on] = (losses, leaves(states[0]["params"]))
+        del states, step_fn, session, metrics
+        if len(kept) == 2:
+            (l_on, p_on), (l_off, p_off) = kept.pop(True), kept.pop(False)
+            same = l_on == l_off and all(_bits_equal(a, b)
+                                         for a, b in zip(p_on, p_off))
+            print(f"[train_moe] the kernel and plain runs give "
+                  f"bit-identical losses and parameters: {same}")
+            if not same:
+                raise AssertionError("train_moe: kernel and plain runs "
+                                     "differ")
+            del p_on, p_off
+        # each step takes the next batch, whose loss differs: the last
+        # step's loss must be below the first's
+        if lr == LOW_LR and not losses[-1] < losses[0]:
+            raise AssertionError(f"lr {LOW_LR}: losses {losses} do not "
+                                 "fall")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ep_model = build_model(cfg, model_parallel=TP_MODEL)
+    ep_mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
+                                       device="cuda")
+    lay = ep_model.layout
+    print(f"[train_moe] expert-parallel on {dict(ep_mesh.shape)}: a rank "
+          f"holds {lay.experts} of {cfg.moe.num_experts} experts, "
+          f"{lay.heads} of {cfg.attn.num_heads} query heads, "
+          f"{lay.kv_heads} of {cfg.attn.num_kv_heads} KV heads, "
+          f"{lay.vocab} of {cfg.vocab_size} vocabulary rows; router and "
+          f"norms whole")
+    (losses, step_s, first_s, peak, counts, session, step_fn, states,
+     metrics) = _mesh_run(ep_model, init, ep_mesh, ds, _adamw(TRAIN_LR),
+                          "composed", check_model_replicas=True)
+    print(f"[train_moe] expert-parallel, kernels: losses {losses}; step "
+          f"{step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; first "
+          f"{first_s * 1e3:.1f} ms) = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+          f"allocated {peak / 2**30:.2f} GiB; model-replicated gradients "
+          f"(router, norms) bit-equal across \"model\" (checked in the "
+          f"step)")
+    _train_check("train_moe", "expert-parallel", ep_model, ep_mesh, session,
+                 states, metrics, counts, losses, True, tp_psums(ep_model))
+    launches += counts["sum_chunks"]
+    numbers.update(ep_step_ms=step_s * 1e3, ep_peak_gib=peak / 2**30,
+                   ep_losses=losses, ep_grad_norms=metrics["grad_norms"])
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                numbers["dp_losses"])]
+    print(f"[train_moe] expert-parallel against data-parallel: {losses} "
+          f"vs {numbers['dp_losses']}; rel err "
+          f"{['%.3e' % e for e in errs]} (tol {TP_LOSS_RTOL})")
+    if not max(errs) <= TP_LOSS_RTOL:
+        raise AssertionError(f"expert-parallel losses {losses} vs "
+                             f"{numbers['dp_losses']}")
+    _norms_check("train_moe", "expert-parallel against data-parallel",
+                 metrics["grad_norms"], numbers["dp_grad_norms"],
+                 TP_NORM_RTOL)
+    del states, step_fn, session, metrics, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": launches}, numbers
 
 
 def phase_train_pod():
@@ -2434,6 +2658,7 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, kernel, ref)
     timed("small", phase_small)
     serve = timed("serve", phase_serve, ref)
+    serve_moe = timed("serve_moe", phase_serve_moe, ref)
     sync_rows = timed("collectives", phase_collectives)
     lib_launches, _ = timed("collectives_lib", phase_collectives_lib)
     timed("train_small", phase_train_small)
@@ -2442,11 +2667,12 @@ def main() -> int:
     by_path["train_auto"], _ = timed("train_auto", phase_train_auto, train)
     by_path["train_tp"], _ = timed("train_tp", phase_train_tp, train)
     by_path["train_pod"], _ = timed("train_pod", phase_train_pod)
+    by_path["train_moe"], _ = timed("train_moe", phase_train_moe)
     timed("ckpt", phase_ckpt)
     by_path["elastic_train"], _ = timed("elastic_train",
                                         phase_elastic_train)
     by_path["collectives_lib"] = lib_launches
-    flash_by_path = {}
+    flash_by_path = {"serve_moe": serve_moe["launches"]}
     flash_by_path["elastic_serve"] = timed(
         "elastic_serve", phase_elastic_serve)[0]["flash_attention"]
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s")
@@ -2467,7 +2693,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
         "launches": serve["launches"],
         "launches_by_path": flash_by_path,
-        "max_abs_err": max(serve["max_abs_err"],
+        "max_abs_err": max(serve["max_abs_err"], serve_moe["max_abs_err"],
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

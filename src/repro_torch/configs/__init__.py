@@ -11,9 +11,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-from repro_torch.configs import granite_34b, qwen2_72b
+from repro_torch.configs import granite_34b, qwen2_72b, qwen3_moe_30b_a3b
 
-_MODULES = {m.ARCH_ID: m for m in (granite_34b, qwen2_72b)}
+_MODULES = {m.ARCH_ID: m for m in (granite_34b, qwen2_72b,
+                                    qwen3_moe_30b_a3b)}
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
 

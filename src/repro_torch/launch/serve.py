@@ -13,6 +13,10 @@ supervised by the elastic ``ServeController`` (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --num-layers 4 --max-len 4096 --page-tokens 256 --batch 8
 
+    # the MoE family: qwen3-moe-30b-a3b, reduced on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen3-moe-30b-a3b --requests 4 --max-new 4
+
     # elastic: 4 data ranks, lose 2 at step 3 (batch 4 -> 2)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --data 4 --elastic --fault-plan lose@3:2

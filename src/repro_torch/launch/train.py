@@ -7,6 +7,9 @@ in-process ranks on one device.
         --arch granite-34b --reduced --sync composed --data 2 \\
         --model-parallel 2 --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch qwen3-moe-30b-a3b --reduced --data 2 --model-parallel 2 \\
+        --steps 8            # MoE: the experts split over "model"
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-34b --reduced --sync composed --zero --overlap \\
         --ckpt-dir /tmp/ck --ckpt-sharded
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\

@@ -23,8 +23,10 @@ from repro_torch.tree import flatten, unflatten
 
 def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerCfg,
                       device="cuda") -> Dict[str, Any]:
-    """numpy params tree -> port params on ``device`` in
-    ``cfg.param_dtype``.  Raises on a missing, extra or misshapen leaf."""
+    """numpy params tree -> port params on ``device``, each leaf in the
+    dtype ``init_params`` gives it: ``cfg.param_dtype``, except a MoE
+    router, f32 whatever the param dtype (as the reference's).  Raises
+    on a missing, extra or misshapen leaf."""
     dev = resolve_device(device)
     want, want_paths = flatten(T.init_params(None, cfg, torch.device("meta")))
     got, got_paths = flatten(tree)
@@ -40,5 +42,5 @@ def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerCfg,
             raise ValueError(f"{'/'.join(path)}: shape {a.shape}, "
                              f"expected {tuple(w.shape)}")
         t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-        out.append(t.to(device=dev, dtype=cfg.param_dtype))
+        out.append(t.to(device=dev, dtype=w.dtype))
     return unflatten(want_paths, out)

@@ -1,5 +1,5 @@
-"""Dense layers of the port: RMSNorm, RoPE, GQA/MQA attention, SwiGLU
-and tanh-GELU MLPs.
+"""Dense layers of the port: RMSNorm, RoPE, GQA/MQA attention (with
+qwen3's optional per-head q/k norm), SwiGLU and tanh-GELU MLPs.
 
 Counterpart of the dense subset of ``repro.models.layers``.
 
@@ -296,6 +296,7 @@ class AttentionCfg:
     num_kv_heads: int
     head_dim: int
     qkv_bias: bool = False
+    qk_norm: bool = False          # qwen3-style per-head RMS q/k norm
     rope_theta: float = 1e4
     causal: bool = True
 
@@ -312,6 +313,9 @@ def init_attention(gen, cfg: AttentionCfg, dtype, device,
     if cfg.qkv_bias:
         for name, n in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh)):
             p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(Dh, dtype, device, lead)
+        p["k_norm"] = init_rmsnorm(Dh, dtype, device, lead)
     return p
 
 
@@ -325,8 +329,12 @@ def _project_qkv(params: Params, cfg: AttentionCfg, x: torch.Tensor):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(b, sq, H, Dh), k.reshape(b, sq, Hkv, Dh),
-            v.reshape(b, sq, Hkv, Dh))
+    q = q.reshape(b, sq, H, Dh)
+    k = k.reshape(b, sq, Hkv, Dh)
+    if cfg.qk_norm:               # ahead of RoPE: the cache holds normed k
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    return q, k, v.reshape(b, sq, Hkv, Dh)
 
 
 def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,

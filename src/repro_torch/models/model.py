@@ -113,7 +113,7 @@ class Model:
                 caches: Params) -> Tuple[torch.Tensor, Params]:
         """Fill the cache from a prompt; returns (last-position logits,
         caches)."""
-        h, new_caches = T.forward(params, self.cfg, batch, caches=caches,
+        h, new_caches, _ = T.forward(params, self.cfg, batch, caches=caches,
                                   q_offset=0)
         logits = T._unembed(params, self.cfg, h[:, -1:])
         return logits[:, 0], new_caches
@@ -134,7 +134,7 @@ class Model:
         (chunk-local) picks which position's logits to return —
         meaningful on the final chunk, where it is the prompt's last real
         token."""
-        h, new_caches = T.forward(params, self.cfg, batch, caches=caches,
+        h, new_caches, _ = T.forward(params, self.cfg, batch, caches=caches,
                                   q_offset=q_offset, chunked=True,
                                   valid_len=valid_len)
         logits = T._unembed(params, self.cfg,
@@ -144,7 +144,7 @@ class Model:
     def decode_step(self, params: Params, batch: Dict[str, torch.Tensor],
                     caches: Params) -> Tuple[torch.Tensor, Params]:
         """One token for every sequence.  batch: {"tokens": (B, 1)}."""
-        h, new_caches = T.forward(params, self.cfg, batch, caches=caches,
+        h, new_caches, _ = T.forward(params, self.cfg, batch, caches=caches,
                                   decode=True)
         logits = T._unembed(params, self.cfg, h)
         return logits[:, 0], new_caches

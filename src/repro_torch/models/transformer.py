@@ -1,6 +1,6 @@
-"""Decoder LM of the port: stages of attention + dense-FFN layers.
+"""Decoder LM of the port: stages of attention + dense-FFN or MoE layers.
 
-Counterpart of ``repro.models.transformer`` for the dense subset.  A
+Counterpart of ``repro.models.transformer`` for its attention subset.  A
 model is a sequence of *stages*; each stage is a pattern of layers
 (``LayerSpec``) repeated ``repeat`` times with STACKED params and caches
 (leading axis = repeat), exactly the reference's layout, so params and
@@ -8,17 +8,19 @@ caches compare leaf for leaf across the two packages.  The reference
 scans the repeats with ``lax.scan``; here a Python loop indexes the
 stacks.
 
-Layer = pre-norm mixer + pre-norm FFN, both residual.  Only the
-``attn`` mixer and the ``dense`` FFN exist in this slice.
+Layer = pre-norm mixer + pre-norm FFN, both residual.  The ``attn``
+mixer and the ``dense`` and ``moe`` FFNs are ported (MLA and Mamba are
+not); a MoE layer adds its load-balance loss to the model's.
 
 Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
 ``cfg`` is then the rank's local config (``local_config``: its heads,
 its FFN columns, its vocabulary block) and the params its shard
-(``parallel.sharding``).  The embedding is vocab-parallel, each pre-norm
-output enters its column-parallel product through *f* and each row-
-parallel product leaves through *g*, the residual stream is cut ahead of
-each norm for the staged backward, and the loss is the vocab-parallel
-cross-entropy over the rank's ``lm_head`` columns.
+(``parallel.sharding``; a MoE layer's experts split over "model", see
+``models.moe.moe_forward_sharded``).  The embedding is vocab-parallel,
+each pre-norm output enters its column-parallel product through *f* and
+each row-parallel product leaves through *g*, the residual stream is
+cut ahead of each norm for the staged backward, and the loss is the
+vocab-parallel cross-entropy over the rank's ``lm_head`` columns.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.parallel import sharding as S
 from repro_torch.tree import map_tree
 
@@ -38,7 +41,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str = "attn"            # attn (mla | mamba: later slices)
-    ffn: str = "dense"             # dense | none (moe: later slice)
+    ffn: str = "dense"             # dense | moe | none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +58,7 @@ class TransformerCfg:
     stages: Tuple[StageSpec, ...]
     attn: Optional[L.AttentionCfg] = None
     mlp: Optional[L.MLPCfg] = None
+    moe: Optional[MOE.MoECfg] = None
     tie_embeddings: bool = False
     param_dtype: Any = torch.float32
     block_k: int = 512             # training attention kv block
@@ -69,7 +73,7 @@ def _check_spec(spec: LayerSpec) -> None:
         raise NotImplementedError(
             f"mixer {spec.mixer!r} arrives with the port's "
             "remaining-model-families slice")
-    if spec.ffn not in ("dense", "none"):
+    if spec.ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(
             f"ffn {spec.ffn!r} arrives with the port's "
             "remaining-model-families slice")
@@ -86,20 +90,27 @@ def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
     dt = cfg.param_dtype
     p: Params = {"norm_mixer": L.init_rmsnorm(cfg.d_model, dt, device, lead),
                  "attn": L.init_attention(gen, cfg.attn, dt, device, lead)}
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         p["norm_ffn"] = L.init_rmsnorm(cfg.d_model, dt, device, lead)
+    if spec.ffn == "dense":
         p["mlp"] = L.init_mlp(gen, cfg.mlp, dt, device, lead)
+    elif spec.ffn == "moe":
+        p["moe"] = MOE.init_moe(gen, cfg.moe, dt, device, lead)
     return p
 
 
 def local_config(cfg: TransformerCfg, lay: S.TPLayout) -> TransformerCfg:
     """The config one model rank computes: its query and KV heads, its
-    FFN columns and its vocabulary block (the shapes of its shard)."""
+    FFN columns or its experts, and its vocabulary block (the shapes of
+    its shard; routing still scores every expert)."""
     return dataclasses.replace(
         cfg, vocab_size=lay.vocab,
         attn=dataclasses.replace(cfg.attn, num_heads=lay.heads,
                                  num_kv_heads=lay.kv_heads),
-        mlp=dataclasses.replace(cfg.mlp, d_ff=lay.d_ff))
+        mlp=None if cfg.mlp is None
+        else dataclasses.replace(cfg.mlp, d_ff=lay.d_ff),
+        moe=None if cfg.moe is None
+        else dataclasses.replace(cfg.moe, expert_shards=lay.model))
 
 
 def _identity(x):
@@ -119,9 +130,9 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
                 cache: Optional[Params] = None, decode: bool = False,
                 chunked: bool = False, valid_len: Optional[int] = None,
                 train: bool = False, tp: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x_out, new_cache).  ``tp``: the params are a model rank's
-    shard (see the module doc)."""
+                ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Returns (x_out, new_cache, aux_loss).  ``tp``: the params are a
+    model rank's shard (see the module doc)."""
     _check_spec(spec)
     cut, f, g = _tp_ops(tp)
     x = cut(x)
@@ -135,11 +146,17 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
             chunked=chunked, valid_len=valid_len, train=train,
             block_k=cfg.block_k)
     x = x + g(out)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
         x = cut(x)
         h = f(L.rmsnorm(params["norm_ffn"], x))
         x = x + g(L.mlp_forward(params["mlp"], cfg.mlp, h))
-    return x, new_cache
+    elif spec.ffn == "moe":
+        x = cut(x)
+        y, aux = MOE.moe_apply(params["moe"], cfg.moe,
+                               L.rmsnorm(params["norm_ffn"], x))
+        x = x + y
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -157,27 +174,30 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 caches: Optional[Params] = None, decode: bool = False,
                 chunked: bool = False, valid_len: Optional[int] = None,
                 train: bool = False, tp: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Run the stage's ``repeat`` blocks.  ``caches``: stacked cache tree
-    with leading dim = repeat (or None).  K/V rows are written into the
-    stacked tensors in place; the ``len`` counters come back stacked."""
+                ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Run the stage's ``repeat`` blocks; returns (x, caches, the sum of
+    their aux losses).  ``caches``: stacked cache tree with leading dim
+    = repeat (or None).  K/V rows are written into the stacked tensors in
+    place; the ``len`` counters come back stacked."""
     lens: Dict[str, list] = {f"layer{i}": [] for i in range(len(stage.layers))}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(stage.repeat):
         for i, spec in enumerate(stage.layers):
             name = f"layer{i}"
             cache_r = None if caches is None else \
                 map_tree(lambda t: t[r], caches[name])
-            x, nc = apply_layer(
+            x, nc, aux = apply_layer(
                 map_tree(lambda t: t[r], params_stage[name]), cfg, spec, x,
                 q_offset=q_offset, cache=cache_r, decode=decode,
                 chunked=chunked, valid_len=valid_len, train=train, tp=tp)
+            aux_total = aux_total + aux
             if caches is not None:
                 lens[name].append(nc["len"])
     if caches is None:
-        return x, None
+        return x, None, aux_total
     return x, {name: {"k": caches[name]["k"], "v": caches[name]["v"],
                       "len": torch.stack(lens[name])}
-               for name in caches}
+               for name in caches}, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +234,8 @@ def forward(params: Params, cfg: TransformerCfg,
             decode: bool = False, chunked: bool = False,
             valid_len: Optional[int] = None, train: bool = False,
             tp_index: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (hidden (B, S, D), new_caches).  ``train=True`` is the
+            ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Returns (hidden (B, S, D), new_caches, aux_loss).  ``train=True`` is the
     differentiable training forward (see ``layers.train_attention``);
     ``tp_index`` the rank's model coordinate when ``params`` is its shard
     (the hidden state then enters the unembedding through *f*)."""
@@ -226,16 +246,19 @@ def forward(params: Params, cfg: TransformerCfg,
     else:
         h = params["embed"][batch["tokens"].long()]
     new_caches = {} if caches is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, stage in enumerate(cfg.stages):
         name = f"stage{i}"
-        h, nc = apply_stage(
+        h, nc, aux = apply_stage(
             params[name], cfg, stage, h, q_offset=q_offset,
             caches=None if caches is None else caches[name], decode=decode,
             chunked=chunked, valid_len=valid_len, train=train, tp=tp)
+        aux_total = aux_total + aux
         if new_caches is not None:
             new_caches[name] = nc
     cut, f, _ = _tp_ops(tp)
-    return f(L.rmsnorm(params["final_norm"], cut(h))), new_caches
+    return (f(L.rmsnorm(params["final_norm"], cut(h))), new_caches,
+            aux_total)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -254,18 +277,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 def loss_fn(params: Params, cfg: TransformerCfg,
             batch: Dict[str, torch.Tensor], tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Language-model loss (the reference's ``loss_fn`` for a dense
-    decoder: no MoE aux loss, no multi-token prediction).  With
-    ``tp_index`` the params are the rank's shard and the loss is the
-    vocab-parallel cross-entropy (the same value on every model rank)."""
-    h, _ = forward(params, cfg, batch, train=True, tp_index=tp_index)
+    """Language-model loss plus the MoE layers' aux loss (the
+    reference's ``loss_fn`` without multi-token prediction): returns
+    (nll + aux, {"nll", "aux", "loss"}).  With ``tp_index`` the params
+    are the rank's shard and the NLL is the vocab-parallel cross-entropy
+    (the same value on every model rank, and so is the aux loss)."""
+    h, _, aux = forward(params, cfg, batch, train=True, tp_index=tp_index)
     logits = _unembed(params, cfg, h)
     if tp_index is None:
-        loss = cross_entropy(logits, batch["labels"])
+        nll = cross_entropy(logits, batch["labels"])
     else:
-        loss = S.vocab_parallel_cross_entropy(logits, batch["labels"],
-                                              tp_index)
-    return loss, {"nll": loss, "loss": loss}
+        nll = S.vocab_parallel_cross_entropy(logits, batch["labels"],
+                                             tp_index)
+    loss = nll + aux
+    return loss, {"nll": nll, "aux": aux, "loss": loss}
 
 
 def init_caches(cfg: TransformerCfg, batch: int, max_len: int, dtype,

@@ -10,6 +10,10 @@ partitioner, so it states the same Megatron-style split explicitly:
   the reference's specs: ``wq``/``bq``/``w_gate``/``w_up``/``lm_head``
   split their output columns, ``wo``/``w_down`` their input rows,
   ``embed`` its vocabulary rows, norms are replicated.
+- A MoE layer splits its experts (``w_gate``/``w_up``/``w_down`` under
+  ``moe``: dim -3 of the stacked ``(R, E, D, F)`` leaf), as the
+  reference's ``moe_forward_shardmap`` does; its router and any shared
+  expert are replicated (``models.moe.moe_forward_sharded``).
 - Attention splits by whole heads.  The reference's
   ``fitted_shardings`` drops a spec entry whose dim does not divide; the
   port instead requires ``num_heads % model == 0`` and replicates
@@ -63,6 +67,11 @@ MODEL_AXIS = "model"
 _COLUMN = ("wq", "bq", "w_gate", "w_up", "lm_head", "wk", "wv", "bk", "bv")
 _ROW = ("wo", "w_down", "embed")
 _KV = ("wk", "wv", "bk", "bv")
+#: a MoE layer's expert stacks, split by expert
+_EXPERT = ("w_gate", "w_up", "w_down")
+#: qwen3's per-head q/k norms: each model rank's heads add to their
+#: gradients
+_HEAD_NORMS = ("q_norm", "k_norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,15 +82,20 @@ class TPLayout:
     heads: int              # query heads a rank holds
     kv_heads: int           # KV heads a rank holds (all when replicated)
     kv_replicated: bool
-    d_ff: int
+    d_ff: int               # FFN columns a rank holds (0: no dense FFN)
     vocab: int              # vocabulary rows a rank holds
+    experts: int            # experts a rank holds (0: no MoE)
 
 
 def layout(cfg, model: int) -> TPLayout:
     """The split of ``cfg`` (a ``TransformerCfg``) over ``model`` ranks.
-    Raises where a whole-head, FFN or vocabulary split does not divide."""
+    Raises where a whole-head, FFN, expert or vocabulary split does not
+    divide."""
     a = cfg.attn
-    for what, n in (("num_heads", a.num_heads), ("d_ff", cfg.mlp.d_ff),
+    d_ff = 0 if cfg.mlp is None else cfg.mlp.d_ff
+    experts = 0 if cfg.moe is None else cfg.moe.num_experts
+    for what, n in (("num_heads", a.num_heads), ("d_ff", d_ff),
+                    ("num_experts", experts),
                     ("vocab_size", cfg.vocab_size)):
         if n % model:
             raise ValueError(f"{cfg.name}: {what}={n} does not split over "
@@ -90,8 +104,9 @@ def layout(cfg, model: int) -> TPLayout:
     return TPLayout(model=model, heads=a.num_heads // model,
                     kv_heads=a.num_kv_heads if kv_rep
                     else a.num_kv_heads // model,
-                    kv_replicated=kv_rep, d_ff=cfg.mlp.d_ff // model,
-                    vocab=cfg.vocab_size // model)
+                    kv_replicated=kv_rep, d_ff=d_ff // model,
+                    vocab=cfg.vocab_size // model,
+                    experts=experts // model)
 
 
 def leaf_split(path, lay: TPLayout) -> Optional[int]:
@@ -100,6 +115,8 @@ def leaf_split(path, lay: TPLayout) -> Optional[int]:
     name = path[-1]
     if lay.model == 1 or (name in _KV and lay.kv_replicated):
         return None
+    if "moe" in path:         # the experts split; router, shared: whole
+        return -3 if path[-2] == "moe" and name in _EXPERT else None
     if name in _COLUMN:
         return -1
     if name in _ROW:
@@ -109,9 +126,11 @@ def leaf_split(path, lay: TPLayout) -> Optional[int]:
 
 def partial_sum_leaves(paths, lay: TPLayout) -> List[bool]:
     """Per leaf: is its gradient a partial sum over the model ranks?
-    (the K/V projections replicated under MQA: every rank's heads add to
-    them).  Those are summed over "model", without a mean."""
-    return [lay.model > 1 and lay.kv_replicated and p[-1] in _KV
+    (the K/V projections replicated under MQA, and the per-head q/k
+    norms: every rank's heads add to them).  Those are summed over
+    "model", without a mean."""
+    return [lay.model > 1 and ((lay.kv_replicated and p[-1] in _KV)
+                               or (len(p) > 1 and p[-2] in _HEAD_NORMS))
             for p in paths]
 
 

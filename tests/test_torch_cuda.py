@@ -27,8 +27,9 @@ bits of the same calls on CPU ranks; one model-parallel train step of
 the reduced granite-34b on a (data 2, model 2) mesh of CUDA thread ranks
 finishes (its backward's model-axis all-reduces run on the rank
 threads) with the CPU's loss; and the reduced
-qwen2-72b in bf16 decodes the same requests' logits bit for bit at
-batch 8 and at batch 4.
+qwen2-72b and qwen3-moe-30b-a3b in bf16 decode the same requests'
+logits bit for bit at batch 8 and at batch 4.  The reduced MoE layer
+on the card routes as on the CPU and agrees within 1e-4.
 
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
@@ -207,6 +208,43 @@ def test_reduced_model_prefill_on_card_matches_cpu(cuda):
         caches = model.init_caches(2, 64, dtype=torch.float32, device=dev)
         lg, _ = model.prefill(params, {"tokens": torch.tensor(toks,
                                                               device=dev)},
+                              caches)
+        logits.append(lg.cpu())
+    torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=0)
+
+
+def test_moe_layer_on_card_matches_cpu(cuda):
+    """The reduced qwen3-moe-30b-a3b's MoE layer (f32) on the card
+    against the CPU: the same routing plan, the output and the aux loss
+    within 1e-4 of the largest value (the GEMMs sum in another order);
+    and the whole reduced model's prefill logits within 1e-3."""
+    from repro_torch.models import moe as M
+    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+    gen = torch.Generator().manual_seed(0)
+    params = M.init_moe(gen, cfg.moe, torch.float32, "cpu")
+    x = torch.randn(2, 40, cfg.d_model, generator=gen)
+    C = M.capacity_of(80, cfg.moe)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev), params)
+        plan = M.route(x.reshape(-1, cfg.d_model).to(dev), p["router"],
+                       cfg.moe, C)
+        y, aux = M.moe_forward(p, cfg.moe, x.to(dev))
+        out[str(dev)] = [t.cpu() for t in plan[:4] + (y, aux)]
+    for i in (0, 2, 3):
+        assert torch.equal(out["cuda"][i], out["cpu"][i])
+    for i in (1, 4, 5):
+        want = out["cpu"][i]
+        torch.testing.assert_close(out["cuda"][i], want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(1))
+    toks = np.random.RandomState(2).randint(0, 256, size=(2, 40))
+    logits = []
+    for dev in ("cpu", "cuda"):
+        p = map_tree(lambda t: t.to(dev), cpu_params)
+        caches = model.init_caches(2, 64, dtype=torch.float32, device=dev)
+        lg, _ = model.prefill(p, {"tokens": torch.tensor(toks, device=dev)},
                               caches)
         logits.append(lg.cpu())
     torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=0)
@@ -519,8 +557,19 @@ def test_decode_logits_equal_at_batch_8_and_4_on_card(cuda):
     """The reduced qwen2-72b in bf16 on the card: the same requests'
     decode logits at batch 8 and as two batches of 4 are bit-identical
     (every decode call runs ``DECODE_ROWS`` rows)."""
+    _decode_rows_at_8_and_4("qwen2-72b", cuda)
+
+
+def test_moe_decode_logits_equal_at_batch_8_and_4_on_card(cuda):
+    """The reduced qwen3-moe-30b-a3b in bf16 on the card, as above: a
+    decode block of 8 rows has expert capacity 8, so no token drops and
+    a row's logits do not depend on the others."""
+    _decode_rows_at_8_and_4("qwen3-moe-30b-a3b", cuda)
+
+
+def _decode_rows_at_8_and_4(arch, cuda):
     from repro_torch.serve import BatchScheduler, Request, ServeCfg, engine
-    model = build_model(get_config("qwen2-72b", reduced=True,
+    model = build_model(get_config(arch, reduced=True,
                                    param_dtype=torch.bfloat16))
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
     rng = np.random.RandomState(1)

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where the port's serving time and memory go on one CUDA card.
 
-    python3 tools/profile_torch_serve.py [--out DIR]
+    python3 tools/profile_torch_serve.py [--arch ARCH] [--out DIR]
 
 Serves the workload of ``chip_smoke.py``'s serve phase
-(``chip_smoke.serve_workload``: qwen2-72b at its published widths, 4 of
-80 layers, 16 requests of 256-3000 prompt tokens, 32 new tokens each,
-batch 8, 256-token pages, f32 cache) three times after its warm-up:
+(``chip_smoke.serve_workload``: qwen2-72b, or with ``--arch
+qwen3-moe-30b-a3b`` the [serve_moe] phase's model, at its published
+widths, 4 layers, 16 requests of 256-3000 prompt tokens, 32 new tokens
+each, batch 8, 256-token pages, f32 cache) three times after its
+warm-up:
 
 1. step by step: the host clock around each scheduler step, ended by a
    synchronize, and the step's peak of allocated memory, split into steps
    that ran prefill chunks and steps that only decoded;
-2. under ``torch.profiler``: device time by kernel, and the share of the
-   wall time the device was busy (``DIR/serve_trace.json`` holds the
-   timeline);
+2. under ``torch.profiler``: device time by kernel, by part of the
+   model (attention; for a MoE model its expert products, its routing,
+   and its scatter and gather; the rest), and the share of the wall time
+   the device was busy (``DIR/serve_trace.json`` holds the timeline);
 3. with the allocator's history recorded: the largest tensors alive at
    the peak of allocated memory, with the port's line that made each.
 
@@ -23,6 +26,7 @@ Exits non-zero when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -70,10 +74,67 @@ def _live_at_peak(snapshot):
     return peak, list(at_peak.values())
 
 
+#: (module, function) -> the part of the model its device time counts to
+PARTS = ((("layers", "attention_forward"), "attention"),
+         (("layers", "attention_decode"), "attention"),
+         (("moe", "_expert_ffn"), "expert products"),
+         (("moe", "route"), "routing"),
+         (("moe", "_dispatch"), "scatter/gather"),
+         (("moe", "_combine"), "scatter/gather"))
+
+
+@contextlib.contextmanager
+def _parts_marked():
+    """Each function of PARTS wrapped in a ``record_function`` range of
+    its part's name while the block runs (the model looks them up on
+    their modules at each call)."""
+    from repro_torch.models import layers, moe
+    mods = {"layers": layers, "moe": moe}
+    saved = []
+    for (mod, name), part in PARTS:
+        fn = getattr(mods[mod], name)
+        saved.append((mods[mod], name, fn))
+
+        def marked(*a, _fn=fn, _part=part, **kw):
+            with torch.profiler.record_function("part: " + _part):
+                return _fn(*a, **kw)
+        setattr(mods[mod], name, marked)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _device_us_by_part(prof):
+    """The device time of every host op's kernels, summed by the
+    innermost marked part above the op (else "other")."""
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue          # the kernels themselves, the parts' spans
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us:
+            continue
+        part, up = "other", e
+        while up is not None:
+            if up.name.startswith("part: "):
+                part = up.name[len("part: "):]
+                break
+            up = up.cpu_parent
+        out[part] = out.get(part, 0) + us
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"),
                     help="directory for the profiler's timeline")
+    ap.add_argument("--arch", default="qwen2-72b",
+                    help="the served model (qwen2-72b: [serve]; "
+                         "qwen3-moe-30b-a3b: [serve_moe])")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: CUDA is not available", file=sys.stderr)
@@ -85,7 +146,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
 
-    model, params, scfg, prompts = chip_smoke.serve_workload()
+    model, params, scfg, prompts = chip_smoke.serve_workload(args.arch)
     n_layers = model.cfg.num_layers
 
     def submit(sched):
@@ -121,7 +182,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _parts_marked(), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         submit(sched)
         sched.run()
@@ -134,13 +195,20 @@ def main(argv=None) -> int:
             or getattr(e, "self_cuda_time_total", 0)
 
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("part: ")]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     print(f"[profile] wall {wall:.3f}s (profiled), device busy {busy:.3f}s "
           f"= {busy / wall:.1%}; kernels by device time:")
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"[profile] {dev_us(e) / 1e3:10.1f} ms {e.count:6d}x "
               f"{dev_us(e) / 1e6 / busy:6.1%}  {e.key[:100]}")
+    parts = _device_us_by_part(prof)
+    total = sum(parts.values()) / 1e6
+    print(f"[profile] device time by part of the model ({total:.3f}s):")
+    for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {us / 1e3:10.1f} ms {us / 1e6 / total:6.1%}  "
+              f"{part}")
     del sched, prof
 
     # 3. allocator history
