@@ -155,7 +155,10 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
              state equals the saved one bit for bit, one more step with a
-             finite loss, and no ``.tmp`` directory left.
+             finite loss, and no ``.tmp`` directory left; then the same
+             from (data 2, model 2) onto (1, 2), the checkpoint in the
+             reference's global layout (the model ranks' blocks and the
+             data ranks' chunks as shard files).
 10. elastic_train — the train workload (granite-34b, 2 of 88 layers) as
              ZeRO-1 over 4 thread ranks, 1 row a rank, under
              ``ElasticController`` with async sharded checkpoints every 2
@@ -177,6 +180,24 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              save was being written meanwhile), peak memory, and each
              full-width save's bytes, its wait for the previous save, its
              call time and its time until durable.
+10b. elastic_tp — the train workload (granite-34b, 2 of 88 layers) as
+             ZeRO-1 on (data 2, model 2) thread ranks under
+             ``ElasticController`` with ``lose@3:2``, which plans (1,
+             2), async sharded checkpoints every 2 steps (``keep=1``) in
+             the reference's global layout, in a temporary directory
+             under ``build/``: the step-2 checkpoint restores onto the
+             2 survivors and the run goes on to step 5.  A fresh (1, 2)
+             run from the same checkpoint trains steps 2-4 and must give
+             the same losses bit for bit; the tree the recovery restored
+             must equal the saved one leaf for leaf (this script keeps
+             the last save's logical state on the host until then);
+             ``check_model_replicas`` holds the model-replicated
+             gradients bit-equal across "model" every step; the plan is
+             rebuilt once and ``sum_chunks`` launches equal the plan's
+             count on each mesh (the data sync's plus the model-axis
+             all-reduces).  Prints the recovery's seconds, each step's
+             time before and after, peak memory and each save's bytes
+             and times.
 11. elastic_serve — the serve workload over a serving session of 4 data
              thread ranks (batch 8) under ``ServeController`` with
              ``lose@8:2``: the batch shrinks to 4, the drained slots
@@ -213,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -261,6 +283,8 @@ SERVE_MAX_NEW = 32
 ELASTIC_TRAIN_RANKS = 4                 # 1 row a rank of the global 4
 ELASTIC_TRAIN_STEPS = 5
 ELASTIC_TRAIN_FAULTS = "lose@3:2"
+ELASTIC_TP_SHAPE = (2, 2)               # (data, model): 2 rows a data rank
+ELASTIC_TP_FAULTS = "lose@3:2"          # plans (1, 2)
 ELASTIC_SERVE_RANKS = 4
 ELASTIC_SERVE_FAULTS = "lose@8:2"
 ROWS_PROMPTS = 8       # requests decoded at batch 8 and at batch 4
@@ -1849,7 +1873,7 @@ def _sync_run(model, init, mesh, ds, opt, tag, sync, **cfg):
     if tcfg.bucket_grads:
         synced = [torch.empty(b.size, dtype=b.wire_dtype, device="meta")
                   for b in trainer.grad_bucket_plan(model.abstract_params(),
-                                                    tcfg)]
+                                                    tcfg, model.layout)]
     else:
         synced = leaves(model.abstract_params())
     # ZeRO all-reduces the squared gradient norm, a 0-d f32 like the loss
@@ -1934,7 +1958,7 @@ def phase_train_sync():
         if sync == "compressed":
             plan = [b.size for b in trainer.grad_bucket_plan(
                 model.abstract_params(), trainer.TrainCfg(
-                    sync_mode=sync, **new_cfg))]
+                    sync_mode=sync, **new_cfg), model.layout)]
             print(f"[train] {name}: EF residual in bucket layout: "
                   f"{new['ef_sizes'] == plan} ({len(plan)} flat f32 "
                   f"residuals of sizes {plan})")
@@ -1966,7 +1990,8 @@ def phase_ckpt():
     for 2 steps, an async sharded save of its CUDA tensors, a restore onto
     2 ranks (``allow_resize_1d``) whose gathered logical state must equal
     the saved one bit for bit, one more step with a finite loss, and no
-    ``.tmp`` directory left."""
+    ``.tmp`` directory left; then the same from (data 2, model 2) onto
+    (1, 2)."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import CheckpointManager, load_manifest
@@ -1984,11 +2009,12 @@ def phase_ckpt():
                             seq_len=SMALL_TRAIN_SEQ, global_batch=4, seed=0)
     opt = _adamw(TRAIN_LR)
     tcfg = trainer.TrainCfg(zero=True, overlap=True)
-    _, states, step_fn = train_run(model, init, substrate.make_host_mesh(
-        4, device="cuda"), ds, opt, "composed", zero=True, overlap=True)
+    mesh4 = substrate.make_host_mesh(4, device="cuda")
+    _, states, step_fn = train_run(model, init, mesh4, ds, opt, "composed",
+                                   zero=True, overlap=True)
     for step in range(2):
         states, _ = step_fn(states, ds.host_batch(step))
-    saved = trainer.gather_state(states, tcfg)
+    saved = trainer.gather_state(states, tcfg, mesh4, model)
     want = map_tree(lambda t: t.clone(), trainer.logical_state(saved))
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(HERE, "build"))
@@ -2003,8 +2029,9 @@ def phase_ckpt():
         tree, step = mgr.restore_latest(
             trainer.global_abstract_state(model, opt, tcfg, mesh2),
             device="cuda", allow_resize_1d=True)
-        restored = trainer.scatter_state(tree, tcfg, mesh2)
-        got = trainer.logical_state(trainer.gather_state(restored, tcfg))
+        restored = trainer.scatter_state(tree, tcfg, mesh2, model)
+        got = trainer.logical_state(trainer.gather_state(restored, tcfg,
+                                                         mesh2, model))
         (gl, gp), (wl, wp) = flatten(got), flatten(want)
         same = gp == wp and all(_bits_equal(a, b) for a, b in zip(gl, wl))
         session = build_session(mesh2, model, opt, ds, tcfg)
@@ -2023,12 +2050,75 @@ def phase_ckpt():
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # the same on a model axis: (data 2, model 2) -> (1, 2), the
+    # checkpoint in the reference's global layout
+    sess = trainer.TrainSession(build_model(cfg, model_parallel=2), opt,
+                                tcfg)
+    mesh22 = substrate.make_host_mesh(2, model_parallel=2, device="cuda")
+    states = sess.init_state(torch.Generator(device="cuda").manual_seed(0),
+                             mesh=mesh22)
+    step_fn = sess.step_fn(build_session(mesh22, sess.model, opt, ds,
+                                         tcfg).world)
+    for step in range(2):
+        states, _ = step_fn(states, ds.host_batch(step))
+    saved = sess.gather(states, mesh22)
+    want = map_tree(lambda t: t.clone(), trainer.logical_state(saved))
+    root = tempfile.mkdtemp(prefix="ckpt_tp_", dir=os.path.join(HERE,
+                                                                "build"))
+    try:
+        mgr = CheckpointManager(root, every=1, async_=True, sharded=True)
+        mgr.maybe_save(2, saved)
+        mgr.wait()
+        shards = sum(len(e.get("shards", ())) for e in
+                     load_manifest(root)["leaves"])
+        mesh12 = substrate.make_mesh((1, 2), ("data", "model"),
+                                     device="cuda")
+        tree, step = mgr.restore_latest(sess.abstract_state(mesh12),
+                                        device="cuda", allow_resize_1d=True)
+        restored = sess.scatter(tree, mesh12)
+        got = trainer.logical_state(sess.gather(restored, mesh12))
+        (gl, gp), (wl, wp) = flatten(got), flatten(want)
+        same = gp == wp and all(_bits_equal(a, b) for a, b in zip(gl, wl))
+        step_fn = sess.step_fn(build_session(mesh12, sess.model, opt, ds,
+                                             tcfg).world)
+        restored, metrics = step_fn(restored, ds.host_batch(step))
+        loss = metrics["loss"].item()
+        print(f"[ckpt] the same on (data 2, model 2): async sharded save "
+              f"({shards} shard files: the model ranks' blocks and the "
+              f"data ranks' chunks); restored at step {step} onto (1, 2): "
+              f"logical state bit-identical {same}; step {step + 1} loss "
+              f"{loss:.4f}")
+        if not same or not np.isfinite(loss) or not shards:
+            raise AssertionError("checkpoint round trip (2, 2) -> (1, 2)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def _writing(saves, a: float, b: float) -> bool:
     """Was one of ``saves`` (``CheckpointManager.saves``) being written
     between wall times ``a`` and ``b``?"""
     return any(sv["t_called"] < b and sv.get("t_durable", b) > a
                for sv in saves)
+
+
+def _step_seconds(marks, saves, hooks=()):
+    """(seconds, a save was being written meanwhile) of each step between
+    two of ``marks`` ((step, mesh size, wall time, ...) at each step's
+    end), less the save calls and the (start, end) ``hooks`` of this
+    script that fell between them."""
+    out = []
+    for a, b in zip((m[2] for m in marks), (m[2] for m in marks[1:])):
+        held = sum(sv["t_called"] - sv["t0"] for sv in saves
+                   if a <= sv["t0"] < b)
+        held += sum(t1 - t0 for t0, t1 in hooks if a <= t0 < b)
+        out.append((b - a - held, _writing(saves, a, b)))
+    return out
+
+
+def _listed(steps, marks) -> str:
+    return ", ".join(f"step {m[0]} {t * 1e3:.1f} ms"
+                     + (" (a save being written)" if w else "")
+                     for (t, w), m in zip(steps, marks[1:]))
 
 
 def _dir_bytes(path: str) -> int:
@@ -2111,7 +2201,8 @@ def phase_elastic_train():
         last = saves[-1]
         save_bytes = _dir_bytes(os.path.join(root,
                                              f"step_{last['step']:08d}"))
-        final = flatten(trainer.logical_state(sess.gather(ctl.states)))[0]
+        final = flatten(trainer.logical_state(sess.gather(ctl.states,
+                                                          ctl.mesh)))[0]
         losses = report.losses
         losses4 = {m[0]: m[4] for m in marks if m[1] == ELASTIC_TRAIN_RANKS}
         del ctl, comm
@@ -2132,7 +2223,7 @@ def phase_elastic_train():
                 plain4[s] = m["loss"].item()
                 if s + 1 == rec.restored_step:
                     got = flatten(trainer.logical_state(sess.gather(
-                        states)))[0]
+                        states, mesh)))[0]
                     want = flatten(trainer.logical_state(
                         restored[rec.restored_step]))[0]
                     same_ckpt = len(got) == len(want) and all(
@@ -2154,7 +2245,8 @@ def phase_elastic_train():
         for s in range(rec.restored_step, ELASTIC_TRAIN_STEPS):
             states, m = step_fn(states, ds.host_batch(s))
             base[s] = m["loss"].item()
-        want = flatten(trainer.logical_state(sess.gather(states)))[0]
+        want = flatten(trainer.logical_state(sess.gather(states,
+                                                         mesh2)))[0]
         same_state = len(final) == len(want) and all(
             _bits_equal(a, b) for a, b in zip(final, want))
         del states, step_fn, want, final, restored
@@ -2163,23 +2255,14 @@ def phase_elastic_train():
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    def step_seconds(ms):
-        """(seconds, a save was being written meanwhile) of each step
-        between two marks, less the save calls that fell between them."""
-        out = []
-        for (_, _, a, _, _), (_, _, b, _, _) in zip(ms, ms[1:]):
-            held = sum(sv["t_called"] - sv["t0"] for sv in saves
-                       if a <= sv["t0"] < b)
-            out.append((b - a - held, _writing(saves, a, b)))
-        return out
-
     before = [m for m in marks if m[1] == ELASTIC_TRAIN_RANKS]
     after = [m for m in marks if m[1] == 2]
     n4 = before[-1][3]
     n2 = launches - n4
     want4 = plan4["sum_chunks"][0] * ELASTIC_TRAIN_RANKS * len(before)
     want2 = plan2["sum_chunks"][0] * 2 * len(after)
-    steps4, steps2 = step_seconds(before), step_seconds(after)
+    steps4, steps2 = _step_seconds(before, saves), _step_seconds(after,
+                                                                   saves)
     step4 = float(np.mean([t for t, _ in steps4]))
     step2 = float(np.mean([t for t, _ in steps2]))
     same_losses = {s: losses[s] for s in base} == base
@@ -2198,14 +2281,9 @@ def phase_elastic_train():
           f"{[plain4[s] for s in sorted(plain4)]}, bit-identical "
           f"{same_plain}; state at step {rec.restored_step} bit-identical "
           f"to the checkpoint the recovery restored: {same_ckpt}")
-    def listed(steps, marks_):
-        return ", ".join(f"step {m[0]} {t * 1e3:.1f} ms"
-                         + (" (a save being written)" if w else "")
-                         for (t, w), m in zip(steps, marks_[1:]))
-
     print(f"[elastic_train] step {step4 * 1e3:.1f} ms at 4 ranks "
-          f"({listed(steps4, before)}), {step2 * 1e3:.1f} ms at 2 ranks "
-          f"({listed(steps2, after)}), host clock less the save calls; "
+          f"({_listed(steps4, before)}), {step2 * 1e3:.1f} ms at 2 ranks "
+          f"({_listed(steps2, after)}), host clock less the save calls; "
           f"peak allocated {peak4 / 2**30:.2f} GiB; whole run "
           f"{marks[-1][2] - t_start:.1f}s")
     print(f"[elastic_train] sum_chunks launches {n4} at p=4 (plan "
@@ -2238,6 +2316,207 @@ def phase_elastic_train():
         restore_s=rec.restore_s, remesh_s=rec.remesh_s,
         replan_s=rec.replan_s, step_ms_4=step4 * 1e3, step_ms_2=step2 * 1e3,
         peak_gib=peak4 / 2**30, save_bytes=save_bytes, saves=saves)
+
+
+def phase_elastic_tp():
+    """The train workload as ZeRO-1 on (data, model) ELASTIC_TP_SHAPE
+    thread ranks under ``ElasticController`` with ELASTIC_TP_FAULTS
+    (which plans (1, 2)), sharded checkpoints in the reference's global
+    layout every 2 steps, against a fresh (1, 2) run restored from the
+    same checkpoint.  Returns ({"sum_chunks": launches}, numbers)."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.kernels import counter
+    from repro_torch.launch.train import build_session
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.runtime.controller import ElasticController, FaultPlan
+    from repro_torch.train import trainer
+    from repro_torch.tree import flatten, leaves, map_tree
+    full, init, _, ds, opt = train_workload()
+    del init                                  # the controller inits
+    data, mp = ELASTIC_TP_SHAPE
+    model = build_model(full.cfg, model_parallel=mp)
+    tcfg = trainer.TrainCfg(zero=True, check_model_replicas=True)
+    sess = trainer.TrainSession(model, opt, tcfg)
+    mesh = substrate.make_host_mesh(data, model_parallel=mp, device="cuda")
+    comm = build_session(mesh, model, opt, ds, tcfg)
+    synced = leaves(model.abstract_params())  # a rank's shard
+    # loss, the split and the replicated leaves' squared norms
+    scalars = [torch.empty((), device="meta")] * 3
+    psums = tp_psums(model)
+
+    def per_rank(p):
+        plan, _ = planned_launches(comm.engine, synced, scalars, p, False)
+        return plan["sum_chunks"][0] + psums * (mp - 1)
+    per4 = per_rank(data)
+    state_bytes = _nbytes(leaves(sess.abstract_state(mesh=mesh)))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="elastic_tp_",
+                            dir=os.path.join(HERE, "build"))
+    free = shutil.disk_usage(root).free
+    print(f"[elastic_tp] {full.cfg.name} {full.cfg.num_layers} layers on "
+          f"{dict(mesh.shape)}, ZeRO-1, {ELASTIC_TP_FAULTS}; checkpoint "
+          f"directory {os.path.relpath(root, HERE)}: {free:,d} bytes free; "
+          f"one save {state_bytes:,d} bytes (the global tree: params bf16 "
+          f"+ ZeRO f32 moments + step counters)")
+    if free < 2 * state_bytes:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"{free} bytes free < two saves")
+    try:
+        ctl = ElasticController(
+            sess, ds, mesh, total_steps=ELASTIC_TRAIN_STEPS, ckpt_dir=root,
+            comm=comm, ckpt_every=2, ckpt_keep=1, ckpt_sharded=True,
+            rng_seed=0, fault_plan=FaultPlan.parse(ELASTIC_TP_FAULTS, seed=0),
+            watchdog_timeout=600.0)
+        saves = ctl.ckpt.saves
+        marks = []          # (step, mesh size, wall time, sum_chunks, loss)
+        restored = {}       # step -> the host tree the recovery read
+        held = {}           # step -> the logical state saved, on the host
+        hooks = []          # (start, end) of each copy the hook made
+        gathers = []        # (start, end) of each gather before a save
+        same_saved = []
+        maybe_save, restore_latest = ctl.ckpt.maybe_save, \
+            ctl.ckpt.restore_latest
+        gather = ctl._gathered
+
+        def timed_gather():
+            # the global tree's assembly for a save: save work, not a
+            # step's
+            t0 = time.perf_counter()
+            tree = gather()
+            gathers.append((t0, time.perf_counter()))
+            return tree
+
+        def keeping_save(step, tree, force=False):
+            # this script's hook: until the recovery, the last save's
+            # logical state, which its restore must give back
+            if not restored:
+                t0 = time.perf_counter()
+                held.clear()
+                held[step] = map_tree(lambda t: t.to("cpu", copy=True),
+                                      trainer.logical_state(tree))
+                hooks.append((t0, time.perf_counter()))
+            return maybe_save(step, tree, force=force)
+
+        def keeping_restore(abstract, **kw):
+            tree, step = restore_latest(abstract, **kw)
+            if tree is not None:
+                restored[step] = tree
+                (gl, gp), (wl, wp) = (flatten(trainer.logical_state(tree)),
+                                      flatten(held.pop(step)))
+                same_saved.append(gp == wp and all(
+                    _bits_equal(a, b) for a, b in zip(gl, wl)))
+            return tree, step
+
+        def on_step(step, loss):
+            torch.cuda.synchronize()
+            marks.append((step, ctl.mesh.size, time.perf_counter(),
+                          counter.counts()["sum_chunks"], loss))
+
+        ctl.ckpt.maybe_save = keeping_save
+        ctl.ckpt.restore_latest = keeping_restore
+        ctl._gathered = timed_gather
+        ctl.on_step = on_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter.reset_all()
+        t_start = time.perf_counter()
+        report = ctl.run()
+        torch.cuda.synchronize()
+        launches = counter.counts()["sum_chunks"]
+        peak = torch.cuda.max_memory_allocated()
+        rec = report.recoveries[0]
+        per2 = per_rank(rec.after_shape[0])
+        last = saves[-1]
+        save_bytes = _dir_bytes(os.path.join(root,
+                                             f"step_{last['step']:08d}"))
+        losses = report.losses
+        del ctl, comm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # baseline: a fresh run on the survivors' mesh from the same
+        # checkpoint
+        mesh2 = substrate.make_mesh(rec.after_shape, mesh.axis_names,
+                                    device="cuda",
+                                    members=rec.healthy_after)
+        states = sess.scatter(restored.pop(rec.restored_step), mesh2)
+        step_fn = sess.step_fn(build_session(mesh2, model, opt, ds,
+                                             tcfg).world)
+        base = {}
+        for s in range(rec.restored_step, ELASTIC_TRAIN_STEPS):
+            states, m = step_fn(states, ds.host_batch(s))
+            base[s] = m["loss"].item()
+        del states, step_fn, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    before = [m for m in marks if m[1] == mesh.size]
+    after = [m for m in marks if m[1] != mesh.size]
+    n4 = before[-1][3]
+    n2 = launches - n4
+    want4 = per4 * mesh.size * len(before)
+    want2 = per2 * math.prod(rec.after_shape) * len(after)
+    steps4, steps2 = (_step_seconds(before, saves, hooks + gathers),
+                      _step_seconds(after, saves, hooks + gathers))
+    step4 = float(np.mean([t for t, _ in steps4]))
+    step2 = float(np.mean([t for t, _ in steps2]))
+    same_losses = {s: losses[s] for s in base} == base
+    print(f"[elastic_tp] {ELASTIC_TP_FAULTS}: {report.describe()}")
+    print(f"[elastic_tp] recovery: restore {rec.restore_s:.3f}s, re-mesh "
+          f"{rec.remesh_s:.3f}s, re-plan {rec.replan_s:.3f}s (total "
+          f"{rec.total_s:.3f}s), restored step {rec.restored_step}, "
+          f"survivors {rec.healthy_after}; plan rebuilds "
+          f"{report.plan_rebuilds}")
+    print(f"[elastic_tp] losses {[losses[s] for s in sorted(losses)]}; "
+          f"baseline ({rec.after_shape} from step {rec.restored_step}) "
+          f"{[base[s] for s in sorted(base)]}: bit-identical "
+          f"{same_losses}; restored global tree bit-equal to the saved "
+          f"one: {same_saved}; model-replicated gradients bit-equal "
+          f"across \"model\" every step (check_model_replicas)")
+    print(f"[elastic_tp] step {step4 * 1e3:.1f} ms on {ELASTIC_TP_SHAPE} "
+          f"({_listed(steps4, before)}), {step2 * 1e3:.1f} ms on "
+          f"{rec.after_shape} ({_listed(steps2, after)}), host clock less "
+          f"the save calls, the gathers for them "
+          f"({', '.join(f'{t1 - t0:.3f}s' for t0, t1 in gathers)}) and "
+          f"this script's copies of the saved state "
+          f"({', '.join(f'{t1 - t0:.3f}s' for t0, t1 in hooks)}); peak "
+          f"allocated {peak / 2**30:.2f} GiB; whole run "
+          f"{marks[-1][2] - t_start:.1f}s")
+    print(f"[elastic_tp] sum_chunks launches {n4} on {ELASTIC_TP_SHAPE} "
+          f"(plan {want4} = {per4} a rank a step: data sync + {psums} "
+          f"model-axis all-reduces x {mp - 1}; x {mesh.size} x "
+          f"{len(before)}) and {n2} on {rec.after_shape} (plan {want2} = "
+          f"{per2} x {math.prod(rec.after_shape)} x {len(after)})")
+    for sv in saves:
+        print(f"[elastic_tp] save at step {sv['step']}: waited "
+              f"{sv['wait_s']:.3f}s for the previous save, call "
+              f"{sv['call_s']:.3f}s, durable "
+              f"{sv.get('durable_s', float('nan')):.3f}s after the call "
+              f"began")
+    print(f"[elastic_tp] one save: {save_bytes:,d} bytes on disk")
+    if not same_losses or same_saved != [True]:
+        raise AssertionError("elastic TP run differs from its baseline or "
+                             "its checkpoint")
+    if report.plan_rebuilds != 1 or report.mesh_history != [
+            ELASTIC_TP_SHAPE, (1, mp)] or rec.restored_step != 2:
+        raise AssertionError(report.describe())
+    if n4 != want4 or n2 != want2 or not (n4 and n2):
+        raise AssertionError(f"sum_chunks {n4}/{n2}, plan {want4}/{want2}")
+    if not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"losses {losses}")
+    if not all("durable_s" in sv for sv in saves):
+        raise AssertionError(f"a save never became durable: {saves}")
+    return {"sum_chunks": launches}, dict(
+        restore_s=rec.restore_s, remesh_s=rec.remesh_s,
+        replan_s=rec.replan_s, step_ms_before=step4 * 1e3,
+        step_ms_after=step2 * 1e3, peak_gib=peak / 2**30,
+        save_bytes=save_bytes, saves=saves,
+        gather_s=[t1 - t0 for t0, t1 in gathers])
 
 
 @contextlib.contextmanager
@@ -2671,6 +2950,7 @@ def main() -> int:
     timed("ckpt", phase_ckpt)
     by_path["elastic_train"], _ = timed("elastic_train",
                                         phase_elastic_train)
+    by_path["elastic_tp"], _ = timed("elastic_tp", phase_elastic_tp)
     by_path["collectives_lib"] = lib_launches
     flash_by_path = {"serve_moe": serve_moe["launches"]}
     flash_by_path["elastic_serve"] = timed(

@@ -327,8 +327,12 @@ class CheckpointManager:
     def latest(self) -> Optional[int]:
         return latest_step(self.directory)
 
+    def due(self, step: int) -> bool:
+        """Is ``step`` one that ``maybe_save`` saves?"""
+        return self.every > 0 and step % self.every == 0
+
     def maybe_save(self, step: int, tree: Any, force: bool = False) -> bool:
-        if not force and (self.every <= 0 or step % self.every != 0):
+        if not (force or self.due(step)):
             return False
         t0 = time.perf_counter()
         self.wait()                          # one outstanding save at most

@@ -650,10 +650,12 @@ class Session:
     def remesh(self, mesh: substrate.Mesh) -> bool:
         """THE invalidation path: bind the session to a new mesh of
         thread ranks.  Re-``init``s the engine (the topology-fingerprint
-        rule decides whether the CommPlan rebuilds), then revokes every
-        outstanding persistent handle and rebinds it against the new
-        topology.  Returns whether the plan was rebuilt.  Refuses while a
-        handle has a started but never waited collective."""
+        rule, over every axis: "data", "model", "pod", decides whether
+        the CommPlan rebuilds), then revokes every outstanding persistent
+        handle and rebinds it against the new topology (a handle's mean
+        scale follows its axes' new sizes).  Returns whether the plan was
+        rebuilt.  Refuses while a handle has a started but never waited
+        collective."""
         if self._finalized:
             raise SessionFinalizedError("session is finalized")
         handles = list(self._handles)

@@ -373,18 +373,23 @@ _DTYPES = {dtype_name(d): d for d in (torch.float32, torch.bfloat16,
 
 def plan_buckets(leaves: Sequence[Any],
                  bucket_bytes: Optional[int] = DEFAULT_BUCKET_BYTES,
-                 dtype_aware: bool = True) -> Tuple[GradBucket, ...]:
+                 dtype_aware: bool = True,
+                 keys: Optional[Sequence[bool]] = None
+                 ) -> Tuple[GradBucket, ...]:
     """Group leaves by dtype, then split each group into size-capped
     buckets (the reference's layout: groups in dtype-name order, leaves
-    in tree order; a leaf larger than the cap gets its own bucket)."""
-    groups: Dict[str, List[int]] = {}
+    in tree order; a leaf larger than the cap gets its own bucket).
+    ``keys`` (one a leaf) splits each dtype group further: leaves of
+    different keys never share a bucket, False's buckets first."""
+    groups: Dict[Tuple[str, bool], List[int]] = {}
     for idx, leaf in enumerate(leaves):
         key = dtype_name(leaf.dtype) if dtype_aware else "float32"
-        groups.setdefault(key, []).append(idx)
+        groups.setdefault((key, bool(keys[idx]) if keys else False),
+                          []).append(idx)
 
     buckets: List[GradBucket] = []
     for key in sorted(groups):
-        wire_dtype = _DTYPES[key]
+        wire_dtype = _DTYPES[key[0]]
         itemsize = torch.empty((), dtype=wire_dtype).element_size()
         slots: List[LeafSlot] = []
         offset = 0

@@ -15,6 +15,10 @@ in-process ranks on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch granite-34b --reduced --data 4 --zero --elastic \\
         --fault-plan lose@3:2 --ckpt-dir /tmp/ck --ckpt-sharded --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch granite-34b --reduced --data 4 --model-parallel 2 \\
+        --ckpt-dir /tmp/ck --ckpt-sharded --elastic --fault-plan lose@5:2 \\
+        --steps 8
 
 Counterpart of ``repro.launch.train``: synthetic data -> the §2.2 scan
 and composed session (``build_session``) -> ``--data`` x
@@ -25,11 +29,12 @@ the conventional stack (a monolithic session; each gradient leaf
 averaged through ``comm.collectives``), per leaf or in fused
 buckets (``--bucket-grads``), blocking or as an overlapped schedule-IR
 program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
-checkpoints (``--ckpt-dir``) that restore onto another ``--data`` width.
+checkpoints (``--ckpt-dir``) in the reference's global layout, which
+restore onto another ``--data`` or ``--model-parallel`` width.
 ``--elastic`` hands the loop to ``ElasticController``: injected faults
 (``--fault-plan``), SIGTERM as a preemption notice, and with
-``--ctrl-peers`` the control plane's epoch-fenced vote; checkpoints and
-``--elastic`` are refused with ``--model-parallel > 1``.  Runs on
+``--ctrl-peers`` the control plane's epoch-fenced vote; it re-meshes
+over "data" and "model" alike.  Runs on
 ``cuda`` unless ``--device cpu``; raises without CUDA.  The default
 ``--sync`` is ``composed`` (the reference's is ``auto``), so that
 existing invocations keep their meaning.
@@ -137,7 +142,8 @@ def main(argv=None) -> None:
                          "from it, save into it")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--ckpt-sharded", action="store_true", default=False,
-                    help="write ZeRO optimizer leaves per rank chunk "
+                    help="write ZeRO optimizer leaves per rank chunk and "
+                         "model-split leaves per model rank's block "
                          "(shard files with global indices)")
     ap.add_argument("--data", type=int, default=2,
                     help="data-parallel ranks (threads on one device)")
@@ -161,9 +167,6 @@ def main(argv=None) -> None:
         ap.error("--sync auto is the conventional per-leaf sync: "
                  "--overlap and --bucket-grads need --sync composed or "
                  "compressed")
-    if args.model_parallel > 1 and (args.elastic or args.ckpt_dir):
-        ap.error("--elastic and --ckpt-dir are not ported for model-"
-                 "sharded state: use --model-parallel 1")
     check_elastic_args(ap, args)
     if args.elastic and not args.ckpt_dir:
         ap.error("--elastic needs --ckpt-dir (recovery restores from the "
@@ -199,12 +202,13 @@ def main(argv=None) -> None:
     logger.info("%s session:\n%s", session.engine.config.mode,
                 session.describe())
 
+    sess = trainer.TrainSession(model, opt, tcfg)
     if args.elastic:
         preemption, membership = elastic_signals(args, mesh)
         try:
             ctl = ElasticController(
-                trainer.TrainSession(model, opt, tcfg), ds, mesh,
-                total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                sess, ds, mesh, total_steps=args.steps,
+                ckpt_dir=args.ckpt_dir,
                 comm=session, ckpt_every=args.ckpt_every,
                 ckpt_sharded=args.ckpt_sharded,
                 fault_plan=(FaultPlan.parse(args.fault_plan,
@@ -229,30 +233,27 @@ def main(argv=None) -> None:
             if args.ckpt_dir else None)
     restored, start = None, 0
     if ckpt is not None:
-        restored, rstep = ckpt.restore_latest(
-            trainer.global_abstract_state(model, opt, tcfg, mesh),
-            allow_resize_1d=tcfg.zero)
+        restored, rstep = ckpt.restore_latest(sess.abstract_state(mesh),
+                                              allow_resize_1d=tcfg.zero)
     if restored is not None:
-        states, start = trainer.scatter_state(restored, tcfg, mesh), rstep
+        states, start = sess.scatter(restored, mesh), rstep
         logger.info("restored checkpoint at step %d", start)
     else:
-        gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
-        states = trainer.init_states(model, opt, model.init(gen), tcfg,
-                                     mesh)
-    step_fn = trainer.make_train_step(model, opt, tcfg, comm=session.world)
+        states = sess.init_state(torch.Generator(
+            device=mesh.device).manual_seed(args.seed), mesh=mesh)
+    step_fn = sess.step_fn(session.world)
     t0 = time.time()
     for step in range(start, args.steps):
         states, metrics = step_fn(states, ds.host_batch(step))
-        if ckpt is not None:
-            ckpt.maybe_save(step + 1, trainer.gather_state(states, tcfg))
+        if ckpt is not None and ckpt.due(step + 1):
+            ckpt.maybe_save(step + 1, sess.gather(states, mesh))
         if step % args.log_every == 0 or step == args.steps - 1:
             logger.info("step %4d  loss %.4f  |g| %.3f  lr %.2e  "
                         "(%.2fs/step)", step, float(metrics["loss"]),
                         float(metrics["grad_norm"]), float(metrics["lr"]),
                         (time.time() - t0) / (step - start + 1))
     if ckpt is not None:
-        ckpt.maybe_save(args.steps, trainer.gather_state(states, tcfg),
-                        force=True)
+        ckpt.maybe_save(args.steps, sess.gather(states, mesh), force=True)
         ckpt.wait()
     logger.info("session stats:\n%s", session.finalize())
 

@@ -12,7 +12,8 @@ Prefill and decode write the caches they are given in place (see
 axis of that size computes (``parallel.sharding``): ``init`` still gives
 the full params, ``shard`` a rank's block of them, and ``loss`` /
 ``loss_and_grads`` run on that block inside the rank.  Serving with a
-model axis is not ported.
+model axis is not ported: the reference's serving launcher runs
+``model_parallel=1`` only.
 """
 
 from __future__ import annotations

@@ -23,7 +23,12 @@ partitioner, so it states the same Megatron-style split explicitly:
   gradients are partial sums that the trainer adds over "model"
   (``partial_sum_leaves``).
 - ``shard_params`` / ``unshard_params`` give a rank's shard of a full
-  parameter tree and gather the shards back.
+  parameter tree and gather the shards back; they take a whole train
+  state too, whose AdamW moments and per-leaf EF residual mirror their
+  parameter's split (a leaf's path ends in its parameter's path).
+  ``leaf_block`` / ``leaf_box`` are one leaf's block and its global box:
+  the trainer's checkpoint layout (``train.trainer.gather_state``) is
+  built from them.
 - The two Megatron operators: *f* (``copy_to_model``: identity forward,
   all-reduce over "model" backward) and *g* (``reduce_from_model``:
   all-reduce forward, identity backward), as ``torch.autograd.Function``s.
@@ -139,25 +144,46 @@ def sharded_leaves(paths, lay: TPLayout) -> List[bool]:
     return [leaf_split(p, lay) is not None for p in paths]
 
 
+def leaf_block(path, leaf: torch.Tensor, lay: TPLayout, index: int
+               ) -> torch.Tensor:
+    """Model rank ``index``'s block of the global ``leaf`` at ``path``
+    (a view; the leaf itself when it is replicated)."""
+    d = leaf_split(path, lay)
+    return leaf if d is None else leaf.chunk(lay.model, dim=d)[index]
+
+
+def leaf_box(path, shape, lay: TPLayout, index: int
+             ) -> Tuple[Tuple[int, ...], List[List[int]]]:
+    """(global shape, ``[[lo, hi], ...]`` per dim) of model rank
+    ``index``'s block of the leaf at ``path``, ``shape`` being the
+    block's (local) shape: one ``[lo, hi]`` along the split dim, every
+    other dim whole."""
+    shape = list(shape)
+    box = [[0, n] for n in shape]
+    d = leaf_split(path, lay)
+    if d is not None:
+        n = shape[d]
+        shape[d] = n * lay.model
+        box[d] = [index * n, (index + 1) * n]
+    return tuple(shape), box
+
+
 def shard_params(full: Dict[str, Any], lay: TPLayout, index: int
                  ) -> Dict[str, Any]:
-    """Model rank ``index``'s shard of a full parameter tree, as
-    contiguous copies: a block of every split leaf, every replicated
-    leaf whole."""
+    """Model rank ``index``'s shard of a full parameter tree (or train
+    state), as contiguous copies: a block of every split leaf, every
+    replicated leaf whole."""
     ls, paths = flatten(full)
-    out = []
-    for path, leaf in zip(paths, ls):
-        d = leaf_split(path, lay)
-        if d is not None:
-            leaf = leaf.chunk(lay.model, dim=d)[index]
-        out.append(leaf.contiguous().clone())
-    return unflatten(paths, out)
+    return unflatten(paths, [leaf_block(path, leaf, lay, index)
+                             .contiguous().clone()
+                             for path, leaf in zip(paths, ls)])
 
 
 def unshard_params(shards: List[Dict[str, Any]], lay: TPLayout
                    ) -> Dict[str, Any]:
     """The full tree from the model ranks' shards (in model-rank order):
-    split leaves concatenated, replicated leaves from rank 0."""
+    split leaves concatenated, replicated (and partial-sum) leaves from
+    rank 0."""
     per = [flatten(s) for s in shards]
     paths = per[0][1]
     out = []

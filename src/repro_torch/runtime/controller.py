@@ -18,10 +18,14 @@ that
   5. resumes the step loop at the restored step.
 
 A live grow (members came back) re-meshes the current state without a
-restore.  Ranks are threads of one process on one card
-(``substrate.run_spmd``); a member id is a rank of the original mesh
-(``Mesh.members``), and a lost member is a rank the survivor mesh no
-longer runs.
+restore.  Meshes are ``("data",)``, ``("data", "model")`` or with
+"pod": the checkpoint holds the reference's global tree, so the state
+moves over every axis, and a plan that has to shrink "model" (fewer
+survivors than one model group) runs the same run on the model rebuilt
+for the new width (``TrainSession.model_for``).  Ranks are threads of
+one process on one card (``substrate.run_spmd``); a member id is a rank
+of the original mesh (``Mesh.members``), and a lost member is a rank the
+survivor mesh no longer runs.
 
 Determinism contract: the data pipeline is a pure function of step and
 the checkpoint carries the step counter, so every loss from the
@@ -357,6 +361,10 @@ class ElasticController(SurvivorAgreement):
                 or self.report.mesh_history[-1] != shape:
             self.report.mesh_history.append(shape)
 
+    def _gathered(self):
+        """The per-rank states as one tree in the checkpoint layout."""
+        return self.session.gather(self.states, self.mesh)
+
     def _fresh_states(self, mesh):
         gen = torch.Generator(device=mesh.device).manual_seed(self.rng_seed)
         return self.session.init_state(gen, mesh=mesh)
@@ -442,7 +450,8 @@ class ElasticController(SurvivorAgreement):
         t0 = time.perf_counter()
         self.states = elastic.remesh(
             self.states, self.session.cfg,
-            self.session.abstract_state(mesh=new_mesh), new_mesh)
+            self.session.abstract_state(mesh=new_mesh), new_mesh,
+            mesh=self.mesh, model=self.session.model)
         remesh_s = time.perf_counter() - t0
         rebuilt, replan_s = self._engine_reinit(new_mesh)
         self.report.recoveries.append(RecoveryRecord(
@@ -508,8 +517,7 @@ class ElasticController(SurvivorAgreement):
                 self.states = self.session.scatter(tree, self.mesh)
             else:
                 self.states, step = self._fresh_states(self.mesh), 0
-                self.ckpt.maybe_save(0, self.session.gather(self.states),
-                                     force=True)
+                self.ckpt.maybe_save(0, self._gathered(), force=True)
         else:
             step = 0
 
@@ -528,8 +536,8 @@ class ElasticController(SurvivorAgreement):
                     if self.on_step is not None:
                         self.on_step(step, loss)
                     step += 1
-                    self.ckpt.maybe_save(step,
-                                         self.session.gather(self.states))
+                    if self.ckpt.due(step):   # gathers only to save
+                        self.ckpt.maybe_save(step, self._gathered())
                     self._check_stall(step - 1)
                 except DeviceLoss as e:
                     step = self._recover(step, e)
@@ -545,8 +553,7 @@ class ElasticController(SurvivorAgreement):
                                    step, victims, e)
                     self.mark_unhealthy(victims)
                     step = self._recover(step, DeviceLoss(victims))
-            self.ckpt.maybe_save(self.total_steps,
-                                 self.session.gather(self.states),
+            self.ckpt.maybe_save(self.total_steps, self._gathered(),
                                  force=True)
             self.ckpt.wait()
         except QuorumLostError:
@@ -556,8 +563,7 @@ class ElasticController(SurvivorAgreement):
             logger.error("quorum lost at step %d: checkpointing and "
                          "halting (no re-mesh without agreement)", step)
             self.ckpt.wait()
-            self.ckpt.maybe_save(step, self.session.gather(self.states),
-                                 force=True)
+            self.ckpt.maybe_save(step, self._gathered(), force=True)
             self.ckpt.wait()
             raise
         finally:

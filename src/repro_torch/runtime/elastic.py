@@ -8,7 +8,8 @@ input the reference takes, and also plans the port's one-axis
 ``("data",)`` meshes (``ndim=1``).  ``make_mesh_from_shape`` builds the
 thread-rank mesh for a planned shape over chosen member ids, and
 ``remesh`` re-lays live per-rank train states onto it through the
-checkpoint layout (``trainer.gather_state`` / ``scatter_state``).  The
+checkpoint layout, the reference's global tree (``trainer.gather_state``
+/ ``scatter_state``), over "data" and "model" alike.  The
 crash-recovery path:
 
     ranks die -> plan_mesh_shape -> restore the latest checkpoint in the
@@ -111,17 +112,22 @@ def _fit_1d(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def remesh(states: List[Any], cfg, abstract_tree: Any,
-           new_mesh: substrate.Mesh) -> List[Any]:
-    """Re-lay per-rank train states onto ``new_mesh``: gather them into
-    the checkpoint layout (``trainer.gather_state``), fit each flat leaf
-    whose global length follows the data-parallel width (ZeRO) to
-    ``abstract_tree`` — that layout for the new mesh
-    (``trainer.global_abstract_state``) — and scatter it to the new
-    ranks (``trainer.scatter_state``): the live grow's path, where no
-    checkpoint is read.  The new states are copies on the new mesh's
-    device."""
+           new_mesh: substrate.Mesh, *, mesh: substrate.Mesh,
+           model) -> List[Any]:
+    """Re-lay per-rank train states of ``mesh`` onto ``new_mesh``: gather
+    them into the checkpoint layout, the reference's global tree
+    (``trainer.gather_state``), fit each flat leaf whose global length
+    follows the data-parallel width (ZeRO) to ``abstract_tree`` — that
+    layout for the new mesh (``trainer.global_abstract_state``) — and
+    scatter it to the new ranks (``trainer.scatter_state``): the live
+    grow's path, where no checkpoint is read.  ``mesh`` is the one the
+    states run on and ``model`` the run's model (built for any width):
+    together they say how the states are split over "data" and "model".
+    The new mesh's "model" axis may be another width; each new rank
+    takes its block of every split leaf.  The new states are copies on
+    the new mesh's device."""
     from repro_torch.train import trainer   # trainer imports the runtime
-    tree = trainer.gather_state(states, cfg)
+    tree = trainer.gather_state(states, cfg, mesh, model)
     ls, paths = flatten(tree)
     want = flatten(abstract_tree)[0]
     if len(want) != len(ls):
@@ -134,4 +140,4 @@ def remesh(states: List[Any], cfg, abstract_tree: Any,
         if l.ndim == 1 and tuple(l.shape) != tuple(ref.shape):
             l = _fit_1d(l, int(ref.shape[0]))
         out.append(l)
-    return trainer.scatter_state(unflatten(paths, out), cfg, new_mesh)
+    return trainer.scatter_state(unflatten(paths, out), cfg, new_mesh, model)

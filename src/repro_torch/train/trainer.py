@@ -45,6 +45,13 @@ and the reference's ways of running that sync:
 ``TrainSession`` bundles what survives a re-mesh (model, optimizer,
 ``TrainCfg``) for the elastic controller.
 
+The checkpoint layout is the reference's global tree on any mesh
+(``gather_state`` / ``scatter_state``): every leaf whole (a split
+leaf's blocks carry their global boxes), ZeRO's optimizer leaves flat
+over the whole param and padded to the data width, the bucketed EF
+residual in the global params' buckets.  A tree gathered on one
+``(data, model)`` mesh scatters onto any other.
+
 A mesh with a "model" axis trains a model built for it
 (``build_model(cfg, model_parallel=...)``): each rank holds its shard
 (``init_states``), its backward is staged (``Model.loss_and_grads``),
@@ -143,10 +150,18 @@ def _grad_structs(params, cfg: TrainCfg) -> List[torch.Tensor]:
             for l in leaves(params)]
 
 
-def grad_bucket_plan(params, cfg: TrainCfg) -> tuple:
+def grad_bucket_plan(params, cfg: TrainCfg, layout=None) -> tuple:
     """The dtype-grouped bucket layout of the step's fused sync
-    (deterministic in shapes, dtypes, order and ``bucket_bytes``)."""
-    return plan_mod.plan_buckets(_grad_structs(params, cfg), cfg.bucket_bytes)
+    (deterministic in shapes, dtypes, order and ``bucket_bytes``).  With
+    a model axis (``layout``, of a model rank's shard ``params``) a leaf
+    split over "model" never shares a bucket with one every model rank
+    holds whole: the compressed sync's int8 blocks would span both, so
+    each rank's blocks would give the whole leaf other scales, and the
+    model ranks other updates of it."""
+    keys = (None if layout is None else
+            sharding.sharded_leaves(flatten(params)[1], layout))
+    return plan_mod.plan_buckets(_grad_structs(params, cfg),
+                                 cfg.bucket_bytes, keys=keys)
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +220,8 @@ def make_train_state(model, optimizer, params: Params,
              "step": torch.zeros((), dtype=torch.int32)}
     if cfg.sync_mode == "compressed":
         if cfg.bucket_grads:
-            state["ef"] = bucket_ef_zeros(grad_bucket_plan(params, cfg),
-                                          device=device)
+            state["ef"] = bucket_ef_zeros(
+                grad_bucket_plan(params, cfg, model.layout), device=device)
         else:
             state["ef"] = map_tree(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
@@ -262,12 +277,73 @@ def _zero_opt_leaf(path) -> bool:
     return path[0] == "opt" and path[1:] != ("step",)
 
 
+def with_model_parallel(model, m: int):
+    """``model`` built for a "model" axis of ``m`` ranks (itself when it
+    is): the width is a property of the model a mesh runs, not of the
+    state, which the checkpoint layout holds whole."""
+    if model.model_parallel == m:
+        return model
+    return dataclasses.replace(model, model_parallel=m)
+
+
+def _layout_on(model, mesh) -> Optional[sharding.TPLayout]:
+    """The split of ``model``'s config over ``mesh``'s "model" axis (None
+    without a model axis)."""
+    return with_model_parallel(model, _model_size(mesh)).layout
+
+
+def _bucket_leaves(flats, buckets, n: int) -> List[torch.Tensor]:
+    """Each gradient leaf's slice of a bucketed EF residual (views)."""
+    out = [None] * n
+    for b, flat in zip(buckets, flats):
+        for sl in b.slots:
+            out[sl.index] = flat[sl.offset:sl.offset + sl.size].view(
+                sl.shape)
+    return out
+
+
+def _bucket_plans(model, cfg: TrainCfg, lay):
+    """(param paths, the bucket plan of a model rank's shard, of the
+    global params): the EF layouts of a compressed, bucketed run."""
+    local = with_model_parallel(model, lay.model).abstract_params()
+    whole = with_model_parallel(model, 1).abstract_params()
+    return (flatten(local)[1], grad_bucket_plan(local, cfg, lay),
+            grad_bucket_plan(whole, cfg))
+
+
+def _global_ef(model, cfg: TrainCfg, lay, efs) -> tuple:
+    """The reference's bucketed EF residual (one flat f32 vector a
+    bucket of the global params) from each model rank's (one a bucket of
+    its shard; ``efs`` in model-rank order).  The residual is per value,
+    so each leaf's values move: a split leaf's blocks join, and a leaf
+    every model rank holds whole is model rank 0's, as data rank 0's
+    stands for the data ranks'."""
+    paths, local, whole = _bucket_plans(model, cfg, lay)
+    per = [_bucket_leaves(ef, local, len(paths)) for ef in efs]
+    leaves_ = [per[0][j] if sharding.leaf_split(path, lay) is None
+               else torch.cat([pm[j] for pm in per],
+                              dim=sharding.leaf_split(path, lay))
+               for j, path in enumerate(paths)]
+    return tuple(torch.cat([leaves_[sl.index].reshape(-1)
+                            for sl in b.slots]) for b in whole)
+
+
+def _local_ef(model, cfg: TrainCfg, lay, ef, m: int) -> tuple:
+    """Model rank ``m``'s bucketed EF residual from the global one."""
+    paths, local, whole = _bucket_plans(model, cfg, lay)
+    per = _bucket_leaves(ef, whole, len(paths))
+    return tuple(torch.cat([
+        sharding.leaf_block(paths[sl.index], per[sl.index], lay, m)
+        .reshape(-1) for sl in b.slots]) for b in local)
+
+
 def global_abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg(),
                           mesh=None):
-    """The checkpoint layout as ``meta`` tensors: one rank's state, except
-    that with ``cfg.zero`` each optimizer leaf is the whole flat leaf
-    padded to a multiple of the width (the reference's global layout)."""
-    st = abstract_state(model, optimizer, cfg, mesh)
+    """The checkpoint layout as ``meta`` tensors: the reference's global
+    tree, built from the whole config (every leaf whole, whatever the
+    model axis); with ``cfg.zero`` each optimizer leaf is the whole
+    param's flat length padded to a multiple of the data width."""
+    st = abstract_state(with_model_parallel(model, 1), optimizer, cfg, mesh)
     if not cfg.zero:
         return st
     p = zero_layout(cfg, mesh)[1]
@@ -277,46 +353,154 @@ def global_abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg(),
         if _zero_opt_leaf(path) else l for path, l in zip(paths, ls)])
 
 
-def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg) -> Any:
-    """The run's state as one tree (what a checkpoint saves): rank 0's
-    replicated leaves (the EF residual is each rank's own; like the
-    reference's checkpoint, this keeps rank 0's), and with ``cfg.zero``
-    each optimizer leaf as a ``ShardedTensor`` of the ranks' chunks with
-    their global indices.  No copies are made."""
-    if not cfg.zero:
-        return states[0]
-    paths = flatten(states[0])[1]
-    per_rank = [flatten(st)[0] for st in states]
-    out = []
-    for i, (path, l) in enumerate(zip(paths, per_rank[0])):
-        if not _zero_opt_leaf(path):
-            out.append(l)
+def _model_groups(mesh, zaxis: Optional[str]) -> List[List[int]]:
+    """For each model coordinate, in order: its ranks at coordinate 0 of
+    every other axis, except ``zaxis`` (ZeRO's), whose ranks it lists in
+    coordinate order."""
+    groups: Dict[int, List[Tuple[int, int]]] = {}
+    for r in range(mesh.size):
+        c = mesh.coords(r)
+        if any(v for a, v in c.items() if a not in (sharding.MODEL_AXIS,
+                                                     zaxis)):
             continue
-        c = l.shape[0]
-        out.append(ShardedTensor(
-            (c * len(states),), l.dtype,
-            [([[r * c, (r + 1) * c]], ls[i])
-             for r, ls in enumerate(per_rank)]))
-    return unflatten(paths, out)
+        groups.setdefault(c.get(sharding.MODEL_AXIS, 0), []).append(
+            (c.get(zaxis, 0), r))
+    return [[r for _, r in sorted(groups[m])] for m in sorted(groups)]
 
 
-def scatter_state(tree: Any, cfg: TrainCfg, mesh) -> List[Dict[str, Any]]:
+def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
+                 model) -> Any:
+    """The run's state on ``mesh`` (of ``model``, built for any model
+    width) as one tree in the reference's global layout (what a
+    checkpoint saves), read from the ranks at data coordinate 0 (the EF
+    residual is each rank's own; like the reference's checkpoint, this
+    keeps theirs).  No copies are made, except for ZeRO's optimizer
+    leaves of split params and a bucketed EF residual over "model":
+
+    - a leaf every model rank holds whole is rank 0's tensor;
+    - a leaf split over "model" is a ``ShardedTensor`` of the model
+      ranks' blocks, each with its global box, so a sharded save writes
+      one file a block;
+    - with ``cfg.zero`` an optimizer leaf of a whole param is a
+      ``ShardedTensor`` of the data ranks' chunks of the flat padded
+      leaf.  One of a split param is written dense, on the host: the
+      chunks are of each model rank's flat block, which a column split
+      strides through the global flat order, so each model rank's chunks
+      are joined, cut to its block, the blocks joined over "model", and
+      the whole leaf flattened and padded to the data width;
+    - a bucketed EF residual over "model" is the global params' buckets,
+      each leaf's values moved from its model ranks' buckets."""
+    lay = _layout_on(model, mesh)
+    zaxis, p = zero_layout(cfg, mesh) if cfg.zero else (None, 1)
+    groups = _model_groups(mesh, zaxis)
+    ef = None
+    if lay is not None and isinstance(states[0].get("ef"), tuple):
+        ef = _global_ef(model, cfg, lay,
+                        [states[g[0]]["ef"] for g in groups])
+        states = [{k: v for k, v in st.items() if k != "ef"}
+                  for st in states]
+    paths = flatten(states[0])[1]
+    per_rank = {r: flatten(states[r])[0] for g in groups for r in g}
+    first = per_rank[groups[0][0]]
+    shapes = {path[1:]: tuple(l.shape) for path, l in zip(paths, first)
+              if path[0] == "params"}
+    out = []
+    for i, path in enumerate(paths):
+        l = first[i]
+        d = None if lay is None else sharding.leaf_split(path, lay)
+        if cfg.zero and _zero_opt_leaf(path) and d is None:
+            c = l.shape[0]
+            out.append(ShardedTensor((c * p,), l.dtype, [
+                ([[k * c, (k + 1) * c]], per_rank[r][i])
+                for k, r in enumerate(groups[0])]))
+        elif cfg.zero and _zero_opt_leaf(path):
+            shape = shapes[path[2:]]
+            n = math.prod(shape)
+            whole, _ = sharding.leaf_box(path, shape, lay, 0)
+            flat = torch.empty(_zero_pad_len(math.prod(whole), p),
+                               dtype=l.dtype)
+            flat[math.prod(whole):].zero_()
+            dense = flat[:math.prod(whole)].view(whole)
+            c = l.shape[0]       # staged in pinned memory off a card
+            own = torch.empty(c * p, dtype=l.dtype, pin_memory=l.is_cuda)
+            for m, g in enumerate(groups):
+                for k, r in enumerate(g):     # this model rank's chunks
+                    own[k * c:(k + 1) * c].copy_(per_rank[r][i])
+                sharding.leaf_block(path, dense, lay, m).copy_(
+                    own[:n].view(shape))
+            out.append(flat)
+        elif d is not None:
+            boxes = [sharding.leaf_box(path, l.shape, lay, m)
+                     for m in range(len(groups))]
+            out.append(ShardedTensor(boxes[0][0], l.dtype, [
+                (box, per_rank[g[0]][i]) for (_, box), g in zip(boxes,
+                                                                groups)]))
+        else:
+            out.append(l)
+    tree = unflatten(paths, out)
+    if ef is not None:
+        tree["ef"] = ef
+    return tree
+
+
+def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
+                  ) -> List[Dict[str, Any]]:
     """Per-rank states on ``mesh`` from a tree in the checkpoint layout
-    (``global_abstract_state`` for this mesh's width): with ``cfg.zero``
-    rank r takes chunk r of every optimizer leaf, everything else is
-    copied to each rank.  Tensors go to the mesh's device, the step
-    counters to the host, where ``make_train_state`` puts them."""
+    (``global_abstract_state`` for this mesh's data width, saved at any
+    model width): rank r takes its model coordinate's block of every
+    split leaf (``model`` on a mesh with a model axis) and, with
+    ``cfg.zero``, its data coordinate's chunk of the flat padded block of
+    every optimizer leaf; every other leaf is copied whole.  Tensors go to
+    the mesh's device, the step counters to the host, where
+    ``make_train_state`` puts them."""
+    lay = _layout_on(model, mesh)
+    zaxis, p = zero_layout(cfg, mesh) if cfg.zero else (None, 1)
+    ef = None
+    if lay is not None and isinstance(tree.get("ef"), tuple):
+        ef = tree["ef"]
+        tree = {k: v for k, v in tree.items() if k != "ef"}
     ls, paths = flatten(tree)
+    shapes = {path[1:]: tuple(l.shape) for path, l in zip(paths, ls)
+              if path[0] == "params"}
+    blocks: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def block(i, path, l, m):
+        """Model rank m's block of leaf i; a ZeRO optimizer leaf's flat
+        and padded to the data width."""
+        if (i, m) in blocks:
+            return blocks[i, m]
+        d = None if lay is None else sharding.leaf_split(path, lay)
+        if d is None:
+            x = l
+        elif cfg.zero and _zero_opt_leaf(path):
+            shape = shapes[path[2:]]
+            x = sharding.leaf_block(path, l[:math.prod(shape)].view(shape),
+                                    lay, m).reshape(-1)
+            x = torch.cat([x, x.new_zeros(
+                _zero_pad_len(x.numel(), p) - x.numel())])
+        else:
+            x = sharding.leaf_block(path, l, lay, m)
+        blocks[i, m] = x
+        return x
+
     states = []
     for r in range(mesh.size):
+        c = mesh.coords(r)
+        m, k = c.get(sharding.MODEL_AXIS, 0), c.get(zaxis, 0)
         out = []
-        for path, l in zip(paths, ls):
-            dev = "cpu" if path[-1] == "step" else mesh.device
+        for i, (path, l) in enumerate(zip(paths, ls)):
+            x = block(i, path, l, m if lay is not None else 0)
             if cfg.zero and _zero_opt_leaf(path):
-                c = l.shape[0] // mesh.size
-                l = l[r * c:(r + 1) * c]
-            out.append(l.to(dev, copy=True))
-        states.append(unflatten(paths, out))
+                cs = x.shape[0] // p
+                x = x[k * cs:(k + 1) * cs]
+            y = x.to("cpu" if path[-1] == "step" else mesh.device,
+                     copy=True)
+            out.append(y if y.is_contiguous() else y.contiguous())
+        st = unflatten(paths, out)
+        if ef is not None:
+            st["ef"] = tuple(t.to(mesh.device, copy=True)
+                             for t in _local_ef(model, cfg, lay, ef, m))
+        states.append(st)
     return states
 
 
@@ -326,7 +510,7 @@ def logical_state(tree) -> Any:
     padding dropped, so the states of two widths compare leaf for
     leaf."""
     ls, paths = flatten(tree)
-    sizes = {path[1:]: l.numel() for path, l in zip(paths, ls)
+    sizes = {path[1:]: math.prod(l.shape) for path, l in zip(paths, ls)
              if path[0] == "params"}
     out = []
     for path, l in zip(paths, ls):
@@ -522,7 +706,7 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     # wire bytes of the planned call).
     buckets, bucket_handles, sched = (), (), None
     if cfg.bucket_grads:
-        buckets = grad_bucket_plan(params_abs, cfg)
+        buckets = grad_bucket_plan(params_abs, cfg, model.layout)
         if not compress:
             bucket_handles = tuple(
                 dcomm.persistent("all_reduce", (b.size,), b.wire_dtype,
@@ -806,12 +990,24 @@ class TrainSession:
     model, optimizer, ``TrainCfg``, and through them the state structure
     and bucket layout — live here, so the launcher and the controller
     build them once and the same way.  ``mesh=`` is required with
-    ``cfg.zero`` (the state layout depends on the data-parallel width).
+    ``cfg.zero`` (the state layout depends on the data-parallel width)
+    and with a model axis.
+
+    The checkpoint layout is the reference's global tree, whatever the
+    model axis: ``gather`` reads it off the states of any mesh and
+    ``scatter`` lays it onto any other, at another data width or another
+    model width.  The model a mesh runs is ``model`` rebuilt for the
+    mesh's "model" axis (``model_for``), so a plan that had to shrink
+    the model axis runs the same run on fewer model ranks.
     """
 
     model: Any
     optimizer: Any
     cfg: TrainCfg = TrainCfg()
+
+    def model_for(self, mesh):
+        """The model for ``mesh``'s "model" axis."""
+        return with_model_parallel(self.model, _model_size(mesh))
 
     def abstract_state(self, mesh=None):
         """The run's state in the checkpoint layout as ``meta`` tensors
@@ -822,34 +1018,28 @@ class TrainSession:
     def init_state(self, gen: Optional[torch.Generator] = None, mesh=None
                    ) -> List[Dict[str, Any]]:
         """Fresh per-rank states on ``mesh``'s device: weights from
-        ``model.init(gen)``, replicated to every rank."""
+        ``model.init(gen)``, each rank given its shard."""
         if mesh is None:
             raise ValueError("init_state needs the mesh its ranks run on")
         if gen is None:
             gen = torch.Generator(device=mesh.device).manual_seed(0)
-        return init_states(self.model, self.optimizer, self.model.init(gen),
-                           self.cfg, mesh)
+        return init_states(self.model_for(mesh), self.optimizer,
+                           self.model.init(gen), self.cfg, mesh)
 
     def step_fn(self, comm: Communicator) -> Callable:
         """The topology-bound train step over ``comm`` (the session's
         world communicator); built again after every re-mesh."""
-        return make_train_step(self.model, self.optimizer, self.cfg,
-                               comm=comm)
+        return make_train_step(self.model_for(comm.mesh), self.optimizer,
+                               self.cfg, comm=comm)
 
-    def _unsharded(self) -> None:
-        if self.model.model_parallel > 1:
-            raise NotImplementedError(
-                "checkpoints of model-sharded state are not ported")
-
-    def gather(self, states: List[Dict[str, Any]]) -> Any:
-        """The per-rank states as one tree in the checkpoint layout."""
-        self._unsharded()
-        return gather_state(states, self.cfg)
+    def gather(self, states: List[Dict[str, Any]], mesh) -> Any:
+        """The per-rank states of ``mesh`` as one tree in the checkpoint
+        layout."""
+        return gather_state(states, self.cfg, mesh, self.model)
 
     def scatter(self, tree: Any, mesh) -> List[Dict[str, Any]]:
         """Per-rank states on ``mesh`` from a checkpoint-layout tree."""
-        self._unsharded()
-        return scatter_state(tree, self.cfg, mesh)
+        return scatter_state(tree, self.cfg, mesh, self.model)
 
     def batch_axes(self) -> Tuple[str, ...]:
         """Axes the global batch splits over (filtered to the mesh's

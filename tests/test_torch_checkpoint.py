@@ -20,6 +20,8 @@ two packages.
   devices does the reference's side.
 """
 
+import dataclasses
+import math
 import os
 
 import jax
@@ -38,9 +40,11 @@ from repro_torch.data import SyntheticLMDataset
 from repro_torch.launch.train import build_session
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel import sharding
 from repro_torch.runtime import substrate as S
+from repro_torch.runtime.elastic import remesh
 from repro_torch.train import trainer
-from repro_torch.tree import flatten, leaves, map_tree
+from repro_torch.tree import flatten, leaves, map_tree, unflatten
 
 
 def _meta(tree):
@@ -190,8 +194,9 @@ def _zero_run(p, steps, states=None):
 @pytest.mark.parametrize("p_from,p_to", [(4, 2), (2, 4)])
 def test_zero_checkpoint_reshards_onto_another_width(tmp_path, p_from,
                                                      p_to):
-    states, _, _ = _zero_run(p_from, 2)
-    saved = trainer.gather_state(states, trainer.TrainCfg(zero=True))
+    states, _, (_, _, tcfg_from, mesh_from) = _zero_run(p_from, 2)
+    model = build_model(get_config("granite-34b", reduced=True))
+    saved = trainer.gather_state(states, tcfg_from, mesh_from, model)
     want = map_tree(lambda t: t.clone(), trainer.logical_state(saved))
     d = str(tmp_path / "ck")
     mgr = CheckpointManager(d, every=1, async_=True, sharded=True)
@@ -205,15 +210,14 @@ def test_zero_checkpoint_reshards_onto_another_width(tmp_path, p_from,
     assert sum("shards" in e for e in man["leaves"]) == 2 * 11
     assert all(len(e["shards"]) == p_from for e in man["leaves"]
                if "shards" in e)
-    model = build_model(get_config("granite-34b", reduced=True))
     tcfg = trainer.TrainCfg(zero=True, overlap=True)
     mesh = S.make_host_mesh(p_to, device="cpu")
     tree, step = mgr.restore_latest(trainer.global_abstract_state(
         model, make_optimizer("adamw"), tcfg, mesh), allow_resize_1d=True)
     assert step == 2
-    restored = trainer.scatter_state(tree, tcfg, mesh)
-    _assert_trees_equal(
-        trainer.logical_state(trainer.gather_state(restored, tcfg)), want)
+    restored = trainer.scatter_state(tree, tcfg, mesh, model)
+    _assert_trees_equal(trainer.logical_state(
+        trainer.gather_state(restored, tcfg, mesh, model)), want)
     _, losses, _ = _zero_run(p_to, 1, states=restored)
     assert np.isfinite(losses).all()
 
@@ -259,6 +263,7 @@ opt = make_optimizer("adamw", lr=1e-3)
 mesh = substrate.make_mesh((4,), ("data",))
 tcfg = trainer.TrainCfg(sync_mode="composed", data_axes=("data",),
                         zero=True)
+tp = {tp!r}
 rng = np.random.RandomState(0)
 state = trainer.make_train_state(model, opt, jax.random.PRNGKey(0),
                                  cfg=tcfg, mesh=mesh)
@@ -280,27 +285,99 @@ port = manager.restore_checkpoint(
     allow_resize_1d=False)
 np.savez({port_npz!r}, **{{str(i): np.asarray(l) for i, l in
                            enumerate(jax.tree_util.tree_leaves(port))}})
+
+# a (data 2, model 2) run's state, ZeRO-1 and compressed with bucketed EF
+mesh = substrate.make_mesh((2, 2), ("data", "model"))
+for kind, tcfg in (("zero", trainer.TrainCfg(
+        sync_mode="composed", data_axes=("data",), zero=True)),
+                   ("ef", trainer.TrainCfg(
+        sync_mode="compressed", data_axes=("data",), bucket_grads=True,
+        bucket_bytes={bucket_bytes}))):
+    state = trainer.make_train_state(model, opt, jax.random.PRNGKey(0),
+                                     cfg=tcfg, mesh=mesh)
+    state = jax.tree_util.tree_map(
+        lambda x: (rng.randn(*x.shape) if x.ndim else np.asarray(3)
+                   ).astype(x.dtype), state)
+    with substrate.set_mesh(mesh):
+        state = jax.device_put(state, named_shardings(
+            mesh, trainer.state_specs(model, opt, tcfg, mesh=mesh)))
+    flat = jax.tree_util.tree_flatten_with_path(state)[0]
+    assert any(not l.is_fully_replicated for _, l in flat)
+    np.savez(tp[kind]["ref_npz"], **{{str(i): np.asarray(l)
+                                     for i, (_, l) in enumerate(flat)}})
+    manager.save_checkpoint(tp[kind]["ref_dir"], 1, state, sharded=True)
+    port = manager.restore_checkpoint(
+        tp[kind]["port_dir"], trainer.make_train_state(
+            model, opt, abstract=True, cfg=tcfg, mesh=mesh))
+    np.savez(tp[kind]["port_npz"], **{{str(i): np.asarray(l) for i, l in
+                                       enumerate(jax.tree_util.tree_leaves(
+                                           port))}})
 print("CHILD OK")
 """
 
 
+TP_TCFGS = {"zero": {"zero": True},
+            "ef": {"sync_mode": "compressed", "bucket_grads": True,
+                   "bucket_bytes": 1 << 14}}
+
+
+def _tp_run(kind, shape=(2, 2), steps=1):
+    """A (data, model) run of the reduced granite-34b, ``kind`` one of
+    ``TP_TCFGS``: (session, mesh, states after ``steps`` steps)."""
+    cfg = get_config("granite-34b", reduced=True)
+    sess = trainer.TrainSession(
+        build_model(cfg, model_parallel=2),
+        make_optimizer("adamw", lr=1e-3, clip_norm=0.0),
+        trainer.TrainCfg(data_axes=("data",), **TP_TCFGS[kind]))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=16,
+                            global_batch=12)
+    mesh = S.make_mesh(shape, ("data", "model"), device="cpu")
+    states = sess.init_state(torch.Generator().manual_seed(0), mesh=mesh)
+    step_fn = sess.step_fn(build_session(mesh, sess.model, sess.optimizer,
+                                         ds, sess.cfg).world)
+    for s in range(steps):
+        states, metrics = step_fn(states, ds.host_batch(s))
+        assert np.isfinite(metrics["loss"].item())
+    return sess, mesh, states
+
+
+def _dense(tree):
+    return [l.dense() if isinstance(l, ShardedTensor) else l
+            for l in leaves(tree)]
+
+
 @pytest.fixture(scope="module")
 def crossed(tmp_path_factory):
-    """A port ZeRO checkpoint (4 ranks, 1 step, sharded) and the child's
-    outputs: the reference's dense and sharded checkpoints of its own
-    state (with that state as npz), and the port's checkpoint as the
-    reference restored it (npz)."""
+    """A port ZeRO checkpoint (4 ranks, 1 step, sharded), port
+    checkpoints of (data 2, model 2) runs (``TP_TCFGS``, 1 step,
+    sharded), and the child's outputs: the reference's dense and sharded
+    checkpoints of its own state and sharded ones of its (2, 2) states
+    (with those states as npz), and the port's checkpoints as the
+    reference restored them (npz)."""
     root = tmp_path_factory.mktemp("cross")
     paths = {k: str(root / k) for k in ("port_dir", "ref_dense",
                                         "ref_sharded")}
     paths.update({k: str(root / (k + ".npz"))
                   for k in ("ref_npz", "port_npz")})
+    tp = {kind: {k: str(root / (f"{k}_tp_{kind}"
+                                + (".npz" if k.endswith("npz") else "")))
+                 for k in ("ref_dir", "port_dir", "ref_npz", "port_npz")}
+          for kind in TP_TCFGS}
     states, _, (model, opt, tcfg, mesh) = _zero_run(4, 1)
-    saved = trainer.gather_state(states, tcfg)
+    saved = trainer.gather_state(states, tcfg, mesh, model)
     save_checkpoint(paths["port_dir"], 1, saved, sharded=True)
-    out = run_subprocess_script(CHILD.format(**paths), devices=4)
+    tp_runs = {}
+    for kind in TP_TCFGS:
+        sess, mesh22, st22 = _tp_run(kind)
+        tp_runs[kind] = (sess, mesh22, sess.gather(st22, mesh22))
+        save_checkpoint(tp[kind]["port_dir"], 1, tp_runs[kind][2],
+                        sharded=True)
+    out = run_subprocess_script(CHILD.format(
+        tp=tp, bucket_bytes=TP_TCFGS["ef"]["bucket_bytes"], **paths),
+        devices=4)
     assert "CHILD OK" in out
-    return paths, trainer.logical_state(saved), saved, (model, opt, tcfg, mesh)
+    return (paths, trainer.logical_state(saved), saved,
+            (model, opt, tcfg, mesh), tp, tp_runs)
 
 
 def _npz_leaves(path):
@@ -310,7 +387,7 @@ def _npz_leaves(path):
 
 @pytest.mark.parametrize("layout", ["ref_dense", "ref_sharded"])
 def test_reference_checkpoint_restores_through_the_port(crossed, layout):
-    paths, _, _, (model, opt, tcfg, mesh) = crossed
+    paths, _, _, (model, opt, tcfg, mesh), _, _ = crossed
     if layout == "ref_sharded":
         man = load_manifest(paths[layout])
         assert any("shards" in e for e in man["leaves"])
@@ -321,19 +398,157 @@ def test_reference_checkpoint_restores_through_the_port(crossed, layout):
     assert len(ls) == len(want)
     for t, w in zip(ls, want):
         assert _bits_equal(t, torch.from_numpy(np.array(w)))
-    states = trainer.scatter_state(got, tcfg, mesh)   # and it trains
+    states = trainer.scatter_state(got, tcfg, mesh, model)   # and it trains
     _, losses, _ = _zero_run(4, 1, states=states)
     assert np.isfinite(losses).all()
 
 
 def test_port_checkpoint_restores_through_the_reference(crossed):
-    paths, _, saved, _ = crossed
+    paths, _, saved, _, _, _ = crossed
     got = _npz_leaves(paths["port_npz"])
     want = [l.dense() if isinstance(l, ShardedTensor) else l
             for l in leaves(saved)]
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert _bits_equal(torch.from_numpy(np.array(g)), w)
+
+
+@pytest.mark.parametrize("kind", list(TP_TCFGS))
+def test_reference_tp_checkpoint_restores_through_the_port(crossed, kind):
+    """The reference's (2, 2) state, saved per shard (its boxes split
+    over "data" too), restores bit-equal; scattered onto the port's
+    (2, 2) ranks and gathered back it is the same global tree, and it
+    trains."""
+    _, _, _, _, tp, tp_runs = crossed
+    sess, mesh, _ = tp_runs[kind]
+    assert any("shards" in e for e in load_manifest(
+        tp[kind]["ref_dir"])["leaves"])
+    got = restore_checkpoint(tp[kind]["ref_dir"],
+                             sess.abstract_state(mesh=mesh))
+    want = [torch.from_numpy(np.array(w))
+            for w in _npz_leaves(tp[kind]["ref_npz"])]
+    assert len(leaves(got)) == len(want)
+    for t, w in zip(leaves(got), want):
+        assert _bits_equal(t, w)
+    states = sess.scatter(got, mesh)
+    _assert_trees_equal(
+        trainer.logical_state(sess.gather(states, mesh)),
+        trainer.logical_state(got))
+    cfg = sess.model.cfg
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=16,
+                            global_batch=12)
+    _, metrics = sess.step_fn(build_session(
+        mesh, sess.model, sess.optimizer, ds, sess.cfg).world)(
+            states, ds.host_batch(1))
+    assert np.isfinite(metrics["loss"].item())
+
+
+@pytest.mark.parametrize("kind", list(TP_TCFGS))
+def test_port_tp_checkpoint_restores_through_the_reference(crossed, kind):
+    _, _, _, _, tp, tp_runs = crossed
+    man = load_manifest(tp[kind]["port_dir"])
+    assert sum("shards" in e for e in man["leaves"]) > 0
+    got = _npz_leaves(tp[kind]["port_npz"])
+    want = _dense(tp_runs[kind][2])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert _bits_equal(torch.from_numpy(np.array(g)), w)
+
+
+@pytest.fixture(scope="module")
+def zero_tp_saved(tmp_path_factory):
+    """A ZeRO-1 run on (data 4, model 2) saved per shard after 1 step:
+    (session, directory, its logical state)."""
+    d = str(tmp_path_factory.mktemp("zero_tp"))
+    sess, mesh, states = _tp_run("zero", shape=(4, 2))
+    saved = sess.gather(states, mesh)
+    save_checkpoint(d, 1, saved, sharded=True)
+    return sess, d, trainer.logical_state(saved)
+
+
+@pytest.mark.parametrize("shape", [(3, 2), (2, 1), (1, 2)])
+def test_zero_tp_checkpoint_restores_onto_another_mesh(zero_tp_saved,
+                                                       shape):
+    sess, d, want = zero_tp_saved
+    mesh = S.make_mesh(shape, ("data", "model"), device="cpu")
+    tree = restore_checkpoint(d, sess.abstract_state(mesh=mesh),
+                              allow_resize_1d=True)
+    states = sess.scatter(tree, mesh)
+    assert len(states) == mesh.size
+    assert states[0]["params"]["lm_head"].shape[-1] * shape[1] == \
+        want["params"]["lm_head"].shape[-1]
+    _assert_trees_equal(trainer.logical_state(sess.gather(states, mesh)),
+                        want)
+
+
+def _random_global(sess, mesh, seed):
+    """A random tree in the checkpoint layout for ``mesh`` (ZeRO's
+    padding zero, as the layout has it)."""
+    ab = sess.abstract_state(mesh=mesh)
+    rng = np.random.RandomState(seed)
+    ls, ps = flatten(ab)
+    sizes = {p[1:]: math.prod(l.shape) for p, l in zip(ps, ls)
+             if p[0] == "params"}
+    out = []
+    for p, l in zip(ps, ls):
+        x = torch.from_numpy(np.asarray(rng.randn(*l.shape) * 8,
+                                        np.float32)).to(l.dtype)
+        n = sizes.get(p[2:]) if p[0] == "opt" and sess.cfg.zero else None
+        if n is not None:
+            x[n:] = 0
+        out.append(x)
+    return unflatten(ps, out)
+
+
+@pytest.mark.parametrize("src,dst", [((3, 2), (5, 1)), ((5, 2), (3, 2)),
+                                     ((1, 2), (7, 2))])
+@pytest.mark.parametrize("zero", [False, True], ids=["leaf", "zero1"])
+@pytest.mark.parametrize("arch", ["granite-34b", "qwen3-moe-30b-a3b"])
+def test_state_round_trip_over_every_split_kind(arch, zero, src, dst):
+    """A random global state scattered onto ``src`` and gathered gives
+    itself; re-meshed onto ``dst`` (another data width that divides no
+    leaf, another model width) and gathered, the same logical state.
+    granite-34b holds column (-1), row (-2) and replicated leaves (MQA's
+    K/V among them), qwen3-moe-30b-a3b expert (-3) ones too."""
+    cfg = get_config(arch, reduced=True)
+    sess = trainer.TrainSession(build_model(cfg, model_parallel=2),
+                                make_optimizer("adamw"),
+                                trainer.TrainCfg(zero=zero))
+    lay = sess.model.layout
+    kinds = {sharding.leaf_split(p, lay)
+             for p in flatten(sess.abstract_state(
+                 mesh=S.make_mesh(src, ("data", "model"), device="cpu"))
+                 )[1]}
+    assert kinds >= {-1, -2, None} and (-3 in kinds) == (arch != "granite-34b")
+    for seed in range(2):
+        mesh = S.make_mesh(src, ("data", "model"), device="cpu")
+        tree = _random_global(sess, mesh, seed)
+        states = sess.scatter(tree, mesh)
+        back = sess.gather(states, mesh)
+        _assert_trees_equal(unflatten(flatten(back)[1], _dense(back)), tree)
+        new = S.make_mesh(dst, ("data", "model"), device="cpu")
+        moved = remesh(states, sess.cfg, sess.abstract_state(mesh=new), new,
+                       mesh=mesh, model=sess.model)
+        _assert_trees_equal(trainer.logical_state(sess.gather(moved, new)),
+                            trainer.logical_state(tree))
+
+
+def test_bucket_layout_hint_names_global_buckets_on_a_model_axis(tmp_path):
+    """A compressed+bucketed (2, 2) checkpoint holds the reference's
+    global EF buckets; restoring it with another ``bucket_bytes`` names
+    both global layouts."""
+    sess, mesh, states = _tp_run("ef", steps=0)
+    d = str(tmp_path / "ck")
+    save_checkpoint(d, 0, sess.gather(states, mesh))
+    saved = [int(t.shape[0]) for t in sess.abstract_state(mesh)["ef"]]
+    other = trainer.TrainSession(sess.model, sess.optimizer,
+                                 dataclasses.replace(sess.cfg,
+                                                     bucket_bytes=1 << 20))
+    want = [int(t.shape[0]) for t in other.abstract_state(mesh)["ef"]]
+    assert len(saved) != len(want)
+    with pytest.raises(ValueError) as err:
+        restore_checkpoint(d, other.abstract_state(mesh))
+    assert str(saved) in str(err.value) and str(want) in str(err.value)
 
 
 def test_train_cli_restores_onto_another_width(tmp_path):

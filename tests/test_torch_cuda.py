@@ -16,7 +16,8 @@ The elastic paths on CUDA thread ranks: the reduced granite-34b under
 ``ElasticController`` (ZeRO-1, 4 -> 2 ranks) gives, bit for bit, the
 losses of a run started on the 2 survivors from the same checkpoint on
 the card, and the CPU's elastic losses within 1e-4 (the card's GEMMs
-sum in another order than the CPU's, so bits cannot cross devices);
+sum in another order than the CPU's, so bits cannot cross devices),
+and so does its model-sharded twin on (data 2, model 2) -> (1, 2);
 the reduced qwen2-72b under ``ServeController`` (data 4 -> 2) gives the
 CPU's greedy streams; a rank that raises on the card surfaces from
 ``run_spmd`` as a ``RankFailure`` naming it.
@@ -402,7 +403,11 @@ def test_bucketed_ring_on_cuda_ranks_matches_cpu_bits(cuda, dtype):
         _bits_equal(g, w)
 
 
-def _elastic_train(device, tmp):
+def _elastic_train(device, tmp, model_parallel=1):
+    """ZeRO-1 of the reduced granite-34b on 4 ranks ((4,), or (2, 2)
+    with a model axis) under ``ElasticController`` with ``lose@3:2``:
+    (report, losses of a run started on the survivors from the step-2
+    checkpoint)."""
     from repro_torch.configs import get_config as gc
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch.train import build_session
@@ -411,20 +416,26 @@ def _elastic_train(device, tmp):
     from repro_torch.runtime.controller import ElasticController, FaultPlan
     from repro_torch.train import trainer
     cfg = gc("granite-34b", reduced=True)
-    model = build_model(cfg)
+    model = build_model(cfg, model_parallel=model_parallel)
     opt = make_optimizer("adamw", lr=1e-3, clip_norm=0.0)
     tcfg = trainer.TrainCfg(zero=True)
     sess = trainer.TrainSession(model, opt, tcfg)
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=64,
                             global_batch=4)
-    mesh = substrate.make_host_mesh(4, device=device)
+    data = 4 // model_parallel
+
+    def host_mesh(dev):
+        return substrate.make_host_mesh(data, model_parallel=model_parallel,
+                                        device=dev)
+    mesh = host_mesh(device)
     # both devices start from the same weights, drawn on the CPU: the
     # controller restores this step-0 checkpoint instead of drawing its
     # own (a CUDA generator draws other numbers than a CPU one)
     from repro_torch.checkpoint import save_checkpoint
+    cpu_mesh = host_mesh("cpu")
     save_checkpoint(str(tmp), 0, sess.gather(sess.init_state(
-        torch.Generator().manual_seed(0),
-        mesh=substrate.make_host_mesh(4, device="cpu"))), sharded=True)
+        torch.Generator().manual_seed(0), mesh=cpu_mesh), cpu_mesh),
+        sharded=True)
     ctl = ElasticController(
         sess, ds, mesh, total_steps=5, ckpt_dir=str(tmp), ckpt_every=2,
         ckpt_keep=0, ckpt_sharded=True,
@@ -434,8 +445,9 @@ def _elastic_train(device, tmp):
     report = ctl.run()
     assert all(t.device.type == torch.device(device).type
                for st in ctl.states for t in leaves(st["params"]))
-    mesh2 = substrate.make_mesh((2,), ("data",), device=device,
-                                members=report.recoveries[0].healthy_after)
+    mesh2 = substrate.make_mesh(
+        report.mesh_history[-1], mesh.axis_names, device=device,
+        members=report.recoveries[0].healthy_after)
     from repro_torch.checkpoint import restore_checkpoint
     states = sess.scatter(restore_checkpoint(
         str(tmp), sess.abstract_state(mesh=mesh2), step=2,
@@ -454,6 +466,20 @@ def test_elastic_train_on_cuda_ranks(cuda, tmp_path):
     assert report.plan_rebuilds == 1
     assert {s: report.losses[s] for s in baseline} == baseline
     cpu, _ = _elastic_train("cpu", tmp_path / "cpu")
+    for s in range(5):
+        assert abs(report.losses[s] - cpu.losses[s]) <= \
+            1e-4 * abs(cpu.losses[s]), s
+
+
+def test_elastic_tp_train_on_cuda_ranks(cuda, tmp_path):
+    """The same on (data 2, model 2): the model-sharded step-2
+    checkpoint restores onto (1, 2) on the card, bit for bit the
+    survivors' run, and the losses are the CPU's within 1e-4."""
+    report, baseline = _elastic_train(cuda, tmp_path / "cuda", 2)
+    assert report.mesh_history == [(2, 2), (1, 2)]
+    assert report.plan_rebuilds == 1
+    assert {s: report.losses[s] for s in baseline} == baseline
+    cpu, _ = _elastic_train("cpu", tmp_path / "cpu", 2)
     for s in range(5):
         assert abs(report.losses[s] - cpu.losses[s]) <= \
             1e-4 * abs(cpu.losses[s]), s

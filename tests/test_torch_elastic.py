@@ -231,16 +231,16 @@ def test_remesh_grows_zero_states_and_keeps_the_logical_state(tmp_path):
     mesh4 = S.make_host_mesh(4, device="cpu")
     states = sess.init_state(torch.Generator().manual_seed(0), mesh=mesh2)
     states, _ = step_on(mesh2)(states, ds.host_batch(0))
-    want = trainer.logical_state(sess.gather(states))
+    want = trainer.logical_state(sess.gather(states, mesh2))
     grown = elastic.remesh(states, sess.cfg, sess.abstract_state(mesh=mesh4),
-                           mesh4)
+                           mesh4, mesh=mesh2, model=sess.model)
     assert len(grown) == 4
-    got = trainer.logical_state(sess.gather(grown))
+    got = trainer.logical_state(sess.gather(grown, mesh4))
     (gl, gp), (wl, wp) = flatten(got), flatten(want)
     assert gp == wp and all(torch.equal(a, b) for a, b in zip(gl, wl))
     # the same as the checkpoint path: a restore resized onto 4 ranks
     d = str(tmp_path)
-    save_checkpoint(d, 1, sess.gather(states), sharded=True)
+    save_checkpoint(d, 1, sess.gather(states, mesh2), sharded=True)
     restored = sess.scatter(restore_checkpoint(
         d, sess.abstract_state(mesh=mesh4), allow_resize_1d=True), mesh4)
     step4 = step_on(mesh4)

@@ -35,8 +35,10 @@
   at ``clip_norm=0``, as ``test_torch_zero.py`` holds it); at
   ``clip_norm`` 1.0 ZeRO's norm, built from chunk-local squares summed
   over "model" too, agrees with the per-leaf run's within 1e-6.
-- The launcher's ``--model-parallel 2`` runs; with ``--ckpt-dir`` or
-  ``--elastic`` it is refused.
+- The launcher's ``--model-parallel 2`` runs; it refuses ``--elastic``
+  without ``--ckpt-dir`` and a fault plan without ``--elastic``; a
+  session gathers model-split states into global leaves (model-sharded
+  checkpoints: ``test_torch_elastic_tp.py``).
 
 The reference's losses come from one child interpreter with 4 host
 devices that runs every (2, 2) run and the pod run.
@@ -474,18 +476,32 @@ def test_train_cli_model_parallel_runs_on_the_cpu():
                        "--log-every", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--ckpt-dir", "/nonexistent"],
-                                   ["--elastic", "--ckpt-dir", "/x"]])
-def test_train_cli_refuses_checkpoints_with_model_parallel(flags, capsys):
+@pytest.mark.parametrize("flags", [["--elastic"],
+                                   ["--fault-plan", "lose@1:1",
+                                    "--ckpt-dir", "/nonexistent"]])
+def test_train_cli_refuses_incomplete_elastic_flags_with_model_parallel(
+        flags, capsys):
+    """Model-sharded checkpoints and ``--elastic`` are accepted with
+    ``--model-parallel 2`` (``tests/test_torch_elastic_tp.py``); what the
+    launcher still refuses there is an incomplete set of elastic flags:
+    ``--elastic`` without a checkpoint store, a fault plan without
+    ``--elastic``."""
     with pytest.raises(SystemExit):
         launch_train.main(["--device", "cpu", "--model-parallel", "2",
                            "--steps", "1"] + flags)
-    assert "--model-parallel" in capsys.readouterr().err
+    assert "--elastic" in capsys.readouterr().err
 
 
-def test_train_session_refuses_model_sharded_checkpoints():
+def test_train_session_gathers_model_split_states_into_global_leaves():
+    """Model-split states gather through their mesh into the checkpoint
+    layout: every leaf has the global shape ``abstract_state`` gives."""
     cfg = get_config("granite-34b", reduced=True)
     sess = trainer.TrainSession(build_model(cfg, model_parallel=2),
                                 make_optimizer("adamw", lr=1e-3))
-    with pytest.raises(NotImplementedError, match="model-sharded"):
-        sess.gather([])
+    mesh = substrate.make_mesh((1, 2), ("data", "model"), device="cpu")
+    states = sess.init_state(torch.Generator().manual_seed(0), mesh=mesh)
+    got, want = sess.gather(states, mesh), sess.abstract_state(mesh)
+    assert flatten(got)[1] == flatten(want)[1]
+    assert [tuple(l.shape) for l in flatten(got)[0]] == \
+        [tuple(l.shape) for l in flatten(want)[0]]
+    assert got["params"]["lm_head"].shape[-1] == cfg.vocab_size
