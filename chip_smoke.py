@@ -9,12 +9,15 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              local_reduce, quantize) from the checkout's sources
              (``nvcc``, sm_90a), all at once, and print each one's seconds.
 2. kernels — flash attention against its plain PyTorch version on the
-             card at the serving path's shapes (64 query / 8 KV heads,
-             D = 128): page-sized chunks (Sq 256) against a 4096-token
-             cache at q_offset 0, 256 and 3840, and a one-shot 1000-token
-             prefill, with q bf16 (as served: the tensor-core variant) and
-             f32 (the CUDA-core variant), each over an f32 and a bf16
-             cache.  Prints the variant that ran, the max error against
+             card at the serving paths' shapes (qwen2-72b's 64 query / 8
+             KV heads at D = 128, nemotron-4-340b's 96 / 8 at D = 192):
+             page-sized chunks (Sq 256) against a 4096-token cache at
+             q_offset 0, 256 and 3840, and a one-shot 1000-token prefill,
+             with q bf16 (as served: the tensor-core variant) and f32 (the
+             CUDA-core variant), each over an f32 and a bf16 cache; and
+             deepseek-v3's MLA one-shot prefill (128 heads, 192-dim scores
+             against 128-dim values, 1000 tokens, the CUDA-core variant
+             for either q).  Prints the variant that ran, the max error against
              its tolerance (a share of the plain output's largest value:
              2**-6 for a bf16 output, 1e-4 for f32), kernel / plain / SDPA
              times (SDPA is a yardstick only; the port never calls it), the
@@ -44,6 +47,28 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              batch 8 and at batch 4, whose decode rows must be equal bit
              for bit (a block of 8 rows has expert capacity 8: nothing
              drops).  Prints tokens/s, TTFT and peak memory.
+4c. serve_nemotron — nemotron-4-340b at its published widths (d_model
+             18432, 96/8 heads, head_dim 192, squared-ReLU ff 73728,
+             LayerNorm, vocab 256000), depth cut to 4 of 96 layers,
+             random bf16 weights from a seed (23.25 B params), served as
+             [serve] serves qwen2-72b: every chunk of every layer on the
+             tensor-core kernel at D 192; then decode rows at batch 8 and
+             4, bit for bit.
+4d. serve_deepseek — deepseek-v3-671b at its published widths (d_model
+             7168, MLA with 128 heads, q_lora 1536, kv_lora 512, dh_qk
+             192, dh_v 128), depth cut to 4 of 61 layers (3 dense MLA
+             layers, 1 MoE layer of 256 experts of 2048, top-8, sigmoid
+             scoring, 1 shared expert) plus the MTP block, random bf16
+             weights from a seed (26.7 B params), served as [serve]
+             serves qwen2-72b.  Its chunked prefill attends in MLA's
+             absorbed form (plain torch, as the reference's jnp): no flash
+             launch.  Then back to back (same streams), decode rows at
+             batch 8 and 4 (bit for bit), and the two checked prompts
+             prefilled one-shot through ``Model.prefill``: MLA's
+             materialized form, each layer's flash launch at (192, 128)
+             held against plain, last logits within ``MLA_FORMS_TOL`` of
+             the chunked path's.  Each serve phase frees its weights
+             before the next.
 5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
              ``dequantize``, ``dequant_add``) against their plain versions,
              bit for bit, at the sizes granite-34b's sync gives them: the
@@ -323,6 +348,21 @@ POD_LAYERS = 1              # 4 full replicas of 2 layers exceed 80 GB
 POD_LOSS_RTOL = 2e-3
 POD_NORM_RTOL = 2e-2
 MOE_ARCH = "qwen3-moe-30b-a3b"   # [serve_moe], [train_moe]
+NEMOTRON_ARCH = "nemotron-4-340b"   # [serve_nemotron]
+DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
+# [serve_deepseek]'s one-shot prefill (MLA's materialized form, bf16 K/V
+# through the flash kernel) against its chunked prefill (the absorbed
+# form in f32) on the same weights: last-position logits within this
+# share of the chunked logits' largest magnitude.  The two forms round
+# at different places (K and V rounded to bf16 once per head, against
+# f32 products of the bf16 latents): about 2**-9 of each attention
+# output per layer, carried through 4 layers and the unembedding.  Both
+# run with expert capacity factor CHECK_CAPACITY, so no token drops in
+# either (the reference's twin test equalizes capacity the same way):
+# at the served 1.25 a 256-token chunk and a 2988-token prompt drop
+# different tokens, which is not a difference of the two forms.
+MLA_FORMS_TOL = 2.0 ** -4
+CHECK_CAPACITY = 8.0
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -349,7 +389,7 @@ def _ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(q, k, q_offset: int):
+def _bound(q, k, v, q_offset: int):
     """Least time (ms) the card could take for causal attention of ``q``
     over ``k``/``v``: bytes (q, the visible K/V prefix, the output, each
     once) over HBM bandwidth against FLOPs over a peak.  A bf16 output
@@ -358,13 +398,13 @@ def _bound(q, k, q_offset: int):
     products on the CUDA cores (67 TFLOP/s).  Returns (ms, "bytes" |
     "operations", peak name)."""
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     prefix = min(skv, q_offset + sq)
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * b * prefix * hkv * d * k.element_size())
-    # query i sees min(skv, q_offset + i + 1) keys; 4*D FLOPs per key
+    nbytes = ((q.numel() + b * sq * h * dv) * q.element_size()
+              + b * prefix * hkv * (d + dv) * k.element_size())
+    # query i sees min(skv, q_offset + i + 1) keys; 2*(D + Dv) FLOPs each
     seen = sum(min(skv, q_offset + i + 1) for i in range(sq))
-    flops = 4 * b * h * d * seen
+    flops = 2 * b * h * (d + dv) * seen
     kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_OPS[kind]
@@ -435,23 +475,34 @@ def _host_us(fn, n: int = 200) -> float:
     return t / n * 1e6
 
 
+#: (family, H, Hkv, D, Dv, cases) of [kernels]: the served head layouts
+#: at page-sized chunks over a 4096-token cache and a 1000-token one-shot,
+#: and MLA's materialized one-shot prefill (one KV head a query head)
+KERNEL_CHUNKS = [("chunk", 256, 4096, off) for off in (0, 256, 3840)]
+KERNEL_ONE_SHOT = [("one-shot", 1000, 1000, 0)]
+KERNEL_HEADS = [("qwen2-72b", 64, 8, 128, 128,
+                 KERNEL_CHUNKS + KERNEL_ONE_SHOT),
+                ("nemotron-4-340b", 96, 8, 192, 192,
+                 KERNEL_CHUNKS + KERNEL_ONE_SHOT),
+                ("deepseek-v3-671b", 128, 128, 192, 128, KERNEL_ONE_SHOT)]
+
+
 def phase_kernels(kernel, ref):
     """Flash attention vs plain at the serving shapes; returns the rows
     printed."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [("chunk", 256, 4096, off) for off in (0, 256, 3840)] \
-        + [("one-shot", 1000, 1000, 0)]
     dtypes = [(qdt, kvdt) for qdt in (torch.bfloat16, torch.float32)
               for kvdt in (torch.float32, torch.bfloat16)]
     rows = []
-    for name, sq, skv, off in cases:
+    cases = [head[:5] + case for head in KERNEL_HEADS for case in head[5]]
+    for family, h, hkv, d, dv, name, sq, skv, off in cases:
         for qdt, kvdt in dtypes:
-            q = torch.randn(1, sq, 64, 128, generator=gen, device="cuda"
+            q = torch.randn(1, sq, h, d, generator=gen, device="cuda"
                             ).to(qdt)
-            k = torch.randn(1, skv, 8, 128, generator=gen, device="cuda"
+            k = torch.randn(1, skv, hkv, d, generator=gen, device="cuda"
                             ).to(kvdt)
-            v = torch.randn(1, skv, 8, 128, generator=gen, device="cuda"
+            v = torch.randn(1, skv, hkv, dv, generator=gen, device="cuda"
                             ).to(kvdt)
             out, variant = kernel.launch(q, k, v, q_offset=off)
             want = ref.attention(q, k, v, q_offset=off)
@@ -460,18 +511,23 @@ def phase_kernels(kernel, ref):
                      20)
             plain_ms = _ms(lambda: ref.attention(q, k, v, q_offset=off), 5)
             # SDPA yardstick: (B, H, S, D), one dtype (q upcast for an f32
-            # cache, outside the timed call), explicit mask for an offset.
-            qt = q.to(kvdt).transpose(1, 2)
-            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-            mask = None
-            if off or sq != skv:
-                mask = (torch.arange(skv, device="cuda")[None, :]
-                        <= torch.arange(sq, device="cuda")[:, None] + off)
-            lib_ms = _ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True), 20)
-            bound_ms, by, peak = _bound(q, k, off)
-            row = dict(case=name, sq=sq, skv=skv, q_offset=off,
+            # cache, outside the timed call), explicit mask for an offset;
+            # at equal head dims only (MLA's 192/128 has no row).
+            lib_ms = None
+            if d == dv:
+                qt = q.to(kvdt).transpose(1, 2)
+                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+                mask = None
+                if off or sq != skv:
+                    mask = (torch.arange(skv, device="cuda")[None, :]
+                            <= torch.arange(sq, device="cuda")[:, None]
+                            + off)
+                lib_ms = _ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True), 20)
+            bound_ms, by, peak = _bound(q, k, v, off)
+            row = dict(family=family, heads=f"{h}/{hkv}", d=d, dv=dv,
+                       case=name, sq=sq, skv=skv, q_offset=off,
                        q_dtype=str(qdt).split(".")[-1],
                        kv_dtype=str(kvdt).split(".")[-1], variant=variant,
                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
@@ -486,16 +542,21 @@ def phase_kernels(kernel, ref):
                     ).abs().max().item()
                 emul = f" (vs bf16 products {row['err_vs_bf16_products']:.3e})"
             rows.append(row)
-            print(f"[kernels] {name:8s} Sq={sq:4d} Skv={skv:4d} "
+            sdpa = "none" if lib_ms is None else f"{lib_ms:.4f}ms"
+            print(f"[kernels] {h:3d}/{hkv:<3d} D={d}/{dv} {name:8s} "
+                  f"Sq={sq:4d} Skv={skv:4d} "
                   f"off={off:4d} q={row['q_dtype']:8s} "
                   f"kv={row['kv_dtype']:8s} {variant:5s} err={err:.3e}{emul} "
                   f"(tol {tol:.3e} = {REL_TOL[qdt]:.3g} x max|plain|) "
-                  f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}"
-                  f"ms bound={bound_ms:.4f}ms ({by}, {peak} peak)")
+                  f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={sdpa} "
+                  f"bound={bound_ms:.4f}ms ({by}, {peak} peak)")
             if not err <= tol:
                 raise AssertionError(f"kernel disagrees with plain: {row}")
-            if variant != ("wgmma" if qdt == torch.bfloat16 else "simt"):
-                raise AssertionError(f"q {qdt} ran the {variant} kernel")
+            want_variant = ("wgmma" if qdt == torch.bfloat16 and d == dv
+                            else "simt")
+            if variant != want_variant:
+                raise AssertionError(f"q {qdt} at D {d}/{dv} ran the "
+                                     f"{variant} kernel")
     # Host time of a launch (the wgmma variant encodes two TMA tensor maps
     # on the host each time), at a size where the device keeps up.
     q = torch.randn(1, 8, 8, 128, generator=gen, device="cuda")
@@ -552,16 +613,37 @@ def phase_small():
 
 
 def _ffn_desc(cfg) -> str:
+    dense = ("" if cfg.mlp is None
+             else f"ff={cfg.mlp.d_ff} ({cfg.mlp.activation})")
     if cfg.moe is not None:
         m = cfg.moe
-        return (f"experts={m.num_experts}x{m.d_ff} top-{m.top_k} "
-                f"capacity_factor={m.capacity_factor}")
-    return f"ff={cfg.mlp.d_ff} ({cfg.mlp.activation})"
+        return (f"{dense + ', ' if dense else ''}experts={m.num_experts}x"
+                f"{m.d_ff} top-{m.top_k} ({m.scoring}, {m.num_shared} "
+                f"shared) capacity_factor={m.capacity_factor}")
+    return dense
+
+
+def _mixer_desc(cfg) -> str:
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (f"MLA heads={m.num_heads} q_lora={m.q_lora} "
+                f"kv_lora={m.kv_lora} dh_qk={m.dh_qk} dh_v={m.dh_v}")
+    a = cfg.attn
+    return f"heads={a.num_heads}/{a.num_kv_heads} head_dim={a.head_dim}"
+
+
+def _attn_layers(cfg) -> int:
+    """Layers whose mixer is GQA attention: each launches flash once a
+    prefill chunk (MLA's chunks attend in the absorbed form, in torch)."""
+    return sum(st.repeat for st in cfg.stages for spec in st.layers
+               if spec.mixer == "attn")
 
 
 def serve_workload(arch="qwen2-72b", tag="serve"):
     """The serving workload, on the card: ``arch`` (qwen2-72b for
-    [serve], qwen3-moe-30b-a3b for [serve_moe]) at its published widths
+    [serve], qwen3-moe-30b-a3b for [serve_moe], nemotron-4-340b and
+    deepseek-v3-671b for [serve_nemotron] and [serve_deepseek]) at its
+    published widths
     cut to SERVE_LAYERS layers with random bf16 weights from seed 0, the
     scheduler's config, and SERVE_REQUESTS prompts of 256-3000 tokens
     from ``RandomState(0)``.  Also serves one short request as a warm-up
@@ -576,10 +658,10 @@ def serve_workload(arch="qwen2-72b", tag="serve"):
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    print(f"[{tag}] {cfg.name} d_model={cfg.d_model} heads="
-          f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} head_dim="
-          f"{cfg.attn.head_dim} {_ffn_desc(cfg)} vocab={cfg.vocab_size} "
-          f"layers={cfg.num_layers}: {model.param_count() / 1e9:.3f}B params, "
+    print(f"[{tag}] {cfg.name} d_model={cfg.d_model} {_mixer_desc(cfg)} "
+          f"{_ffn_desc(cfg)} {cfg.norm} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers}{' + MTP block' if cfg.mtp else ''}: "
+          f"{model.param_count() / 1e9:.3f}B params, "
           f"{_nbytes(leaves(params)) / 1e9:.2f} GB bf16, init "
           f"{time.perf_counter() - t0:.1f}s")
     scfg = ServeCfg(max_len=4096, batch=8, page_tokens=256,
@@ -635,13 +717,17 @@ def phase_serve(ref):
     """[serve]: qwen2-72b served twice (see ``_serve_phase``)."""
     out = _serve_phase(ref, "qwen2-72b", "serve")
     del out["run"]
+    _free()
     return out
 
 
 def _serve_phase(ref, arch, tag):
     """Serve the workload of ``serve_workload(arch)`` twice: the checked
-    run and the timed one (see the module doc).  Returns the timed run's
-    numbers, with (model, params, scfg, prompts, tokens) under "run"."""
+    run and the timed one (see the module doc).  Every GQA attention
+    layer launches flash once a prefill chunk, on the tensor cores; MLA
+    layers launch none (their chunks attend in the absorbed form).
+    Returns the timed run's numbers, with (model, params, scfg, prompts,
+    tokens) under "run"."""
     from repro_torch.kernels import counter
     from repro_torch.serve import BatchScheduler, Request
     from repro_torch.tree import leaves
@@ -673,6 +759,7 @@ def _serve_phase(ref, arch, tag):
     peak = torch.cuda.max_memory_allocated()
 
     n_chunks = sum(-(-n // scfg.page_tokens) for n in lens)
+    attn_layers = _attn_layers(cfg)
     n_tokens = sum(len(r.generated) for r in done)
     ttft = sorted(r.ttft_s for r in done)
     pool = sched.pool
@@ -684,16 +771,20 @@ def _serve_phase(ref, arch, tag):
           f"{n_tokens / wall:.1f} tok/s; {sched.decode_steps} decode steps; "
           f"TTFT p50 {np.percentile(ttft, 50):.3f}s p99 "
           f"{np.percentile(ttft, 99):.3f}s")
-    print(f"[{tag}] flash launches {launches} = {SERVE_LAYERS} layers x "
-          f"{n_chunks} prefill chunks: {launches == SERVE_LAYERS * n_chunks}"
-          f"; on the tensor-core variant: {tc_launches}")
-    worst = max(errs, key=lambda e: e[0] / e[1])
+    print(f"[{tag}] flash launches {launches} = {attn_layers} attention "
+          f"layers x {n_chunks} prefill chunks: "
+          f"{launches == attn_layers * n_chunks}; on the tensor-core "
+          f"variant: {tc_launches}")
     same = {r.rid: r.generated for r in done} == checked
-    print(f"[{tag}] checked run: {len(errs)} chunk-layer outputs of rids "
-          f"{CHECK_RIDS} vs plain, max err {max(e[0] for e in errs):.3e}; "
-          f"worst {worst[0]:.3e} against its tol {worst[1]:.3e} "
-          f"({REL_TOL[torch.bfloat16]:.3g} x max|plain|); token streams "
-          f"equal to the timed run's: {same}")
+    if errs:
+        worst = max(errs, key=lambda e: e[0] / e[1])
+        print(f"[{tag}] checked run: {len(errs)} chunk-layer outputs of "
+              f"rids {CHECK_RIDS} vs plain, max err "
+              f"{max(e[0] for e in errs):.3e}; worst {worst[0]:.3e} "
+              f"against its tol {worst[1]:.3e} "
+              f"({REL_TOL[torch.bfloat16]:.3g} x max|plain|)")
+    print(f"[{tag}] token streams of the checked run equal to the timed "
+          f"run's: {same}")
     print(f"[{tag}] peak allocated {peak / 2**30:.2f} GiB of "
           f"{card / 2**30:.1f} GiB; {base / 2**30:.2f} GiB before the timed "
           f"run (weights {weight_bytes / 2**30:.2f} GiB, page pool "
@@ -708,20 +799,22 @@ def _serve_phase(ref, arch, tag):
                 0 <= t < cfg.vocab_size for t in r.generated):
             raise AssertionError(f"rid {r.rid}: bad tokens {r.generated}")
     pool.check_integrity()
-    if not (launches > 0 and launches == SERVE_LAYERS * n_chunks):
-        raise AssertionError(f"{launches} launches for {n_chunks} chunks")
+    if launches != attn_layers * n_chunks:
+        raise AssertionError(f"{launches} launches for {n_chunks} chunks "
+                             f"of {attn_layers} attention layers")
     if tc_launches != launches:
         raise AssertionError(f"{launches - tc_launches} of {launches} "
                              "served chunks missed the tensor-core kernel")
-    expect_checks = SERVE_LAYERS * sum(-(-lens[r] // scfg.page_tokens)
-                                       for r in CHECK_RIDS)
+    expect_checks = attn_layers * sum(-(-lens[r] // scfg.page_tokens)
+                                      for r in CHECK_RIDS)
     if len(errs) != expect_checks or not all(e <= t for e, t in errs):
         raise AssertionError(f"hook: {len(errs)} checks, errs {errs}")
     if not same:
         raise AssertionError("checked and timed runs gave other tokens")
     if not peak < 0.95 * card:
         raise AssertionError(f"peak {peak} exceeds the card")
-    return dict(launches=tc_launches, max_abs_err=max(e[0] for e in errs),
+    return dict(launches=tc_launches,
+                max_abs_err=max((e[0] for e in errs), default=None),
                 tokens_per_s=n_tokens / wall,
                 ttft_p50=float(np.percentile(ttft, 50)),
                 ttft_p99=float(np.percentile(ttft, 99)), peak_gib=peak / 2**30,
@@ -737,27 +830,170 @@ def phase_serve_moe(ref):
     whose decode rows must be equal bit for bit (a decode block of
     ``DECODE_ROWS`` rows has expert capacity 8, so no token drops and the
     rows stay independent).  Returns the timed run's numbers."""
-    import dataclasses
-    import gc
     out = _serve_phase(ref, MOE_ARCH, "serve_moe")
     model, params, scfg, prompts, checked = out.pop("run")
+    _back_to_back_check("serve_moe", model, params, scfg, prompts, checked)
+    _decode_rows_check("serve_moe", model, params, scfg)
+    del model, params
+    _free()
+    return out
+
+
+def _free():
+    """After the caller dropped its last references to a phase's
+    weights: collect them and hand the cached blocks back, so the next
+    phase's weights find room."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _back_to_back_check(tag, model, params, scfg, prompts, checked):
+    """The same requests with ``chunked_prefill=False`` (a prompt's
+    chunks at admission, not interleaved with decode): the streams must
+    equal the interleaved run's."""
+    import dataclasses
     _, done = _serve(model, params, dataclasses.replace(
         scfg, chunked_prefill=False), prompts, "cuda", SERVE_MAX_NEW)
     same = {r.rid: r.generated for r in done} == checked
-    print(f"[serve_moe] back-to-back prefill gives the interleaved run's "
+    print(f"[{tag}] back-to-back prefill gives the interleaved run's "
           f"streams: {same}")
     if not same:
-        raise AssertionError("back-to-back and interleaved prefill differ")
+        raise AssertionError(f"{tag}: back-to-back and interleaved "
+                             "prefill differ")
+
+
+def _decode_rows_check(tag, model, params, scfg):
     equal, diff, n = _decode_rows_equal(model, params, scfg,
                                         model.cfg.vocab_size)
-    print(f"[serve_moe] decode rows at batch 8 and 4 through the "
-          f"scheduler: {n} rows, bit-identical: {equal} (largest "
-          f"difference {diff:.3e})")
+    print(f"[{tag}] decode rows at batch 8 and 4 through the scheduler: "
+          f"{n} rows, bit-identical: {equal} (largest difference "
+          f"{diff:.3e})")
     if not equal:
-        raise AssertionError("MoE decode rows depend on the batch")
-    del model, params, done
-    gc.collect()
-    torch.cuda.empty_cache()
+        raise AssertionError(f"{tag}: decode rows depend on the batch")
+
+
+def phase_serve_nemotron(ref):
+    """[serve_nemotron]: nemotron-4-340b at its published widths (4 of 96
+    layers: LayerNorm, 96/8 heads at head dim 192, squared-ReLU MLP)
+    served as [serve] serves qwen2-72b (checked run, timed run; every
+    chunk of every layer on the tensor-core kernel at D 192), then
+    ROWS_PROMPTS requests decoded at batch 8 and 4, whose rows must be
+    equal bit for bit.  Returns the timed run's numbers."""
+    out = _serve_phase(ref, NEMOTRON_ARCH, "serve_nemotron")
+    model, params, scfg, _, _ = out.pop("run")
+    _decode_rows_check("serve_nemotron", model, params, scfg)
+    del model, params
+    _free()
+    return out
+
+
+def _mla_one_shot_check(model, params, scfg, prompts, ref):
+    """CHECK_RIDS' prompts prefilled one-shot through ``Model.prefill``
+    (MLA's materialized form: every layer's attention through the flash
+    kernel at head dims (192, 128), each launch held against plain by
+    this script's hook) and in page-sized chunks through
+    ``Model.prefill_chunk`` (the absorbed form, as the scheduler runs
+    it), both at capacity factor CHECK_CAPACITY.  Returns (flash
+    launches, tensor-core launches, [(max abs error, limit)] of the
+    hooked launches, [relative logit difference] a prompt)."""
+    import dataclasses
+    from repro_torch.kernels import counter
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    m8 = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=CHECK_CAPACITY)))
+    pt = scfg.page_tokens
+    errs, diffs = [], []
+    kernel_flash = L.flash_attention
+
+    def checked_flash(q, k, v, *, causal=True, q_offset=0, sm_scale=None):
+        out = kernel_flash(q, k, v, causal=causal, q_offset=q_offset,
+                           sm_scale=sm_scale)
+        errs.append(_error(out, ref.attention(
+            q, k, v, causal=causal, q_offset=q_offset, sm_scale=sm_scale)))
+        return out
+
+    counter.reset_all()
+    for rid in CHECK_RIDS:
+        prompt = prompts[rid]
+        n = len(prompt)
+        caches = m8.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        for c in range(-(-n // pt)):
+            chunk = torch.zeros(1, pt, dtype=torch.long, device="cuda")
+            part = torch.tensor(prompt[c * pt:(c + 1) * pt], device="cuda")
+            chunk[0, :len(part)] = part
+            chunked, caches = m8.prefill_chunk(
+                params, {"tokens": chunk}, caches, q_offset=c * pt,
+                valid_len=min((c + 1) * pt, n),
+                last_index=min(n - 1 - c * pt, pt - 1))
+        ckv_chunked = [caches[s][l]["ckv"][:, 0, :n].float()
+                       for s in caches for l in caches[s]]
+        del caches
+        caches = m8.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        L.flash_attention = checked_flash
+        try:
+            one_shot, caches = m8.prefill(
+                params, {"tokens": torch.tensor([prompt], device="cuda")},
+                caches)
+        finally:
+            L.flash_attention = kernel_flash
+        want = chunked.float()
+        diffs.append(((one_shot.float() - want).abs().max()
+                      / want.abs().max()).item())
+        ckv = [caches[s][l]["ckv"][:, 0, :n].float()
+               for s in caches for l in caches[s]]
+        cache_diffs = [((a - b).abs().amax() / b.abs().amax()).item()
+                       for a, b in zip(ckv, ckv_chunked)]
+        print(f"[serve_deepseek] rid {rid} ({n} tokens): one-shot vs "
+              f"chunked last logits {diffs[-1]:.3e} of max|chunked| (tol "
+              f"{MLA_FORMS_TOL:.3g}); latent cache rows per stage: "
+              + ", ".join(f"{d:.3e}" for d in cache_diffs))
+        del caches
+    counts = counter.counts()
+    return (counts["flash_attention"], counts["flash_attention_tc"], errs,
+            diffs)
+
+
+def phase_serve_deepseek(ref):
+    """[serve_deepseek]: deepseek-v3-671b at its published widths (4 of 61
+    layers: 3 dense MLA layers and 1 MoE layer of 256 experts, top-8,
+    sigmoid scoring, 1 shared expert; and the MTP block the config's
+    init builds) served as [serve] serves qwen2-72b (checked and timed
+    runs).  Its chunked prefill launches no flash kernel: MLA attends in
+    the absorbed form (plain torch, as the reference computes it in
+    jnp).  Then the same requests back to back, whose streams must equal
+    the interleaved run's; decode rows at batch 8 and 4, bit for bit;
+    and CHECK_RIDS' prompts one-shot through ``Model.prefill``, whose
+    flash launches at (192, 128) are held against plain and whose last
+    logits must agree with the chunked path's (``_mla_one_shot_check``).
+    Returns the timed run's numbers."""
+    out = _serve_phase(ref, DEEPSEEK_ARCH, "serve_deepseek")
+    model, params, scfg, prompts, checked = out.pop("run")
+    _back_to_back_check("serve_deepseek", model, params, scfg, prompts,
+                        checked)
+    _decode_rows_check("serve_deepseek", model, params, scfg)
+    launches, tc, errs, diffs = _mla_one_shot_check(model, params, scfg,
+                                                    prompts, ref)
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    print(f"[serve_deepseek] one-shot prefill: {launches} flash launches "
+          f"({tc} tensor-core) = {SERVE_LAYERS} layers x "
+          f"{len(CHECK_RIDS)} prompts; held against plain: max err "
+          f"{max(e[0] for e in errs):.3e}, worst {worst[0]:.3e} against "
+          f"its tol {worst[1]:.3e}")
+    if launches != SERVE_LAYERS * len(CHECK_RIDS) or tc != 0:
+        raise AssertionError(f"one-shot MLA prefill: {launches} launches, "
+                             f"{tc} tensor-core")
+    if len(errs) != launches or not all(e <= t for e, t in errs):
+        raise AssertionError(f"one-shot flash vs plain: {errs}")
+    if not all(d <= MLA_FORMS_TOL for d in diffs):
+        raise AssertionError(f"one-shot and chunked MLA prefill differ: "
+                             f"{diffs}")
+    out.update(one_shot_launches=launches,
+               one_shot_max_abs_err=max(e[0] for e in errs))
+    del model, params
+    _free()
     return out
 
 
@@ -2919,6 +3155,7 @@ def timed(name, fn, *args):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2938,6 +3175,8 @@ def main() -> int:
     timed("small", phase_small)
     serve = timed("serve", phase_serve, ref)
     serve_moe = timed("serve_moe", phase_serve_moe, ref)
+    serve_nemotron = timed("serve_nemotron", phase_serve_nemotron, ref)
+    serve_deepseek = timed("serve_deepseek", phase_serve_deepseek, ref)
     sync_rows = timed("collectives", phase_collectives)
     lib_launches, _ = timed("collectives_lib", phase_collectives_lib)
     timed("train_small", phase_train_small)
@@ -2952,19 +3191,31 @@ def main() -> int:
                                         phase_elastic_train)
     by_path["elastic_tp"], _ = timed("elastic_tp", phase_elastic_tp)
     by_path["collectives_lib"] = lib_launches
-    flash_by_path = {"serve_moe": serve_moe["launches"]}
+    flash_by_path = {"serve_moe": serve_moe["launches"],
+                     "serve_nemotron": serve_nemotron["launches"],
+                     "serve_deepseek": serve_deepseek["launches"],
+                     "serve_deepseek_one_shot":
+                         serve_deepseek["one_shot_launches"]}
     flash_by_path["elastic_serve"] = timed(
         "elastic_serve", phase_elastic_serve)[0]["flash_attention"]
-    print(f"[done] all phases in {time.perf_counter() - t0:.1f}s")
+    print(f"[done] all phases in {time.perf_counter() - t0:.1f}s; the "
+          f"whole script {time.perf_counter() - t_start:.1f}s")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    late = {r["kv_dtype"]: r for r in rows if r["case"] == "chunk"
-            and r["q_offset"] == 3840 and r["q_dtype"] == "bfloat16"}
-    main_row, bf16_row = late["float32"], late["bfloat16"]
+    def reading(family, case, kv_dtype, q_offset=0):
+        r = next(r for r in rows if r["family"] == family
+                 and r["case"] == case and r["q_offset"] == q_offset
+                 and r["q_dtype"] == "bfloat16" and r["kv_dtype"] == kv_dtype)
+        return {k: r[k] for k in ("variant", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+
+    main_row = reading("qwen2-72b", "chunk", "float32", 3840)
+    bf16_row = reading("qwen2-72b", "chunk", "bfloat16", 3840)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "variant": main_row["variant"],
@@ -2974,6 +3225,8 @@ def main() -> int:
         "launches": serve["launches"],
         "launches_by_path": flash_by_path,
         "max_abs_err": max(serve["max_abs_err"], serve_moe["max_abs_err"],
+                           serve_nemotron["max_abs_err"],
+                           serve_deepseek["one_shot_max_abs_err"],
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2981,7 +3234,18 @@ def main() -> int:
         "ms_bf16_cache": bf16_row["ms"],
         "plain_ms_bf16_cache": bf16_row["plain_ms"],
         "bound_ms_bf16_cache": bf16_row["bound_ms"],
-        "library_ms_bf16_cache": bf16_row["library_ms"]}] + [
+        "library_ms_bf16_cache": bf16_row["library_ms"],
+        # nemotron-4-340b's late chunk (bf16 q on the tensor cores) and
+        # deepseek-v3's 1000-token MLA one-shot (on the CUDA cores)
+        "head_dims": {
+            "192x192": {"f32_cache": reading("nemotron-4-340b", "chunk",
+                                             "float32", 3840),
+                        "bf16_cache": reading("nemotron-4-340b", "chunk",
+                                              "bfloat16", 3840)},
+            "192x128": {"bf16_cache": reading("deepseek-v3-671b",
+                                              "one-shot", "bfloat16"),
+                        "f32_cache": reading("deepseek-v3-671b",
+                                             "one-shot", "float32")}}}] + [
             _sync_entry(name, sync_rows, train, by_path)
             for name in SYNC_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-from repro_torch.configs import granite_34b, qwen2_72b, qwen3_moe_30b_a3b
+from repro_torch.configs import (deepseek_v3_671b, granite_34b,
+                                 mistral_large_123b, nemotron_4_340b,
+                                 qwen2_72b, qwen3_moe_30b_a3b)
 
 _MODULES = {m.ARCH_ID: m for m in (granite_34b, qwen2_72b,
-                                    qwen3_moe_30b_a3b)}
+                                    qwen3_moe_30b_a3b, mistral_large_123b,
+                                    nemotron_4_340b, deepseek_v3_671b)}
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
 
@@ -30,7 +33,8 @@ def get_config(arch_id: str, reduced: bool = False, param_dtype=None):
 def with_num_layers(cfg, num_layers: int):
     """``cfg`` cut to its first ``num_layers`` layers: widths untouched,
     the last stages' ``repeat`` shortened (stages left empty are
-    dropped)."""
+    dropped).  deepseek-v3-671b at 4 layers keeps its 3 dense MLA layers
+    and 1 MoE layer."""
     if not 1 <= num_layers <= cfg.num_layers:
         raise ValueError(
             f"num_layers={num_layers} outside 1..{cfg.num_layers}")

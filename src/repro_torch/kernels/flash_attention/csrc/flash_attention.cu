@@ -1,11 +1,12 @@
 // Causal blockwise (flash) attention forward for Hopper (sm_90a): the
 // CUDA-core variant, and the C entry of both variants.
 //
-// The C entry `flash_attention_fwd` (end of file) chooses by type: a bf16
-// query with head_dim 128 (every chunk of the full-width serve path)
-// runs the tensor-core kernel of flash_attention_wgmma.cu; any other
-// query (f32, whose output is held to 1e-4, or the reduced head dim 16)
-// runs the kernel below.  The choice is explicit and reported to the
+// The C entry `flash_attention_fwd` (end of file) chooses by type and
+// head dims: a bf16 query at (DQK, DV) = (128, 128) or (192, 192) (every
+// chunk of the full-width serve paths) runs the tensor-core kernel of
+// flash_attention_wgmma.cu; any other query (f32, whose output is held
+// to 1e-4, the reduced head dim 16, or MLA's one-shot prefill at
+// (192, 128)) runs the kernel below.  The choice is explicit and reported to the
 // caller; nothing retries on the other kernel.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` /
@@ -14,8 +15,8 @@
 // chunk of queries against the whole max_len cache, causal at a runtime
 // `q_offset`) and the one-shot `flash_attention`.
 //
-// Function.  q (B, Sq, H, D), k/v (B, Skv, Hkv, D), o (B, Sq, H, D) in
-// q's dtype.  Query head h reads KV head h / (H / Hkv) (GQA, no repeated
+// Function.  q (B, Sq, H, DQK), k (B, Skv, Hkv, DQK), v (B, Skv, Hkv,
+// DV), o (B, Sq, H, DV) in q's dtype.  Query head h reads KV head h / (H / Hkv) (GQA, no repeated
 // KV in memory).  Query row i sits at absolute position q_offset + i and
 // sees keys at positions <= that (causal) and < Skv.  Each operand is
 // loaded in its own dtype (f32 or bf16) and converted to f32; q is
@@ -34,9 +35,9 @@
 // 16 x 8 grid.  The q tile sits in shared memory for the block's life;
 // 64-key K and V tiles are staged through shared memory one at a time,
 // rows past Skv zero-filled, so Sq and Skv need not be tile multiples.
-// Each thread owns 4 query rows x 8 keys of a score tile and 4 rows x D/8
-// output columns of the accumulator (D = 128 at full width, 16 in the
-// reduced config); row max and row sum reduce over the
+// Each thread owns 4 query rows x 8 keys of a score tile and 4 rows x DV/8
+// output columns of the accumulator (DV = 128 or 192 at full width, 16
+// in the reduced config); row max and row sum reduce over the
 // 8 lanes sharing a row with warp shuffles, so m, l and the accumulator
 // live in registers.  KV tiles past the tile's last query are never
 // loaded (the causal skip: in the chunked path Skv is the whole max_len
@@ -60,17 +61,20 @@ constexpr int RPT = BQ / TY;    // query rows per thread
 constexpr int CPT = BK / TX;    // score columns per thread
 constexpr int P_STRIDE = BK + 1;
 
-// Per head dim D: output columns per thread and the shared-memory plan.
-template <int D>
+// Per head dims (DQK, DV): output columns per thread and the
+// shared-memory plan (164 KB at (192, 192), the largest).
+template <int DQK, int DV>
 struct Tile {
-  static_assert(D % TX == 0 && D % 4 == 0, "unsupported head dim");
-  static constexpr int DPT = D / TX;       // output columns per thread
-  static constexpr int QK_STRIDE = D + 1;  // padded: conflict-free columns
+  static_assert(DQK % 4 == 0 && DV % TX == 0 && DV % 4 == 0,
+                "unsupported head dims");
+  static constexpr int DPT = DV / TX;        // output columns per thread
+  static constexpr int QK_STRIDE = DQK + 1;  // padded: conflict-free columns
   static constexpr int SMEM_FLOATS =
-      BQ * QK_STRIDE + BK * QK_STRIDE + BK * D + BQ * P_STRIDE;
+      BQ * QK_STRIDE + BK * QK_STRIDE + BK * DV + BQ * P_STRIDE;
 };
 
-constexpr int kErrHeadDim = -1;   // head dims built: 16 (reduced), 128
+// head dims built: (16, 16) reduced, (128, 128), (192, 192), (192, 128)
+constexpr int kErrHeadDim = -1;
 constexpr int kErrHeads = -2;
 constexpr int kErrDtype = -3;
 constexpr int kErrTensorMap = -4;  // from flash_wgmma_launch
@@ -115,7 +119,7 @@ __device__ __forceinline__ void stage_tile(float* dst, int stride,
   }
 }
 
-template <int D, typename TQ, typename TKV>
+template <int DQK, int DV, typename TQ, typename TKV>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                  const TKV* __restrict__ v, TQ* __restrict__ o,
@@ -125,13 +129,13 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
                  int causal, int q_offset, float scale) {
-  constexpr int DPT = Tile<D>::DPT;
-  constexpr int QK_STRIDE = Tile<D>::QK_STRIDE;
+  constexpr int DPT = Tile<DQK, DV>::DPT;
+  constexpr int QK_STRIDE = Tile<DQK, DV>::QK_STRIDE;
   extern __shared__ float smem[];
   float* Qs = smem;                          // [BQ][QK_STRIDE]
   float* Ks = Qs + BQ * QK_STRIDE;           // [BK][QK_STRIDE]
-  float* Vs = Ks + BK * QK_STRIDE;           // [BK][D]
-  float* Ps = Vs + BK * D;                   // [BQ][P_STRIDE]
+  float* Vs = Ks + BK * QK_STRIDE;           // [BK][DV]
+  float* Ps = Vs + BK * DV;                  // [BQ][P_STRIDE]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -152,7 +156,7 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     kv_end = max(0, min(Skv, last_q + 1));
   }
 
-  stage_tile<D>(Qs, QK_STRIDE, qb, q_ss, q0, Sq, scale);
+  stage_tile<DQK>(Qs, QK_STRIDE, qb, q_ss, q0, Sq, scale);
 
   float m[RPT], l[RPT], acc[RPT][DPT];
 #pragma unroll
@@ -165,8 +169,8 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();                         // previous tile fully consumed
-    stage_tile<D>(Ks, QK_STRIDE, kb, k_ss, k0, Skv, 1.f);
-    stage_tile<D>(Vs, D, vb, v_ss, k0, Skv, 1.f);
+    stage_tile<DQK>(Ks, QK_STRIDE, kb, k_ss, k0, Skv, 1.f);
+    stage_tile<DV>(Vs, DV, vb, v_ss, k0, Skv, 1.f);
     __syncthreads();
 
     float s[RPT][CPT];
@@ -175,7 +179,7 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[RPT], kv[CPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty + i * TY) * QK_STRIDE + d];
@@ -231,7 +235,7 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) pv[i] = Ps[(ty + i * TY) * P_STRIDE + c];
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = Vs[c * D + tx + j * TX];
+      for (int j = 0; j < DPT; ++j) vv[j] = Vs[c * DV + tx + j * TX];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -250,21 +254,21 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-template <int D, typename TQ, typename TKV>
+template <int DQK, int DV, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int Hkv, int64_t q_sb, int64_t q_ss,
            int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
            int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
            int64_t o_ss, int64_t o_sh, int causal, int q_offset, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = Tile<D>::SMEM_FLOATS * sizeof(float);
+  constexpr size_t smem = Tile<DQK, DV>::SMEM_FLOATS * sizeof(float);
   // Set per launch: the attribute is per device, and the call is cheap.
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<DQK, DV, TQ, TKV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<D, TQ, TKV><<<grid, NTHREADS, smem, stream>>>(
+  flash_fwd_kernel<DQK, DV, TQ, TKV><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<TQ*>(o), Sq, Skv, H, H / Hkv,
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
@@ -275,23 +279,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // flash_attention_wgmma.cu
+bool flash_wgmma_takes(int dqk, int dv);
 int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                        bool kv_f32, int B, int Sq, int Skv, int H, int Hkv,
-                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                       int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                       int64_t v_ss, int64_t v_sh, int64_t o_sb,
+                       int dqk, int dv, int64_t q_sb, int64_t q_ss,
+                       int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                       int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
                        int64_t o_ss, int64_t o_sh, int causal, int q_offset,
                        float scale, cudaStream_t stream);
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Strides are in elements; the
-// last (head-dim) axis is contiguous.  Sets *variant to the kernel chosen
+// dtype codes: 0 = float32, 1 = bfloat16.  head_dim is q's and k's,
+// v_head_dim v's and o's.  Strides are in elements; the last (head-dim)
+// axis is contiguous.  Sets *variant to the kernel chosen
 // (0: CUDA cores, f32; 1: tensor cores, wgmma) before launching it.
 // Returns 0, a cudaError_t, or a negative code for arguments the kernel
 // does not take.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int q_dtype,
     int kv_dtype, int B, int Sq, int Skv, int H, int Hkv, int head_dim,
-    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+    int v_head_dim, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
     int64_t o_ss, int64_t o_sh, int causal, int q_offset, float scale,
     void* stream, int* variant) {
@@ -299,25 +305,28 @@ extern "C" int flash_attention_fwd(
   if (q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 1)
     return kErrDtype;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 1 && head_dim == 128) {
+  if (q_dtype == 1 && flash_wgmma_takes(head_dim, v_head_dim)) {
     *variant = 1;
     return flash_wgmma_launch(q, k, v, o, kv_dtype == 0, B, Sq, Skv, H, Hkv,
-                              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                              v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale,
-                              st);
+                              head_dim, v_head_dim, q_sb, q_ss, q_sh, k_sb,
+                              k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                              causal, q_offset, scale, st);
   }
   *variant = 0;
 #define FA_ARGS q, k, v, o, B, Sq, Skv, H, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, \
     k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale, st
-#define FA_DTYPES(D)                                                        \
-  if (q_dtype == 0 && kv_dtype == 0) return launch<D, float, float>(FA_ARGS); \
-  if (q_dtype == 1 && kv_dtype == 0)                                        \
-    return launch<D, __nv_bfloat16, float>(FA_ARGS);                        \
-  if (q_dtype == 0 && kv_dtype == 1)                                        \
-    return launch<D, float, __nv_bfloat16>(FA_ARGS);                        \
-  return launch<D, __nv_bfloat16, __nv_bfloat16>(FA_ARGS);
-  if (head_dim == 128) { FA_DTYPES(128) }
-  if (head_dim == 16) { FA_DTYPES(16) }
+#define FA_DTYPES(DQK, DV)                                                 \
+  if (q_dtype == 0 && kv_dtype == 0)                                       \
+    return launch<DQK, DV, float, float>(FA_ARGS);                         \
+  if (q_dtype == 1 && kv_dtype == 0)                                       \
+    return launch<DQK, DV, __nv_bfloat16, float>(FA_ARGS);                 \
+  if (q_dtype == 0 && kv_dtype == 1)                                       \
+    return launch<DQK, DV, float, __nv_bfloat16>(FA_ARGS);                 \
+  return launch<DQK, DV, __nv_bfloat16, __nv_bfloat16>(FA_ARGS);
+  if (head_dim == 128 && v_head_dim == 128) { FA_DTYPES(128, 128) }
+  if (head_dim == 192 && v_head_dim == 192) { FA_DTYPES(192, 192) }
+  if (head_dim == 192 && v_head_dim == 128) { FA_DTYPES(192, 128) }
+  if (head_dim == 16 && v_head_dim == 16) { FA_DTYPES(16, 16) }
 #undef FA_DTYPES
 #undef FA_ARGS
   return kErrHeadDim;
@@ -325,7 +334,9 @@ extern "C" int flash_attention_fwd(
 
 extern "C" const char* flash_attention_error_string(int code) {
   switch (code) {
-    case kErrHeadDim: return "head_dim must be 16 or 128";
+    case kErrHeadDim:
+      return "head dims (q/k, v) must be (16, 16), (128, 128), (192, 192) "
+             "or (192, 128)";
     case kErrHeads: return "num_heads must be a multiple of num_kv_heads";
     case kErrDtype: return "dtypes must be float32 or bfloat16";
     case kErrTensorMap:

@@ -1,20 +1,24 @@
 // Causal flash-attention forward on Hopper's tensor cores (sm_90a): the
-// variant for a bf16 query with head_dim 128, over an f32 or a bf16
-// cache.  That is every prefill chunk of the full-width serve path.
+// variant for a bf16 query with head dims (DQK, DV) = (128, 128) or
+// (192, 192), over an f32 or a bf16 cache.  That is every prefill chunk
+// of the full-width serve paths (qwen2-72b and qwen3-moe at 128,
+// nemotron-4-340b at 192).
 //
 // Replaces, like flash_attention.cu, the Pallas TPU kernel
 // `flash_attention_bhsd` / `_flash_kernel` in
 // src/repro/kernels/flash_attention/kernel.py.  flash_attention.cu keeps
-// the f32-query kernel (held to 1e-4, which bf16 products cannot meet)
-// and the reduced head dim 16; its C entry `flash_attention_fwd` calls
-// `flash_wgmma_launch` below for q bf16 with D 128, by type and never as
-// a fallback.
+// the f32-query kernel (held to 1e-4, which bf16 products cannot meet),
+// the reduced head dim 16 and MLA's (192, 128); its C entry
+// `flash_attention_fwd` calls `flash_wgmma_launch` below for q bf16 at
+// (128, 128) or (192, 192), by type and head dims, never as a fallback.
 //
-// Function.  q (B, Sq, H, D) bf16; k/v (B, Skv, Hkv, D) f32 or bf16,
-// strided views (a layer of the stacked cache arena); o (B, Sq, H, D)
-// bf16.  Query head h reads KV head h / (H / Hkv).  Query row i sits at
-// absolute position q_offset + i and sees keys at positions <= that
-// (causal) and < Skv.  The Pallas kernel's arithmetic for a bf16 cache:
+// Function.  q (B, Sq, H, DQK) bf16; k (B, Skv, Hkv, DQK) and v (B, Skv,
+// Hkv, DV) f32 or bf16, strided views (a layer of the stacked cache
+// arena); o (B, Sq, H, DV) bf16.  The kernel is a template on (DQK, DV),
+// both multiples of 64; the library instantiates (128, 128) and
+// (192, 192).  Query head h reads KV head h / (H / Hkv).  Query row i
+// sits at absolute position q_offset + i and sees keys at positions <=
+// that (causal) and < Skv.  The Pallas kernel's arithmetic for a bf16 cache:
 // S = Q.K^T as bf16 products with f32 accumulation, scaled and
 // soft-maxed online in f32, then P rounded to bf16 and O += P.V again in
 // f32; a row that sees no key writes 0.  An f32 cache is rounded to bf16
@@ -25,43 +29,56 @@
 // 0.034 ms at the bf16 tensor-core peak, against 42 MB of q, o and f32
 // K/V prefix, 0.013 ms at the memory rate (H100 SXM data sheet at its
 // 700 W limit: 989 TFLOP/s, 3.35 TB/s): the tensor cores set the least
-// time.  PERF.md has the measured times against it.
+// time.  At nemotron-4-340b's late chunk (96/8 heads, D 192) it is
+// 4 * 96 * 192 * 1,015,936 = 7.5e10 FLOPs, 0.076 ms.  PERF.md has the
+// measured times against both.
 //
 // Design.
 // - Block: 3 warpgroups.  Warpgroups 0 and 1 are consumers, each owning
 //   64 query rows of one head (128 rows a block); warpgroup 2 is the
 //   producer.  Over an f32 cache `setmaxnreg` moves registers from the
 //   producer (56) to the consumers (224); over a bf16 cache every thread
-//   keeps 168.  Each was the faster choice on an H100 for its cache type.
+//   keeps 168.  At D 128 each was the faster choice on an H100 for its
+//   cache type.  ptxas compiles the whole kernel to 168 registers a
+//   thread whatever the split (56/224, 40/232 and 24/240 gave the same
+//   code on the card's toolkit), so at D 192, where a consumer holds Q
+//   (48 registers) and O (96) for the block's life beside S (32), it
+//   spills to local memory (chip_smoke.py [build] prints ptxas's
+//   counts); PERF.md has what the D 192 kernel costs.
 //   Grid (B * H, Sq / 128): consecutive blocks are the heads of one KV
 //   group, which read the same K/V through L2; query tiles run last-first
 //   so the longest causal rows start earliest.
 // - Products: `wgmma.mma_async` m64nNk16 bf16 -> f32, accumulators in
 //   registers.  Q lives in registers for the block's life, already in
-//   wgmma's A-fragment layout (32 registers a thread), so S = Q.K^T
-//   (m64n64, 8 k-steps over D) reads only K from shared memory.  P is
+//   wgmma's A-fragment layout (DQK / 4 registers a thread), so S = Q.K^T
+//   (m64n64, DQK / 16 k-steps) reads only K from shared memory.  P is
 //   converted to bf16 in registers, and its S-accumulator fragment is
-//   exactly the A fragment of O += P.V (m64n128, 4 k-steps over 64
+//   exactly the A fragment of O += P.V (m64nDV, 4 k-steps over 64
 //   keys): P never goes through shared memory.  K is B in K-major form;
 //   V [keys][d] is B in MN-major form through the transpose bit that
 //   16-bit types allow.
-// - Shared layout: a K or V tile is 64 keys x 128 d in bf16 as two
-//   64-column halves of 64 rows x 128 bytes, 128-byte swizzled (TMA's
-//   SWIZZLE_128B; 1024-byte aligned atoms of 8 rows).  K descriptors:
-//   K-major, SBO 1024 (8 rows), a k-step moves 32 bytes inside the atom
-//   or to the other half.  V descriptors: MN-major, LBO 8192 (the other
-//   64-column half), SBO 1024 (8 keys), a k-step moves 16 keys.
+// - Shared layout: a K (V) tile is 64 keys x DQK (DV) d in bf16 as
+//   DQK / 64 (DV / 64) 64-column parts of 64 rows x 128 bytes, 128-byte
+//   swizzled (TMA's SWIZZLE_128B; 1024-byte aligned atoms of 8 rows).  K
+//   descriptors: K-major, SBO 1024 (8 rows), a k-step moves 32 bytes
+//   inside the atom or to the next part.  V descriptors: MN-major, LBO
+//   8192 (the next 64-column part), SBO 1024 (8 keys), a k-step moves 16
+//   keys.
 // - Loads: a ring of K/V stages in shared memory with full/empty
 //   mbarriers, so the producer fills the next tiles while the consumers
 //   compute.  A bf16 cache: one producer thread issues TMA loads straight
-//   into the swizzled ring (4 boxes of 64 x 64 a stage), 4 stages.  An f32
-//   cache: TMA cannot convert, so one thread TMA-loads f32 K and V tiles
-//   (32 KB each, unswizzled) into 2 staging slots, two tiles ahead, and
-//   the whole producer warpgroup converts each tile to bf16 into the
-//   swizzled ring (2 stages), one float4 a thread a step so that reads
-//   and 8-byte writes are free of bank conflicts.  Staging through TMA
-//   keeps 64-128 KB of loads in flight an SM with 56 registers a producer
-//   thread; loading through the producer's registers instead (32 float4s
+//   into the swizzled ring ((DQK + DV) / 64 boxes of 64 x 64 a stage), 4
+//   stages (32 KB each at D 128, 48 KB at D 192).  An f32 cache: TMA
+//   cannot convert, so one thread TMA-loads f32 K and V tiles
+//   (unswizzled) into staging slots, as many tiles ahead as there are
+//   slots, and the whole producer warpgroup converts each tile to bf16
+//   into the swizzled ring (2 stages), one float4 a thread a step so that
+//   reads and 8-byte writes are free of bank conflicts.  The slots are
+//   chosen from the 227 KB budget (`Plan`): 2 slots of 64 KB at D 128;
+//   at D 192 a slot is 96 KB, so 2 ring stages and 1 slot (192 KB) are
+//   what fits, and the next tile's load waits for this one's
+//   conversion.  Staging through TMA keeps 64-128 KB of loads in flight
+//   an SM with 56 registers a producer thread; loading through the producer's registers instead (32 float4s
 //   a thread, 64 KB in flight) was measured slower.  What bounds this
 //   path is the staging's shared-memory traffic (f32 written and read
 //   again, on top of the bf16 writes and the wgmma reads): without the
@@ -87,26 +104,36 @@
 
 namespace fa_wgmma {
 
-constexpr int D = 128;
 constexpr int BM = 64;                          // query rows a consumer
 constexpr int CONSUMERS = 2;
 constexpr int BQ = BM * CONSUMERS;              // query rows a block
 constexpr int BK = 64;                          // keys a tile
 constexpr int NTHREADS = 128 * (CONSUMERS + 1);
 constexpr int HALF_BYTES = BK * 64 * 2;         // 64 keys x 64 d bf16: 8 KB
-constexpr int TILE_BYTES = 2 * HALF_BYTES;      // K or V tile, bf16: 16 KB
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;     // K + V: 32 KB
-constexpr int F32_TILE_BYTES = BK * D * 4;      // K or V tile, f32: 32 KB
+constexpr int SMEM_BUDGET = 232448;             // a block's, on an H100
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <bool F32KV>
+// The shared-memory plan of head dims (DQK, DV) over a bf16 or f32 cache.
+template <int DQK, int DV, bool F32KV>
 struct Plan {
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "head dims of 64-col parts");
+  static constexpr int K_TILE = BK * DQK * 2;         // bf16 K tile
+  static constexpr int V_TILE = BK * DV * 2;          // bf16 V tile
+  static constexpr int STAGE_BYTES = K_TILE + V_TILE;
+  static constexpr int F32_K = BK * DQK * 4;          // f32 K tile
+  static constexpr int F32_SLOT = BK * (DQK + DV) * 4;  // f32 K + V
+  static constexpr int FIXED = 1024 /* alignment slack */ + 128 /* bars */;
   static constexpr int RING = F32KV ? 2 : 4;          // bf16 K/V stages
-  static constexpr int STAGING = F32KV ? 2 : 0;       // f32 K/V slots
+  // f32 K/V slots: two where they fit beside the ring, else one
+  static constexpr int STAGING = !F32KV ? 0
+      : (FIXED + RING * STAGE_BYTES + 2 * F32_SLOT <= SMEM_BUDGET ? 2 : 1);
   static constexpr int FULL_COUNT = F32KV ? 128 : 1;  // arrivals a fill
-  static constexpr int BARRIERS = 2 * RING + STAGING;
-  static constexpr int SMEM = 1024 /* alignment slack */
-      + RING * STAGE_BYTES + STAGING * 2 * F32_TILE_BYTES + 8 * BARRIERS;
+  static constexpr int SMEM = FIXED + RING * STAGE_BYTES
+      + STAGING * F32_SLOT;
+  // registers moved from the producer to the consumers (setmaxnreg)
+  static constexpr bool SPLIT_REGS = F32KV;
+  static_assert(SMEM <= SMEM_BUDGET, "shared-memory plan over budget");
+  static_assert(2 * RING + STAGING <= 16, "barrier space");
 };
 
 // ---------------------------------------------------------------- PTX --
@@ -224,6 +251,39 @@ __device__ __forceinline__ void wgmma_m64n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d[64 x 192] += A[64 x 16] (registers) . B[16 x 192] (MN-major in smem).
+__device__ __forceinline__ void wgmma_m64n192_tb(float (&d)[96],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48), F16(d, 64),
+        F16(d, 80)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// O += P . V at V's width: m64n128 or m64n192.
+__device__ __forceinline__ void wgmma_pv(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  wgmma_m64n128_tb(d, a, desc);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[96],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  wgmma_m64n192_tb(d, a, desc);
+}
+
 #undef F16
 #undef F4
 
@@ -243,79 +303,92 @@ struct Args {
 };
 
 // Producer: fill ring stage j % RING with K/V tile j.
-template <bool F32KV>
+template <int DQK, int DV, bool F32KV>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v,
                                         uint8_t* ring, uint8_t* staging,
                                         uint64_t* full, uint64_t* empty,
                                         uint64_t* staged, int n_tiles, int hk,
                                         int b) {
-  using P = Plan<F32KV>;
+  using P = Plan<DQK, DV, F32KV>;
   const int tid = threadIdx.x % 128;
   if constexpr (!F32KV) {
     if (tid != 0) return;
     for (int j = 0; j < n_tiles; ++j) {
       const int r = j % P::RING;
       mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
-      mbar_expect_tx(&full[r], STAGE_BYTES);
-      uint8_t* kdst = ring + r * STAGE_BYTES;
-      uint8_t* vdst = kdst + TILE_BYTES;
-      for (int half = 0; half < 2; ++half) {
-        tma_load_4d(kdst + half * HALF_BYTES, tm_k, &full[r], 64 * half, hk,
-                    j * BK, b);
-        tma_load_4d(vdst + half * HALF_BYTES, tm_v, &full[r], 64 * half, hk,
-                    j * BK, b);
+      mbar_expect_tx(&full[r], P::STAGE_BYTES);
+      uint8_t* kdst = ring + r * P::STAGE_BYTES;
+      uint8_t* vdst = kdst + P::K_TILE;
+      // K's and V's parts interleaved: at D 128, all of K's parts before
+      // V's ran 8-10% slower over a bf16 cache on an H100.
+      for (int part = 0; part < (DQK > DV ? DQK : DV) / 64; ++part) {
+        if (part < DQK / 64) {
+          tma_load_4d(kdst + part * HALF_BYTES, tm_k, &full[r], 64 * part,
+                      hk, j * BK, b);
+        }
+        if (part < DV / 64) {
+          tma_load_4d(vdst + part * HALF_BYTES, tm_v, &full[r], 64 * part,
+                      hk, j * BK, b);
+        }
       }
     }
   } else {
-    auto stage = [&](int j) {       // f32 K and V tile j -> slot j & 1
-      uint8_t* dst = staging + (j & 1) * 2 * F32_TILE_BYTES;
-      mbar_expect_tx(&staged[j & 1], 2 * F32_TILE_BYTES);
-      tma_load_4d(dst, tm_k, &staged[j & 1], 0, hk, j * BK, b);
-      tma_load_4d(dst + F32_TILE_BYTES, tm_v, &staged[j & 1], 0, hk, j * BK,
-                  b);
+    constexpr int NS = P::STAGING;
+    auto stage = [&](int j) {       // f32 K and V tile j -> slot j % NS
+      uint8_t* dst = staging + (j % NS) * P::F32_SLOT;
+      mbar_expect_tx(&staged[j % NS], P::F32_SLOT);
+      tma_load_4d(dst, tm_k, &staged[j % NS], 0, hk, j * BK, b);
+      tma_load_4d(dst + P::F32_K, tm_v, &staged[j % NS], 0, hk, j * BK, b);
     };
     if (tid == 0) {
-      for (int j = 0; j < 2 && j < n_tiles; ++j) stage(j);
+      for (int j = 0; j < NS && j < n_tiles; ++j) stage(j);
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int r = j % P::RING;
-      mbar_wait(&staged[j & 1], (j >> 1) & 1);
+      mbar_wait(&staged[j % NS], (j / NS) & 1);
       mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
-      const uint8_t* src = staging + (j & 1) * 2 * F32_TILE_BYTES;
-      uint8_t* dst = ring + r * STAGE_BYTES;
-      // A warp converts one 128-value row a step: 32 float4 reads of 512
-      // contiguous bytes, 32 8-byte writes to the row's two swizzled
-      // 128-byte lines.
+      const uint8_t* src = staging + (j % NS) * P::F32_SLOT;
+      uint8_t* dst = ring + r * P::STAGE_BYTES;
+      // A warp converts 128 contiguous values a step: 32 float4 reads of
+      // 512 contiguous bytes, 32 8-byte writes to swizzled 128-byte lines.
+      // K's items come first, then V's (both multiples of a warp).  At
+      // DQK == DV the index arithmetic is one (K, V) pair's, which the
+      // compiler folds over the unrolled steps; a select between K's and
+      // V's row widths there made the f32 path 34% slower at D 128.
+      constexpr int K_ITEMS = BK * DQK / 4;
 #pragma unroll 4
-      for (int i = 0; i < 2 * BK * D / 4 / 128; ++i) {
+      for (int i = 0; i < BK * (DQK + DV) / 4 / 128; ++i) {
         const int it = tid + 128 * i;
-        const int kv = it / (BK * D / 4);             // 0: K, 1: V
-        const int row = (it / (D / 4)) % BK;
-        const int f = it % (D / 4);                   // float4 in the row
+        const bool is_v = DQK == DV ? it / K_ITEMS : it >= K_ITEMS;
+        const int d = DQK == DV ? DQK : (is_v ? DV : DQK);
+        const int row = DQK == DV ? (it / (DQK / 4)) % BK
+                                  : (is_v ? it - K_ITEMS : it) / (d / 4);
+        const int f = DQK == DV ? it % (DQK / 4)
+                                : (is_v ? it - K_ITEMS : it) % (d / 4);
         const float4 x = *reinterpret_cast<const float4*>(
-            src + kv * F32_TILE_BYTES + row * D * 4 + f * 16);
-        const int half = f / 16, chunk = (f % 16) / 2, sub = f % 2;
-        uint8_t* out = dst + kv * TILE_BYTES + half * HALF_BYTES + row * 128
-                       + ((chunk ^ (row & 7)) << 4) + sub * 8;
+            src + (is_v ? P::F32_K : 0) + row * d * 4 + f * 16);
+        const int part = f / 16, chunk = (f % 16) / 2, sub = f % 2;
+        uint8_t* out = dst + (is_v ? P::K_TILE : 0) + part * HALF_BYTES
+                       + row * 128 + ((chunk ^ (row & 7)) << 4) + sub * 8;
         *reinterpret_cast<uint2*>(out) =
             make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
       }
       fence_proxy_async();       // the generic writes, before wgmma reads
       mbar_arrive(&full[r]);
       producer_bar_sync();       // every thread is done with the slot
-      if (tid == 0 && j + 2 < n_tiles) stage(j + 2);
+      if (tid == 0 && j + NS < n_tiles) stage(j + NS);
     }
   }
 }
 
 // Consumer warpgroup `wg`: query rows q0 + 64 wg .. + 63 of head h.
-template <bool F32KV>
+template <int DQK, int DV, bool F32KV>
 __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
                                         uint64_t* full, uint64_t* empty,
                                         int n_tiles, int wg, int b, int h,
                                         int q0) {
-  using P = Plan<F32KV>;
+  using P = Plan<DQK, DV, F32KV>;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   // This thread's two rows in every m64 fragment.
@@ -324,7 +397,7 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
 
   // Q in the A-fragment layout: k-step kk holds columns 16 kk .. + 15;
   // register e holds row rows[e & 1], columns 16 kk + 8 (e >> 1) + 2t, +1.
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DQK / 16][4];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const bool ok = rows[e] < a.Sq;
@@ -332,7 +405,7 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
         a.q + b * a.q_sb + static_cast<int64_t>(ok ? rows[e] : 0) * a.q_ss
         + h * a.q_sh;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         qf[kk][e + 2 * hi] =
@@ -353,17 +426,17 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
   const int mask_from = a.causal
       ? min(a.Skv, a.q_offset + q0 + wg * BM + 1) : a.Skv;
 
-  float acc[D / 2];            // O: 64 rows x 128 d, m64n128 layout
+  float acc[DV / 2];           // O: 64 rows x DV, m64nDV layout
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};     // this thread's share of the row sums
 
   for (int j = 0; j < n_tiles; ++j) {
     const int r = j % P::RING;
     mbar_wait(&full[r], (j / P::RING) & 1);
-    const uint32_t kaddr = smem_u32(ring + r * STAGE_BYTES);
-    const uint32_t vaddr = kaddr + TILE_BYTES;
+    const uint32_t kaddr = smem_u32(ring + r * P::STAGE_BYTES);
+    const uint32_t vaddr = kaddr + P::K_TILE;
 
     // S = Q . K^T.  Element i of s: row rows[(i >> 1) & 1], key
     // 8 (i >> 2) + 2t + (i & 1) of the tile.
@@ -373,7 +446,7 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
     fence_regs(s);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       wgmma_m64n64(s, qf[kk],
                    sw128_desc(kaddr + (kk / 4) * HALF_BYTES + (kk % 4) * 32,
                               16, 1024),
@@ -419,7 +492,7 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
 #pragma unroll
     for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + rs[e];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // P in bf16: the S fragment of keys 16 kk .. + 15 is the A fragment.
     uint32_t pf[BK / 16][4];
@@ -436,8 +509,8 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_m64n128_tb(acc, pf[kk],
-                       sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES, 1024));
+      wgmma_pv(acc, pf[kk],
+               sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES, 1024));
     }
     wg_commit();
     wg_wait_all();
@@ -460,7 +533,7 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
     __nv_bfloat16* orow = a.o + b * a.o_sb
         + static_cast<int64_t>(rows[e]) * a.o_ss + h * a.o_sh;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DV / 8; ++c) {
       const int i = 4 * c + 2 * e;
       *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
           pack_bf16(acc[i] * inv[e], acc[i + 1] * inv[e]);
@@ -468,18 +541,18 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
   }
 }
 
-template <bool F32KV>
+template <int DQK, int DV, bool F32KV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ Args a) {
-  using P = Plan<F32KV>;
+  using P = Plan<DQK, DV, F32KV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* staging = ring + P::RING * STAGE_BYTES;
+  uint8_t* staging = ring + P::RING * P::STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      staging + P::STAGING * 2 * F32_TILE_BYTES);
+      staging + P::STAGING * P::F32_SLOT);
   uint64_t* empty = full + P::RING;
   uint64_t* staged = empty + P::RING;
 
@@ -504,16 +577,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
 
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
-    if constexpr (F32KV) {
+    if constexpr (P::SPLIT_REGS) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     }
-    produce<F32KV>(&tm_k, &tm_v, ring, staging, full, empty, staged,
-                   n_tiles, h / a.group, b);
+    produce<DQK, DV, F32KV>(&tm_k, &tm_v, ring, staging, full, empty,
+                            staged, n_tiles, h / a.group, b);
   } else {
-    if constexpr (F32KV) {
+    if constexpr (P::SPLIT_REGS) {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
     }
-    consume<F32KV>(a, ring, full, empty, n_tiles, wg, b, h, q0);
+    consume<DQK, DV, F32KV>(a, ring, full, empty, n_tiles, wg, b, h, q0);
   }
 }
 
@@ -538,27 +611,27 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-d map over keys [0, n_keys) of one K or V view (B, Skv, Hkv, 128),
+// A 4-d map over keys [0, n_keys) of one K or V view (B, Skv, Hkv, d),
 // innermost first; boxes of 64 keys x one head x 64 d (bf16, 128-byte
-// swizzle) or x 128 d (f32, unswizzled).  Strides of size-1 axes may be 0
+// swizzle) or x d (f32, unswizzled).  Strides of size-1 axes may be 0
 // and are replaced.
-int encode_kv(CUtensorMap* map, const void* base, bool f32, int B,
+int encode_kv(CUtensorMap* map, const void* base, bool f32, int d, int B,
               int n_keys, int Hkv, int64_t sb, int64_t ss, int64_t sh) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return -1;
   const uint64_t es = f32 ? 4 : 2;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                         static_cast<cuuint64_t>(Hkv),
                         static_cast<cuuint64_t>(n_keys),
                         static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * es,
                            static_cast<cuuint64_t>(ss) * es,
                            static_cast<cuuint64_t>(sb) * es};
-  if (strides[0] == 0) strides[0] = D * es;
+  if (strides[0] == 0) strides[0] = d * es;
   if (strides[1] == 0) strides[1] = strides[0] * dims[1];
   if (strides[2] == 0) strides[2] = strides[1] * dims[2];
-  cuuint32_t box[4] = {f32 ? 128u : 64u, 1u, static_cast<cuuint32_t>(BK),
-                       1u};
+  cuuint32_t box[4] = {f32 ? static_cast<cuuint32_t>(d) : 64u, 1u,
+                       static_cast<cuuint32_t>(BK), 1u};
   cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
   const CUresult res = encode(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -570,29 +643,43 @@ int encode_kv(CUtensorMap* map, const void* base, bool f32, int B,
   return res == CUDA_SUCCESS ? 0 : -2;
 }
 
-template <bool F32KV>
+template <int DQK, int DV, bool F32KV>
 int launch(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Args& a,
            int B, cudaStream_t stream) {
-  constexpr int smem = Plan<F32KV>::SMEM;
+  constexpr int smem = Plan<DQK, DV, F32KV>::SMEM;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<F32KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_wgmma_kernel<DQK, DV, F32KV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * a.H, (a.Sq + BQ - 1) / BQ);
-  flash_wgmma_kernel<F32KV><<<grid, NTHREADS, smem, stream>>>(tm_k, tm_v, a);
+  flash_wgmma_kernel<DQK, DV, F32KV><<<grid, NTHREADS, smem, stream>>>(
+      tm_k, tm_v, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DQK, int DV>
+int launch(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Args& a,
+           bool kv_f32, int B, cudaStream_t stream) {
+  return kv_f32 ? launch<DQK, DV, true>(tm_k, tm_v, a, B, stream)
+                : launch<DQK, DV, false>(tm_k, tm_v, a, B, stream);
 }
 
 }  // namespace fa_wgmma
 
-// Called by flash_attention.cu's C entry for q bf16, D 128.  Strides in
-// elements.  Returns 0, a cudaError_t, or kErrTensorMap (-4) when a K/V
-// view gets no TMA tensor map from libcuda.
+// Whether the tensor-core kernel is built for head dims (dqk, dv).
+bool flash_wgmma_takes(int dqk, int dv) {
+  return (dqk == 128 && dv == 128) || (dqk == 192 && dv == 192);
+}
+
+// Called by flash_attention.cu's C entry for q bf16 at head dims that
+// `flash_wgmma_takes`.  Strides in elements.  Returns 0, a cudaError_t,
+// or kErrTensorMap (-4) when a K/V view gets no TMA tensor map from
+// libcuda.
 int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                        bool kv_f32, int B, int Sq, int Skv, int H, int Hkv,
-                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                       int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                       int64_t v_ss, int64_t v_sh, int64_t o_sb,
+                       int dqk, int dv, int64_t q_sb, int64_t q_ss,
+                       int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                       int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
                        int64_t o_ss, int64_t o_sh, int causal, int q_offset,
                        float scale, cudaStream_t stream) {
   using namespace fa_wgmma;
@@ -600,8 +687,9 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   // none, no tile is loaded and the map's one key is never read.)
   const int n_keys = max(1, causal ? min(Skv, q_offset + Sq) : Skv);
   CUtensorMap tm_k, tm_v;
-  if (encode_kv(&tm_k, k, kv_f32, B, n_keys, Hkv, k_sb, k_ss, k_sh) != 0
-      || encode_kv(&tm_v, v, kv_f32, B, n_keys, Hkv, v_sb, v_ss, v_sh) != 0) {
+  if (encode_kv(&tm_k, k, kv_f32, dqk, B, n_keys, Hkv, k_sb, k_ss, k_sh) != 0
+      || encode_kv(&tm_v, v, kv_f32, dv, B, n_keys, Hkv, v_sb, v_ss,
+                   v_sh) != 0) {
     return -4;
   }
   Args a;
@@ -612,6 +700,6 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
   a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
   a.scale_log2 = scale * LOG2E;
-  return kv_f32 ? launch<true>(tm_k, tm_v, a, B, stream)
-                : launch<false>(tm_k, tm_v, a, B, stream);
+  if (dqk == 192) return launch<192, 192>(tm_k, tm_v, a, kv_f32, B, stream);
+  return launch<128, 128>(tm_k, tm_v, a, kv_f32, B, stream);
 }

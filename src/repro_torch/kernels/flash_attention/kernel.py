@@ -11,11 +11,13 @@ The kernel launches on the current CUDA stream and allocates nothing;
 the wrapper checks every argument, allocates the output, and raises if
 the launch returns an error.
 
-Two kernels share the library, chosen by type in the C entry: a bf16
-query with head dim 128 (the full-width serve path) runs on the tensor
-cores (``csrc/flash_attention_wgmma.cu``, variant ``"wgmma"``); any other
+Two kernels share the library, chosen by type and head dims in the C
+entry: a bf16 query at head dims (q/k, v) of (128, 128) or (192, 192)
+(the full-width serve paths) runs on the tensor cores
+(``csrc/flash_attention_wgmma.cu``, variant ``"wgmma"``); any other
 query runs on the CUDA cores in f32 (``csrc/flash_attention.cu``, variant
-``"simt"``).  ``launch`` returns the variant the C entry reports.
+``"simt"``), MLA's (192, 128) among them.  ``launch`` returns the variant
+the C entry reports.
 """
 
 from __future__ import annotations
@@ -30,14 +32,15 @@ from repro_torch.kernels import build as B
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
-HEAD_DIMS = (16, 128)       # the head dims the library is built for
+#: the (q/k, v) head dims the library is built for
+HEAD_DIMS = ((16, 16), (128, 128), (192, 192), (192, 128))
 VARIANTS = ("simt", "wgmma")   # as the C entry reports them: 0, 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_int64] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
@@ -61,9 +64,9 @@ def _check(name: str, x: torch.Tensor, device: torch.device) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name} dtype {x.dtype}: the kernel takes "
                         "float32 or bfloat16")
-    if x.dim() != 4 or x.shape[-1] not in HEAD_DIMS:
+    if x.dim() != 4:
         raise ValueError(f"{name} shape {tuple(x.shape)}: the kernel takes "
-                         f"(B, S, H, D) with D in {HEAD_DIMS}")
+                         "(B, S, H, D)")
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be contiguous")
     # 16-byte vector loads: aligned base, row strides in whole vectors.
@@ -81,9 +84,10 @@ def _strides(x: torch.Tensor):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) CUDA tensors, D in
-    ``HEAD_DIMS`` -> (B, Sq, H, D) in q's dtype.  ``q_offset`` is a
-    runtime int: one compiled kernel serves every chunk position."""
+    """q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) CUDA
+    tensors, (D, Dv) in ``HEAD_DIMS`` -> (B, Sq, H, Dv) in q's dtype.
+    ``q_offset`` is a runtime int: one compiled kernel serves every chunk
+    position."""
     return launch(q, k, v, causal=causal, sm_scale=sm_scale,
                   q_offset=q_offset)[0]
 
@@ -96,9 +100,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, q.device)
-    if k.dtype != v.dtype or k.shape != v.shape or k.shape[-1] != q.shape[-1]:
-        raise ValueError(f"k {k.dtype}{tuple(k.shape)} and v "
-                         f"{v.dtype}{tuple(v.shape)} must match")
+    dims = (q.shape[-1], v.shape[-1])
+    if dims not in HEAD_DIMS:
+        raise ValueError(f"head dims (D, Dv) = {dims}: the kernel takes "
+                         f"D in {sorted({d for d, _ in HEAD_DIMS})}, "
+                         f"paired with Dv as in {HEAD_DIMS}")
+    if (k.dtype != v.dtype or k.shape[:-1] != v.shape[:-1]
+            or k.shape[-1] != q.shape[-1]):
+        raise ValueError(f"q {tuple(q.shape)}, k {k.dtype}{tuple(k.shape)} "
+                         f"and v {v.dtype}{tuple(v.shape)} must match")
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or hkv == 0 or h % hkv:
@@ -111,14 +121,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q_offset={q_offset} must be >= 0")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     lib = LIBRARY.lib
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    o = q.new_empty((b, sq, h, v.shape[-1]))
     variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], b, sq, skv, h, hkv,
-            d, *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+            d, v.shape[-1], *_strides(q), *_strides(k), *_strides(v), *_strides(o),
             int(causal), q_offset, scale, stream, ctypes.byref(variant))
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()

@@ -28,11 +28,12 @@ tc_counter = LaunchCounter("flash_attention_tc")
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: float | None = None,
               q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in
-    q's dtype; ``q_offset`` is the absolute position of query 0.  The
-    softmax runs in float32; on the card a bf16 query with head dim 128
-    takes bf16 products (K, V and P rounded to bf16, as the reference's
-    kernel does for a bf16 cache), every other query f32 ones."""
+    """q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) ->
+    (B, Sq, H, Dv) in q's dtype; ``q_offset`` is the absolute position of
+    query 0.  The softmax runs in float32; on the card a bf16 query with
+    head dims (128, 128) or (192, 192) takes bf16 products (K, V and P
+    rounded to bf16, as the reference's kernel does for a bf16 cache),
+    every other query f32 ones."""
     if q.device.type == "cuda":
         out, variant = kernel.launch(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)

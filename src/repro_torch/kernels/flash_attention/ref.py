@@ -1,7 +1,7 @@
 """Plain PyTorch flash-attention forward: the kernel's reference.
 
 Exact softmax attention in float32 on the model's ``(B, S, H, D)``
-layout, GQA folded by head grouping (query head ``h`` reads KV head
+layout (values may have their own head dim ``Dv``, as MLA's do), GQA folded by head grouping (query head ``h`` reads KV head
 ``h // group``), causal mask by absolute position (query ``i`` sits at
 ``q_offset + i``).  A query row that sees no key gives 0 (the ``l == 0``
 guard of the TPU kernel).  The CPU path of ``ops.attention`` and the
@@ -25,7 +25,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sm_scale: float | None = None,
               q_offset: int = 0) -> torch.Tensor:
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = h // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     qg = q.reshape(b, sq, hkv, group, d).float() * scale
@@ -40,7 +40,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / l
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
 def attention_bf16_products(q: torch.Tensor, k: torch.Tensor,
@@ -55,7 +55,7 @@ def attention_bf16_products(q: torch.Tensor, k: torch.Tensor,
     past the last query's position never enter, not even as a masked
     product: the kernel's loads zero-fill them."""
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     group = h // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     c = torch.tensor(scale, dtype=torch.float32) * math.log2(math.e)
@@ -66,7 +66,7 @@ def attention_bf16_products(q: torch.Tensor, k: torch.Tensor,
     qpos = torch.arange(sq, device=q.device) + int(q_offset)
     m = torch.full((b, hkv, group, sq), -math.inf, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros(b, hkv, group, sq, d, device=q.device)
+    acc = torch.zeros(b, hkv, group, sq, dv, device=q.device)
     for k0 in range(0, kv_end, block_k):
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb[:, k0:k0 + block_k])
         kpos = torch.arange(k0, k0 + s.shape[-1], device=q.device)
@@ -82,4 +82,4 @@ def attention_bf16_products(q: torch.Tensor, k: torch.Tensor,
             "bhgqk,bkhd->bhgqd", p.to(bf).float(), vb[:, k0:k0 + block_k])
         m = m_new
     out = acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)

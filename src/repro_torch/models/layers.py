@@ -1,5 +1,6 @@
-"""Dense layers of the port: RMSNorm, RoPE, GQA/MQA attention (with
-qwen3's optional per-head q/k norm), SwiGLU and tanh-GELU MLPs.
+"""Dense layers of the port: RMSNorm, LayerNorm, RoPE, GQA/MQA attention
+(with qwen3's optional per-head q/k norm), SwiGLU, squared-ReLU and
+tanh-GELU MLPs.
 
 Counterpart of the dense subset of ``repro.models.layers``.
 
@@ -82,6 +83,23 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(dim: int, dtype, device, lead: Tuple[int, ...] = ()):
+    return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """Scale and bias, statistics in f32 (the biased variance, as
+    ``jnp.var``)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -126,7 +144,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float | None = None) -> torch.Tensor:
     """One-shot prefill attention (the reference's ``flash_attention_jnp``).
 
-    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); query 0 at ``q_offset``."""
+    q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) (MLA's Dv
+    differs from D); query 0 at ``q_offset``."""
     return flash_ops.attention(q, k, v, causal=causal, sm_scale=sm_scale,
                                q_offset=q_offset)
 
@@ -276,8 +295,8 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 512,
                     sm_scale: float | None = None) -> torch.Tensor:
     """Differentiable attention for the training forward (the
-    reference's ``flash_attention_jnp``).  q: (B, Sq, H, D); k/v:
-    (B, Skv, Hkv, D) -> (B, Sq, H, D) in q's dtype."""
+    reference's ``flash_attention_jnp``).  q: (B, Sq, H, D); k: (B, Skv,
+    Hkv, D); v: (B, Skv, Hkv, Dv) -> (B, Sq, H, Dv) in q's dtype."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
     return _TrainAttention.apply(q, k, v, causal, int(q_offset),
@@ -406,13 +425,14 @@ def attention_decode(params: Params, cfg: AttentionCfg, x: torch.Tensor,
 
 def _scatter_token(cache: torch.Tensor, token: torch.Tensor,
                    idx: torch.Tensor) -> torch.Tensor:
-    """cache: (B, Smax, H, D); token: (B, 1, H, D); idx: (B,).  Writes
+    """cache: (B, Smax, ...); token: (B, 1, ...); idx: (B,).  Writes
     row ``idx[b]`` of each sequence in place; an index past the cache
     writes nothing, as the reference's one-hot select does."""
     b, smax = cache.shape[:2]
     rows = torch.arange(b, device=cache.device)
     at = idx.long().clamp(0, smax - 1)
-    inside = ((idx >= 0) & (idx < smax))[:, None, None]
+    inside = ((idx >= 0) & (idx < smax)).view(
+        (b,) + (1,) * (cache.dim() - 2))
     cache[rows, at] = torch.where(inside, token[:, 0].to(cache.dtype),
                                   cache[rows, at])
     return cache
@@ -440,7 +460,7 @@ class MLPCfg:
     activation: str = "swiglu"
 
 
-ACTIVATIONS = ("swiglu", "gelu")
+ACTIVATIONS = ("swiglu", "squared_relu", "gelu")
 
 
 def _check_activation(cfg: MLPCfg) -> None:
@@ -463,10 +483,14 @@ def init_mlp(gen, cfg: MLPCfg, dtype, device, lead: Tuple[int, ...] = ()):
 
 def mlp_forward(params: Params, cfg: MLPCfg, x: torch.Tensor
                 ) -> torch.Tensor:
-    """SwiGLU, or GELU in its tanh form (``jax.nn.gelu``'s default)."""
+    """SwiGLU, squared ReLU (nemotron's), or GELU in its tanh form
+    (``jax.nn.gelu``'s default)."""
     _check_activation(cfg)
     if cfg.activation == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif cfg.activation == "squared_relu":
+        h = F.relu(x @ params["w_up"])
+        h = h * h
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]

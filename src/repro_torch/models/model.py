@@ -121,9 +121,9 @@ class Model:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Every mixer of this slice (attention) has an absolute-position
-        chunked prefill path."""
-        return all(spec.mixer == "attn"
+        """Whether every mixer has an absolute-position chunked prefill
+        path (attention, MLA)."""
+        return all(spec.mixer in ("attn", "mla")
                    for st in self.cfg.stages for spec in st.layers)
 
     def prefill_chunk(self, params: Params, batch: Dict[str, torch.Tensor],

@@ -1,26 +1,30 @@
-"""Decoder LM of the port: stages of attention + dense-FFN or MoE layers.
+"""Decoder LM of the port: stages of attention or MLA + dense-FFN or MoE
+layers.
 
-Counterpart of ``repro.models.transformer`` for its attention subset.  A
-model is a sequence of *stages*; each stage is a pattern of layers
+Counterpart of ``repro.models.transformer`` for its attention and MLA
+subset.  A model is a sequence of *stages*; each stage is a pattern of layers
 (``LayerSpec``) repeated ``repeat`` times with STACKED params and caches
 (leading axis = repeat), exactly the reference's layout, so params and
 caches compare leaf for leaf across the two packages.  The reference
 scans the repeats with ``lax.scan``; here a Python loop indexes the
 stacks.
 
-Layer = pre-norm mixer + pre-norm FFN, both residual.  The ``attn``
-mixer and the ``dense`` and ``moe`` FFNs are ported (MLA and Mamba are
-not); a MoE layer adds its load-balance loss to the model's.
+Layer = pre-norm mixer + pre-norm FFN, both residual; the norm is
+RMSNorm or LayerNorm (``TransformerCfg.norm``).  The ``attn`` and ``mla``
+mixers and the ``dense`` and ``moe`` FFNs are ported (Mamba is not); a
+MoE layer adds its load-balance loss to the model's.  ``mtp`` adds
+deepseek-v3's multi-token-prediction head to the loss.
 
 Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
 ``cfg`` is then the rank's local config (``local_config``: its heads,
 its FFN columns, its vocabulary block) and the params its shard
-(``parallel.sharding``; a MoE layer's experts split over "model", see
-``models.moe.moe_forward_sharded``).  The embedding is vocab-parallel,
-each pre-norm output enters its column-parallel product through *f* and
-each row-parallel product leaves through *g*, the residual stream is
-cut ahead of each norm for the staged backward, and the loss is the
-vocab-parallel cross-entropy over the rank's ``lm_head`` columns.
+(``parallel.sharding``, which refuses MLA; a MoE layer's experts split
+over "model", see ``models.moe.moe_forward_sharded``).  The embedding is
+vocab-parallel, each pre-norm output enters its column-parallel product
+through *f* and each row-parallel product leaves through *g*, the
+residual stream is cut ahead of each norm for the staged backward, and
+the loss is the vocab-parallel cross-entropy over the rank's ``lm_head``
+columns.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.parallel import sharding as S
 from repro_torch.tree import map_tree
@@ -40,7 +45,7 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str = "attn"            # attn (mla | mamba: later slices)
+    mixer: str = "attn"            # attn | mla (mamba: a later slice)
     ffn: str = "dense"             # dense | moe | none
 
 
@@ -57,9 +62,13 @@ class TransformerCfg:
     vocab_size: int
     stages: Tuple[StageSpec, ...]
     attn: Optional[L.AttentionCfg] = None
+    mla: Optional[MLA.MLACfg] = None
     mlp: Optional[L.MLPCfg] = None
     moe: Optional[MOE.MoECfg] = None
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
     tie_embeddings: bool = False
+    mtp: bool = False              # deepseek-v3 multi-token prediction head
+    mtp_loss_weight: float = 0.3
     param_dtype: Any = torch.float32
     block_k: int = 512             # training attention kv block
 
@@ -69,7 +78,7 @@ class TransformerCfg:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mla"):
         raise NotImplementedError(
             f"mixer {spec.mixer!r} arrives with the port's "
             "remaining-model-families slice")
@@ -77,6 +86,23 @@ def _check_spec(spec: LayerSpec) -> None:
         raise NotImplementedError(
             f"ffn {spec.ffn!r} arrives with the port's "
             "remaining-model-families slice")
+
+
+# ---------------------------------------------------------------------------
+# Norm dispatch
+# ---------------------------------------------------------------------------
+
+
+def _init_norm(cfg: TransformerCfg, device, lead: Tuple[int, ...] = ()):
+    if cfg.norm == "layernorm":
+        return L.init_layernorm(cfg.d_model, cfg.param_dtype, device, lead)
+    return L.init_rmsnorm(cfg.d_model, cfg.param_dtype, device, lead)
+
+
+def _norm(cfg: TransformerCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return L.layernorm(p, x)
+    return L.rmsnorm(p, x)
 
 
 # ---------------------------------------------------------------------------
@@ -88,10 +114,13 @@ def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
                lead: Tuple[int, ...] = ()) -> Params:
     _check_spec(spec)
     dt = cfg.param_dtype
-    p: Params = {"norm_mixer": L.init_rmsnorm(cfg.d_model, dt, device, lead),
-                 "attn": L.init_attention(gen, cfg.attn, dt, device, lead)}
+    p: Params = {"norm_mixer": _init_norm(cfg, device, lead)}
+    if spec.mixer == "attn":
+        p["attn"] = L.init_attention(gen, cfg.attn, dt, device, lead)
+    else:
+        p["mla"] = MLA.init_mla(gen, cfg.mla, dt, device, lead)
     if spec.ffn != "none":
-        p["norm_ffn"] = L.init_rmsnorm(cfg.d_model, dt, device, lead)
+        p["norm_ffn"] = _init_norm(cfg, device, lead)
     if spec.ffn == "dense":
         p["mlp"] = L.init_mlp(gen, cfg.mlp, dt, device, lead)
     elif spec.ffn == "moe":
@@ -136,8 +165,16 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
     _check_spec(spec)
     cut, f, g = _tp_ops(tp)
     x = cut(x)
-    h = f(L.rmsnorm(params["norm_mixer"], x))
-    if decode:
+    h = f(_norm(cfg, params["norm_mixer"], x))
+    if spec.mixer == "mla":
+        if decode:
+            out, new_cache = MLA.mla_decode(params["mla"], cfg.mla, h, cache)
+        else:
+            out, new_cache = MLA.mla_forward(
+                params["mla"], cfg.mla, h, q_offset=q_offset, kv_cache=cache,
+                chunked=chunked, valid_len=valid_len, train=train,
+                block_k=cfg.block_k)
+    elif decode:
         out, new_cache = L.attention_decode(params["attn"], cfg.attn, h,
                                             cache)
     else:
@@ -149,12 +186,12 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
         x = cut(x)
-        h = f(L.rmsnorm(params["norm_ffn"], x))
+        h = f(_norm(cfg, params["norm_ffn"], x))
         x = x + g(L.mlp_forward(params["mlp"], cfg.mlp, h))
     elif spec.ffn == "moe":
         x = cut(x)
         y, aux = MOE.moe_apply(params["moe"], cfg.moe,
-                               L.rmsnorm(params["norm_ffn"], x))
+                               _norm(cfg, params["norm_ffn"], x))
         x = x + y
     return x, new_cache, aux
 
@@ -177,8 +214,9 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Run the stage's ``repeat`` blocks; returns (x, caches, the sum of
     their aux losses).  ``caches``: stacked cache tree with leading dim
-    = repeat (or None).  K/V rows are written into the stacked tensors in
-    place; the ``len`` counters come back stacked."""
+    = repeat (or None).  Cache rows (K/V, or MLA's latents) are written
+    into the stacked tensors in place; the ``len`` counters come back
+    stacked."""
     lens: Dict[str, list] = {f"layer{i}": [] for i in range(len(stage.layers))}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(stage.repeat):
@@ -195,8 +233,7 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 lens[name].append(nc["len"])
     if caches is None:
         return x, None, aux_total
-    return x, {name: {"k": caches[name]["k"], "v": caches[name]["v"],
-                      "len": torch.stack(lens[name])}
+    return x, {name: {**caches[name], "len": torch.stack(lens[name])}
                for name in caches}, aux_total
 
 
@@ -208,17 +245,30 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
 def init_params(gen: Optional[torch.Generator], cfg: TransformerCfg,
                 device) -> Params:
     """Random params on ``device`` from ``gen`` (``None``: uninitialised,
-    for shape probes on the ``meta`` device)."""
+    for shape probes on the ``meta`` device).  With ``mtp`` the MTP head
+    too: two norms, the (2D, D) projection and one layer of the last
+    stage's spec, unstacked (the reference's ``init_params``)."""
     dt = cfg.param_dtype
     p: Params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                        dt, device)}
     for i, stage in enumerate(cfg.stages):
         p[f"stage{i}"] = init_stage(gen, cfg, stage, device)
-    p["final_norm"] = L.init_rmsnorm(cfg.d_model, dt, device)
+    p["final_norm"] = _init_norm(cfg, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
                                     device)
+    if cfg.mtp:
+        p["mtp_norm1"] = _init_norm(cfg, device)
+        p["mtp_norm2"] = _init_norm(cfg, device)
+        p["mtp_proj"] = L.dense_init(gen, (2 * cfg.d_model, cfg.d_model), dt,
+                                     device)
+        p["mtp_block"] = init_layer(gen, cfg, _mtp_spec(cfg), device)
     return p
+
+
+def _mtp_spec(cfg: TransformerCfg) -> LayerSpec:
+    """The MTP block's layer: the last stage's last spec."""
+    return cfg.stages[-1].layers[-1]
 
 
 def _unembed(params: Params, cfg: TransformerCfg, h: torch.Tensor
@@ -257,7 +307,7 @@ def forward(params: Params, cfg: TransformerCfg,
         if new_caches is not None:
             new_caches[name] = nc
     cut, f, _ = _tp_ops(tp)
-    return (f(L.rmsnorm(params["final_norm"], cut(h))), new_caches,
+    return (f(_norm(cfg, params["final_norm"], cut(h))), new_caches,
             aux_total)
 
 
@@ -277,11 +327,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 def loss_fn(params: Params, cfg: TransformerCfg,
             batch: Dict[str, torch.Tensor], tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Language-model loss plus the MoE layers' aux loss (the
-    reference's ``loss_fn`` without multi-token prediction): returns
-    (nll + aux, {"nll", "aux", "loss"}).  With ``tp_index`` the params
-    are the rank's shard and the NLL is the vocab-parallel cross-entropy
-    (the same value on every model rank, and so is the aux loss)."""
+    """Language-model loss plus the MoE layers' aux loss and, with
+    ``cfg.mtp``, the multi-token-prediction term (the reference's
+    ``loss_fn``): returns (nll [+ w * mtp] + aux, {"nll", "aux", ["mtp"],
+    "loss"}); "aux" is the main stack's, as the reference reports it.
+    With ``tp_index`` the params are the rank's shard and the NLL is the
+    vocab-parallel cross-entropy (the same value on every model rank, and
+    so is the aux loss)."""
     h, _, aux = forward(params, cfg, batch, train=True, tp_index=tp_index)
     logits = _unembed(params, cfg, h)
     if tp_index is None:
@@ -289,18 +341,48 @@ def loss_fn(params: Params, cfg: TransformerCfg,
     else:
         nll = S.vocab_parallel_cross_entropy(logits, batch["labels"],
                                              tp_index)
-    loss = nll + aux
-    return loss, {"nll": nll, "aux": aux, "loss": loss}
+    metrics = {"nll": nll, "aux": aux}
+    loss = nll
+    if cfg.mtp:
+        if tp_index is not None:
+            raise NotImplementedError("the MTP head over a \"model\" axis "
+                                      "is not ported")
+        mtp = _mtp_loss(params, cfg, batch, h)
+        aux = aux + mtp[1]
+        loss = loss + cfg.mtp_loss_weight * mtp[0]
+        metrics["mtp"] = mtp[0]
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(params: Params, cfg: TransformerCfg,
+              batch: Dict[str, torch.Tensor], h: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(MTP cross-entropy, the MTP block's aux loss): token t + 2 is
+    predicted from the final hidden state at t joined with the embedding
+    of token t + 1, through one more layer and the shared unembedding."""
+    emb_next = params["embed"][batch["tokens"].long()][:, 1:]
+    h_in = torch.cat([_norm(cfg, params["mtp_norm1"], h[:, :-1]),
+                      _norm(cfg, params["mtp_norm2"], emb_next)], dim=-1)
+    h_mtp, _, aux = apply_layer(params["mtp_block"], cfg, _mtp_spec(cfg),
+                                h_in @ params["mtp_proj"], train=True)
+    return (cross_entropy(_unembed(params, cfg, h_mtp),
+                          batch["labels"][:, 1:]), aux)
 
 
 def init_caches(cfg: TransformerCfg, batch: int, max_len: int, dtype,
                 device) -> Params:
     caches: Params = {}
     for i, stage in enumerate(cfg.stages):
-        for spec in stage.layers:
+        block = {}
+        for j, spec in enumerate(stage.layers):
             _check_spec(spec)
-        caches[f"stage{i}"] = {
-            f"layer{j}": L.init_kv_cache(batch, max_len, cfg.attn, dtype,
-                                         device, (stage.repeat,))
-            for j in range(len(stage.layers))}
+            if spec.mixer == "mla":
+                block[f"layer{j}"] = MLA.init_mla_cache(
+                    batch, max_len, cfg.mla, dtype, device, (stage.repeat,))
+            else:
+                block[f"layer{j}"] = L.init_kv_cache(
+                    batch, max_len, cfg.attn, dtype, device, (stage.repeat,))
+        caches[f"stage{i}"] = block
     return caches

@@ -9,7 +9,9 @@ partitioner, so it states the same Megatron-style split explicitly:
 - ``leaf_split`` — the dim of each parameter a model rank holds, from
   the reference's specs: ``wq``/``bq``/``w_gate``/``w_up``/``lm_head``
   split their output columns, ``wo``/``w_down`` their input rows,
-  ``embed`` its vocabulary rows, norms are replicated.
+  ``embed`` its vocabulary rows, norms (a LayerNorm's bias too) are
+  replicated.  The two-matrix MLPs (GELU, squared ReLU) split ``w_up``
+  by columns and ``w_down`` by rows.  MLA is refused (``layout``).
 - A MoE layer splits its experts (``w_gate``/``w_up``/``w_down`` under
   ``moe``: dim -3 of the stacked ``(R, E, D, F)`` leaf), as the
   reference's ``moe_forward_shardmap`` does; its router and any shared
@@ -95,7 +97,12 @@ class TPLayout:
 def layout(cfg, model: int) -> TPLayout:
     """The split of ``cfg`` (a ``TransformerCfg``) over ``model`` ranks.
     Raises where a whole-head, FFN, expert or vocabulary split does not
-    divide."""
+    divide, and for MLA, whose split is not ported."""
+    if any(spec.mixer == "mla" for st in cfg.stages for spec in st.layers):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA over a \"model\" axis arrives with a later "
+            "slice of the port (its latent cache stays whole, its heads "
+            "split)")
     a = cfg.attn
     d_ff = 0 if cfg.mlp is None else cfg.mlp.d_ff
     experts = 0 if cfg.moe is None else cfg.moe.num_experts

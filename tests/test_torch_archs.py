@@ -1,0 +1,187 @@
+"""Every architecture the port registers against the JAX package: the
+twin of ``tests/test_archs.py``, on the CPU.
+
+For each of the port's six archs the reference's reduced config is
+initialised by JAX and carried into the port with ``params_from_numpy``:
+
+- logits of the same tokens within 1e-5 of the largest reference logit
+  (f32; the packages sum in different orders);
+- the loss (NLL + the MoE aux loss + the MTP term where the config has
+  it) and each metric within 1e-5 relative;
+- every gradient within 1e-4 of its leaf's largest reference value (a
+  leaf whose reference gradient is 0 everywhere within 1e-10);
+- 5 AdamW steps on one batch lower the loss (the reference's
+  ``test_smoke_train_step_improves``);
+- prefill of half the tokens plus 3 decode steps give the teacher-forced
+  forward's logits within 8e-3, as the reference's test holds its own;
+- the full published config's parameter count, from ``meta`` tensors,
+  equal to the reference's ``param_count()``;
+- both launchers run the three archs of this slice reduced on the CPU.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import build_model as jbuild_model
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.models import build_model
+from repro_torch.models import transformer as T
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.optim import make_optimizer
+from repro_torch.tree import flatten, unflatten
+
+B, S = 2, 32
+LOGIT_TOL = 1e-5
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-4
+DECODE_TOL = 8e-3
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch):
+    jm = jbuild_model(jget_config(arch, reduced=True))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(get_config(arch, reduced=True))
+    tp = params_from_numpy(jax.device_get(jp), tm.cfg, device="cpu")
+    return jm, jp, tm, tp
+
+
+def _batch(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"tokens": rng.randint(0, 256, (B, S)),
+            "labels": rng.randint(0, 256, (B, S))}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch):
+    """The reference's logits, (loss, metrics) and gradients on
+    ``_batch()``, from one jitted function."""
+    jm, jp, _, _ = _pair(arch)
+
+    def run(p, b):
+        return jm.logits(p, b), jax.value_and_grad(jm.loss, has_aux=True)(
+            p, b)
+
+    return jax.device_get(jax.jit(run)(jp, _jax(_batch())))
+
+
+def _jax(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _torch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def test_port_registers_the_six_archs():
+    assert set(ARCH_IDS) == {"granite-34b", "qwen2-72b", "qwen3-moe-30b-a3b",
+                             "mistral-large-123b", "nemotron-4-340b",
+                             "deepseek-v3-671b"}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_logits_match_reference(arch):
+    _, _, tm, tp = _pair(arch)
+    want = _reference(arch)[0]
+    h, _, _ = T.forward(tp, tm.cfg, _torch(_batch()))
+    got = T._unembed(tp, tm.cfg, h)
+    assert got.shape == (B, S, tm.cfg.vocab_size)
+    assert _rel(got.numpy(), want) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_loss_and_grads_match_reference(arch):
+    _, _, tm, tp = _pair(arch)
+    (jloss, jmet), jgrads = _reference(arch)[1]
+    ps, paths = flatten(tp)
+    xs = [t.detach().requires_grad_(True) for t in ps]
+    tloss, tmet = tm.loss(unflatten(paths, xs), _torch(_batch()))
+    tgrads = torch.autograd.grad(tloss, xs)
+    assert set(tmet) == set(jmet)
+    assert ("mtp" in tmet) == tm.cfg.mtp
+    assert abs(tloss.item() - float(jloss)) <= LOSS_TOL * abs(float(jloss))
+    for k in jmet:
+        assert abs(tmet[k].item() - float(jmet[k])) <= LOSS_TOL * max(
+            abs(float(jmet[k])), 1e-30), k
+    jg, jpaths = flatten(jgrads)
+    assert jpaths == paths
+    for path, want, got in zip(paths, jg, tgrads):
+        if not np.abs(want).max():
+            assert got.abs().max().item() <= 1e-10, "/".join(path)
+        else:
+            assert _rel(got.numpy(), want) <= GRAD_TOL, "/".join(path)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_steps_on_one_batch_lower_the_loss(arch):
+    _, _, tm, tp = _pair(arch)
+    leaves, paths = flatten(tp)
+    params = unflatten(paths, [t.clone() for t in leaves])
+    opt = make_optimizer("adamw", lr=5e-3)
+    state = opt.init(params)
+    b = _torch(_batch(2))
+    losses = []
+    for _ in range(5):
+        loss, grads = tm.loss_and_grads(params, b)
+        params, state, _ = opt.update(grads, state, params)
+        losses.append(loss.item())
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_and_decode_match_the_teacher_forced_forward(arch):
+    cfg = get_config(arch, reduced=True)
+    if cfg.moe is not None:     # capacity drops depend on the token count
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_batch(3)["tokens"])
+    h, _, _ = T.forward(params, cfg, {"tokens": toks})
+    full = T._unembed(params, cfg, h)
+    caches = model.init_caches(B, S + 8, dtype=torch.float32, device="cpu")
+    half = S // 2
+    logits, caches = model.prefill(params, {"tokens": toks[:, :half]},
+                                   caches)
+    torch.testing.assert_close(logits, full[:, half - 1], rtol=DECODE_TOL,
+                               atol=DECODE_TOL)
+    for t in range(half, half + 3):
+        logits, caches = model.decode_step(
+            params, {"tokens": toks[:, t:t + 1]}, caches)
+        torch.testing.assert_close(logits, full[:, t], rtol=DECODE_TOL,
+                                   atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_full_param_count_equals_reference(arch):
+    assert (build_model(get_config(arch)).param_count()
+            == jbuild_model(jget_config(arch)).param_count())
+
+
+@pytest.mark.parametrize("arch", ["mistral-large-123b", "nemotron-4-340b",
+                                  "deepseek-v3-671b"])
+def test_launchers_run_the_arch_on_the_cpu(arch, caplog):
+    caplog.set_level("INFO")
+    launch_serve.main(["--device", "cpu", "--arch", arch, "--reduced",
+                       "--requests", "3", "--max-new", "3"])
+    assert "served 3 requests (0 shed)" in caplog.text
+    launch_train.main(["--device", "cpu", "--arch", arch, "--reduced",
+                       "--data", "2", "--steps", "2", "--seq-len", "16",
+                       "--global-batch", "4", "--log-every", "1"])
+    assert "step    1  loss" in caplog.text

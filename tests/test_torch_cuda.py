@@ -38,9 +38,10 @@ so they run on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Flash attention has two variants, chosen by the query's type: a bf16
-query with head dim 128 runs on the tensor cores (``wgmma``), any other
-on the CUDA cores in f32 (``simt``).  ``kernel.launch`` returns the
+Flash attention has two variants, chosen by the query's type and the
+head dims: a bf16 query at (D, Dv) = (128, 128) or (192, 192) runs on
+the tensor cores (``wgmma``), any other (MLA's (192, 128) among them) on
+the CUDA cores in f32 (``simt``).  ``kernel.launch`` returns the
 variant that ran and ``ops.tc_counter`` counts the tensor-core launches,
 so these tests pick a variant by the dtype of q and check that it ran.
 
@@ -88,36 +89,59 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(seed, sq, skv, h, hkv, d, q_dtype, kv_dtype, device):
+def _qkv(seed, sq, skv, h, hkv, d, q_dtype, kv_dtype, device, dv=None):
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(1, sq, h, d).astype(np.float32))
     k = torch.from_numpy(rng.randn(1, skv, hkv, d).astype(np.float32))
-    v = torch.from_numpy(rng.randn(1, skv, hkv, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(1, skv, hkv, dv or d).astype(np.float32))
     return (q.to(device, q_dtype), k.to(device, kv_dtype),
             v.to(device, kv_dtype))
 
 
+@pytest.mark.parametrize("h,hkv,d", [(64, 8, 128), (96, 8, 192)])
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv,off", [(256, 4096, 0), (256, 4096, 256),
                                         (256, 4096, 3840), (1000, 1000, 0)])
-def test_kernel_matches_plain_at_serving_shapes(cuda, q_dtype, kv_dtype, sq,
-                                                skv, off):
-    """64 -> 8 heads, D = 128: chunks over a 4096-token cache and a
-    one-shot prefill whose length is not a multiple of the tile."""
-    q, k, v = _qkv(sq + off, sq, skv, 64, 8, 128, q_dtype, kv_dtype, cuda)
-    before = ops.counter.value
+def test_kernel_matches_plain_at_serving_shapes(cuda, h, hkv, d, q_dtype,
+                                                kv_dtype, sq, skv, off):
+    """64 -> 8 heads at D 128 (qwen2-72b) and 96 -> 8 at D 192
+    (nemotron-4-340b): chunks over a 4096-token cache and a one-shot
+    prefill whose length is not a multiple of the tile; a bf16 query on
+    the tensor cores, an f32 one on the CUDA cores."""
+    q, k, v = _qkv(sq + off, sq, skv, h, hkv, d, q_dtype, kv_dtype, cuda)
+    before = (ops.counter.value, ops.tc_counter.value)
     got = ops.attention(q, k, v, q_offset=off)
-    assert ops.counter.value == before + 1
+    assert ops.counter.value == before[0] + 1
+    assert ops.tc_counter.value == before[1] + (q_dtype == torch.bfloat16)
     assert got.dtype == q_dtype
     _assert_matches(got, ref.attention(q, k, v, q_offset=off))
 
 
-@pytest.mark.parametrize("h,hkv,d,causal", [(4, 2, 16, True),
-                                            (8, 1, 16, False),
-                                            (64, 8, 128, False)])
-def test_kernel_matches_plain_f32(cuda, h, hkv, d, causal):
-    q, k, v = _qkv(h, 77, 77, h, hkv, d, torch.float32, torch.float32, cuda)
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_mla_one_shot_prefill_matches_plain(cuda, q_dtype, kv_dtype):
+    """deepseek-v3's materialized MLA prefill: 128 heads (K/V per head),
+    192-dim scores against 128-dim values, 1000 tokens, on the CUDA
+    cores."""
+    q, k, v = _qkv(5, 1000, 1000, 128, 128, 192, q_dtype, kv_dtype, cuda,
+                   dv=128)
+    before = (ops.counter.value, ops.tc_counter.value)
+    got = ops.attention(q, k, v)
+    assert (ops.counter.value, ops.tc_counter.value) == (before[0] + 1,
+                                                          before[1])
+    assert got.shape == (1, 1000, 128, 128) and got.dtype == q_dtype
+    _assert_matches(got, ref.attention(q, k, v))
+
+
+@pytest.mark.parametrize("h,hkv,d,causal,dv", [(4, 2, 16, True, 16),
+                                               (8, 1, 16, False, 16),
+                                               (64, 8, 128, False, 128),
+                                               (16, 2, 192, False, 192),
+                                               (16, 16, 192, True, 128)])
+def test_kernel_matches_plain_f32(cuda, h, hkv, d, causal, dv):
+    q, k, v = _qkv(h, 77, 77, h, hkv, d, torch.float32, torch.float32, cuda,
+                   dv=dv)
     got = kernel.flash_attention(q, k, v, causal=causal)
     want = ref.attention(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
@@ -136,16 +160,17 @@ def test_kernel_takes_strided_cache_views(cuda):
     _assert_matches(got, ref.attention(q, k, v, q_offset=64))
 
 
+@pytest.mark.parametrize("d", [128, 192])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hkv", [(8, 1), (64, 8)])
 @pytest.mark.parametrize("sq,skv,off", [(77, 300, 100), (130, 4096, 3841),
                                         (64, 1000, 936), (200, 523, 0),
                                         (5, 4096, 3841)])
-def test_tensor_core_kernel_at_ragged_shapes(cuda, kv_dtype, h, hkv, sq,
+def test_tensor_core_kernel_at_ragged_shapes(cuda, d, kv_dtype, h, hkv, sq,
                                              skv, off):
     """Offsets that are not tile multiples, Sq and Skv that are not
-    multiples of 64, GQA 8/1 and 64/8, both cache types."""
-    q, k, v = _qkv(sq + off + h, sq, skv, h, hkv, 128, torch.bfloat16,
+    multiples of 64, GQA 8/1 and 64/8, both cache types, D 128 and 192."""
+    q, k, v = _qkv(sq + off + h, sq, skv, h, hkv, d, torch.bfloat16,
                    kv_dtype, cuda)
     before = ops.tc_counter.value
     got = ops.attention(q, k, v, q_offset=off)
@@ -153,20 +178,21 @@ def test_tensor_core_kernel_at_ragged_shapes(cuda, kv_dtype, h, hkv, sq,
     _assert_matches(got, ref.attention(q, k, v, q_offset=off))
 
 
+@pytest.mark.parametrize("d", [128, 192])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hkv", [(8, 1), (64, 8)])
-def test_tensor_core_kernel_takes_strided_arena_views(cuda, kv_dtype, h,
+def test_tensor_core_kernel_takes_strided_arena_views(cuda, d, kv_dtype, h,
                                                       hkv):
     """One layer of a stacked (B, S, layers, Hkv, D) arena, batch 2, as
     the serve path hands it; the keys past the chunk hold NaN, as pages
     not yet written may, and must never reach the output."""
     sq, skv, off = 100, 640, 300
-    q, k, v = _qkv(h + 5, 2 * sq, skv, h, hkv, 128, torch.bfloat16,
+    q, k, v = _qkv(h + 5, 2 * sq, skv, h, hkv, d, torch.bfloat16,
                    kv_dtype, cuda)
-    q = q.reshape(2, sq, h, 128)
+    q = q.reshape(2, sq, h, d)
     k = k.expand(2, -1, -1, -1).contiguous()
     v = v.expand(2, -1, -1, -1).contiguous()
-    stack_k = torch.full((2, skv, 3, hkv, 128), float("nan"), device=cuda,
+    stack_k = torch.full((2, skv, 3, hkv, d), float("nan"), device=cuda,
                          dtype=kv_dtype)
     stack_v = stack_k.clone()
     stack_k[:, :off + sq, 2], stack_v[:, :off + sq, 2] = (k[:, :off + sq],
@@ -179,11 +205,13 @@ def test_tensor_core_kernel_takes_strided_arena_views(cuda, kv_dtype, h,
                                        q_offset=off))
 
 
-@pytest.mark.parametrize("q_dtype,d,variant", [
-    (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "simt"),
-    (torch.bfloat16, 16, "simt"), (torch.float32, 16, "simt")])
-def test_variant_follows_the_query_type(cuda, q_dtype, d, variant):
-    q, k, v = _qkv(d, 70, 90, 8, 2, d, q_dtype, torch.float32, cuda)
+@pytest.mark.parametrize("q_dtype,d,dv,variant", [
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.float32, 128, 128, "simt"),
+    (torch.bfloat16, 16, 16, "simt"), (torch.float32, 16, 16, "simt"),
+    (torch.bfloat16, 192, 192, "wgmma"), (torch.float32, 192, 192, "simt"),
+    (torch.bfloat16, 192, 128, "simt"), (torch.float32, 192, 128, "simt")])
+def test_variant_follows_the_query_type(cuda, q_dtype, d, dv, variant):
+    q, k, v = _qkv(d, 70, 90, 8, 2, d, q_dtype, torch.float32, cuda, dv=dv)
     before = (ops.counter.value, ops.tc_counter.value)
     ops.attention(q, k, v, q_offset=20)
     assert ops.counter.value == before[0] + 1
@@ -195,6 +223,11 @@ def test_variant_follows_the_query_type(cuda, q_dtype, d, variant):
 
 def test_kernel_refuses_unsupported_head_dim(cuda):
     q, k, v = _qkv(0, 8, 8, 4, 2, 64, torch.float32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="D in"):
+        kernel.flash_attention(q, k, v)
+    # a pair the library is not built for, though each dim is
+    q, k, v = _qkv(0, 8, 8, 4, 2, 128, torch.bfloat16, torch.float32, cuda,
+                   dv=192)
     with pytest.raises(ValueError, match="D in"):
         kernel.flash_attention(q, k, v)
 

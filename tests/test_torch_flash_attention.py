@@ -6,7 +6,10 @@ function the CUDA kernel is held against on the card — to the reference's
 three implementations of the same function: ``chunk_attention`` (chunked
 prefill), ``flash_attention_jnp`` (one-shot prefill) and the Pallas kernel
 in interpret mode.  Inputs come from a seeded numpy generator and go to
-both packages as the same arrays.
+both packages as the same arrays.  Head dims: 16 (reduced), 128, 192
+(nemotron-4-340b) and MLA's 192-dim scores against 128-dim values
+(deepseek-v3, 128 heads, one KV head a query head), which the Pallas
+kernel does not take (its output has q's head dim).
 
 Tolerances: float32 at atol 1e-5 (the two sides sum in different orders);
 bfloat16 at 2e-2 (one bf16 ulp of O(1) outputs, plus the reference's
@@ -29,11 +32,17 @@ F32_ATOL = 1e-5
 BF16_ATOL = 2e-2
 
 
-def _qkv(seed, b, sq, skv, h, hkv, d):
+def _qkv(seed, b, sq, skv, h, hkv, d, dv=None):
     rng = np.random.RandomState(seed)
     return (rng.randn(b, sq, h, d).astype(np.float32),
             rng.randn(b, skv, hkv, d).astype(np.float32),
-            rng.randn(b, skv, hkv, d).astype(np.float32))
+            rng.randn(b, skv, hkv, dv or d).astype(np.float32))
+
+
+# (D, Dv) of a head layout, by its query head count: the reduced configs'
+# 16, qwen2-72b's 128, nemotron-4-340b's 192, deepseek-v3's MLA.
+HEAD_DIMS = {4: (16, 16), 8: (16, 16), 64: (128, 128), 96: (192, 192),
+             128: (192, 128)}
 
 
 def _t(x, dtype=torch.float32):
@@ -51,14 +60,17 @@ def _close(port, ref, atol):
 
 
 # (H, Hkv, D, Sq, Smax, q_offset, dtypes): GQA 4/2 and 8/1 at small
-# widths, the qwen2-72b head layout (64 -> 8, D=128) on a short cache.
+# widths, the qwen2-72b head layout (64 -> 8, D=128) and nemotron-4-340b's
+# (96 -> 8, D=192) on a short cache.
 # dtypes: all f32; bf16 q with an f32 cache (the full-width serving
 # contract); all bf16.
 CHUNK_CASES = [(4, 2, 16, 8, 32, 0, "f32"), (4, 2, 16, 8, 32, 8, "f32"),
                (8, 1, 16, 16, 64, 32, "f32"), (64, 8, 128, 16, 48, 16, "f32"),
                (4, 2, 16, 8, 32, 8, "bf16_q"), (4, 2, 16, 8, 32, 8, "bf16"),
                (64, 8, 128, 16, 48, 16, "bf16_q"),
-               (64, 8, 128, 16, 48, 16, "bf16")]
+               (64, 8, 128, 16, 48, 16, "bf16"),
+               (96, 8, 192, 16, 48, 16, "f32"),
+               (96, 8, 192, 16, 48, 16, "bf16_q")]
 
 
 @pytest.mark.parametrize("h,hkv,d,sq,smax,off,dtypes", CHUNK_CASES)
@@ -79,12 +91,13 @@ def test_plain_flash_matches_chunk_attention(h, hkv, d, sq, smax, off,
 
 @pytest.mark.parametrize("h,hkv,causal,seq", [
     (4, 2, True, 37), (8, 1, True, 64), (64, 8, True, 37),
-    (4, 2, False, 37), (64, 8, False, 64)])
+    (4, 2, False, 37), (64, 8, False, 64), (96, 8, True, 37),
+    (128, 128, True, 37), (128, 128, False, 64)])
 def test_plain_flash_matches_flash_attention_jnp(h, hkv, causal, seq):
     """One-shot prefill, including a length that is not a multiple of
-    the reference's 16-key block."""
-    d = 128 if h == 64 else 16
-    q, k, v = _qkv(seq + h, 2, seq, seq, h, hkv, d)
+    the reference's 16-key block; head dims by ``HEAD_DIMS``."""
+    d, dv = HEAD_DIMS[h]
+    q, k, v = _qkv(seq + h, 2, seq, seq, h, hkv, d, dv)
     want = JL.flash_attention_jnp(_j(q), _j(k), _j(v), causal=causal,
                                   block_k=16)
     got = TL.flash_attention(_t(q), _t(k), _t(v), causal=causal)
@@ -101,14 +114,16 @@ def test_plain_flash_bf16_matches_flash_attention_jnp():
     _close(got, want, BF16_ATOL)
 
 
-# (H, Hkv, Sq, Skv, q_offset) at D=128, tile-sized for the Pallas kernel.
+# (H, Hkv, Sq, Skv, q_offset) at D=128 (D=192 for nemotron-4-340b's 96
+# heads), tile-sized for the Pallas kernel.
 PALLAS_CASES = [(4, 2, 128, 128, 0), (8, 1, 128, 128, 0),
-                (64, 8, 128, 128, 0), (4, 2, 128, 256, 128)]
+                (64, 8, 128, 128, 0), (4, 2, 128, 256, 128),
+                (96, 8, 128, 256, 128)]
 
 
 @pytest.mark.parametrize("h,hkv,sq,skv,off", PALLAS_CASES)
 def test_plain_flash_matches_pallas_kernel_interpret(h, hkv, sq, skv, off):
-    q, k, v = _qkv(h + off, 1, sq, skv, h, hkv, 128)
+    q, k, v = _qkv(h + off, 1, sq, skv, h, hkv, 192 if h == 96 else 128)
     want = jops.attention(_j(q), _j(k), _j(v), causal=True, q_offset=off,
                           force_kernel=True, block_q=128, block_k=128)
     got = tops.attention(_t(q), _t(k), _t(v), causal=True, q_offset=off)

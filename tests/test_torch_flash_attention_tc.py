@@ -9,7 +9,8 @@ here, so these tests run its arithmetic written out in plain torch
 (``ref.attention_bf16_products``) on the same seeded inputs and hold it
 to the port's plain version and to the JAX package's ``chunk_attention``
 (chunked prefill) and ``flash_attention_jnp`` (one-shot prefill): shapes
-with GQA 8/1 and 64/8, D 128, 512-1024 keys, offsets 0, 100 and late,
+with GQA 8/1, 64/8 and 96/8 (nemotron-4-340b's, at D 192; the others at
+D 128), 512-1024 keys, offsets 0, 100 and late,
 query counts that are not tile multiples, and both cache dtypes.
 """
 
@@ -26,10 +27,11 @@ JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
 def _inputs(seed, sq, skv, h, hkv, kv_dtype, q_gain=1.0):
+    d = 192 if h == 96 else 128             # nemotron-4-340b's head dim
     rng = np.random.RandomState(seed)
-    q = (q_gain * rng.randn(1, sq, h, 128)).astype(np.float32)
-    k = rng.randn(1, skv, hkv, 128).astype(np.float32)
-    v = rng.randn(1, skv, hkv, 128).astype(np.float32)
+    q = (q_gain * rng.randn(1, sq, h, d)).astype(np.float32)
+    k = rng.randn(1, skv, hkv, d).astype(np.float32)
+    v = rng.randn(1, skv, hkv, d).astype(np.float32)
     # q as served (bf16); the cache in its own dtype
     return (torch.from_numpy(q).to(torch.bfloat16),
             torch.from_numpy(k).to(kv_dtype),
@@ -53,6 +55,8 @@ CHUNK_CASES = [
     (64, 8, 100, 1024, 924, torch.float32, 1.0),
     (64, 8, 61, 512, 100, torch.bfloat16, 1.0),
     (64, 8, 200, 768, 568, torch.bfloat16, 4.0),
+    (96, 8, 100, 1024, 924, torch.float32, 1.0),
+    (96, 8, 200, 768, 568, torch.bfloat16, 4.0),
 ]
 
 
@@ -73,7 +77,8 @@ def test_bf16_products_match_plain_and_chunk_attention(h, hkv, sq, skv, off,
 
 
 @pytest.mark.parametrize("h,hkv,seq,kv_dtype", [
-    (8, 1, 600, torch.float32), (64, 8, 515, torch.bfloat16)])
+    (8, 1, 600, torch.float32), (64, 8, 515, torch.bfloat16),
+    (96, 8, 515, torch.float32)])
 def test_bf16_products_match_plain_and_flash_attention_jnp(h, hkv, seq,
                                                            kv_dtype):
     """One-shot prefill (offset 0, Sq = Skv, not a tile multiple)."""

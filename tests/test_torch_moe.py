@@ -738,7 +738,7 @@ def test_serve_cli_runs_moe_on_the_cpu(caplog):
     assert "served 3 requests (0 shed)" in caplog.text
 
 
-@pytest.mark.parametrize("spec", [T.LayerSpec("mla", "moe"),
+@pytest.mark.parametrize("spec", [T.LayerSpec("mamba", "moe"),
                                   T.LayerSpec("mamba", "none"),
                                   T.LayerSpec("attn", "mamba")])
 def test_other_mixers_and_ffns_are_refused(spec):
