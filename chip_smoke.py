@@ -67,8 +67,33 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              prefilled one-shot through ``Model.prefill``: MLA's
              materialized form, each layer's flash launch at (192, 128)
              held against plain, last logits within ``MLA_FORMS_TOL`` of
-             the chunked path's.  Each serve phase frees its weights
-             before the next.
+             the chunked path's.
+4e. serve_jamba — jamba-1.5-large-398b at its published widths (d_model
+             8192, 64/8 heads at head_dim 128, Mamba2 blocks of 256
+             heads x 64 with d_state 128, SwiGLU ff 24576, 16 experts
+             of 24576, top-2, vocab 65536), depth cut to 4 of 72 layers
+             (the stage pattern's first four: attention + dense,
+             Mamba + MoE, Mamba + dense, Mamba + MoE), random bf16
+             weights from a seed, [serve]'s scheduler and requests with
+             each prompt rounded down to a multiple of the SSD chunk
+             (256; the reference's ``ssd_chunked`` takes no other
+             length).  Its Mamba layers have no chunked prefill, so
+             each prompt prefills one-shot (``Model.prefill`` on a
+             contiguous row the pool adopts, its conv and SSM state in
+             the slot arena): the attention layer launches flash once a
+             prompt, on the tensor cores, held against plain for the
+             checked prompts.  Then decode rows at batch 8 and 4, bit
+             for bit, and the forms check: for the two checked prompts,
+             the last logits of a one-shot prefill of n tokens against
+             a one-shot prefill of n - 256 tokens and 256 decode steps
+             (the chunked SSD scan against the recurrent step), within
+             ``SSM_FORMS_TOL`` of max|one-shot|.
+4f. serve_mamba2 — mamba2-1.3b at its published widths and full depth
+             (48 Mamba2 layers, d_model 2048, 64 heads x 64, d_state
+             128, vocab 50280, tied embeddings), served as
+             [serve_jamba]: no flash launch (attention-free), decode
+             rows bit for bit, the forms check.  Each serve phase frees
+             its weights before the next.
 5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
              ``dequantize``, ``dequant_add``) against their plain versions,
              bit for bit, at the sizes granite-34b's sync gives them: the
@@ -363,6 +388,25 @@ DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # different tokens, which is not a difference of the two forms.
 MLA_FORMS_TOL = 2.0 ** -4
 CHECK_CAPACITY = 8.0
+JAMBA_ARCH = "jamba-1.5-large-398b"  # [serve_jamba]
+MAMBA2_ARCH = "mamba2-1.3b"         # [serve_mamba2], at full depth
+# [serve_jamba] / [serve_mamba2]: the last logits of a one-shot prefill
+# of n tokens against a prefill of n - SSM_FORMS_DECODE tokens followed by
+# SSM_FORMS_DECODE decode steps, within this share of the one-shot
+# logits' largest magnitude (``MLA_FORMS_TOL``'s).  The chunked SSD scan
+# sums the recurrence in another order than the step-by-step state
+# update, and the decode path carries the conv tail and state through
+# the f32 cache, while the one-shot path's bf16 activations round at
+# other places.  MoE layers run at capacity factor CHECK_CAPACITY so no
+# token drops in either, and the decoded form replays the one-shot's
+# expert choices: at bf16, 4-19 of 256 decoded tokens of a jamba MoE
+# layer choose other experts than the one-shot did (a top-2 choice
+# whose 2nd and 3rd scores lie within the forms' rounding), and each
+# such token moves every later state of the Mamba layers after it (11%
+# of the last logits for one prompt): a property of top-2 routing near
+# ties, not of the two SSD forms.
+SSM_FORMS_TOL = 2.0 ** -4
+SSM_FORMS_DECODE = 256
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -624,36 +668,60 @@ def _ffn_desc(cfg) -> str:
 
 
 def _mixer_desc(cfg) -> str:
+    parts = []
     if cfg.mla is not None:
         m = cfg.mla
-        return (f"MLA heads={m.num_heads} q_lora={m.q_lora} "
-                f"kv_lora={m.kv_lora} dh_qk={m.dh_qk} dh_v={m.dh_v}")
-    a = cfg.attn
-    return f"heads={a.num_heads}/{a.num_kv_heads} head_dim={a.head_dim}"
+        parts.append(f"MLA heads={m.num_heads} q_lora={m.q_lora} "
+                     f"kv_lora={m.kv_lora} dh_qk={m.dh_qk} dh_v={m.dh_v}")
+    elif cfg.attn is not None:
+        a = cfg.attn
+        parts.append(f"heads={a.num_heads}/{a.num_kv_heads} "
+                     f"head_dim={a.head_dim}")
+    if cfg.mamba is not None:
+        m = cfg.mamba
+        parts.append(f"Mamba2 heads={m.nheads}x{m.headdim} "
+                     f"d_state={m.d_state} chunk={m.chunk}")
+    return " + ".join(parts)
 
 
 def _attn_layers(cfg) -> int:
     """Layers whose mixer is GQA attention: each launches flash once a
-    prefill chunk (MLA's chunks attend in the absorbed form, in torch)."""
+    prefill chunk, or once a prompt for a model that prefills one-shot
+    (MLA's chunks attend in the absorbed form, in torch; Mamba layers
+    launch none)."""
     return sum(st.repeat for st in cfg.stages for spec in st.layers
                if spec.mixer == "attn")
 
 
+def _prefill_calls(model, lens, page_tokens) -> int:
+    """Flash launches a GQA layer makes to prefill prompts of ``lens``
+    tokens: one a page-sized chunk, or one a prompt when the model
+    prefills one-shot."""
+    if model.supports_chunked_prefill:
+        return int(sum(-(-int(n) // page_tokens) for n in lens))
+    return len(lens)
+
+
 def serve_workload(arch="qwen2-72b", tag="serve"):
     """The serving workload, on the card: ``arch`` (qwen2-72b for
-    [serve], qwen3-moe-30b-a3b for [serve_moe], nemotron-4-340b and
-    deepseek-v3-671b for [serve_nemotron] and [serve_deepseek]) at its
-    published widths
-    cut to SERVE_LAYERS layers with random bf16 weights from seed 0, the
-    scheduler's config, and SERVE_REQUESTS prompts of 256-3000 tokens
-    from ``RandomState(0)``.  Also serves one short request as a warm-up
-    (cuBLAS handles, allocator).  Returns (model, params, scfg,
-    prompts)."""
+    [serve], qwen3-moe-30b-a3b for [serve_moe], nemotron-4-340b,
+    deepseek-v3-671b, jamba-1.5-large-398b and mamba2-1.3b for their
+    serve phases) at its published widths, cut to SERVE_LAYERS layers
+    (mamba2-1.3b at its full 48), with random bf16 weights from seed 0,
+    the scheduler's config, and SERVE_REQUESTS prompts of 256-3000 tokens
+    from ``RandomState(0)``; a model with Mamba layers takes each drawn
+    length rounded down to a multiple of its SSD chunk
+    (``serve.engine.prompt_len``).  Also serves one short request (300
+    tokens, or one chunk) as a warm-up (cuBLAS handles, allocator).
+    Returns (model, params, scfg, prompts)."""
     from repro_torch.configs import get_config, with_num_layers
     from repro_torch.models import build_model
     from repro_torch.serve import ServeCfg
+    from repro_torch.serve.engine import prompt_len
     from repro_torch.tree import leaves
-    cfg = with_num_layers(get_config(arch), SERVE_LAYERS)
+    cfg = get_config(arch)
+    if arch != MAMBA2_ARCH:
+        cfg = with_num_layers(cfg, SERVE_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -668,25 +736,32 @@ def serve_workload(arch="qwen2-72b", tag="serve"):
                     cache_dtype=torch.float32)
     rng = np.random.RandomState(0)
     lens = rng.randint(256, 3001, size=SERVE_REQUESTS)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           size=int(prompt_len(cfg, n))).tolist()
                for n in lens]
-    _serve(model, params, scfg, [prompts[0][:300]], "cuda", 2)
+    if [len(p) for p in prompts] != lens.tolist():
+        print(f"[{tag}] prompt lengths rounded down to a multiple of the "
+              f"SSD chunk {cfg.mamba.chunk}: the reference's ssd_chunked "
+              f"takes no other length")
+    _serve(model, params, scfg, [prompts[0][:prompt_len(cfg, 300)]], "cuda",
+           2)
     return model, params, scfg, prompts
 
 
-def _checked_serve(model, params, scfg, submit, ref):
+def _checked_serve(model, params, scfg, submit, ref, prompts):
     """Serve once with this script's own hook, which holds the kernel's
-    output for every layer of every prefill chunk of CHECK_RIDS against
-    the plain version on the same CUDA tensors, right where the model
-    calls it.  The plain calls and their host syncs slow the run, so it
-    is not the one timed.  Returns ({rid: tokens}, [(max abs error,
+    output for every layer of every prefill chunk (or, for a model that
+    prefills one-shot, every flash call of its prompt) of CHECK_RIDS
+    against the plain version on the same CUDA tensors, right where the
+    model calls it.  The plain calls and their host syncs slow the run,
+    so it is not the one timed.  Returns ({rid: tokens}, [(max abs error,
     limit) per checked call]); the scheduler and its pool are freed on
     return."""
     from repro_torch.models import layers as L
     from repro_torch.serve import BatchScheduler
     errs = []
     current = {"rid": None}
-    kernel_chunk = L.chunk_attention
+    kernel_chunk, kernel_flash = L.chunk_attention, L.flash_attention
 
     def checked_chunk(q, k_cache, v_cache, q_offset, sm_scale=None):
         out = kernel_chunk(q, k_cache, v_cache, q_offset, sm_scale)
@@ -695,20 +770,43 @@ def _checked_serve(model, params, scfg, submit, ref):
                 q, k_cache, v_cache, causal=True, q_offset=q_offset)))
         return out
 
+    def checked_flash(q, k, v, *, causal=True, q_offset=0, sm_scale=None):
+        out = kernel_flash(q, k, v, causal=causal, q_offset=q_offset,
+                           sm_scale=sm_scale)
+        if current["rid"] in CHECK_RIDS:
+            errs.append(_error(out, ref.attention(
+                q, k, v, causal=causal, q_offset=q_offset,
+                sm_scale=sm_scale)))
+        return out
+
     sched = BatchScheduler(model, params, scfg, device="cuda")
-    chunk_run = sched._chunk
+    if model.supports_chunked_prefill:
+        chunk_run = sched._chunk
 
-    def tagged_chunk(params_, rid, *args):
-        current["rid"] = rid
-        return chunk_run(params_, rid, *args)
+        def tagged_chunk(params_, rid, *args):
+            current["rid"] = rid
+            return chunk_run(params_, rid, *args)
 
-    sched._chunk = tagged_chunk
-    L.chunk_attention = checked_chunk
+        sched._chunk = tagged_chunk
+        L.chunk_attention = checked_chunk
+    else:
+        # the one-shot path's prefill sees the prompt, not its rid
+        one_shot = model.prefill
+        by_prompt = {tuple(prompts[r]): r for r in CHECK_RIDS}
+
+        def tagged_prefill(params_, batch, caches):
+            current["rid"] = by_prompt.get(tuple(batch["tokens"][0]
+                                                 .tolist()))
+            return one_shot(params_, batch, caches)
+
+        model.prefill = tagged_prefill
+        L.flash_attention = checked_flash
     try:
         submit(sched)
         checked = {r.rid: r.generated for r in sched.run()}
     finally:
-        L.chunk_attention = kernel_chunk
+        L.chunk_attention, L.flash_attention = kernel_chunk, kernel_flash
+        model.__dict__.pop("prefill", None)
     sched.pool.check_integrity()
     return checked, errs
 
@@ -724,8 +822,10 @@ def phase_serve(ref):
 def _serve_phase(ref, arch, tag):
     """Serve the workload of ``serve_workload(arch)`` twice: the checked
     run and the timed one (see the module doc).  Every GQA attention
-    layer launches flash once a prefill chunk, on the tensor cores; MLA
-    layers launch none (their chunks attend in the absorbed form).
+    layer launches flash once a prefill chunk, or once a prompt for a
+    model that prefills one-shot (``Model.supports_chunked_prefill``
+    false: Mamba layers), on the tensor cores; MLA and Mamba layers
+    launch none.
     Returns the timed run's numbers, with (model, params, scfg, prompts,
     tokens) under "run"."""
     from repro_torch.kernels import counter
@@ -740,7 +840,8 @@ def _serve_phase(ref, arch, tag):
         for rid, p in enumerate(prompts):
             sched.submit(Request(rid=rid, prompt=p, max_new=SERVE_MAX_NEW))
 
-    checked, errs = _checked_serve(model, params, scfg, submit, ref)
+    checked, errs = _checked_serve(model, params, scfg, submit, ref,
+                                   prompts)
 
     # Timed run of the main path, unhooked, with the counts set to 0 just
     # before it and read just after.
@@ -758,12 +859,14 @@ def _serve_phase(ref, arch, tag):
     tc_launches = counter.counts()["flash_attention_tc"]
     peak = torch.cuda.max_memory_allocated()
 
-    n_chunks = sum(-(-n // scfg.page_tokens) for n in lens)
+    n_calls = _prefill_calls(model, lens, scfg.page_tokens)
+    calls = ("prefill chunks" if model.supports_chunked_prefill
+             else "one-shot prompts")
     attn_layers = _attn_layers(cfg)
     n_tokens = sum(len(r.generated) for r in done)
     ttft = sorted(r.ttft_s for r in done)
     pool = sched.pool
-    pool_bytes = _nbytes(pool.pool)
+    pool_bytes = _nbytes(pool.pool) + _nbytes(pool.state)
     card = torch.cuda.get_device_properties(0).total_memory
     print(f"[{tag}] prompts {sorted(lens.tolist())}")
     print(f"[{tag}] {len(done)}/{SERVE_REQUESTS} done, {len(sched.shed)} "
@@ -772,13 +875,13 @@ def _serve_phase(ref, arch, tag):
           f"TTFT p50 {np.percentile(ttft, 50):.3f}s p99 "
           f"{np.percentile(ttft, 99):.3f}s")
     print(f"[{tag}] flash launches {launches} = {attn_layers} attention "
-          f"layers x {n_chunks} prefill chunks: "
-          f"{launches == attn_layers * n_chunks}; on the tensor-core "
+          f"layers x {n_calls} {calls}: "
+          f"{launches == attn_layers * n_calls}; on the tensor-core "
           f"variant: {tc_launches}")
     same = {r.rid: r.generated for r in done} == checked
     if errs:
         worst = max(errs, key=lambda e: e[0] / e[1])
-        print(f"[{tag}] checked run: {len(errs)} chunk-layer outputs of "
+        print(f"[{tag}] checked run: {len(errs)} flash outputs of "
               f"rids {CHECK_RIDS} vs plain, max err "
               f"{max(e[0] for e in errs):.3e}; worst {worst[0]:.3e} "
               f"against its tol {worst[1]:.3e} "
@@ -787,8 +890,8 @@ def _serve_phase(ref, arch, tag):
           f"run's: {same}")
     print(f"[{tag}] peak allocated {peak / 2**30:.2f} GiB of "
           f"{card / 2**30:.1f} GiB; {base / 2**30:.2f} GiB before the timed "
-          f"run (weights {weight_bytes / 2**30:.2f} GiB, page pool "
-          f"{pool_bytes / 2**30:.2f} GiB)")
+          f"run (weights {weight_bytes / 2**30:.2f} GiB, page pool and "
+          f"slot state {pool_bytes / 2**30:.2f} GiB)")
     if base > weight_bytes + pool_bytes + 2 ** 28:
         raise AssertionError(f"{base} bytes held before the timed run: "
                              "an earlier run outlived its scheduler")
@@ -799,14 +902,14 @@ def _serve_phase(ref, arch, tag):
                 0 <= t < cfg.vocab_size for t in r.generated):
             raise AssertionError(f"rid {r.rid}: bad tokens {r.generated}")
     pool.check_integrity()
-    if launches != attn_layers * n_chunks:
-        raise AssertionError(f"{launches} launches for {n_chunks} chunks "
+    if launches != attn_layers * n_calls:
+        raise AssertionError(f"{launches} launches for {n_calls} {calls} "
                              f"of {attn_layers} attention layers")
     if tc_launches != launches:
         raise AssertionError(f"{launches - tc_launches} of {launches} "
                              "served chunks missed the tensor-core kernel")
-    expect_checks = attn_layers * sum(-(-lens[r] // scfg.page_tokens)
-                                      for r in CHECK_RIDS)
+    expect_checks = attn_layers * _prefill_calls(
+        model, [lens[r] for r in CHECK_RIDS], scfg.page_tokens)
     if len(errs) != expect_checks or not all(e <= t for e, t in errs):
         raise AssertionError(f"hook: {len(errs)} checks, errs {errs}")
     if not same:
@@ -995,6 +1098,152 @@ def phase_serve_deepseek(ref):
     del model, params
     _free()
     return out
+
+
+@contextlib.contextmanager
+def _moe_routing(record=None, replay=None):
+    """While the block runs, ``models.moe.route`` either appends each
+    call's expert choices (T, k) to ``record`` (MoE layers in call
+    order), or takes them from ``replay`` (one tensor a MoE layer, one
+    row a position; the calls of each layer consume its rows in order)
+    with the weights, positions and keep mask computed from them as
+    ``moe.route_logits`` does.  Yields a list that counts, per replayed
+    call, the tokens whose own choices differ from the replayed ones."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+    differ, calls, cursor = [], [0], {}
+
+    def recording(x2d, router_w, cfg, capacity):
+        out = route(x2d, router_w, cfg, capacity)
+        record.append(out[0])
+        return out
+
+    def replaying(x2d, router_w, cfg, capacity):
+        layer = calls[0] % len(replay)
+        calls[0] += 1
+        t = x2d.shape[0]
+        lo = cursor.get(layer, 0)
+        cursor[layer] = lo + t
+        idx = replay[layer][lo:lo + t]
+        logits = MOE.router_logits(x2d, router_w)
+        probs = (torch.sigmoid(logits) if cfg.scoring == "sigmoid"
+                 else torch.softmax(logits, dim=-1))
+        own = torch.topk(probs, cfg.top_k, dim=-1).indices
+        differ.append(int((own.sort(-1).values != idx.sort(-1).values)
+                          .any(-1).sum()))
+        vals = probs.gather(1, idx)
+        if cfg.norm_topk:
+            vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True),
+                                      min=1e-9)
+        flat = idx.reshape(-1)
+        onehot = F.one_hot(flat, cfg.num_experts)
+        pos = torch.cumsum(onehot, dim=0).gather(1, flat[:, None])[:, 0] - 1
+        keep = (pos < capacity).reshape(t, cfg.top_k)
+        return (idx, vals, pos.reshape(t, cfg.top_k), keep,
+                torch.zeros((), device=x2d.device))
+
+    MOE.route = recording if replay is None else replaying
+    try:
+        yield differ
+    finally:
+        MOE.route = route
+
+
+def _ssm_forms_check(tag, model, params, scfg, prompts):
+    """CHECK_RIDS' prompts (n tokens each) prefilled one-shot through
+    ``Model.prefill``, against a one-shot prefill of the first n -
+    SSM_FORMS_DECODE tokens (none when that is 0: the fresh cache is the
+    state before any token) followed by SSM_FORMS_DECODE decode steps
+    through ``Model.decode_step``: the chunked SSD scan against the
+    recurrent step.  A MoE layer runs at capacity factor CHECK_CAPACITY
+    in both, so no token drops, and the second form replays the
+    one-shot's expert choices (``_moe_routing``): a top-2 choice whose
+    2nd and 3rd scores lie within the forms' rounding flips between
+    them, and a flipped token changes every later state of the Mamba
+    layers after it, which is not a difference of the SSD forms.  The
+    second form's own routing is run too and its difference printed.
+    Returns [relative last-logit difference] a prompt (with the replayed
+    routing)."""
+    import dataclasses
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    moe = cfg.moe is not None
+    if moe:
+        model = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CHECK_CAPACITY)))
+
+    def decoded(toks, m, n):
+        caches = model.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        if m:
+            _, caches = model.prefill(params, {"tokens": toks[:, :m]},
+                                      caches)
+        for t in range(m, n):
+            got, caches = model.decode_step(
+                params, {"tokens": toks[:, t:t + 1]}, caches)
+        return got.float()
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    diffs = []
+    for rid in CHECK_RIDS:
+        toks = torch.tensor([prompts[rid]], device="cuda")
+        n, m = toks.shape[1], toks.shape[1] - SSM_FORMS_DECODE
+        choices = []
+        caches = model.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        with _moe_routing(record=choices):
+            want, caches = model.prefill(params, {"tokens": toks}, caches)
+        want = want.float()
+        del caches
+        if moe:
+            with _moe_routing(replay=choices) as differ:
+                diffs.append(rel(decoded(toks, m, n), want))
+            own = rel(decoded(toks, m, n), want)
+            note = (f" with the one-shot's expert choices replayed "
+                    f"({sum(differ)} of {m + SSM_FORMS_DECODE} tokens x "
+                    f"{len(choices)} MoE layers would choose otherwise; "
+                    f"with its own choices {own:.3e}, not held)")
+        else:
+            diffs.append(rel(decoded(toks, m, n), want))
+            note = ""
+        print(f"[{tag}] rid {rid} ({n} tokens): one-shot vs {m}-token "
+              f"prefill + {SSM_FORMS_DECODE} decode steps, last logits "
+              f"{diffs[-1]:.3e} of max|one-shot| (tol {SSM_FORMS_TOL:.3g})"
+              + note)
+    return diffs
+
+
+def _ssm_serve_phase(ref, arch, tag):
+    """[serve_jamba] / [serve_mamba2]: the workload served as [serve]
+    serves qwen2-72b (checked run, timed run) through the one-shot
+    prefill, then decode rows at batch 8 and 4, bit for bit, and the
+    forms check (``_ssm_forms_check``).  Returns the timed run's
+    numbers."""
+    out = _serve_phase(ref, arch, tag)
+    model, params, scfg, prompts, _ = out.pop("run")
+    if model.supports_chunked_prefill:
+        raise AssertionError(f"{tag}: a Mamba model offers chunked prefill")
+    _decode_rows_check(tag, model, params, scfg)
+    diffs = _ssm_forms_check(tag, model, params, scfg, prompts)
+    if not all(d <= SSM_FORMS_TOL for d in diffs):
+        raise AssertionError(f"{tag}: one-shot and decoded logits differ: "
+                             f"{diffs}")
+    out["forms_diff"] = max(diffs)
+    del model, params
+    _free()
+    return out
+
+
+def phase_serve_jamba(ref):
+    """[serve_jamba]: jamba-1.5-large-398b, 4 of 72 layers (see the module
+    doc)."""
+    return _ssm_serve_phase(ref, JAMBA_ARCH, "serve_jamba")
+
+
+def phase_serve_mamba2(ref):
+    """[serve_mamba2]: mamba2-1.3b at full depth (see the module doc)."""
+    return _ssm_serve_phase(ref, MAMBA2_ARCH, "serve_mamba2")
 
 
 def _bits_equal(a, b) -> bool:
@@ -2807,11 +3056,13 @@ def _decode_rows_equal(model, params, scfg, vocab):
     at batch 4 (the first half and the second each in a batch of their
     own), through the scheduler.  Returns (are the logits of each
     (request, position) whose tokens so far agree equal bit for bit, the
-    largest |difference| between them, how many such rows)."""
+    largest |difference| between them, how many such rows).  Prompts are
+    64 tokens long, or one SSD chunk for a model with Mamba layers."""
     import dataclasses
     from repro_torch.serve import BatchScheduler, Request
+    from repro_torch.serve.engine import prompt_len
     rng = np.random.RandomState(7)
-    prompts = [rng.randint(0, vocab, size=64).tolist()
+    prompts = [rng.randint(0, vocab, size=prompt_len(model.cfg, 64)).tolist()
                for _ in range(ROWS_PROMPTS)]
 
     def run(rids, batch):
@@ -3177,6 +3428,8 @@ def main() -> int:
     serve_moe = timed("serve_moe", phase_serve_moe, ref)
     serve_nemotron = timed("serve_nemotron", phase_serve_nemotron, ref)
     serve_deepseek = timed("serve_deepseek", phase_serve_deepseek, ref)
+    serve_jamba = timed("serve_jamba", phase_serve_jamba, ref)
+    serve_mamba2 = timed("serve_mamba2", phase_serve_mamba2, ref)
     sync_rows = timed("collectives", phase_collectives)
     lib_launches, _ = timed("collectives_lib", phase_collectives_lib)
     timed("train_small", phase_train_small)
@@ -3195,7 +3448,9 @@ def main() -> int:
                      "serve_nemotron": serve_nemotron["launches"],
                      "serve_deepseek": serve_deepseek["launches"],
                      "serve_deepseek_one_shot":
-                         serve_deepseek["one_shot_launches"]}
+                         serve_deepseek["one_shot_launches"],
+                     "serve_jamba": serve_jamba["launches"],
+                     "serve_mamba2": serve_mamba2["launches"]}
     flash_by_path["elastic_serve"] = timed(
         "elastic_serve", phase_elastic_serve)[0]["flash_attention"]
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s; the "
@@ -3227,6 +3482,7 @@ def main() -> int:
         "max_abs_err": max(serve["max_abs_err"], serve_moe["max_abs_err"],
                            serve_nemotron["max_abs_err"],
                            serve_deepseek["one_shot_max_abs_err"],
+                           serve_jamba["max_abs_err"],
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

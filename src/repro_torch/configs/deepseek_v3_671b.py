@@ -16,6 +16,9 @@ from repro_torch.models.transformer import (LayerSpec, StageSpec,
                                             TransformerCfg)
 
 ARCH_ID = "deepseek-v3-671b"
+FAMILY = "moe"
+SKIP_SHAPES = ("long_500k",)
+USES_EMBEDS = False
 
 
 def config(param_dtype=torch.bfloat16) -> TransformerCfg:

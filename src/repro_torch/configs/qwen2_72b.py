@@ -10,6 +10,9 @@ from repro_torch.models.transformer import (LayerSpec, StageSpec,
                                             TransformerCfg)
 
 ARCH_ID = "qwen2-72b"
+FAMILY = "dense"
+SKIP_SHAPES = ("long_500k",)
+USES_EMBEDS = False
 
 
 def config(param_dtype=torch.bfloat16) -> TransformerCfg:

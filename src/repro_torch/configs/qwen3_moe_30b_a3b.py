@@ -13,6 +13,9 @@ from repro_torch.models.transformer import (LayerSpec, StageSpec,
                                             TransformerCfg)
 
 ARCH_ID = "qwen3-moe-30b-a3b"
+FAMILY = "moe"
+SKIP_SHAPES = ("long_500k",)
+USES_EMBEDS = False
 
 
 def config(param_dtype=torch.bfloat16) -> TransformerCfg:

@@ -17,6 +17,11 @@ supervised by the elastic ``ServeController`` (counterpart of
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen3-moe-30b-a3b --requests 4 --max-new 4
 
+    # the state-space families (one-shot prefill; prompts a multiple of
+    # the SSD chunk long): mamba2-1.3b, jamba-1.5-large-398b
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch jamba-1.5-large-398b --requests 4 --max-new 4
+
     # elastic: 4 data ranks, lose 2 at step 3 (batch 4 -> 2)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --data 4 --elastic --fault-plan lose@3:2
@@ -42,6 +47,7 @@ from repro_torch.runtime import substrate
 from repro_torch.runtime.controller import FaultPlan
 from repro_torch.serve import (BatchScheduler, Request, ServeCfg,
                                ServeController)
+from repro_torch.serve.engine import prompt_len
 
 logger = logging.getLogger("repro_torch.serve")
 
@@ -118,7 +124,8 @@ def main(argv=None) -> None:
     requests = [
         Request(rid=rid,
                 prompt=rng.randint(0, cfg.vocab_size,
-                                   size=rng.randint(4, 16)).tolist(),
+                                   size=prompt_len(cfg, rng.randint(4, 16))
+                                   ).tolist(),
                 max_new=args.max_new)
         for rid in range(args.requests)]
 

@@ -25,7 +25,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerCfg,
                       device="cuda") -> Dict[str, Any]:
     """numpy params tree -> port params on ``device``, each leaf in the
     dtype ``init_params`` gives it: ``cfg.param_dtype``, except a MoE
-    router, f32 whatever the param dtype (as the reference's).  Raises
+    router and a Mamba layer's ``A_log`` / ``D`` / ``dt_bias``, f32
+    whatever the param dtype (as the reference's).  Raises
     on a missing, extra or misshapen leaf."""
     dev = resolve_device(device)
     want, want_paths = flatten(T.init_params(None, cfg, torch.device("meta")))

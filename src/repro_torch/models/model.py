@@ -6,7 +6,9 @@
   init_caches / prefill / prefill_chunk / decode_step — serving
 
 Prefill and decode write the caches they are given in place (see
-``repro_torch.models.layers``) and return them.
+``repro_torch.models.layers``) and return them; the state leaves (the
+``len`` counters, a Mamba layer's ``conv`` and ``ssm``) come back as new
+tensors.
 
 ``model_parallel > 1`` builds the model a rank of a mesh with a "model"
 axis of that size computes (``parallel.sharding``): ``init`` still gives
@@ -122,7 +124,8 @@ class Model:
     @property
     def supports_chunked_prefill(self) -> bool:
         """Whether every mixer has an absolute-position chunked prefill
-        path (attention, MLA)."""
+        path (attention, MLA).  A Mamba layer's recurrent state depends
+        on every value before it, so its models prefill one-shot."""
         return all(spec.mixer in ("attn", "mla")
                    for st in self.cfg.stages for spec in st.layers)
 

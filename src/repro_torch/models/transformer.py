@@ -1,7 +1,7 @@
-"""Decoder LM of the port: stages of attention or MLA + dense-FFN or MoE
-layers.
+"""Decoder LM of the port: stages of attention, MLA or Mamba + dense-FFN
+or MoE layers.
 
-Counterpart of ``repro.models.transformer`` for its attention and MLA
+Counterpart of ``repro.models.transformer`` for its decoder-only
 subset.  A model is a sequence of *stages*; each stage is a pattern of layers
 (``LayerSpec``) repeated ``repeat`` times with STACKED params and caches
 (leading axis = repeat), exactly the reference's layout, so params and
@@ -10,21 +10,23 @@ scans the repeats with ``lax.scan``; here a Python loop indexes the
 stacks.
 
 Layer = pre-norm mixer + pre-norm FFN, both residual; the norm is
-RMSNorm or LayerNorm (``TransformerCfg.norm``).  The ``attn`` and ``mla``
-mixers and the ``dense`` and ``moe`` FFNs are ported (Mamba is not); a
-MoE layer adds its load-balance loss to the model's.  ``mtp`` adds
-deepseek-v3's multi-token-prediction head to the loss.
+RMSNorm or LayerNorm (``TransformerCfg.norm``).  The ``attn``, ``mla``
+and ``mamba`` mixers and the ``dense`` and ``moe`` FFNs are ported; a
+MoE layer adds its load-balance loss to the model's.  A Mamba layer has
+no chunked-prefill path (its recurrent state depends on every value
+before it): a chunked call on one raises, as the reference's does.
+``mtp`` adds deepseek-v3's multi-token-prediction head to the loss.
 
 Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
 ``cfg`` is then the rank's local config (``local_config``: its heads,
 its FFN columns, its vocabulary block) and the params its shard
-(``parallel.sharding``, which refuses MLA; a MoE layer's experts split
-over "model", see ``models.moe.moe_forward_sharded``).  The embedding is
-vocab-parallel, each pre-norm output enters its column-parallel product
-through *f* and each row-parallel product leaves through *g*, the
-residual stream is cut ahead of each norm for the staged backward, and
-the loss is the vocab-parallel cross-entropy over the rank's ``lm_head``
-columns.
+(``parallel.sharding``, which refuses MLA and Mamba; a MoE layer's
+experts split over "model", see ``models.moe.moe_forward_sharded``).
+The embedding is vocab-parallel, each pre-norm output enters its
+column-parallel product through *f* and each row-parallel product leaves
+through *g*, the residual stream is cut ahead of each norm for the
+staged backward, and the loss is the vocab-parallel cross-entropy over
+the rank's ``lm_head`` columns.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.parallel import sharding as S
@@ -45,7 +48,7 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str = "attn"            # attn | mla (mamba: a later slice)
+    mixer: str = "attn"            # attn | mla | mamba
     ffn: str = "dense"             # dense | moe | none
 
 
@@ -63,6 +66,7 @@ class TransformerCfg:
     stages: Tuple[StageSpec, ...]
     attn: Optional[L.AttentionCfg] = None
     mla: Optional[MLA.MLACfg] = None
+    mamba: Optional[M.MambaCfg] = None
     mlp: Optional[L.MLPCfg] = None
     moe: Optional[MOE.MoECfg] = None
     norm: str = "rmsnorm"          # rmsnorm | layernorm
@@ -78,7 +82,7 @@ class TransformerCfg:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mla"):
+    if spec.mixer not in ("attn", "mla", "mamba"):
         raise NotImplementedError(
             f"mixer {spec.mixer!r} arrives with the port's "
             "remaining-model-families slice")
@@ -117,8 +121,10 @@ def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
     p: Params = {"norm_mixer": _init_norm(cfg, device, lead)}
     if spec.mixer == "attn":
         p["attn"] = L.init_attention(gen, cfg.attn, dt, device, lead)
-    else:
+    elif spec.mixer == "mla":
         p["mla"] = MLA.init_mla(gen, cfg.mla, dt, device, lead)
+    else:
+        p["mamba"] = M.init_mamba(gen, cfg.mamba, dt, device, lead)
     if spec.ffn != "none":
         p["norm_ffn"] = _init_norm(cfg, device, lead)
     if spec.ffn == "dense":
@@ -166,7 +172,19 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
     cut, f, g = _tp_ops(tp)
     x = cut(x)
     h = f(_norm(cfg, params["norm_mixer"], x))
-    if spec.mixer == "mla":
+    if spec.mixer == "mamba":
+        if chunked:
+            raise ValueError(
+                "mamba mixers have value-dependent recurrent state and "
+                "no chunked-prefill path (Model.supports_chunked_prefill "
+                "gates this)")
+        if decode:
+            out, new_cache = M.mamba_decode(params["mamba"], cfg.mamba, h,
+                                            cache)
+        else:
+            out, new_cache = M.mamba_forward(params["mamba"], cfg.mamba, h,
+                                             cache=cache)
+    elif spec.mixer == "mla":
         if decode:
             out, new_cache = MLA.mla_decode(params["mla"], cfg.mla, h, cache)
         else:
@@ -206,6 +224,12 @@ def init_stage(gen, cfg: TransformerCfg, stage: StageSpec, device) -> Params:
             for i, spec in enumerate(stage.layers)}
 
 
+#: The cache leaves a mixer's step returns anew, to be stacked over the
+#: stage's repeats; the others (K/V rows, MLA's latents) it writes in
+#: place.
+_CARRIED = {"attn": ("len",), "mla": ("len",), "mamba": ("conv", "ssm")}
+
+
 def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 x: torch.Tensor, *, q_offset: int = 0,
                 caches: Optional[Params] = None, decode: bool = False,
@@ -215,9 +239,10 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
     """Run the stage's ``repeat`` blocks; returns (x, caches, the sum of
     their aux losses).  ``caches``: stacked cache tree with leading dim
     = repeat (or None).  Cache rows (K/V, or MLA's latents) are written
-    into the stacked tensors in place; the ``len`` counters come back
-    stacked."""
-    lens: Dict[str, list] = {f"layer{i}": [] for i in range(len(stage.layers))}
+    into the stacked tensors in place; the ``len`` counters and Mamba's
+    ``conv`` / ``ssm`` state come back stacked."""
+    carried = {f"layer{i}": {k: [] for k in _CARRIED[spec.mixer]}
+               for i, spec in enumerate(stage.layers)}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(stage.repeat):
         for i, spec in enumerate(stage.layers):
@@ -230,10 +255,13 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 chunked=chunked, valid_len=valid_len, train=train, tp=tp)
             aux_total = aux_total + aux
             if caches is not None:
-                lens[name].append(nc["len"])
+                for k, acc in carried[name].items():
+                    acc.append(nc[k])
     if caches is None:
         return x, None, aux_total
-    return x, {name: {**caches[name], "len": torch.stack(lens[name])}
+    return x, {name: {**caches[name],
+                      **{k: torch.stack(acc)
+                         for k, acc in carried[name].items()}}
                for name in caches}, aux_total
 
 
@@ -381,6 +409,9 @@ def init_caches(cfg: TransformerCfg, batch: int, max_len: int, dtype,
             if spec.mixer == "mla":
                 block[f"layer{j}"] = MLA.init_mla_cache(
                     batch, max_len, cfg.mla, dtype, device, (stage.repeat,))
+            elif spec.mixer == "mamba":
+                block[f"layer{j}"] = M.init_mamba_cache(
+                    batch, cfg.mamba, dtype, device, (stage.repeat,))
             else:
                 block[f"layer{j}"] = L.init_kv_cache(
                     batch, max_len, cfg.attn, dtype, device, (stage.repeat,))

@@ -97,12 +97,17 @@ class TPLayout:
 def layout(cfg, model: int) -> TPLayout:
     """The split of ``cfg`` (a ``TransformerCfg``) over ``model`` ranks.
     Raises where a whole-head, FFN, expert or vocabulary split does not
-    divide, and for MLA, whose split is not ported."""
-    if any(spec.mixer == "mla" for st in cfg.stages for spec in st.layers):
+    divide, and for MLA and Mamba, whose splits are not ported."""
+    mixers = {spec.mixer for st in cfg.stages for spec in st.layers}
+    if "mla" in mixers:
         raise NotImplementedError(
             f"{cfg.name}: MLA over a \"model\" axis arrives with a later "
             "slice of the port (its latent cache stays whole, its heads "
             "split)")
+    if "mamba" in mixers:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba over a \"model\" axis arrives with a later "
+            "slice of the port (its heads, conv channels and state split)")
     a = cfg.attn
     d_ff = 0 if cfg.mlp is None else cfg.mlp.d_ff
     experts = 0 if cfg.moe is None else cfg.moe.num_experts

@@ -12,8 +12,9 @@ prompts run ``page_tokens`` at a time (right-padded to the page
 boundary, so every chunk has the same shape and the flash kernel takes
 the chunk offset at run time) interleaved with decode steps, so a long
 prompt never stalls the batch.  Models without a chunked-prefill path
-fall back to one-shot prefill; the pool adopts the finished row page by
-page.
+(those with Mamba layers: mamba2, jamba) fall back to one-shot prefill;
+the pool adopts the finished row page by page and its state leaves (a
+Mamba layer's conv tail and SSM state) into the request's slot.
 
 Placement goes through the ``repro_torch.comm`` facade as in the
 reference: pass ``comm=`` (a ``Communicator``, e.g. ``Session(mesh=
@@ -94,6 +95,19 @@ class ServeCfg:
     chunked_prefill: bool = True    # interleave prompt chunks with decode
                                     # steps; False runs all chunks at
                                     # admission (same numerics)
+
+
+def prompt_len(cfg, n: int) -> int:
+    """A drawn prompt length ``n`` as the model of ``cfg`` can prefill
+    it: a model with Mamba layers takes lengths that are a multiple of
+    its SSD chunk (the reference's ``ssd_chunked`` asserts it), so ``n``
+    is rounded down to one, and up to one chunk at least; any other
+    model takes ``n``."""
+    if not any(spec.mixer == "mamba" for st in cfg.stages
+               for spec in st.layers):
+        return n
+    q = cfg.mamba.chunk
+    return max(q, n // q * q)
 
 
 def _sample_seed(seed: int, rid: int, pos: int) -> int:

@@ -17,8 +17,13 @@ batch, then the max_len argument) to classify every leaf:
   entries always have somewhere harmless to point.  A *logical page*
   spans page_tokens positions across EVERY token leaf (all layers at
   once), so one allocation covers a token range for the whole model.
-- **state leaves** have no position axis (the ``len`` counters).  They
-  live in a batch-shaped slot arena ``(batch, *rest)``, spliced per slot.
+- **state leaves** have no position axis: the ``len`` counters, and a
+  Mamba layer's ``conv`` tail and ``ssm`` state (f32 whatever the cache
+  dtype).  They live in a batch-shaped slot arena ``(batch, *rest)``,
+  spliced per slot, each leaf in its own dtype.  A model with no token
+  leaf (mamba2) has zero-byte pages: they are still allocated, counted
+  and freed, so admission and preemption work on token counts as for
+  any model.
 
 Per request, a ``PageTable`` maps logical token positions to physical
 pages (``pages[i]`` backs positions ``[i*page_tokens, (i+1)*page_tokens)``)
@@ -500,7 +505,8 @@ class PagePool:
 
     def fresh_state1(self) -> List[torch.Tensor]:
         """Zeroed batch-1 state leaves (a new request's non-positional
-        cache state, carried across prefill chunks)."""
+        cache state, carried across prefill chunks), each in its leaf's
+        dtype."""
         out = []
         for li in self.layout.state_leaf_ids:
             l = self.layout.leaves[li]

@@ -1,7 +1,7 @@
 """Every architecture the port registers against the JAX package: the
 twin of ``tests/test_archs.py``, on the CPU.
 
-For each of the port's six archs the reference's reduced config is
+For each of the port's eight archs the reference's reduced config is
 initialised by JAX and carried into the port with ``params_from_numpy``:
 
 - logits of the same tokens within 1e-5 of the largest reference logit
@@ -16,7 +16,13 @@ initialised by JAX and carried into the port with ``params_from_numpy``:
   forward's logits within 8e-3, as the reference's test holds its own;
 - the full published config's parameter count, from ``meta`` tensors,
   equal to the reference's ``param_count()``;
-- both launchers run the three archs of this slice reduced on the CPU.
+- both launchers run mistral-large-123b, nemotron-4-340b,
+  deepseek-v3-671b and the two state-space archs reduced on the CPU;
+- the registry's metadata: each ``ArchInfo``'s family, skipped shapes
+  and embeddings flag, ``SHAPES`` and the cells equal the reference's
+  for the port's archs; only the state-space archs run ``long_500k``;
+  ``with_num_layers`` cuts inside a stage pattern (jamba at 4 layers)
+  and leaves deepseek's 4-layer cut as it was.
 """
 
 import dataclasses
@@ -28,9 +34,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JARCHS
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import cells as jcells
 from repro.configs import get_config as jget_config
 from repro.models import build_model as jbuild_model
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import (ARCH_IDS, ARCHS, SHAPES, cells, get_arch,
+                                 get_config, with_num_layers)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
@@ -89,9 +99,54 @@ def _rel(got, want):
 
 
 def test_port_registers_the_six_archs():
+    """The six archs of the earlier slices and the two state-space ones
+    (eight of the reference's ten)."""
     assert set(ARCH_IDS) == {"granite-34b", "qwen2-72b", "qwen3-moe-30b-a3b",
                              "mistral-large-123b", "nemotron-4-340b",
-                             "deepseek-v3-671b"}
+                             "deepseek-v3-671b", "mamba2-1.3b",
+                             "jamba-1.5-large-398b"}
+    assert set(ARCH_IDS) <= set(JARCHS)
+
+
+def test_long_500k_applicability_flags():
+    """The twin of ``tests/test_archs.py``'s, over the port's archs:
+    SSM and hybrid archs run long_500k, pure-attention archs skip it."""
+    runs = {a for a in ARCH_IDS if "long_500k" not in ARCHS[a].skip_shapes}
+    assert runs == {"jamba-1.5-large-398b", "mamba2-1.3b"}
+    for a in ARCH_IDS:
+        if ARCHS[a].family in ("ssm", "hybrid"):
+            assert a in runs
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_arch_info_and_shapes_equal_the_reference(arch):
+    got, want = get_arch(arch), JARCHS[arch]
+    assert (got.arch_id, got.family, got.skip_shapes, got.uses_embeds) == (
+        want.arch_id, want.family, want.skip_shapes, want.uses_embeds)
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
+    assert [c for c in cells(include_skipped=True) if c[0] == arch] == [
+        c for c in jcells(include_skipped=True) if c[0] == arch]
+
+
+def test_with_num_layers_cuts_inside_a_stage_pattern():
+    jamba = with_num_layers(get_config("jamba-1.5-large-398b"), 4)
+    assert [(st.repeat, [(l.mixer, l.ffn) for l in st.layers])
+            for st in jamba.stages] == [(1, [("attn", "dense"),
+                                             ("mamba", "moe"),
+                                             ("mamba", "dense"),
+                                             ("mamba", "moe")])]
+    assert [(l.mixer, l.ffn) for l in jamba.stages[0].layers] == [
+        (l.mixer, l.ffn) for l in jget_config(
+            "jamba-1.5-large-398b", reduced=True).stages[0].layers]
+    assert jamba.d_model == 8192 and jamba.num_layers == 4
+    deepseek = with_num_layers(get_config("deepseek-v3-671b"), 4)
+    assert [(st.repeat, [(l.mixer, l.ffn) for l in st.layers])
+            for st in deepseek.stages] == [(3, [("mla", "dense")]),
+                                           (1, [("mla", "moe")])]
+    nine = with_num_layers(get_config("jamba-1.5-large-398b"), 9)
+    assert [(st.repeat, len(st.layers)) for st in nine.stages] == [(1, 8),
+                                                                   (1, 1)]
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -175,7 +230,8 @@ def test_full_param_count_equals_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["mistral-large-123b", "nemotron-4-340b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b"])
 def test_launchers_run_the_arch_on_the_cpu(arch, caplog):
     caplog.set_level("INFO")
     launch_serve.main(["--device", "cpu", "--arch", arch, "--reduced",

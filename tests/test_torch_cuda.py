@@ -30,7 +30,9 @@ finishes (its backward's model-axis all-reduces run on the rank
 threads) with the CPU's loss; and the reduced
 qwen2-72b and qwen3-moe-30b-a3b in bf16 decode the same requests'
 logits bit for bit at batch 8 and at batch 4.  The reduced MoE layer
-on the card routes as on the CPU and agrees within 1e-4.
+on the card routes as on the CPU and agrees within 1e-4.  The reduced
+mamba2-1.3b and jamba-1.5-large-398b, served one-shot through the
+scheduler on the card, give the CPU's greedy streams.
 
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
@@ -245,6 +247,31 @@ def test_reduced_model_prefill_on_card_matches_cpu(cuda):
                               caches)
         logits.append(lg.cpu())
     torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_state_space_serving_on_card_gives_the_cpu_streams(cuda, arch):
+    """Reduced mamba2 and jamba served one-shot through the scheduler on
+    the card (jamba's attention layer through the kernel) and on the
+    CPU from the same weights: the same greedy streams."""
+    from repro_torch.serve import BatchScheduler, Request, ServeCfg
+    model = build_model(get_config(arch, reduced=True))
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 256, size=8 * rng.randint(1, 7)).tolist()
+               for _ in range(6)]
+    streams = []
+    for dev in ("cpu", cuda):
+        sched = BatchScheduler(model, map_tree(lambda t: t.to(dev),
+                                               cpu_params),
+                               ServeCfg(max_len=96, batch=3, page_tokens=32,
+                                        cache_dtype=torch.float32),
+                               device=dev)
+        for rid, p in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=p, max_new=6))
+        streams.append({r.rid: r.generated for r in sched.run()})
+        sched.pool.check_integrity()
+    assert streams[1] == streams[0]
 
 
 def test_moe_layer_on_card_matches_cpu(cuda):

@@ -16,8 +16,9 @@
 - ``elastic.remesh`` moves ZeRO-1 states of 2 ranks onto 4 (a live
   grow) with the logical state unchanged, and the next step's loss
   equals that of states restored onto 4 ranks from a checkpoint.
-- The watchdog fires once per stall episode; the preemption mailbox and
-  its SIGTERM binding.
+- The watchdog fires once per stall episode and records the straggler
+  beat, on a clock the test advances (no sleeps between beats); the
+  preemption mailbox and its SIGTERM binding.
 """
 
 import os
@@ -32,6 +33,7 @@ from repro.runtime import controller as jcontroller
 from repro.runtime import elastic as jelastic
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.runtime import elastic, health
+from repro_torch.runtime import watchdog as watchdog_mod
 from repro_torch.runtime import substrate as S
 from repro_torch.runtime.controller import FaultEvent, FaultPlan
 from repro_torch.runtime.watchdog import StepWatchdog
@@ -249,25 +251,60 @@ def test_remesh_grows_zero_states_and_keeps_the_logical_state(tmp_path):
     assert m_grown["loss"].item() == m_restored["loss"].item()
 
 
-def test_watchdog_fires_once_per_stall_episode():
+class _FakeClock:
+    """``time.monotonic`` for the watchdog, advanced only by the test: the
+    watchdog's arithmetic then sees exact step times whatever the load on
+    the host."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance(self, dt: float) -> None:
+        self.now += dt
+
+
+@pytest.fixture
+def fake_clock(monkeypatch):
+    clock = _FakeClock()
+    monkeypatch.setattr(watchdog_mod.time, "monotonic", clock)
+    return clock
+
+
+def _wait_for(pred, seconds=5.0):
+    """Poll the monitor thread's effect on the real clock."""
+    deadline = time.perf_counter() + seconds
+    while not pred() and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    return pred()
+
+
+def test_watchdog_fires_once_per_stall_episode(fake_clock):
     fired = []
     wd = StepWatchdog(timeout=0.2, on_stall=fired.append).start()
     try:
-        time.sleep(0.7)
+        fake_clock.advance(0.7)
+        assert _wait_for(lambda: len(fired) >= 1)
+        time.sleep(0.2)                      # several more monitor polls
         assert len(fired) == 1               # one episode, one callback
+        assert fired[0] == pytest.approx(0.7)
         wd.beat()
-        time.sleep(0.5)
+        fake_clock.advance(0.5)
+        assert _wait_for(lambda: len(fired) >= 2)
+        time.sleep(0.2)
         assert len(fired) == 2               # re-armed by the beat
     finally:
         wd.stop()
 
 
-def test_straggler_beats_are_recorded():
+def test_straggler_beats_are_recorded(fake_clock):
     seen = []
     wd = StepWatchdog(timeout=60.0, straggler_factor=3.0,
                       on_straggler=lambda beat, dt: seen.append(beat))
     for dt in (0.0, 0.01, 0.01, 0.01, 0.01, 0.01, 0.08):
-        time.sleep(dt)
+        fake_clock.advance(dt)
         wd.beat()
     assert wd.stragglers == [6] and seen == [6]
 

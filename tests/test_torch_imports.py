@@ -2,8 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
 serving and training entry points, the schedule IR, the checkpoint
 store, the elastic runtime, the collective library's protocol
-modules and the multi-axis modules (two-phase protocols, the model
-split) leaves ``jax`` out of ``sys.modules``.
+modules, the multi-axis modules (two-phase protocols, the model split)
+and the state-space block and configs leaves ``jax`` out of ``sys.modules``.
 The elastic launchers, like the others, run on ``cuda`` unless asked for
 the CPU, and raise without CUDA."""
 
@@ -57,6 +57,13 @@ def _imports_without_jax(modules):
 def test_serving_entry_points_import_without_jax():
     _imports_without_jax(["repro_torch.serve", "repro_torch.launch.serve",
                           "repro_torch.kernels.flash_attention.kernel"])
+
+
+def test_state_space_modules_import_without_jax():
+    _imports_without_jax(["repro_torch.models.mamba",
+                          "repro_torch.configs.mamba2_1_3b",
+                          "repro_torch.configs.jamba_1_5_large_398b",
+                          "repro_torch.configs.shapes"])
 
 
 def test_training_entry_points_import_without_jax():

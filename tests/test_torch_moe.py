@@ -738,10 +738,12 @@ def test_serve_cli_runs_moe_on_the_cpu(caplog):
     assert "served 3 requests (0 shed)" in caplog.text
 
 
-@pytest.mark.parametrize("spec", [T.LayerSpec("mamba", "moe"),
-                                  T.LayerSpec("mamba", "none"),
+@pytest.mark.parametrize("spec", [T.LayerSpec("cross_attn", "moe"),
+                                  T.LayerSpec("cross_attn", "none"),
                                   T.LayerSpec("attn", "mamba")])
 def test_other_mixers_and_ffns_are_refused(spec):
+    """Mixers and FFNs the port has no layer for (the attention, MLA and
+    Mamba mixers and the dense and MoE FFNs are ported)."""
     cfg = get_config(ARCH, reduced=True)
     cfg = dataclasses.replace(cfg, stages=(T.StageSpec((spec,), 1),))
     with pytest.raises(NotImplementedError, match="slice"):

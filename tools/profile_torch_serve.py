@@ -3,20 +3,25 @@
 
     python3 tools/profile_torch_serve.py [--arch ARCH] [--out DIR]
 
-Serves the workload of ``chip_smoke.py``'s serve phase
-(``chip_smoke.serve_workload``: qwen2-72b, or with ``--arch
-qwen3-moe-30b-a3b`` the [serve_moe] phase's model, at its published
-widths, 4 layers, 16 requests of 256-3000 prompt tokens, 32 new tokens
+Serves the workload of one of ``chip_smoke.py``'s serve phases
+(``chip_smoke.serve_workload``: qwen2-72b for [serve], or with
+``--arch`` the model of [serve_moe], [serve_nemotron],
+[serve_deepseek], [serve_jamba] or [serve_mamba2], at its published
+widths and that phase's depth, 16 requests of 256-3000 prompt tokens (a
+multiple of the SSD chunk for the state-space models), 32 new tokens
 each, batch 8, 256-token pages, f32 cache) three times after its
 warm-up:
 
 1. step by step: the host clock around each scheduler step, ended by a
    synchronize, and the step's peak of allocated memory, split into steps
-   that ran prefill chunks and steps that only decoded;
+   that prefilled (page-sized chunks, or whole prompts for a model that
+   prefills one-shot: the scheduler's calls of ``Model.prefill_chunk``
+   and ``Model.prefill``) and steps that only decoded;
 2. under ``torch.profiler``: device time by kernel, by part of the
-   model (attention; for a MoE model its expert products, its routing,
-   and its scatter and gather; the rest), and the share of the wall time
-   the device was busy (``DIR/serve_trace.json`` holds the timeline);
+   model (the mixer: attention, MLA or Mamba; for a MoE model its expert
+   products, its routing, and its scatter and gather; the rest), and the
+   share of the wall time the device was busy
+   (``DIR/serve_trace.json`` holds the timeline);
 3. with the allocator's history recorded: the largest tensors alive at
    the peak of allocated memory, with the port's line that made each.
 
@@ -38,16 +43,40 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GiB = 2 ** 30
 
 
-def _timed(fn, ops, n_layers: int, decode_steps):
-    """(prefill chunks, decode steps, seconds, peak bytes) of ``fn()``."""
+@contextlib.contextmanager
+def _prefills_counted(model):
+    """Count the scheduler's prefill calls on ``model`` while the block
+    runs: {"chunks": page-sized chunks, "prompts": one-shot prompts}."""
+    counts = {"chunks": 0, "prompts": 0}
+
+    def counted(name, key):
+        fn = getattr(model, name)
+
+        def run(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    model.prefill_chunk = counted("prefill_chunk", "chunks")
+    model.prefill = counted("prefill", "prompts")
+    try:
+        yield counts
+    finally:
+        del model.prefill_chunk, model.prefill
+
+
+def _timed(fn, prefills, decode_steps):
+    """(prefill chunks, one-shot prompts, decode steps, seconds, peak
+    bytes) of ``fn()``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    l0, d0 = ops.counter.value, decode_steps()
+    c0, p0, d0 = prefills["chunks"], prefills["prompts"], decode_steps()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    return ((ops.counter.value - l0) // n_layers, decode_steps() - d0,
-            time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    return (prefills["chunks"] - c0, prefills["prompts"] - p0,
+            decode_steps() - d0, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
 
 
 def _site(frames) -> str:
@@ -75,8 +104,12 @@ def _live_at_peak(snapshot):
 
 
 #: (module, function) -> the part of the model its device time counts to
-PARTS = ((("layers", "attention_forward"), "attention"),
-         (("layers", "attention_decode"), "attention"),
+PARTS = ((("layers", "attention_forward"), "mixer: attention"),
+         (("layers", "attention_decode"), "mixer: attention"),
+         (("mla", "mla_forward"), "mixer: MLA"),
+         (("mla", "mla_decode"), "mixer: MLA"),
+         (("mamba", "mamba_forward"), "mixer: Mamba"),
+         (("mamba", "mamba_decode"), "mixer: Mamba"),
          (("moe", "_expert_ffn"), "expert products"),
          (("moe", "route"), "routing"),
          (("moe", "_dispatch"), "scatter/gather"),
@@ -88,8 +121,8 @@ def _parts_marked():
     """Each function of PARTS wrapped in a ``record_function`` range of
     its part's name while the block runs (the model looks them up on
     their modules at each call)."""
-    from repro_torch.models import layers, moe
-    mods = {"layers": layers, "moe": moe}
+    from repro_torch.models import layers, mamba, mla, moe
+    mods = {"layers": layers, "mla": mla, "mamba": mamba, "moe": moe}
     saved = []
     for (mod, name), part in PARTS:
         fn = getattr(mods[mod], name)
@@ -134,20 +167,20 @@ def main(argv=None) -> int:
                     help="directory for the profiler's timeline")
     ap.add_argument("--arch", default="qwen2-72b",
                     help="the served model (qwen2-72b: [serve]; "
-                         "qwen3-moe-30b-a3b: [serve_moe])")
+                         "qwen3-moe-30b-a3b, nemotron-4-340b, "
+                         "deepseek-v3-671b, jamba-1.5-large-398b, "
+                         "mamba2-1.3b: their serve phases)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: CUDA is not available", file=sys.stderr)
         return 1
     sys.path[:0] = [REPO, os.path.join(REPO, "src")]
     import chip_smoke
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.serve import BatchScheduler, Request
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
 
     model, params, scfg, prompts = chip_smoke.serve_workload(args.arch)
-    n_layers = model.cfg.num_layers
 
     def submit(sched):
         for rid, p in enumerate(prompts):
@@ -157,24 +190,27 @@ def main(argv=None) -> int:
     # 1. step by step
     sched = BatchScheduler(model, params, scfg, device="cuda")
     base = torch.cuda.memory_allocated()
-    steps = [_timed(lambda: submit(sched), ops, n_layers,
-                    lambda: sched.decode_steps)]
-    while sched.pending():
-        steps.append(_timed(sched.step, ops, n_layers,
-                            lambda: sched.decode_steps))
-    pre = [s for s in steps if s[0]]
-    dec = [s for s in steps if not s[0] and s[1]]
+    with _prefills_counted(model) as prefills:
+        steps = [_timed(lambda: submit(sched), prefills,
+                        lambda: sched.decode_steps)]
+        while sched.pending():
+            steps.append(_timed(sched.step, prefills,
+                                lambda: sched.decode_steps))
+    pre = [s for s in steps if s[0] or s[1]]
+    dec = [s for s in steps if not (s[0] or s[1]) and s[2]]
     print(f"[steps] allocated before serving {base / GiB:.2f} GiB "
           f"(weights + page pool); submit + {len(steps) - 1} steps in "
-          f"{sum(s[2] for s in steps):.3f}s")
-    print(f"[steps] {len(pre)} with prefill ({sum(s[0] for s in pre)} "
-          f"chunks, {sum(s[1] for s in pre)} decodes): "
-          f"{sum(s[2] for s in pre):.3f}s, peak "
-          f"{max(s[3] for s in pre) / GiB:.2f} GiB")
+          f"{sum(s[3] for s in steps):.3f}s")
+    if pre:
+        print(f"[steps] {len(pre)} with prefill ({sum(s[0] for s in pre)} "
+              f"chunks, {sum(s[1] for s in pre)} one-shot prompts, "
+              f"{sum(s[2] for s in pre)} decodes): "
+              f"{sum(s[3] for s in pre):.3f}s, peak "
+              f"{max(s[4] for s in pre) / GiB:.2f} GiB")
     if dec:
-        print(f"[steps] {len(dec)} decode-only: {sum(s[2] for s in dec):.3f}s,"
-              f" median {np.median([s[2] for s in dec]) * 1e3:.2f} ms, peak "
-              f"{max(s[3] for s in dec) / GiB:.2f} GiB")
+        print(f"[steps] {len(dec)} decode-only: {sum(s[3] for s in dec):.3f}s,"
+              f" median {np.median([s[3] for s in dec]) * 1e3:.2f} ms, peak "
+              f"{max(s[4] for s in dec) / GiB:.2f} GiB")
     del sched
 
     # 2. profiler
