@@ -17,8 +17,13 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              CUDA-core variant), each over an f32 and a bf16 cache; and
              deepseek-v3's MLA one-shot prefill (128 heads, 192-dim scores
              against 128-dim values, 1000 tokens, the CUDA-core variant
-             for either q).  Prints the variant that ran, the max error against
-             its tolerance (a share of the plain output's largest value:
+             for either q); qwen2-vl-7b's 2048-position prefill (28 / 4
+             heads, D 128, batch 8); and seamless-m4t-large-v2's launches
+             at D 64 (16 / 16 heads, batch 8): the non-causal encoder
+             over 1024 frames, the non-causal cross-attention of a
+             4-token prompt and of one decode step over those frames, and
+             the causal 4-token self-attention.  Prints the variant that
+             ran, the max error against its tolerance (a share of the plain output's largest value:
              2**-6 for a bf16 output, 1e-4 for f32), kernel / plain / SDPA
              times (SDPA is a yardstick only; the port never calls it), the
              least time the card could take (the bound), and the host time
@@ -92,8 +97,47 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              (48 Mamba2 layers, d_model 2048, 64 heads x 64, d_state
              128, vocab 50280, tied embeddings), served as
              [serve_jamba]: no flash launch (attention-free), decode
-             rows bit for bit, the forms check.  Each serve phase frees
-             its weights before the next.
+             rows bit for bit, the forms check.
+4g. serve_vl — qwen2-vl-7b at its published widths and full depth (28
+             layers, d_model 3584, 28/4 heads at head_dim 128, QKV bias,
+             M-RoPE sections (16, 24, 24), SwiGLU ff 18944, vocab
+             152064, no embedding table), random bf16 weights from seed
+             0, served through ``Model.prefill`` and
+             ``Model.decode_step`` (the reference's scheduler feeds
+             token ids only): batch 8, each row 2048 positions from
+             ``frontends.vision_patch_embeds`` (512 image patches, then
+             text, 3-D positions), an f32 cache, one-shot prefill, then
+             64 decode steps each fed the stub's next embedding at the
+             next text position (3, B, 1).  A checked prefill first holds
+             every flash launch against plain (rows 0 and 1); the timed
+             run counts 28 flash launches, all on the tensor cores; the
+             prefill's and every step's logits must be within
+             ``EMBEDS_FORMS_TOL`` of a teacher-forced forward over all
+             2112 positions; rows 0-3 decoded from the batch-8 prefill in
+             a block padded to 8 rows must give the batch-8 run's logits
+             bit for bit.  Prints prefill s, decode ms a step, rows x
+             steps / s and peak memory.
+4h. serve_seamless — seamless-m4t-large-v2 at its published widths and
+             full depth (24 encoder + 24 decoder layers, d_model 1024,
+             16/16 heads at head_dim 64, GELU ff 8192, LayerNorm, vocab
+             256206), random bf16 weights from seed 0, through
+             ``Model.prefill`` and ``Model.decode_step``: batch 8, each
+             row 1024 frames from ``frontends.audio_frame_embeds`` and a
+             4-token prompt, an f32 cache, one prefill and 128 greedy
+             decode steps.  Flash runs at D 64 on the tensor cores: the
+             encoder non-causal over the frames, the decoder's
+             self-attention causal, its cross-attention non-causal over
+             the frames (Sq 4 at prefill, 1 a decode step).  A checked
+             prefill and decode step hold every launch against plain; the
+             timed run counts 24 + 24 + 24 launches a prefill and 24 a
+             step, all on the tensor cores; the prefill's and every
+             step's logits must be within ``EMBEDS_FORMS_TOL`` of the
+             teacher-forced logits over prompt + generated tokens; rows
+             0-3 decoded from the batch-8 prefill in a padded block give
+             the batch-8 logits bit for bit.  Prints encode ms, TTFT,
+             decode ms a step, tokens/s, peak memory and what a step
+             spends recomputing the memory's cross K and V.  Each serve
+             phase frees its weights before the next.
 5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
              ``dequantize``, ``dequant_add``) against their plain versions,
              bit for bit, at the sizes granite-34b's sync gives them: the
@@ -283,6 +327,7 @@ Exits non-zero without a result when CUDA is unavailable.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -407,6 +452,21 @@ MAMBA2_ARCH = "mamba2-1.3b"         # [serve_mamba2], at full depth
 # ties, not of the two SSD forms.
 SSM_FORMS_TOL = 2.0 ** -4
 SSM_FORMS_DECODE = 256
+VL_ARCH = "qwen2-vl-7b"                 # [serve_vl], at full depth
+SEAMLESS_ARCH = "seamless-m4t-large-v2"  # [serve_seamless], at full depth
+EMBEDS_BATCH = 8
+VL_DECODE = 64
+SEAMLESS_DECODE = 128
+# [serve_vl] / [serve_seamless]: the prefill's last logits and every
+# decode step's against a teacher-forced forward over all positions,
+# within this share of the forward's largest logit (``MLA_FORMS_TOL``'s).
+# The forward attends through the flash kernel (P rounded to bf16, about
+# 2**-9 of each attention output), a decode step in f32 over the f32
+# cache; and seamless's prefill projects its cross K/V from the f32
+# memory it stores, the forward from the bf16 one.  Each such rounding
+# enters a bf16 residual stream and is carried through 28 (48) layers
+# and the unembedding.
+EMBEDS_FORMS_TOL = 2.0 ** -4
 
 
 def _ms(fn, iters: int, warmup: int = 2) -> float:
@@ -433,21 +493,24 @@ def _ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(q, k, v, q_offset: int):
-    """Least time (ms) the card could take for causal attention of ``q``
-    over ``k``/``v``: bytes (q, the visible K/V prefix, the output, each
-    once) over HBM bandwidth against FLOPs over a peak.  A bf16 output
+def _bound(q, k, v, q_offset: int, causal: bool = True):
+    """Least time (ms) the card could take for attention of ``q`` over
+    ``k``/``v``, causal or not: bytes (q, the visible K/V prefix (all of
+    K/V when not causal), the output, each once) over HBM bandwidth
+    against FLOPs over a peak.  A bf16 output
     can be computed with bf16 products on the tensor cores whatever the
     cache type (989 TFLOP/s); an f32 output, held to 1e-4, needs f32
     products on the CUDA cores (67 TFLOP/s).  Returns (ms, "bytes" |
     "operations", peak name)."""
     b, sq, h, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    prefix = min(skv, q_offset + sq)
+    prefix = min(skv, q_offset + sq) if causal else skv
     nbytes = ((q.numel() + b * sq * h * dv) * q.element_size()
               + b * prefix * hkv * (d + dv) * k.element_size())
-    # query i sees min(skv, q_offset + i + 1) keys; 2*(D + Dv) FLOPs each
-    seen = sum(min(skv, q_offset + i + 1) for i in range(sq))
+    # query i sees min(skv, q_offset + i + 1) keys (all skv when not
+    # causal); 2*(D + Dv) FLOPs each
+    seen = (sum(min(skv, q_offset + i + 1) for i in range(sq)) if causal
+            else sq * skv)
     flops = 2 * b * h * (d + dv) * seen
     kind = "bf16" if q.dtype == torch.bfloat16 else "f32"
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -519,16 +582,42 @@ def _host_us(fn, n: int = 200) -> float:
     return t / n * 1e6
 
 
-#: (family, H, Hkv, D, Dv, cases) of [kernels]: the served head layouts
-#: at page-sized chunks over a 4096-token cache and a 1000-token one-shot,
-#: and MLA's materialized one-shot prefill (one KV head a query head)
-KERNEL_CHUNKS = [("chunk", 256, 4096, off) for off in (0, 256, 3840)]
-KERNEL_ONE_SHOT = [("one-shot", 1000, 1000, 0)]
+#: (family, H, Hkv, D, Dv, cases) of [kernels], a case (name, batch, Sq,
+#: Skv, q_offset, causal): the served head layouts at page-sized chunks
+#: over a 4096-token cache and a 1000-token one-shot, MLA's materialized
+#: one-shot prefill (one KV head a query head), and the two embeddings
+#: families' launches as [serve_vl] and [serve_seamless] make them at
+#: batch 8: qwen2-vl-7b's 2048-position prefill, and seamless's
+#: non-causal encoder over 1024 frames, its non-causal cross-attention
+#: of the 4-token prompt and of a decode step over those frames, and its
+#: causal decoder self-attention over the prompt
+KERNEL_CHUNKS = [("chunk", 1, 256, 4096, off, True) for off in (0, 256, 3840)]
+KERNEL_ONE_SHOT = [("one-shot", 1, 1000, 1000, 0, True)]
+SEAMLESS_FRAMES = 1024
+SEAMLESS_PROMPT = 4
+VL_PROMPT = 2048
 KERNEL_HEADS = [("qwen2-72b", 64, 8, 128, 128,
                  KERNEL_CHUNKS + KERNEL_ONE_SHOT),
                 ("nemotron-4-340b", 96, 8, 192, 192,
                  KERNEL_CHUNKS + KERNEL_ONE_SHOT),
-                ("deepseek-v3-671b", 128, 128, 192, 128, KERNEL_ONE_SHOT)]
+                ("deepseek-v3-671b", 128, 128, 192, 128, KERNEL_ONE_SHOT),
+                ("qwen2-vl-7b", 28, 4, 128, 128,
+                 [("vl prefill", 8, VL_PROMPT, VL_PROMPT, 0, True)]),
+                ("seamless-m4t-large-v2", 16, 16, 64, 64,
+                 [("encoder", 8, SEAMLESS_FRAMES, SEAMLESS_FRAMES, 0, False),
+                  ("cross", 8, SEAMLESS_PROMPT, SEAMLESS_FRAMES, 0, False),
+                  ("cross decode", 8, 1, SEAMLESS_FRAMES, 0, False),
+                  ("self", 8, SEAMLESS_PROMPT, SEAMLESS_PROMPT, 0, True)])]
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def phase_kernels(kernel, ref):
@@ -540,39 +629,39 @@ def phase_kernels(kernel, ref):
               for kvdt in (torch.float32, torch.bfloat16)]
     rows = []
     cases = [head[:5] + case for head in KERNEL_HEADS for case in head[5]]
-    for family, h, hkv, d, dv, name, sq, skv, off in cases:
+    print(f"[kernels] card: {card()} (every time below)")
+    for family, h, hkv, d, dv, name, b, sq, skv, off, causal in cases:
         for qdt, kvdt in dtypes:
-            q = torch.randn(1, sq, h, d, generator=gen, device="cuda"
+            q = torch.randn(b, sq, h, d, generator=gen, device="cuda"
                             ).to(qdt)
-            k = torch.randn(1, skv, hkv, d, generator=gen, device="cuda"
+            k = torch.randn(b, skv, hkv, d, generator=gen, device="cuda"
                             ).to(kvdt)
-            v = torch.randn(1, skv, hkv, dv, generator=gen, device="cuda"
+            v = torch.randn(b, skv, hkv, dv, generator=gen, device="cuda"
                             ).to(kvdt)
-            out, variant = kernel.launch(q, k, v, q_offset=off)
-            want = ref.attention(q, k, v, q_offset=off)
+            out, variant = kernel.launch(q, k, v, causal=causal,
+                                         q_offset=off)
+            want = ref.attention(q, k, v, causal=causal, q_offset=off)
             err, tol = _error(out, want)
-            ms = _ms(lambda: kernel.flash_attention(q, k, v, q_offset=off),
-                     20)
-            plain_ms = _ms(lambda: ref.attention(q, k, v, q_offset=off), 5)
+            ms = _ms(lambda: kernel.flash_attention(
+                q, k, v, causal=causal, q_offset=off), 20)
+            plain_ms = _ms(lambda: ref.attention(
+                q, k, v, causal=causal, q_offset=off), 5)
             # SDPA yardstick: (B, H, S, D), one dtype (q upcast for an f32
-            # cache, outside the timed call), explicit mask for an offset;
-            # at equal head dims only (MLA's 192/128 has no row).
-            lib_ms = None
-            if d == dv:
-                qt = q.to(kvdt).transpose(1, 2)
-                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-                mask = None
-                if off or sq != skv:
-                    mask = (torch.arange(skv, device="cuda")[None, :]
-                            <= torch.arange(sq, device="cuda")[:, None]
-                            + off)
-                lib_ms = _ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True), 20)
-            bound_ms, by, peak = _bound(q, k, v, off)
+            # cache, outside the timed call); no mask when not causal, an
+            # explicit one for a causal offset (SDPA takes Dv != D).
+            qt = q.to(kvdt).transpose(1, 2)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            mask = None
+            if causal and (off or sq != skv):
+                mask = (torch.arange(skv, device="cuda")[None, :]
+                        <= torch.arange(sq, device="cuda")[:, None] + off)
+            lib_ms = _ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True), 20)
+            bound_ms, by, peak = _bound(q, k, v, off, causal)
             row = dict(family=family, heads=f"{h}/{hkv}", d=d, dv=dv,
-                       case=name, sq=sq, skv=skv, q_offset=off,
-                       q_dtype=str(qdt).split(".")[-1],
+                       case=name, batch=b, sq=sq, skv=skv, q_offset=off,
+                       causal=causal, q_dtype=str(qdt).split(".")[-1],
                        kv_dtype=str(kvdt).split(".")[-1], variant=variant,
                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
@@ -582,17 +671,19 @@ def phase_kernels(kernel, ref):
             emul = ""
             if variant == "wgmma":
                 row["err_vs_bf16_products"] = (out.float() - ref.
-                    attention_bf16_products(q, k, v, q_offset=off).float()
+                    attention_bf16_products(q, k, v, causal=causal,
+                                            q_offset=off).float()
                     ).abs().max().item()
                 emul = f" (vs bf16 products {row['err_vs_bf16_products']:.3e})"
             rows.append(row)
-            sdpa = "none" if lib_ms is None else f"{lib_ms:.4f}ms"
-            print(f"[kernels] {h:3d}/{hkv:<3d} D={d}/{dv} {name:8s} "
-                  f"Sq={sq:4d} Skv={skv:4d} "
-                  f"off={off:4d} q={row['q_dtype']:8s} "
+            print(f"[kernels] {h:3d}/{hkv:<3d} D={d}/{dv} {name:12s} "
+                  f"B={b} Sq={sq:4d} Skv={skv:4d} off={off:4d} "
+                  f"{'causal' if causal else 'full  '} "
+                  f"q={row['q_dtype']:8s} "
                   f"kv={row['kv_dtype']:8s} {variant:5s} err={err:.3e}{emul} "
                   f"(tol {tol:.3e} = {REL_TOL[qdt]:.3g} x max|plain|) "
-                  f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={sdpa} "
+                  f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+                  f"sdpa={lib_ms:.4f}ms "
                   f"bound={bound_ms:.4f}ms ({by}, {peak} peak)")
             if not err <= tol:
                 raise AssertionError(f"kernel disagrees with plain: {row}")
@@ -1244,6 +1335,356 @@ def phase_serve_jamba(ref):
 def phase_serve_mamba2(ref):
     """[serve_mamba2]: mamba2-1.3b at full depth (see the module doc)."""
     return _ssm_serve_phase(ref, MAMBA2_ARCH, "serve_mamba2")
+
+
+def _padded_rows(tree, rows: int, block: int, batch_axis):
+    """A copy of ``tree`` holding its first ``rows`` rows, followed by
+    ``block - rows`` rows of zeros (``block`` = rows: no padding).
+    ``batch_axis(path)`` names each leaf's batch axis."""
+    from repro_torch.tree import flatten, unflatten
+    ls, paths = flatten(tree)
+    out = []
+    for path, t in zip(paths, ls):
+        ax = batch_axis(path)
+        part = t.narrow(ax, 0, rows)
+        if block > rows:
+            shape = list(t.shape)
+            shape[ax] = block - rows
+            part = torch.cat([part, t.new_zeros(shape)], dim=ax)
+        out.append(part.contiguous())
+    return unflatten(paths, out)
+
+
+@contextlib.contextmanager
+def _checked_flash(ref, errs, rows: int):
+    """While the block runs, every flash launch the model makes is held
+    against the plain version on its first ``rows`` batch rows, on the
+    same CUDA tensors; appends (max abs error, limit, causal, Sq, Skv)
+    to ``errs``."""
+    from repro_torch.models import layers as L
+    kernel_flash = L.flash_attention
+
+    def checked(q, k, v, *, causal=True, q_offset=0, sm_scale=None):
+        out = kernel_flash(q, k, v, causal=causal, q_offset=q_offset,
+                           sm_scale=sm_scale)
+        errs.append(_error(out[:rows], ref.attention(
+            q[:rows], k[:rows], v[:rows], causal=causal, q_offset=q_offset,
+            sm_scale=sm_scale)) + (causal, q.shape[1], k.shape[1]))
+        return out
+
+    L.flash_attention = checked
+    try:
+        yield
+    finally:
+        L.flash_attention = kernel_flash
+
+
+def _ops_a_call(fn) -> int:
+    """The aten ops one call of ``fn`` dispatches (each a kernel launch,
+    or a view the host works out): the host's share of a decode step.
+    A flash launch goes through ctypes and is not among them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def _rel(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def _rows_check(tag, decode_rows, timed_logits, rows: int):
+    """The first ``rows`` rows decoded alone, from the batch-8 prefill's
+    caches: in a block of EMBEDS_BATCH rows with the rest zero padding
+    (as the scheduler decodes, ``serve.engine.DECODE_ROWS``), held bit
+    for bit to the batch-8 run's logits of the same rows; and at batch
+    ``rows`` without padding, a reading.  ``decode_rows(rows, block)``
+    runs the steps and returns their logits."""
+    padded = decode_rows(rows, EMBEDS_BATCH)
+    bare = decode_rows(rows, rows)
+    equal = all(_bits_equal(a, b[:rows]) for a, b in zip(padded,
+                                                         timed_logits))
+    diff = max((a.float() - b[:rows].float()).abs().max().item()
+               for a, b in zip(padded, timed_logits))
+    bare_equal = all(_bits_equal(a, b[:rows]) for a, b in zip(
+        bare, timed_logits))
+    print(f"[{tag}] decode rows 0-{rows - 1} at batch {EMBEDS_BATCH} and "
+          f"{rows} ({len(padded)} steps, the batch-{rows} block padded to "
+          f"{EMBEDS_BATCH} rows as the scheduler pads it): bit-identical: "
+          f"{equal} (largest difference {diff:.3e}); unpadded at batch "
+          f"{rows}: bit-identical: {bare_equal} (a reading)")
+    if not equal:
+        raise AssertionError(f"{tag}: decode rows depend on the batch")
+
+
+def phase_serve_vl(ref):
+    """[serve_vl]: qwen2-vl-7b at its published widths and full depth,
+    served through ``Model.prefill`` and ``Model.decode_step`` (see the
+    module doc).  Returns the timed run's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counter
+    from repro_torch.models import build_model, frontends
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    tag, b, n, steps = "serve_vl", EMBEDS_BATCH, VL_PROMPT, VL_DECODE
+    cfg = get_config(VL_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name} d_model={cfg.d_model} {_mixer_desc(cfg)} "
+          f"M-RoPE sections={cfg.attn.mrope_sections} {_ffn_desc(cfg)} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers}, no embedding "
+          f"table: {model.param_count()} params, "
+          f"{_nbytes(leaves(params)) / 1e9:.2f} GB bf16, init "
+          f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stub = frontends.vision_patch_embeds(gen, b, n, cfg.d_model,
+                                         cfg.param_dtype)
+    # the stub's next embeddings, at the text positions that follow
+    more = frontends.vision_patch_embeds(gen, b, steps, cfg.d_model,
+                                         cfg.param_dtype)["inputs_embeds"]
+    embeds = torch.cat([stub["inputs_embeds"], more], dim=1)
+    last = stub["positions"][:, :, -1:]          # text: t == h == w
+    positions = torch.cat([stub["positions"], last + torch.arange(
+        1, steps + 1, dtype=torch.int32, device="cuda")], dim=2)
+    n_img = n // 4
+    print(f"[{tag}] batch {b}: {n} positions a row ({n_img} image patches "
+          f"on a {max(int(n_img ** 0.5), 1)}-wide grid, then text from "
+          f"{int(stub['positions'][0, 0, n_img])}), f32 cache, then "
+          f"{steps} decode steps at text positions "
+          f"{int(positions[0, 0, n])}..{int(positions[0, 0, -1])}")
+
+    def prefill(rows=b):
+        caches = model.init_caches(rows, n + steps, dtype=torch.float32)
+        return model.prefill(params, {
+            "inputs_embeds": embeds[:rows, :n],
+            "positions": positions[:, :rows, :n]}, caches)
+
+    def decode(caches, rows, block):
+        got = []
+        for j in range(steps):
+            e = embeds[:rows, n + j:n + j + 1]
+            p = positions[:, :rows, n + j:n + j + 1]
+            if block > rows:
+                e = torch.cat([e, e.new_zeros((block - rows,) + e.shape[1:])])
+                p = torch.cat([p, p.new_zeros((3, block - rows, 1))], dim=1)
+            lg, caches = model.decode_step(
+                params, {"inputs_embeds": e, "positions": p}, caches)
+            got.append(lg[:rows])
+        return got
+
+    errs = []
+    with _checked_flash(ref, errs, len(CHECK_RIDS)):
+        prefill()                  # the checked run, and the warm-up
+    _free()
+    counter.reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, caches = prefill()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits = decode(caches, b, b)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = counter.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del caches
+    launches, tc = counts["flash_attention"], counts["flash_attention_tc"]
+    empty = model.init_caches(b, n + steps, dtype=torch.float32)
+    ops = _ops_a_call(lambda: model.decode_step(params, {
+        "inputs_embeds": embeds[:, n:n + 1],
+        "positions": positions[:, :, n:n + 1]}, empty))
+    del empty
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    print(f"[{tag}] prefill {prefill_s:.3f}s; decode "
+          f"{decode_s / steps * 1e3:.2f} ms a step, "
+          f"{b * steps / decode_s:.1f} rows x steps / s ({ops} aten ops "
+          f"a step); peak {peak:.2f} GiB; flash launches {launches} "
+          f"({tc} tensor-core) "
+          f"= {cfg.num_layers} layers x 1 prefill; the checked prefill's "
+          f"{len(errs)} launches against plain (rows "
+          f"{list(CHECK_RIDS)}): worst {worst[0]:.3e} against its tol "
+          f"{worst[1]:.3e} ({card()})")
+    if launches != cfg.num_layers or tc != launches:
+        raise AssertionError(f"{tag}: {launches} flash launches, {tc} "
+                             "tensor-core")
+    if len(errs) != cfg.num_layers or not all(e[0] <= e[1] for e in errs):
+        raise AssertionError(f"{tag}: flash vs plain: {errs}")
+    # the teacher-forced forward over all n + steps positions
+    h, _, _ = T.forward(params, cfg, {"inputs_embeds": embeds,
+                                      "positions": positions})
+    full = T._unembed(params, cfg, h[:, n - 1:])
+    del h
+    diffs = [_rel(got, full[:, i]) for i, got in enumerate([first]
+                                                            + logits)]
+    print(f"[{tag}] prefill and {steps} decode steps against the "
+          f"teacher-forced forward over {n + steps} positions: last "
+          f"prefill logits {diffs[0]:.3e}, worst decode step "
+          f"{max(diffs[1:]):.3e} of max|forward| (tol "
+          f"{EMBEDS_FORMS_TOL:.3g})")
+    if not all(math.isfinite(d) and d <= EMBEDS_FORMS_TOL for d in diffs):
+        raise AssertionError(f"{tag}: decode disagrees with the forward: "
+                             f"{diffs}")
+    del full
+    _, caches = prefill()
+    half = b // 2
+    _rows_check(tag, lambda rows, block: decode(_padded_rows(
+        caches, rows, block, lambda path: 1), rows, block), logits, half)
+    del caches, params, model
+    _free()
+    return {"launches": launches, "max_abs_err": max(e[0] for e in errs),
+            "prefill_s": prefill_s, "decode_ms": decode_s / steps * 1e3,
+            "peak_gib": peak, "forms_diff": max(diffs), "ops_a_step": ops}
+
+
+def phase_serve_seamless(ref):
+    """[serve_seamless]: seamless-m4t-large-v2 at its published widths and
+    full depth, served through ``Model.prefill`` and greedy
+    ``Model.decode_step``s (see the module doc).  Returns the timed run's
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counter
+    from repro_torch.models import build_model, frontends
+    from repro_torch.models import encdec as ED
+    from repro_torch.tree import leaves
+    tag, b, f = "serve_seamless", EMBEDS_BATCH, SEAMLESS_FRAMES
+    n, steps = SEAMLESS_PROMPT, SEAMLESS_DECODE
+    cfg = get_config(SEAMLESS_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    a = cfg.attn
+    print(f"[{tag}] {cfg.name} d_model={cfg.d_model} encoder "
+          f"{cfg.enc_layers} + decoder {cfg.dec_layers} layers, "
+          f"heads={a.num_heads}/{a.num_kv_heads} head_dim={a.head_dim}, "
+          f"ff={cfg.mlp.d_ff} ({cfg.mlp.activation}) {cfg.norm} "
+          f"vocab={cfg.vocab_size}: {model.param_count()} params, "
+          f"{_nbytes(leaves(params)) / 1e9:.2f} GB bf16, init "
+          f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = frontends.audio_frame_embeds(gen, b, f, cfg.d_model,
+                                          cfg.param_dtype)
+    prompt = torch.tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(b, n)), device="cuda")
+    print(f"[{tag}] batch {b}: {f} frames and a {n}-token prompt a row, "
+          f"f32 cache, {steps} greedy decode steps")
+
+    def prefill(rows=b):
+        caches = model.init_caches(rows, n + steps, enc_len=f,
+                                   dtype=torch.float32)
+        return model.prefill(params, {"frame_embeds": frames[:rows],
+                                      "tokens": prompt[:rows]}, caches)
+
+    def decode(caches, toks, rows, block):
+        got = []
+        for j in range(len(toks)):
+            t = toks[j][:rows, None]
+            if block > rows:
+                t = torch.cat([t, t.new_zeros((block - rows, 1))])
+            lg, caches = model.decode_step(params, {"tokens": t}, caches)
+            got.append(lg[:rows])
+        return got
+
+    errs = []
+    with _checked_flash(ref, errs, b):
+        first, caches = prefill()       # the checked run, and the warm-up
+        decode(caches, [torch.argmax(first, dim=-1)], b, b)
+    del caches
+    _free()
+    encode_ms = _ms(lambda: ED.encode(params, cfg, frames), 3)
+    counter.reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, caches = prefill()
+    toks = [torch.argmax(first, dim=-1)]
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    logits = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, caches = model.decode_step(params, {"tokens": toks[-1][:, None]},
+                                       caches)
+        logits.append(lg)
+        toks.append(torch.argmax(lg, dim=-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = counter.counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # what a decode step spends recomputing the memory's cross K and V
+    memory = caches["memory"].to(cfg.param_dtype)
+    cross = params["decoder"]["cross"]
+    kv_ms = _ms(lambda: [memory @ cross[w][i] for i in range(cfg.dec_layers)
+                         for w in ("wk", "wv")], 5)
+    del caches, memory
+    launches, tc = counts["flash_attention"], counts["flash_attention_tc"]
+    want = 3 * cfg.dec_layers + steps * cfg.dec_layers
+    empty = model.init_caches(b, n + steps, enc_len=f, dtype=torch.float32)
+    ops = _ops_a_call(lambda: model.decode_step(
+        params, {"tokens": toks[0][:, None]}, empty))
+    del empty
+    kinds = {"encoder": [e for e in errs if not e[2] and e[3] == e[4]],
+             "cross": [e for e in errs if not e[2] and e[3] != e[4]],
+             "self": [e for e in errs if e[2]]}
+    print(f"[{tag}] encode {encode_ms:.3f} ms; TTFT {ttft * 1e3:.3f} ms; "
+          f"decode {decode_s / steps * 1e3:.3f} ms a step ({ops} aten ops "
+          f"and {cfg.dec_layers} flash launches), "
+          f"{b * steps / decode_s:.1f} tokens/s; peak {peak:.2f} GiB; "
+          f"the memory's cross K/V recomputed a step: {kv_ms:.3f} ms "
+          f"({kv_ms / (decode_s / steps * 1e3):.1%} of a step); flash "
+          f"launches {launches} ({tc} tensor-core) = {cfg.enc_layers} "
+          f"encoder + {cfg.dec_layers} self + {cfg.dec_layers} cross a "
+          f"prefill + {cfg.dec_layers} cross x {steps} steps ({card()})")
+    for kind, es in kinds.items():
+        w = max(es, key=lambda e: e[0] / e[1])
+        print(f"[{tag}] checked {kind} launches: {len(es)}, worst "
+              f"{w[0]:.3e} against its tol {w[1]:.3e} (Sq {w[3]}, Skv "
+              f"{w[4]})")
+    if launches != want or tc != launches:
+        raise AssertionError(f"{tag}: {launches} flash launches ({tc} "
+                             f"tensor-core), expected {want}")
+    if (len(errs) != cfg.enc_layers + 3 * cfg.dec_layers
+            or not all(e[0] <= e[1] for e in errs)):
+        raise AssertionError(f"{tag}: flash vs plain: {errs}")
+    full = model.logits(params, {"frame_embeds": frames, "tokens": torch.cat(
+        [prompt] + [t[:, None] for t in toks[:-1]], dim=1)})
+    diffs = [_rel(got, full[:, n - 1 + i]) for i, got in enumerate(
+        [first] + logits)]
+    del full
+    print(f"[{tag}] prefill and {steps} greedy decode steps against the "
+          f"teacher-forced logits over {n + steps} tokens: last prefill "
+          f"logits {diffs[0]:.3e}, worst decode step {max(diffs[1:]):.3e} "
+          f"of max|forward| (tol {EMBEDS_FORMS_TOL:.3g})")
+    if not all(math.isfinite(d) and d <= EMBEDS_FORMS_TOL for d in diffs):
+        raise AssertionError(f"{tag}: decode disagrees with the forward: "
+                             f"{diffs}")
+    _, caches = prefill()
+    fed = toks[:-1]
+    _rows_check(tag, lambda rows, block: decode(_padded_rows(
+        caches, rows, block, lambda path: 0 if path == ("memory",) else 1),
+        fed, rows, block), logits, b // 2)
+    del caches, params, model
+    _free()
+    return {"launches": launches, "max_abs_err": max(e[0] for e in errs),
+            "encode_ms": encode_ms, "ttft_s": ttft,
+            "decode_ms": decode_s / steps * 1e3,
+            "tokens_per_s": b * steps / decode_s, "peak_gib": peak,
+            "cross_kv_ms": kv_ms, "forms_diff": max(diffs),
+            "ops_a_step": ops}
 
 
 def _bits_equal(a, b) -> bool:
@@ -3430,6 +3871,8 @@ def main() -> int:
     serve_deepseek = timed("serve_deepseek", phase_serve_deepseek, ref)
     serve_jamba = timed("serve_jamba", phase_serve_jamba, ref)
     serve_mamba2 = timed("serve_mamba2", phase_serve_mamba2, ref)
+    serve_vl = timed("serve_vl", phase_serve_vl, ref)
+    serve_seamless = timed("serve_seamless", phase_serve_seamless, ref)
     sync_rows = timed("collectives", phase_collectives)
     lib_launches, _ = timed("collectives_lib", phase_collectives_lib)
     timed("train_small", phase_train_small)
@@ -3450,17 +3893,15 @@ def main() -> int:
                      "serve_deepseek_one_shot":
                          serve_deepseek["one_shot_launches"],
                      "serve_jamba": serve_jamba["launches"],
-                     "serve_mamba2": serve_mamba2["launches"]}
+                     "serve_mamba2": serve_mamba2["launches"],
+                     "serve_vl": serve_vl["launches"],
+                     "serve_seamless": serve_seamless["launches"]}
     flash_by_path["elastic_serve"] = timed(
         "elastic_serve", phase_elastic_serve)[0]["flash_attention"]
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s; the "
           f"whole script {time.perf_counter() - t_start:.1f}s")
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card)
+    print(card())
     def reading(family, case, kv_dtype, q_offset=0):
         r = next(r for r in rows if r["family"] == family
                  and r["case"] == case and r["q_offset"] == q_offset
@@ -3483,6 +3924,8 @@ def main() -> int:
                            serve_nemotron["max_abs_err"],
                            serve_deepseek["one_shot_max_abs_err"],
                            serve_jamba["max_abs_err"],
+                           serve_vl["max_abs_err"],
+                           serve_seamless["max_abs_err"],
                            max(r["max_abs_err"] for r in rows)),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3491,9 +3934,19 @@ def main() -> int:
         "plain_ms_bf16_cache": bf16_row["plain_ms"],
         "bound_ms_bf16_cache": bf16_row["bound_ms"],
         "library_ms_bf16_cache": bf16_row["library_ms"],
-        # nemotron-4-340b's late chunk (bf16 q on the tensor cores) and
-        # deepseek-v3's 1000-token MLA one-shot (on the CUDA cores)
+        # nemotron-4-340b's late chunk (bf16 q on the tensor cores),
+        # deepseek-v3's 1000-token MLA one-shot (on the CUDA cores), and
+        # seamless's launches at D 64 (bf16 q on the tensor cores: the
+        # encoder and cross-attention over a bf16 memory, the prefill's
+        # cross-attention over the f32 one, the causal self-attention)
         "head_dims": {
+            "64x64": {
+                f"{case.replace(' ', '_')}_{name}_kv": reading(
+                    "seamless-m4t-large-v2", case, kv)
+                for case in ("encoder", "cross", "cross decode", "self")
+                for name, kv in (("bf16", "bfloat16"), ("f32", "float32"))},
+            "128x128_vl_prefill": reading("qwen2-vl-7b", "vl prefill",
+                                          "bfloat16"),
             "192x192": {"f32_cache": reading("nemotron-4-340b", "chunk",
                                              "float32", 3840),
                         "bf16_cache": reading("nemotron-4-340b", "chunk",

@@ -1,7 +1,5 @@
-"""Config registry of the port: the architectures it runs, with the
-reference's family and shape metadata.  Only the architectures the port
-runs are registered; the rest of ``repro.configs`` arrives with later
-slices.
+"""Config registry of the port: the reference's ten architectures, with
+its family and shape metadata.
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_config(arch_id, reduced=True)`` the test-sized variant of the same
@@ -16,12 +14,14 @@ from typing import Callable, Dict, Tuple
 from repro_torch.configs import (deepseek_v3_671b, granite_34b,
                                  jamba_1_5_large_398b, mamba2_1_3b,
                                  mistral_large_123b, nemotron_4_340b,
-                                 qwen2_72b, qwen3_moe_30b_a3b)
+                                 qwen2_72b, qwen2_vl_7b, qwen3_moe_30b_a3b,
+                                 seamless_m4t_large_v2)
 from repro_torch.configs.shapes import SHAPE_NAMES, SHAPES, Shape, get_shape
+from repro_torch.models.encdec import EncDecCfg
 
 _MODULES = (granite_34b, qwen2_72b, qwen3_moe_30b_a3b, mistral_large_123b,
             nemotron_4_340b, deepseek_v3_671b, mamba2_1_3b,
-            jamba_1_5_large_398b)
+            jamba_1_5_large_398b, qwen2_vl_7b, seamless_m4t_large_v2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +57,8 @@ def get_config(arch_id: str, reduced: bool = False, param_dtype=None):
 
 
 def cells(include_skipped: bool = False):
-    """The reference's (arch, shape) dry-run cells of the port's archs,
-    minus each arch's skipped shapes (unless ``include_skipped``)."""
+    """The reference's (arch, shape) dry-run cells, minus each arch's
+    skipped shapes (unless ``include_skipped``)."""
     for arch_id, info in ARCHS.items():
         for shape_name in SHAPE_NAMES:
             skipped = shape_name in info.skip_shapes
@@ -74,7 +74,10 @@ def with_num_layers(cfg, num_layers: int):
     pattern's first layers (jamba-1.5-large-398b at 4 layers:
     ``attn+dense``, ``mamba+moe``, ``mamba+dense``, ``mamba+moe``).
     deepseek-v3-671b at 4 layers keeps its 3 dense MLA layers and 1 MoE
-    layer."""
+    layer.  An encoder-decoder config (``EncDecCfg``) is not cut."""
+    if isinstance(cfg, EncDecCfg):
+        raise ValueError(f"{cfg.name}: with_num_layers cuts a decoder's "
+                         "stages; an encoder-decoder config has none")
     if not 1 <= num_layers <= cfg.num_layers:
         raise ValueError(
             f"num_layers={num_layers} outside 1..{cfg.num_layers}")

@@ -1,24 +1,26 @@
-// Causal blockwise (flash) attention forward for Hopper (sm_90a): the
-// CUDA-core variant, and the C entry of both variants.
+// Blockwise (flash) attention forward for Hopper (sm_90a), causal or
+// not: the CUDA-core variant, and the C entry of both variants.
 //
 // The C entry `flash_attention_fwd` (end of file) chooses by type and
-// head dims: a bf16 query at (DQK, DV) = (128, 128) or (192, 192) (every
-// chunk of the full-width serve paths) runs the tensor-core kernel of
-// flash_attention_wgmma.cu; any other query (f32, whose output is held
-// to 1e-4, the reduced head dim 16, or MLA's one-shot prefill at
-// (192, 128)) runs the kernel below.  The choice is explicit and reported to the
+// head dims: a bf16 query at (DQK, DV) = (64, 64), (128, 128) or
+// (192, 192) (every launch of the full-width serve paths but MLA's)
+// runs the tensor-core kernel of flash_attention_wgmma.cu; any other
+// query (f32, whose output is held to 1e-4, the reduced head dim 16,
+// or MLA's one-shot prefill at (192, 128)) runs the kernel below.  The choice is explicit and reported to the
 // caller; nothing retries on the other kernel.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` /
 // `_flash_kernel` in src/repro/kernels/flash_attention/kernel.py, and
 // serves the model's two prefill paths: `chunk_attention` (a page-sized
 // chunk of queries against the whole max_len cache, causal at a runtime
-// `q_offset`) and the one-shot `flash_attention`.
+// `q_offset`) and the one-shot `flash_attention`, and the
+// encoder-decoder's non-causal encoder and cross-attention.
 //
 // Function.  q (B, Sq, H, DQK), k (B, Skv, Hkv, DQK), v (B, Skv, Hkv,
 // DV), o (B, Sq, H, DV) in q's dtype.  Query head h reads KV head h / (H / Hkv) (GQA, no repeated
 // KV in memory).  Query row i sits at absolute position q_offset + i and
-// sees keys at positions <= that (causal) and < Skv.  Each operand is
+// sees keys at positions <= that (causal) and < Skv; with causal = 0
+// every row sees all Skv keys.  Each operand is
 // loaded in its own dtype (f32 or bf16) and converted to f32; q is
 // scaled on load, scores, the online softmax and P.V run in f32, and a
 // row that sees no key writes 0 (the TPU kernel's l == 0 guard).
@@ -36,8 +38,8 @@
 // 64-key K and V tiles are staged through shared memory one at a time,
 // rows past Skv zero-filled, so Sq and Skv need not be tile multiples.
 // Each thread owns 4 query rows x 8 keys of a score tile and 4 rows x DV/8
-// output columns of the accumulator (DV = 128 or 192 at full width, 16
-// in the reduced config); row max and row sum reduce over the
+// output columns of the accumulator (DV = 64, 128 or 192 at full width,
+// 16 in the reduced configs); row max and row sum reduce over the
 // 8 lanes sharing a row with warp shuffles, so m, l and the accumulator
 // live in registers.  KV tiles past the tile's last query are never
 // loaded (the causal skip: in the chunked path Skv is the whole max_len
@@ -73,7 +75,8 @@ struct Tile {
       BQ * QK_STRIDE + BK * QK_STRIDE + BK * DV + BQ * P_STRIDE;
 };
 
-// head dims built: (16, 16) reduced, (128, 128), (192, 192), (192, 128)
+// head dims built: (16, 16) reduced, (64, 64), (128, 128), (192, 192),
+// (192, 128)
 constexpr int kErrHeadDim = -1;
 constexpr int kErrHeads = -2;
 constexpr int kErrDtype = -3;
@@ -326,6 +329,7 @@ extern "C" int flash_attention_fwd(
   if (head_dim == 128 && v_head_dim == 128) { FA_DTYPES(128, 128) }
   if (head_dim == 192 && v_head_dim == 192) { FA_DTYPES(192, 192) }
   if (head_dim == 192 && v_head_dim == 128) { FA_DTYPES(192, 128) }
+  if (head_dim == 64 && v_head_dim == 64) { FA_DTYPES(64, 64) }
   if (head_dim == 16 && v_head_dim == 16) { FA_DTYPES(16, 16) }
 #undef FA_DTYPES
 #undef FA_ARGS
@@ -335,8 +339,8 @@ extern "C" int flash_attention_fwd(
 extern "C" const char* flash_attention_error_string(int code) {
   switch (code) {
     case kErrHeadDim:
-      return "head dims (q/k, v) must be (16, 16), (128, 128), (192, 192) "
-             "or (192, 128)";
+      return "head dims (q/k, v) must be (16, 16), (64, 64), (128, 128), "
+             "(192, 192) or (192, 128)";
     case kErrHeads: return "num_heads must be a multiple of num_kv_heads";
     case kErrDtype: return "dtypes must be float32 or bfloat16";
     case kErrTensorMap:

@@ -1,8 +1,10 @@
-// Causal flash-attention forward on Hopper's tensor cores (sm_90a): the
-// variant for a bf16 query with head dims (DQK, DV) = (128, 128) or
-// (192, 192), over an f32 or a bf16 cache.  That is every prefill chunk
-// of the full-width serve paths (qwen2-72b and qwen3-moe at 128,
-// nemotron-4-340b at 192).
+// Flash-attention forward on Hopper's tensor cores (sm_90a), causal or
+// not: the variant for a bf16 query with head dims (DQK, DV) = (64, 64),
+// (128, 128) or (192, 192), over an f32 or a bf16 cache.  That is every
+// flash launch of the full-width serve paths but MLA's (qwen2-72b,
+// qwen3-moe and qwen2-vl-7b at 128, nemotron-4-340b at 192, and
+// seamless-m4t-large-v2 at 64: its non-causal encoder and
+// cross-attention, and its causal decoder self-attention).
 //
 // Replaces, like flash_attention.cu, the Pallas TPU kernel
 // `flash_attention_bhsd` / `_flash_kernel` in
@@ -10,15 +12,18 @@
 // the f32-query kernel (held to 1e-4, which bf16 products cannot meet),
 // the reduced head dim 16 and MLA's (192, 128); its C entry
 // `flash_attention_fwd` calls `flash_wgmma_launch` below for q bf16 at
-// (128, 128) or (192, 192), by type and head dims, never as a fallback.
+// (64, 64), (128, 128) or (192, 192), by type and head dims, never as a
+// fallback.
 //
 // Function.  q (B, Sq, H, DQK) bf16; k (B, Skv, Hkv, DQK) and v (B, Skv,
 // Hkv, DV) f32 or bf16, strided views (a layer of the stacked cache
 // arena); o (B, Sq, H, DV) bf16.  The kernel is a template on (DQK, DV),
-// both multiples of 64; the library instantiates (128, 128) and
-// (192, 192).  Query head h reads KV head h / (H / Hkv).  Query row i
-// sits at absolute position q_offset + i and sees keys at positions <=
-// that (causal) and < Skv.  The Pallas kernel's arithmetic for a bf16 cache:
+// both multiples of 64; the library instantiates (64, 64), (128, 128)
+// and (192, 192).  Query head h reads KV head h / (H / Hkv).  Query row
+// i sits at absolute position q_offset + i and sees keys at positions <=
+// that (causal) and < Skv; with causal = 0 every row sees all Skv keys
+// (a cross-attention decode step is Sq = 1: one live row of the block's
+// 128).  The Pallas kernel's arithmetic for a bf16 cache:
 // S = Q.K^T as bf16 products with f32 accumulation, scaled and
 // soft-maxed online in f32, then P rounded to bf16 and O += P.V again in
 // f32; a row that sees no key writes 0.  An f32 cache is rounded to bf16
@@ -234,6 +239,20 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
         "r"(accumulate));
 }
 
+// d[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (MN-major in smem).
+__device__ __forceinline__ void wgmma_m64n64_tb(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // d[64 x 128] += A[64 x 16] (registers) . B[16 x 128] (MN-major in smem).
 __device__ __forceinline__ void wgmma_m64n128_tb(float (&d)[64],
                                                  const uint32_t (&a)[4],
@@ -272,7 +291,12 @@ __device__ __forceinline__ void wgmma_m64n192_tb(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// O += P . V at V's width: m64n128 or m64n192.
+// O += P . V at V's width: m64n64, m64n128 or m64n192.
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  wgmma_m64n64_tb(d, a, desc);
+}
 __device__ __forceinline__ void wgmma_pv(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t desc) {
@@ -668,7 +692,8 @@ int launch(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Args& a,
 
 // Whether the tensor-core kernel is built for head dims (dqk, dv).
 bool flash_wgmma_takes(int dqk, int dv) {
-  return (dqk == 128 && dv == 128) || (dqk == 192 && dv == 192);
+  return (dqk == 64 && dv == 64) || (dqk == 128 && dv == 128)
+      || (dqk == 192 && dv == 192);
 }
 
 // Called by flash_attention.cu's C entry for q bf16 at head dims that
@@ -701,5 +726,6 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
   a.scale_log2 = scale * LOG2E;
   if (dqk == 192) return launch<192, 192>(tm_k, tm_v, a, kv_f32, B, stream);
+  if (dqk == 64) return launch<64, 64>(tm_k, tm_v, a, kv_f32, B, stream);
   return launch<128, 128>(tm_k, tm_v, a, kv_f32, B, stream);
 }

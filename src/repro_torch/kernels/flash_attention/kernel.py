@@ -12,12 +12,13 @@ the wrapper checks every argument, allocates the output, and raises if
 the launch returns an error.
 
 Two kernels share the library, chosen by type and head dims in the C
-entry: a bf16 query at head dims (q/k, v) of (128, 128) or (192, 192)
-(the full-width serve paths) runs on the tensor cores
+entry: a bf16 query at head dims (q/k, v) of (64, 64), (128, 128) or
+(192, 192) (the full-width serve paths) runs on the tensor cores
 (``csrc/flash_attention_wgmma.cu``, variant ``"wgmma"``); any other
 query runs on the CUDA cores in f32 (``csrc/flash_attention.cu``, variant
 ``"simt"``), MLA's (192, 128) among them.  ``launch`` returns the variant
-the C entry reports.
+the C entry reports.  Both take ``causal=False`` (every query sees every
+key: the encoder-decoder's encoder and cross-attention).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from repro_torch.kernels import build as B
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
 #: the (q/k, v) head dims the library is built for
-HEAD_DIMS = ((16, 16), (128, 128), (192, 192), (192, 128))
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 192), (192, 128))
 VARIANTS = ("simt", "wgmma")   # as the C entry reports them: 0, 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -31,7 +31,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) ->
     (B, Sq, H, Dv) in q's dtype; ``q_offset`` is the absolute position of
     query 0.  The softmax runs in float32; on the card a bf16 query with
-    head dims (128, 128) or (192, 192) takes bf16 products (K, V and P
+    head dims (64, 64), (128, 128) or (192, 192) takes bf16 products (K, V and P
     rounded to bf16, as the reference's kernel does for a bf16 cache),
     every other query f32 ones."""
     if q.device.type == "cuda":

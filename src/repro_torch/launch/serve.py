@@ -25,6 +25,11 @@ supervised by the elastic ``ServeController`` (counterpart of
     # elastic: 4 data ranks, lose 2 at step 3 (batch 4 -> 2)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --data 4 --elastic --fault-plan lose@3:2
+
+qwen2-vl-7b and seamless-m4t-large-v2 are refused: the scheduler feeds
+token ids only, as the reference's does (whose launcher refuses the
+encoder-decoder too); they serve through ``Model.prefill`` and
+``Model.decode_step`` on a batch of embeddings.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from repro_torch.runtime import substrate
 from repro_torch.runtime.controller import FaultPlan
 from repro_torch.serve import (BatchScheduler, Request, ServeCfg,
                                ServeController)
-from repro_torch.serve.engine import prompt_len
+from repro_torch.serve.engine import prompt_len, token_only_refusal
 
 logger = logging.getLogger("repro_torch.serve")
 
@@ -111,6 +116,10 @@ def main(argv=None) -> None:
     if args.num_layers is not None:
         cfg = with_num_layers(cfg, args.num_layers)
     model = build_model(cfg)
+    refusal = token_only_refusal(model)
+    if refusal:
+        raise SystemExit(f"the serve launcher serves through the scheduler: "
+                         f"{refusal}")
     params = model.init(torch.Generator(device).manual_seed(args.seed))
     logger.info("model %s: %d layers, %.2fM params on %s", model.name,
                 cfg.num_layers, model.param_count() / 1e6, device)

@@ -37,7 +37,9 @@ restore onto another ``--data`` or ``--model-parallel`` width.
 over "data" and "model" alike.  Runs on
 ``cuda`` unless ``--device cpu``; raises without CUDA.  The default
 ``--sync`` is ``composed`` (the reference's is ``auto``), so that
-existing invocations keep their meaning.
+existing invocations keep their meaning.  qwen2-vl-7b and
+seamless-m4t-large-v2 are refused (``missing_batch_keys``): their losses
+need embeddings that the launcher's token batches do not carry.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from repro_torch.core.engine import EngineConfig
 from repro_torch.core.plan import DEFAULT_BUCKET_BYTES
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.models import build_model
+from repro_torch.models.encdec import EncDecCfg
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.launch._elastic import (add_elastic_args,
                                          check_elastic_args,
@@ -97,6 +100,18 @@ def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+def missing_batch_keys(cfg) -> tuple:
+    """The batch keys ``cfg``'s loss needs beyond the launcher's token
+    batches: an encoder-decoder's ``frame_embeds``, or the
+    ``inputs_embeds`` and ``positions`` of a model without an embedding
+    table (the reference's launcher builds token batches only)."""
+    if isinstance(cfg, EncDecCfg):
+        return ("frame_embeds",)
+    if not cfg.embed_inputs:
+        return ("inputs_embeds", "positions")
+    return ()
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
@@ -175,6 +190,12 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     cfg = get_config(args.arch, reduced=args.reduced,
                      param_dtype=_DTYPES.get(args.param_dtype))
+    missing = missing_batch_keys(cfg)
+    if missing:
+        raise SystemExit(
+            f"the train launcher feeds token batches ({{tokens, labels}}); "
+            f"{cfg.name} also needs {', '.join(missing)}, which the "
+            "synthetic dataset does not supply here")
     if args.num_layers is not None:
         cfg = with_num_layers(cfg, args.num_layers)
     model = build_model(cfg, model_parallel=args.model_parallel)

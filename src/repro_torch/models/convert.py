@@ -7,6 +7,10 @@ layouts are the same by construction (stacked per stage, ``(in, out)``
 weights); every leaf is checked against the port's own shapes.  It
 always returns the full tree: a model-parallel rank gets its shard from
 ``Model.shard`` (which ``trainer.init_states`` calls).
+
+An ``EncDecCfg`` carries the encoder-decoder's tree (``embed``,
+``encoder``, ``decoder``, ``enc_norm``, ``dec_norm``, ``lm_head``), and a
+decoder with ``embed_inputs=False`` carries its tree without ``embed``.
 """
 
 from __future__ import annotations
@@ -17,11 +21,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.tree import flatten, unflatten
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerCfg,
+def params_from_numpy(tree: Dict[str, Any],
+                      cfg: T.TransformerCfg | ED.EncDecCfg,
                       device="cuda") -> Dict[str, Any]:
     """numpy params tree -> port params on ``device``, each leaf in the
     dtype ``init_params`` gives it: ``cfg.param_dtype``, except a MoE
@@ -29,7 +35,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerCfg,
     whatever the param dtype (as the reference's).  Raises
     on a missing, extra or misshapen leaf."""
     dev = resolve_device(device)
-    want, want_paths = flatten(T.init_params(None, cfg, torch.device("meta")))
+    init = (ED.init_params if isinstance(cfg, ED.EncDecCfg)
+            else T.init_params)
+    want, want_paths = flatten(init(None, cfg, torch.device("meta")))
     got, got_paths = flatten(tree)
     if got_paths != want_paths:
         raise ValueError(

@@ -1,0 +1,238 @@
+"""Encoder-decoder backbone (SeamlessM4T-v2's text/speech translator).
+
+Counterpart of ``repro.models.encdec``.  The modality frontend is a stub
+(precomputed frame embeddings, ``repro_torch.models.frontends``); this
+module is the transformer backbone: a non-causal encoder over frames and
+a causal decoder with cross-attention.  Both stacks keep the reference's
+STACKED params (leading axis = layer) and its tree names, so params and
+caches compare leaf for leaf across the two packages; a Python loop over
+the stack replaces ``lax.scan``.
+
+Attention goes through the flash op outside training (the CUDA kernel
+on the card: the encoder non-causal with ``Sq = Skv`` = frames, the
+decoder's self-attention causal, its cross-attention non-causal over the
+frames) and through the differentiable ``layers.train_attention`` in
+``loss_fn`` (``train=True``).  Cross-attention projects the memory's K
+and V anew at every call, decode steps included, as the reference does.
+The decoder's self-attention KV cache is written in place, as the
+decoder LM's is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.tree import map_tree
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecCfg:
+    name: str
+    d_model: int
+    vocab_size: int
+    enc_layers: int
+    dec_layers: int
+    attn: L.AttentionCfg = None          # self-attention (enc: non-causal)
+    cross: L.AttentionCfg = None         # decoder cross-attention
+    mlp: L.MLPCfg = None
+    norm: str = "layernorm"
+    param_dtype: Any = torch.float32
+    block_k: int = 512                   # training attention kv block
+
+    @property
+    def num_layers(self) -> int:
+        return self.enc_layers + self.dec_layers
+
+
+def _init_norm(cfg: EncDecCfg, device, lead: Tuple[int, ...] = ()):
+    if cfg.norm == "layernorm":
+        return L.init_layernorm(cfg.d_model, cfg.param_dtype, device, lead)
+    return L.init_rmsnorm(cfg.d_model, cfg.param_dtype, device, lead)
+
+
+def _norm(cfg: EncDecCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return L.layernorm(p, x)
+    return L.rmsnorm(p, x)
+
+
+def _enc_attn(cfg: EncDecCfg) -> L.AttentionCfg:
+    return dataclasses.replace(cfg.attn, causal=False)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+def _init_enc_layers(gen, cfg: EncDecCfg, device) -> Params:
+    lead, dt = (cfg.enc_layers,), cfg.param_dtype
+    return {"norm1": _init_norm(cfg, device, lead),
+            "attn": L.init_attention(gen, _enc_attn(cfg), dt, device, lead),
+            "norm2": _init_norm(cfg, device, lead),
+            "mlp": L.init_mlp(gen, cfg.mlp, dt, device, lead)}
+
+
+def _apply_enc_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor, *,
+                     train: bool = False) -> torch.Tensor:
+    h = _norm(cfg, params["norm1"], x)
+    out, _ = L.attention_forward(params["attn"], _enc_attn(cfg), h,
+                                 train=train, block_k=cfg.block_k)
+    x = x + out
+    h = _norm(cfg, params["norm2"], x)
+    return x + L.mlp_forward(params["mlp"], cfg.mlp, h)
+
+
+def _init_dec_layers(gen, cfg: EncDecCfg, device) -> Params:
+    lead, dt = (cfg.dec_layers,), cfg.param_dtype
+    return {"norm1": _init_norm(cfg, device, lead),
+            "self_attn": L.init_attention(gen, cfg.attn, dt, device, lead),
+            "norm_x": _init_norm(cfg, device, lead),
+            "cross": L.init_cross_attention(gen, cfg.cross, dt, device,
+                                            lead),
+            "norm2": _init_norm(cfg, device, lead),
+            "mlp": L.init_mlp(gen, cfg.mlp, dt, device, lead)}
+
+
+def _apply_dec_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor,
+                     memory: torch.Tensor, *, q_offset: int = 0,
+                     cache: Optional[Params] = None, decode: bool = False,
+                     train: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[Params]]:
+    h = _norm(cfg, params["norm1"], x)
+    if decode:
+        out, new_cache = L.attention_decode(params["self_attn"], cfg.attn, h,
+                                            cache)
+    else:
+        out, new_cache = L.attention_forward(
+            params["self_attn"], cfg.attn, h, q_offset=q_offset,
+            kv_cache=cache, train=train, block_k=cfg.block_k)
+    x = x + out
+    h = _norm(cfg, params["norm_x"], x)
+    x = x + L.cross_attention_forward(params["cross"], cfg.cross, h, memory,
+                                      train=train, block_k=cfg.block_k)
+    h = _norm(cfg, params["norm2"], x)
+    return x + L.mlp_forward(params["mlp"], cfg.mlp, h), new_cache
+
+
+def _layer(stack: Params, i: int) -> Params:
+    return map_tree(lambda t: t[i], stack)
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: Optional[torch.Generator], cfg: EncDecCfg,
+                device) -> Params:
+    """Random params on ``device`` from ``gen`` (``None``: uninitialised,
+    for shape probes on the ``meta`` device)."""
+    dt = cfg.param_dtype
+    return {
+        "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                              device),
+        "encoder": _init_enc_layers(gen, cfg, device),
+        "decoder": _init_dec_layers(gen, cfg, device),
+        "enc_norm": _init_norm(cfg, device),
+        "dec_norm": _init_norm(cfg, device),
+        "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                device),
+    }
+
+
+def encode(params: Params, cfg: EncDecCfg, frame_embeds: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
+    """frame_embeds: (B, S_enc, D) from the stub frontend -> the memory
+    (B, S_enc, D) in the param dtype."""
+    x = frame_embeds.to(cfg.param_dtype)
+    for i in range(cfg.enc_layers):
+        x = _apply_enc_layer(_layer(params["encoder"], i), cfg, x,
+                             train=train)
+    return _norm(cfg, params["enc_norm"], x)
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
+                 memory: torch.Tensor, *, train: bool = False
+                 ) -> torch.Tensor:
+    """Teacher-forced decoder pass -> logits (B, S_dec, V)."""
+    x = _embed(params, tokens)
+    for i in range(cfg.dec_layers):
+        x, _ = _apply_dec_layer(_layer(params["decoder"], i), cfg, x, memory,
+                                train=train)
+    return _norm(cfg, params["dec_norm"], x) @ params["lm_head"]
+
+
+def loss_fn(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token NLL of ``labels`` given ``frame_embeds`` and the teacher-forced
+    ``tokens``: (loss, {"nll", "loss"}), differentiable in ``params``."""
+    memory = encode(params, cfg, batch["frame_embeds"], train=True)
+    logits = decode_train(params, cfg, batch["tokens"], memory, train=True)
+    loss = T.cross_entropy(logits, batch["labels"])
+    return loss, {"nll": loss, "loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with self-attn KV cache (+ stored memory)
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: EncDecCfg, batch: int, max_len: int, enc_len: int,
+                dtype, device) -> Params:
+    """{"self": the decoder's stacked KV caches, "memory": (B, enc_len,
+    D)}, both in ``dtype``."""
+    return {"self": L.init_kv_cache(batch, max_len, cfg.attn, dtype, device,
+                                    (cfg.dec_layers,)),
+            "memory": torch.zeros((batch, enc_len, cfg.d_model), dtype=dtype,
+                                  device=device)}
+
+
+def _decoder_pass(params: Params, cfg: EncDecCfg, x: torch.Tensor,
+                  memory: torch.Tensor, caches: Params, *,
+                  q_offset: int = 0, decode: bool
+                  ) -> Tuple[torch.Tensor, Params]:
+    """Logits (B, S, V) and the stacked self-attention caches (K/V rows
+    written in place, ``len`` anew)."""
+    lens = []
+    for i in range(cfg.dec_layers):
+        x, nc = _apply_dec_layer(_layer(params["decoder"], i), cfg, x,
+                                 memory, q_offset=q_offset,
+                                 cache=_layer(caches, i), decode=decode)
+        lens.append(nc["len"])
+    x = _norm(cfg, params["dec_norm"], x)
+    return x @ params["lm_head"], {**caches, "len": torch.stack(lens)}
+
+
+def prefill(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor],
+            caches: Params) -> Tuple[torch.Tensor, Params]:
+    """Encode ``frame_embeds``, store the memory in the cache's dtype, and
+    run the decoder over the prompt ``tokens``; returns (last-position
+    logits (B, V), caches)."""
+    memory = encode(params, cfg, batch["frame_embeds"])
+    memory = memory.to(caches["memory"].dtype)
+    logits, new_self = _decoder_pass(params, cfg,
+                                     _embed(params, batch["tokens"]), memory,
+                                     caches["self"], decode=False)
+    return logits[:, -1], {"self": new_self, "memory": memory}
+
+
+def decode_step(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
+                caches: Params) -> Tuple[torch.Tensor, Params]:
+    """tokens: (B, 1) -> (logits (B, V), caches); the stored memory is
+    cast back to the param dtype for cross-attention."""
+    logits, new_self = _decoder_pass(
+        params, cfg, _embed(params, tokens),
+        caches["memory"].to(cfg.param_dtype), caches["self"], decode=True)
+    return logits[:, 0], {"self": new_self, "memory": caches["memory"]}

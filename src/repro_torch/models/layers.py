@@ -1,8 +1,9 @@
-"""Dense layers of the port: RMSNorm, LayerNorm, RoPE, GQA/MQA attention
-(with qwen3's optional per-head q/k norm), SwiGLU, squared-ReLU and
+"""Dense layers of the port: RMSNorm, LayerNorm, RoPE and Qwen2-VL's
+M-RoPE, GQA/MQA attention (with qwen3's optional per-head q/k norm),
+the encoder-decoder's cross-attention, SwiGLU, squared-ReLU and
 tanh-GELU MLPs.
 
-Counterpart of the dense subset of ``repro.models.layers``.
+Counterpart of ``repro.models.layers``.
 
 Conventions
 -----------
@@ -126,6 +127,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def mrope_cos_sin(positions_3d: torch.Tensor, dim: int,
+                  sections: Tuple[int, ...], theta: float = 1e6
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE.  positions_3d: (3, B, S) for (t, h, w);
+    ``sections`` partitions dim/2 into per-component frequency bands
+    (e.g. (16, 24, 24) for D=128).  Returns cos/sin (B, S, dim/2)."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to "
+                         f"dim / 2 = {dim // 2}")
+    freqs = rope_freqs(dim, theta, positions_3d.device)
+    ang_all = positions_3d[..., None].float() * freqs    # (3, B, S, dim/2)
+    parts, lo = [], 0
+    for comp, sec in enumerate(sections):
+        parts.append(ang_all[comp, :, :, lo:lo + sec])
+        lo += sec
+    ang = torch.cat(parts, dim=-1)                       # (B, S, dim/2)
+    return torch.cos(ang), torch.sin(ang)
 
 
 def text_positions(batch: int, seq: int, offset: int = 0,
@@ -318,6 +338,7 @@ class AttentionCfg:
     qk_norm: bool = False          # qwen3-style per-head RMS q/k norm
     rope_theta: float = 1e4
     causal: bool = True
+    mrope_sections: Optional[Tuple[int, ...]] = None   # Qwen2-VL M-RoPE
 
 
 def init_attention(gen, cfg: AttentionCfg, dtype, device,
@@ -356,7 +377,21 @@ def _project_qkv(params: Params, cfg: AttentionCfg, x: torch.Tensor):
     return q, k, v.reshape(b, sq, Hkv, Dh)
 
 
+def _rope_for(cfg: AttentionCfg, positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin (B, S, D/2) of ``positions``: (B, S), or (3, B, S) for
+    M-RoPE.  An M-RoPE layer given (B, S) text positions rotates all
+    three components by them (t == h == w), as the reference does."""
+    if cfg.mrope_sections is not None:
+        if positions.dim() == 2:
+            positions = positions.expand((3,) + tuple(positions.shape))
+        return mrope_cos_sin(positions, cfg.head_dim, cfg.mrope_sections,
+                             cfg.rope_theta)
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
 def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
+                      positions: Optional[torch.Tensor] = None,
                       q_offset: int = 0,
                       kv_cache: Optional[Dict[str, torch.Tensor]] = None,
                       chunked: bool = False,
@@ -366,7 +401,9 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
     """Full-sequence (prefill or training) path.  Returns (out,
     new_cache).  ``train=True`` computes attention with
     ``train_attention`` (differentiable, ``block_k`` keys a block)
-    instead of the forward-only flash kernel.
+    instead of the forward-only flash kernel.  ``positions`` (B, S), or
+    (3, B, S) under M-RoPE, rotate q and k; ``None`` gives the text
+    positions ``q_offset + i``.
 
     ``chunked=True`` is the paged-prefill variant: queries attend the
     whole cache through ``chunk_attention`` (earlier chunks included),
@@ -375,8 +412,9 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
     K/V are written into ``kv_cache`` in place."""
     b, sq, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x)
-    positions = text_positions(b, sq, q_offset, x.device)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if positions is None:
+        positions = text_positions(b, sq, q_offset, x.device)
+    cos, sin = _rope_for(cfg, positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     new_cache = None
@@ -405,13 +443,17 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
 
 
 def attention_decode(params: Params, cfg: AttentionCfg, x: torch.Tensor,
-                     kv_cache: Dict[str, torch.Tensor]
+                     kv_cache: Dict[str, torch.Tensor], *,
+                     positions: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token decode with in-place cache update.  x: (B, 1, D)."""
+    """One-token decode with in-place cache update.  x: (B, 1, D);
+    ``positions`` (B, 1), or (3, B, 1) under M-RoPE, rotate q and k
+    (``None``: each sequence's cache length)."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x)
     idx = kv_cache["len"]                                 # (B,)
-    cos, sin = rope_cos_sin(idx[:, None], cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope_for(cfg, idx[:, None] if positions is None
+                         else positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     # Scatter the new kv at each sequence's own length (ragged batch).
@@ -494,3 +536,45 @@ def mlp_forward(params: Params, cfg: MLPCfg, x: torch.Tensor
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(gen, cfg: AttentionCfg, dtype, device,
+                         lead: Tuple[int, ...] = ()):
+    return init_attention(gen, cfg, dtype, device, lead)
+
+
+def cross_attention_forward(params: Params, cfg: AttentionCfg,
+                            x: torch.Tensor, memory: torch.Tensor, *,
+                            train: bool = False, block_k: int = 512
+                            ) -> torch.Tensor:
+    """x: (B, Sq, D) queries; memory: (B, Skv, D) encoder states.  No
+    RoPE; every query sees every memory position.  The memory's K and V
+    are projected anew at every call (the reference keeps no cross-KV
+    cache).  A memory in another dtype than the weights (an f32 cache's
+    over bf16 weights, at prefill) is projected in the wider of the two,
+    as JAX promotes the reference's product.  ``train=True`` attends
+    through ``train_attention`` (differentiable), otherwise through the
+    forward-only flash op."""
+    b, sq, _ = x.shape
+    skv = memory.shape[1]
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wk, wv = params["wk"], params["wv"]
+    dt = torch.promote_types(memory.dtype, wk.dtype)
+    memory = memory.to(dt)
+    q = (x @ params["wq"]).reshape(b, sq, H, Dh)
+    k = (memory @ wk.to(dt)).reshape(b, skv, Hkv, Dh)
+    v = (memory @ wv.to(dt)).reshape(b, skv, Hkv, Dh)
+    if cfg.qkv_bias:
+        q = q + params["bq"].reshape(H, Dh)
+        k = k + params["bk"].reshape(Hkv, Dh)
+        v = v + params["bv"].reshape(Hkv, Dh)
+    if train:
+        out = train_attention(q, k, v, causal=False, block_k=block_k)
+    else:
+        out = flash_attention(q, k, v, causal=False)
+    return out.reshape(b, sq, H * Dh) @ params["wo"]

@@ -1,9 +1,16 @@
-"""``Model``: the serving API over the decoder stack (counterpart of
-``repro.models.model``).
+"""``Model``: one API over the decoder stack and the encoder-decoder
+(counterpart of ``repro.models.model``).
 
   init / abstract_params / param_count / shard  — parameters
-  loss / loss_and_grads                         — training
+  loss / loss_and_grads / logits                — training
   init_caches / prefill / prefill_chunk / decode_step — serving
+
+``kind`` is ``"encdec"`` for an ``EncDecCfg`` (seamless-m4t-large-v2:
+its batches carry ``frame_embeds`` beside ``tokens``, its caches the
+encoder's ``memory`` beside the decoder's KV) and ``"decoder"``
+otherwise.  A decoder without an embedding table (qwen2-vl-7b) takes
+``inputs_embeds`` and its M-RoPE ``positions`` where the others take
+``tokens``.
 
 Prefill and decode write the caches they are given in place (see
 ``repro_torch.models.layers``) and return them; the state leaves (the
@@ -15,28 +22,32 @@ axis of that size computes (``parallel.sharding``): ``init`` still gives
 the full params, ``shard`` a rank's block of them, and ``loss`` /
 ``loss_and_grads`` run on that block inside the rank.  Serving with a
 model axis is not ported: the reference's serving launcher runs
-``model_parallel=1`` only.
+``model_parallel=1`` only.  Neither is a model axis for the
+encoder-decoder or a model without an embedding table
+(``sharding.layout`` refuses both).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as S
 from repro_torch.tree import flatten, leaves, unflatten
 
 Params = Dict[str, Any]
+Cfg = Union[T.TransformerCfg, ED.EncDecCfg]
 
 
 @dataclasses.dataclass
 class Model:
-    cfg: T.TransformerCfg
+    cfg: Cfg
     model_parallel: int = 1
 
     def __post_init__(self):
@@ -46,24 +57,35 @@ class Model:
                           else T.local_config(self.cfg, self.layout))
 
     @property
+    def kind(self) -> str:
+        return ("encdec" if isinstance(self.cfg, ED.EncDecCfg)
+                else "decoder")
+
+    @property
     def name(self) -> str:
         return self.cfg.name
+
+    def _init_params(self, gen, cfg, device) -> Params:
+        if self.kind == "encdec":
+            return ED.init_params(gen, cfg, device)
+        return T.init_params(gen, cfg, device)
 
     # -- parameters -----------------------------------------------------
 
     def init(self, generator: torch.Generator) -> Params:
         """Random full params on the generator's device."""
-        return T.init_params(generator, self.cfg, generator.device)
+        return self._init_params(generator, self.cfg, generator.device)
 
     def abstract_params(self) -> Params:
         """One rank's params as ``meta`` tensors: shapes and dtypes, no
         memory (its shard with a model axis)."""
-        return T.init_params(None, self.local_cfg, torch.device("meta"))
+        return self._init_params(None, self.local_cfg,
+                                 torch.device("meta"))
 
     def param_count(self) -> int:
         """Parameters of the whole model."""
         return sum(math.prod(t.shape) for t in leaves(
-            T.init_params(None, self.cfg, torch.device("meta"))))
+            self._init_params(None, self.cfg, torch.device("meta"))))
 
     def shard(self, params: Params, index: int) -> Params:
         """Model rank ``index``'s params from the full ``params``: a copy
@@ -76,9 +98,13 @@ class Model:
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(scalar f32 loss, metrics) of a {"tokens", "labels"} batch,
+        """(scalar f32 loss, metrics) of a {"tokens", "labels"} batch
+        ({"inputs_embeds", "positions", "labels"} without an embedding
+        table; {"frame_embeds", "tokens", "labels"} for the enc-dec),
         differentiable in ``params`` (with a model axis: the calling
         rank's shard)."""
+        if self.kind == "encdec":
+            return ED.loss_fn(params, self.cfg, batch)
         if self.layout is None:
             return T.loss_fn(params, self.cfg, batch)
         return T.loss_fn(params, self.local_cfg, batch,
@@ -102,20 +128,38 @@ class Model:
                      for x in xs]
         return loss.detach(), unflatten(paths, grads)
 
+    def logits(self, params: Params, batch: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+        """Teacher-forced logits (B, S, V) of a loss batch (forward-only
+        attention: the flash op)."""
+        if self.kind == "encdec":
+            memory = ED.encode(params, self.cfg, batch["frame_embeds"])
+            return ED.decode_train(params, self.cfg, batch["tokens"], memory)
+        h, _, _ = T.forward(params, self.cfg, batch)
+        return T._unembed(params, self.cfg, h)
+
     # -- serving ----------------------------------------------------------
 
-    def init_caches(self, batch: int, max_len: int, *,
+    def init_caches(self, batch: int, max_len: int, *, enc_len: int = 0,
                     dtype=torch.bfloat16, device="cuda") -> Params:
+        """Decode caches of ``batch`` rows of ``max_len`` positions; the
+        enc-dec's also hold the encoder's memory of ``enc_len`` frames."""
         if self.layout is not None:
             raise NotImplementedError("serving over a model axis is not "
                                       "ported")
+        if self.kind == "encdec":
+            return ED.init_caches(self.cfg, batch, max_len, enc_len, dtype,
+                                  resolve_device(device))
         return T.init_caches(self.cfg, batch, max_len, dtype,
                              resolve_device(device))
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 caches: Params) -> Tuple[torch.Tensor, Params]:
-        """Fill the cache from a prompt; returns (last-position logits,
-        caches)."""
+        """Fill the cache from a prompt ({"tokens"}, {"inputs_embeds",
+        "positions"}, or the enc-dec's {"frame_embeds", "tokens"});
+        returns (last-position logits, caches)."""
+        if self.kind == "encdec":
+            return ED.prefill(params, self.cfg, batch, caches)
         h, new_caches, _ = T.forward(params, self.cfg, batch, caches=caches,
                                   q_offset=0)
         logits = T._unembed(params, self.cfg, h[:, -1:])
@@ -125,7 +169,10 @@ class Model:
     def supports_chunked_prefill(self) -> bool:
         """Whether every mixer has an absolute-position chunked prefill
         path (attention, MLA).  A Mamba layer's recurrent state depends
-        on every value before it, so its models prefill one-shot."""
+        on every value before it, so its models prefill one-shot, as
+        does the encoder-decoder."""
+        if self.kind == "encdec":
+            return False
         return all(spec.mixer in ("attn", "mla")
                    for st in self.cfg.stages for spec in st.layers)
 
@@ -147,14 +194,18 @@ class Model:
 
     def decode_step(self, params: Params, batch: Dict[str, torch.Tensor],
                     caches: Params) -> Tuple[torch.Tensor, Params]:
-        """One token for every sequence.  batch: {"tokens": (B, 1)}."""
+        """One token for every sequence.  batch: {"tokens": (B, 1)}, or
+        {"inputs_embeds": (B, 1, D)} with optional "positions" ((B, 1),
+        or (3, B, 1) under M-RoPE; by default each row's cache length)."""
+        if self.kind == "encdec":
+            return ED.decode_step(params, self.cfg, batch["tokens"], caches)
         h, new_caches, _ = T.forward(params, self.cfg, batch, caches=caches,
                                   decode=True)
         logits = T._unembed(params, self.cfg, h)
         return logits[:, 0], new_caches
 
 
-def build_model(cfg: T.TransformerCfg, model_parallel: int = 1) -> Model:
+def build_model(cfg: Cfg, model_parallel: int = 1) -> Model:
     """The model a rank computes on a mesh whose "model" axis has
     ``model_parallel`` ranks (1: no model axis)."""
     return Model(cfg=cfg, model_parallel=model_parallel)

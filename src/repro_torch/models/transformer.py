@@ -16,11 +16,16 @@ MoE layer adds its load-balance loss to the model's.  A Mamba layer has
 no chunked-prefill path (its recurrent state depends on every value
 before it): a chunked call on one raises, as the reference's does.
 ``mtp`` adds deepseek-v3's multi-token-prediction head to the loss.
+``embed_inputs=False`` (qwen2-vl-7b) drops the embedding table: the
+batch carries ``inputs_embeds`` from a frontend instead of ``tokens``,
+and its ``positions`` ((3, B, S) under M-RoPE) reach every attention
+layer, in prefill and decode alike.
 
 Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
 ``cfg`` is then the rank's local config (``local_config``: its heads,
 its FFN columns, its vocabulary block) and the params its shard
-(``parallel.sharding``, which refuses MLA and Mamba; a MoE layer's
+(``parallel.sharding``, which refuses MLA, Mamba and a model without
+an embedding table; a MoE layer's
 experts split over "model", see ``models.moe.moe_forward_sharded``).
 The embedding is vocab-parallel, each pre-norm output enters its
 column-parallel product through *f* and each row-parallel product leaves
@@ -71,6 +76,7 @@ class TransformerCfg:
     moe: Optional[MOE.MoECfg] = None
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     tie_embeddings: bool = False
+    embed_inputs: bool = True      # False: caller feeds inputs_embeds (VLM)
     mtp: bool = False              # deepseek-v3 multi-token prediction head
     mtp_loss_weight: float = 0.3
     param_dtype: Any = torch.float32
@@ -161,13 +167,16 @@ def _tp_ops(tp: bool):
 
 
 def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
-                x: torch.Tensor, *, q_offset: int = 0,
+                x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
+                q_offset: int = 0,
                 cache: Optional[Params] = None, decode: bool = False,
                 chunked: bool = False, valid_len: Optional[int] = None,
                 train: bool = False, tp: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Returns (x_out, new_cache, aux_loss).  ``tp``: the params are a
-    model rank's shard (see the module doc)."""
+    """Returns (x_out, new_cache, aux_loss).  ``positions``: the batch's
+    (B, S) or M-RoPE (3, B, S) positions for an attention mixer (None:
+    text positions).  ``tp``: the params are a model rank's shard (see
+    the module doc)."""
     _check_spec(spec)
     cut, f, g = _tp_ops(tp)
     x = cut(x)
@@ -194,10 +203,11 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
                 block_k=cfg.block_k)
     elif decode:
         out, new_cache = L.attention_decode(params["attn"], cfg.attn, h,
-                                            cache)
+                                            cache, positions=positions)
     else:
         out, new_cache = L.attention_forward(
-            params["attn"], cfg.attn, h, q_offset=q_offset, kv_cache=cache,
+            params["attn"], cfg.attn, h, positions=positions,
+            q_offset=q_offset, kv_cache=cache,
             chunked=chunked, valid_len=valid_len, train=train,
             block_k=cfg.block_k)
     x = x + g(out)
@@ -231,7 +241,8 @@ _CARRIED = {"attn": ("len",), "mla": ("len",), "mamba": ("conv", "ssm")}
 
 
 def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
-                x: torch.Tensor, *, q_offset: int = 0,
+                x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
+                q_offset: int = 0,
                 caches: Optional[Params] = None, decode: bool = False,
                 chunked: bool = False, valid_len: Optional[int] = None,
                 train: bool = False, tp: bool = False
@@ -251,8 +262,9 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
                 map_tree(lambda t: t[r], caches[name])
             x, nc, aux = apply_layer(
                 map_tree(lambda t: t[r], params_stage[name]), cfg, spec, x,
-                q_offset=q_offset, cache=cache_r, decode=decode,
-                chunked=chunked, valid_len=valid_len, train=train, tp=tp)
+                positions=positions, q_offset=q_offset, cache=cache_r,
+                decode=decode, chunked=chunked, valid_len=valid_len,
+                train=train, tp=tp)
             aux_total = aux_total + aux
             if caches is not None:
                 for k, acc in carried[name].items():
@@ -273,12 +285,15 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
 def init_params(gen: Optional[torch.Generator], cfg: TransformerCfg,
                 device) -> Params:
     """Random params on ``device`` from ``gen`` (``None``: uninitialised,
-    for shape probes on the ``meta`` device).  With ``mtp`` the MTP head
-    too: two norms, the (2D, D) projection and one layer of the last
-    stage's spec, unstacked (the reference's ``init_params``)."""
+    for shape probes on the ``meta`` device).  No ``embed`` leaf when
+    ``embed_inputs`` is False.  With ``mtp`` the MTP head too: two norms,
+    the (2D, D) projection and one layer of the last stage's spec,
+    unstacked (the reference's ``init_params``)."""
     dt = cfg.param_dtype
-    p: Params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
-                                       dt, device)}
+    p: Params = {}
+    if cfg.embed_inputs:
+        p["embed"] = L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                  device)
     for i, stage in enumerate(cfg.stages):
         p[f"stage{i}"] = init_stage(gen, cfg, stage, device)
     p["final_norm"] = _init_norm(cfg, device)
@@ -313,22 +328,29 @@ def forward(params: Params, cfg: TransformerCfg,
             valid_len: Optional[int] = None, train: bool = False,
             tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Returns (hidden (B, S, D), new_caches, aux_loss).  ``train=True`` is the
-    differentiable training forward (see ``layers.train_attention``);
-    ``tp_index`` the rank's model coordinate when ``params`` is its shard
-    (the hidden state then enters the unembedding through *f*)."""
+    """Returns (hidden (B, S, D), new_caches, aux_loss).  ``batch``
+    holds ``tokens`` (B, S), or ``inputs_embeds`` (B, S, D) when
+    ``cfg.embed_inputs`` is False, and optionally ``positions``.
+    ``train=True`` is the differentiable training forward (see
+    ``layers.train_attention``); ``tp_index`` the rank's model coordinate
+    when ``params`` is its shard (the hidden state then enters the
+    unembedding through *f*)."""
     tp = tp_index is not None
-    if tp:
+    if not cfg.embed_inputs:
+        h = batch["inputs_embeds"].to(cfg.param_dtype)
+    elif tp:
         h = S.vocab_parallel_embed(params["embed"], batch["tokens"],
                                    tp_index)
     else:
         h = params["embed"][batch["tokens"].long()]
+    positions = batch.get("positions")
     new_caches = {} if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, stage in enumerate(cfg.stages):
         name = f"stage{i}"
         h, nc, aux = apply_stage(
-            params[name], cfg, stage, h, q_offset=q_offset,
+            params[name], cfg, stage, h, positions=positions,
+            q_offset=q_offset,
             caches=None if caches is None else caches[name], decode=decode,
             chunked=chunked, valid_len=valid_len, train=train, tp=tp)
         aux_total = aux_total + aux
@@ -356,7 +378,8 @@ def loss_fn(params: Params, cfg: TransformerCfg,
             batch: Dict[str, torch.Tensor], tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Language-model loss plus the MoE layers' aux loss and, with
-    ``cfg.mtp``, the multi-token-prediction term (the reference's
+    ``cfg.mtp`` (and an embedding table to embed the next tokens with),
+    the multi-token-prediction term (the reference's
     ``loss_fn``): returns (nll [+ w * mtp] + aux, {"nll", "aux", ["mtp"],
     "loss"}); "aux" is the main stack's, as the reference reports it.
     With ``tp_index`` the params are the rank's shard and the NLL is the
@@ -371,7 +394,7 @@ def loss_fn(params: Params, cfg: TransformerCfg,
                                              tp_index)
     metrics = {"nll": nll, "aux": aux}
     loss = nll
-    if cfg.mtp:
+    if cfg.mtp and cfg.embed_inputs:
         if tp_index is not None:
             raise NotImplementedError("the MTP head over a \"model\" axis "
                                       "is not ported")

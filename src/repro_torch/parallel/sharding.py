@@ -97,7 +97,19 @@ class TPLayout:
 def layout(cfg, model: int) -> TPLayout:
     """The split of ``cfg`` (a ``TransformerCfg``) over ``model`` ranks.
     Raises where a whole-head, FFN, expert or vocabulary split does not
-    divide, and for MLA and Mamba, whose splits are not ported."""
+    divide, and for MLA, Mamba, a model without an embedding table and
+    an encoder-decoder (an ``EncDecCfg``, which has no stages), whose
+    splits are not ported."""
+    if not hasattr(cfg, "stages"):
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder over a \"model\" axis arrives "
+            "with a later slice of the port (encoder, decoder and "
+            "cross-attention heads split)")
+    if not cfg.embed_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: a model without an embedding table over a "
+            "\"model\" axis arrives with a later slice of the port (it has "
+            "no vocab-parallel embedding; its inputs_embeds enter whole)")
     mixers = {spec.mixer for st in cfg.stages for spec in st.layers}
     if "mla" in mixers:
         raise NotImplementedError(

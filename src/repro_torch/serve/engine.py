@@ -220,6 +220,27 @@ class _Prefill:
     chunks_done: int = 0
 
 
+def token_only_refusal(model) -> str:
+    """Why the scheduler cannot serve ``model``, or "" when it can.  The
+    scheduler feeds prefill and decode token ids only (as the
+    reference's does, ``repro.serve.engine``'s one-shot prefill passes
+    ``{"tokens": prompt}``): an encoder-decoder needs the encoder's
+    ``frame_embeds`` and a model without an embedding table
+    ``inputs_embeds``.  Both serve through ``Model.prefill`` and
+    ``Model.decode_step`` on a batch."""
+    if getattr(model, "kind", "decoder") == "encdec":
+        return (f"{model.name}: the scheduler feeds token ids only (as the "
+                "reference's does); an encoder-decoder also needs "
+                "frame_embeds: serve it through Model.prefill and "
+                "Model.decode_step")
+    if not getattr(getattr(model, "cfg", None), "embed_inputs", True):
+        return (f"{model.name}: the scheduler feeds token ids only (as the "
+                "reference's does); a model without an embedding table "
+                "needs inputs_embeds: serve it through Model.prefill and "
+                "Model.decode_step")
+    return ""
+
+
 class BatchScheduler:
     """Slot-based continuous batching over a fixed decode batch backed by
     a ``PagePool``.
@@ -245,6 +266,9 @@ class BatchScheduler:
 
     def __init__(self, model, params, cfg: ServeCfg, device="cuda",
                  comm=None):
+        refusal = token_only_refusal(model)
+        if refusal:
+            raise ValueError(refusal)
         self.model = model
         self.params = params
         self.cfg = cfg

@@ -1,10 +1,14 @@
 """Every architecture the port registers against the JAX package: the
 twin of ``tests/test_archs.py``, on the CPU.
 
-For each of the port's eight archs the reference's reduced config is
-initialised by JAX and carried into the port with ``params_from_numpy``:
+For each of the reference's ten archs the reference's reduced config is
+initialised by JAX and carried into the port with ``params_from_numpy``,
+and both packages take the same numpy batch (``_batch``, the twin of
+``tests/test_archs.py``'s ``make_batch``: tokens; qwen2-vl-7b's
+``inputs_embeds`` and the stub's 3-D positions; seamless's
+``frame_embeds`` beside the decoder's tokens):
 
-- logits of the same tokens within 1e-5 of the largest reference logit
+- logits of the same batch within 1e-5 of the largest reference logit
   (f32; the packages sum in different orders);
 - the loss (NLL + the MoE aux loss + the MTP term where the config has
   it) and each metric within 1e-5 relative;
@@ -13,11 +17,15 @@ initialised by JAX and carried into the port with ``params_from_numpy``:
 - 5 AdamW steps on one batch lower the loss (the reference's
   ``test_smoke_train_step_improves``);
 - prefill of half the tokens plus 3 decode steps give the teacher-forced
-  forward's logits within 8e-3, as the reference's test holds its own;
+  forward's logits within 8e-3, as the reference's test holds its own
+  (qwen2-vl-7b with explicit (3, B, 1) positions, which the reference's
+  test skips; its decode logits are also held within 1e-5 of the
+  reference's ``Model.decode_step`` on the same inputs);
 - the full published config's parameter count, from ``meta`` tensors,
   equal to the reference's ``param_count()``;
 - both launchers run mistral-large-123b, nemotron-4-340b,
-  deepseek-v3-671b and the two state-space archs reduced on the CPU;
+  deepseek-v3-671b and the two state-space archs reduced on the CPU, and
+  refuse qwen2-vl-7b and seamless-m4t-large-v2 (as the scheduler does);
 - the registry's metadata: each ``ArchInfo``'s family, skipped shapes
   and embeddings flag, ``SHAPES`` and the cells equal the reference's
   for the port's archs; only the state-space archs run ``long_500k``;
@@ -43,10 +51,11 @@ from repro_torch.configs import (ARCH_IDS, ARCHS, SHAPES, cells, get_arch,
                                  get_config, with_num_layers)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.models import build_model
-from repro_torch.models import transformer as T
+from repro_torch.models import build_model, frontends
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.encdec import EncDecCfg
 from repro_torch.optim import make_optimizer
+from repro_torch.serve import BatchScheduler, ServeCfg
 from repro_torch.tree import flatten, unflatten
 
 B, S = 2, 32
@@ -65,10 +74,21 @@ def _pair(arch):
     return jm, jp, tm, tp
 
 
-def _batch(seed=0):
+def _batch(seed=0, arch=None):
+    """A numpy batch for ``arch``'s reduced config (tokens when None)."""
     rng = np.random.RandomState(seed)
-    return {"tokens": rng.randint(0, 256, (B, S)),
-            "labels": rng.randint(0, 256, (B, S))}
+    out = {"tokens": rng.randint(0, 256, (B, S)),
+           "labels": rng.randint(0, 256, (B, S))}
+    cfg = None if arch is None else get_config(arch, reduced=True)
+    if isinstance(cfg, EncDecCfg):
+        out["frame_embeds"] = (rng.randn(B, S, cfg.d_model) * 0.05
+                               ).astype(np.float32)
+    elif cfg is not None and not cfg.embed_inputs:
+        out = {"inputs_embeds": (rng.randn(B, S, cfg.d_model) * 0.02
+                                 ).astype(np.float32),
+               "positions": frontends.vision_positions(B, S).numpy(),
+               "labels": out["labels"]}
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,7 +101,7 @@ def _reference(arch):
         return jm.logits(p, b), jax.value_and_grad(jm.loss, has_aux=True)(
             p, b)
 
-    return jax.device_get(jax.jit(run)(jp, _jax(_batch())))
+    return jax.device_get(jax.jit(run)(jp, _jax(_batch(arch=arch))))
 
 
 def _jax(b):
@@ -99,13 +119,14 @@ def _rel(got, want):
 
 
 def test_port_registers_the_six_archs():
-    """The six archs of the earlier slices and the two state-space ones
-    (eight of the reference's ten)."""
+    """The six archs of the earlier slices, the two state-space ones and
+    the two embeddings ones: all ten of the reference's."""
     assert set(ARCH_IDS) == {"granite-34b", "qwen2-72b", "qwen3-moe-30b-a3b",
                              "mistral-large-123b", "nemotron-4-340b",
                              "deepseek-v3-671b", "mamba2-1.3b",
-                             "jamba-1.5-large-398b"}
-    assert set(ARCH_IDS) <= set(JARCHS)
+                             "jamba-1.5-large-398b", "qwen2-vl-7b",
+                             "seamless-m4t-large-v2"}
+    assert set(ARCH_IDS) == set(JARCHS)
 
 
 def test_long_500k_applicability_flags():
@@ -153,8 +174,7 @@ def test_with_num_layers_cuts_inside_a_stage_pattern():
 def test_reduced_logits_match_reference(arch):
     _, _, tm, tp = _pair(arch)
     want = _reference(arch)[0]
-    h, _, _ = T.forward(tp, tm.cfg, _torch(_batch()))
-    got = T._unembed(tp, tm.cfg, h)
+    got = tm.logits(tp, _torch(_batch(arch=arch)))
     assert got.shape == (B, S, tm.cfg.vocab_size)
     assert _rel(got.numpy(), want) <= LOGIT_TOL
 
@@ -165,10 +185,11 @@ def test_reduced_loss_and_grads_match_reference(arch):
     (jloss, jmet), jgrads = _reference(arch)[1]
     ps, paths = flatten(tp)
     xs = [t.detach().requires_grad_(True) for t in ps]
-    tloss, tmet = tm.loss(unflatten(paths, xs), _torch(_batch()))
+    tloss, tmet = tm.loss(unflatten(paths, xs), _torch(_batch(arch=arch)))
     tgrads = torch.autograd.grad(tloss, xs)
     assert set(tmet) == set(jmet)
-    assert ("mtp" in tmet) == tm.cfg.mtp
+    assert ("mtp" in tmet) == (getattr(tm.cfg, "mtp", False)
+                               and getattr(tm.cfg, "embed_inputs", True))
     assert abs(tloss.item() - float(jloss)) <= LOSS_TOL * abs(float(jloss))
     for k in jmet:
         assert abs(tmet[k].item() - float(jmet[k])) <= LOSS_TOL * max(
@@ -189,7 +210,7 @@ def test_train_steps_on_one_batch_lower_the_loss(arch):
     params = unflatten(paths, [t.clone() for t in leaves])
     opt = make_optimizer("adamw", lr=5e-3)
     state = opt.init(params)
-    b = _torch(_batch(2))
+    b = _torch(_batch(2, arch))
     losses = []
     for _ in range(5):
         loss, grads = tm.loss_and_grads(params, b)
@@ -199,28 +220,76 @@ def test_train_steps_on_one_batch_lower_the_loss(arch):
     assert losses[-1] < losses[0], losses
 
 
+def _steps(batch, half):
+    """(the prefill batch of the first ``half`` positions, the decode
+    batches of the next 3): tokens, or embeddings with their (3, B, 1)
+    positions; an enc-dec's frames go whole into the prefill."""
+    def cut(a, b):
+        out = {}
+        for k, v in batch.items():
+            if k == "positions":
+                out[k] = v[:, :, a:b]
+            elif k in ("tokens", "inputs_embeds"):
+                out[k] = v[:, a:b]
+        return out
+    pre = cut(0, half)
+    if "frame_embeds" in batch:
+        pre["frame_embeds"] = batch["frame_embeds"]
+    return pre, [cut(t, t + 1) for t in range(half, half + 3)]
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_and_decode_match_the_teacher_forced_forward(arch):
     cfg = get_config(arch, reduced=True)
-    if cfg.moe is not None:     # capacity drops depend on the token count
-        cfg = dataclasses.replace(
+    if getattr(cfg, "moe", None) is not None:   # capacity drops depend on
+        cfg = dataclasses.replace(                 # the token count
             cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(_batch(3)["tokens"])
-    h, _, _ = T.forward(params, cfg, {"tokens": toks})
-    full = T._unembed(params, cfg, h)
-    caches = model.init_caches(B, S + 8, dtype=torch.float32, device="cpu")
+    batch = _torch(_batch(3, arch))
+    batch.pop("labels")
+    full = model.logits(params, batch)
+    caches = model.init_caches(B, S + 8, enc_len=S, dtype=torch.float32,
+                               device="cpu")
     half = S // 2
-    logits, caches = model.prefill(params, {"tokens": toks[:, :half]},
-                                   caches)
+    pre, steps = _steps(batch, half)
+    logits, caches = model.prefill(params, pre, caches)
     torch.testing.assert_close(logits, full[:, half - 1], rtol=DECODE_TOL,
                                atol=DECODE_TOL)
-    for t in range(half, half + 3):
-        logits, caches = model.decode_step(
-            params, {"tokens": toks[:, t:t + 1]}, caches)
+    for t, step in zip(range(half, half + 3), steps):
+        logits, caches = model.decode_step(params, step, caches)
         torch.testing.assert_close(logits, full[:, t], rtol=DECODE_TOL,
                                    atol=DECODE_TOL)
+
+
+def test_vl_decode_with_positions_matches_reference_decode_step():
+    """qwen2-vl-7b: prefill of the first half, then 3 decode steps with
+    explicit (3, B, 1) positions, in both packages from the same weights:
+    logits within 1e-5 (the reference's own test skips the VLM, since its
+    default decode positions are text positions)."""
+    arch = "qwen2-vl-7b"
+    jm, jp, tm, tp = _pair(arch)
+    batch = _batch(4, arch)
+    batch.pop("labels")
+    half = S // 2
+    pre, steps = _steps(batch, half)
+    jc = jm.init_caches(B, S, dtype=jnp.float32)
+    tc = tm.init_caches(B, S, dtype=torch.float32, device="cpu")
+    for i, b in enumerate([pre] + steps):
+        if i == 0:
+            want, jc = jm.prefill(jp, _jax(b), jc)
+            got, tc = tm.prefill(tp, _torch(b), tc)
+        else:
+            want, jc = jm.decode_step(jp, _jax(b), jc)
+            got, tc = tm.decode_step(tp, _torch(b), tc)
+        assert _rel(got.numpy(), want) <= LOGIT_TOL, i
+    # the default (text) positions are not the stub's: they give others
+    got_text, _ = tm.decode_step(tp, {"inputs_embeds": _torch(steps[0])[
+        "inputs_embeds"]}, tm.init_caches(B, S, dtype=torch.float32,
+                                          device="cpu"))
+    want_text, _ = jm.decode_step(jp, {"inputs_embeds": jnp.asarray(
+        steps[0]["inputs_embeds"])}, jm.init_caches(B, S, dtype=jnp.float32))
+    assert _rel(got_text.numpy(), want_text) <= LOGIT_TOL
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -241,3 +310,23 @@ def test_launchers_run_the_arch_on_the_cpu(arch, caplog):
                        "--data", "2", "--steps", "2", "--seq-len", "16",
                        "--global-batch", "4", "--log-every", "1"])
     assert "step    1  loss" in caplog.text
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-large-v2"])
+def test_embeddings_archs_are_refused_by_the_token_entry_points(arch):
+    """The scheduler and the serve launcher feed token ids only (the
+    reference's scheduler does too, and its serve launcher refuses the
+    enc-dec); the train launcher's batches carry no embeddings."""
+    model = build_model(get_config(arch, reduced=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="token ids only"):
+        BatchScheduler(model, params, ServeCfg(max_len=32, batch=2),
+                       device="cpu")
+    with pytest.raises(SystemExit, match="token ids only"):
+        launch_serve.main(["--device", "cpu", "--arch", arch, "--reduced",
+                           "--requests", "1", "--max-new", "1"])
+    needs = ("frame_embeds" if model.kind == "encdec"
+             else "inputs_embeds, positions")
+    with pytest.raises(SystemExit, match=needs):
+        launch_train.main(["--device", "cpu", "--arch", arch, "--reduced",
+                           "--steps", "1"])

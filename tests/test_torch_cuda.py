@@ -32,7 +32,10 @@ qwen2-72b and qwen3-moe-30b-a3b in bf16 decode the same requests'
 logits bit for bit at batch 8 and at batch 4.  The reduced MoE layer
 on the card routes as on the CPU and agrees within 1e-4.  The reduced
 mamba2-1.3b and jamba-1.5-large-398b, served one-shot through the
-scheduler on the card, give the CPU's greedy streams.
+scheduler on the card, give the CPU's greedy streams.  The reduced
+qwen2-vl-7b (embeddings and M-RoPE positions in) and
+seamless-m4t-large-v2 (frames in; encoder, cross-attention) prefill and
+decode on the card within 1e-3 of the CPU, their flash launches counted.
 
 These tests need a CUDA device (the hand-written kernels have no CPU
 mode) and skip elsewhere.  They import neither JAX nor the JAX package,
@@ -41,8 +44,8 @@ so they run on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Flash attention has two variants, chosen by the query's type and the
-head dims: a bf16 query at (D, Dv) = (128, 128) or (192, 192) runs on
-the tensor cores (``wgmma``), any other (MLA's (192, 128) among them) on
+head dims: a bf16 query at (D, Dv) = (64, 64), (128, 128) or (192, 192)
+runs on the tensor cores (``wgmma``), causal or not, any other (MLA's (192, 128) among them) on
 the CUDA cores in f32 (``simt``).  ``kernel.launch`` returns the
 variant that ran and ``ops.tc_counter`` counts the tensor-core launches,
 so these tests pick a variant by the dtype of q and check that it ran.
@@ -140,7 +143,9 @@ def test_mla_one_shot_prefill_matches_plain(cuda, q_dtype, kv_dtype):
                                                (8, 1, 16, False, 16),
                                                (64, 8, 128, False, 128),
                                                (16, 2, 192, False, 192),
-                                               (16, 16, 192, True, 128)])
+                                               (16, 16, 192, True, 128),
+                                               (16, 16, 64, False, 64),
+                                               (8, 2, 64, True, 64)])
 def test_kernel_matches_plain_f32(cuda, h, hkv, d, causal, dv):
     q, k, v = _qkv(h, 77, 77, h, hkv, d, torch.float32, torch.float32, cuda,
                    dv=dv)
@@ -162,7 +167,7 @@ def test_kernel_takes_strided_cache_views(cuda):
     _assert_matches(got, ref.attention(q, k, v, q_offset=64))
 
 
-@pytest.mark.parametrize("d", [128, 192])
+@pytest.mark.parametrize("d", [128, 192, 64])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hkv", [(8, 1), (64, 8)])
 @pytest.mark.parametrize("sq,skv,off", [(77, 300, 100), (130, 4096, 3841),
@@ -171,13 +176,34 @@ def test_kernel_takes_strided_cache_views(cuda):
 def test_tensor_core_kernel_at_ragged_shapes(cuda, d, kv_dtype, h, hkv, sq,
                                              skv, off):
     """Offsets that are not tile multiples, Sq and Skv that are not
-    multiples of 64, GQA 8/1 and 64/8, both cache types, D 128 and 192."""
+    multiples of 64, GQA 8/1 and 64/8, both cache types, D 64, 128 and
+    192."""
     q, k, v = _qkv(sq + off + h, sq, skv, h, hkv, d, torch.bfloat16,
                    kv_dtype, cuda)
     before = ops.tc_counter.value
     got = ops.attention(q, k, v, q_offset=off)
     assert ops.tc_counter.value == before + 1
     _assert_matches(got, ref.attention(q, k, v, q_offset=off))
+
+
+@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(16, 16), (8, 1)])
+@pytest.mark.parametrize("sq,skv", [(1, 1024), (4, 1024), (1, 37),
+                                    (77, 300), (1024, 1024), (130, 523)])
+def test_tensor_core_kernel_non_causal_at_ragged_shapes(cuda, d, kv_dtype,
+                                                        h, hkv, sq, skv):
+    """Non-causal (the encoder-decoder's encoder and cross-attention):
+    every query sees all Skv keys, Sq = 1 (a cross-attention decode step)
+    and Sq < Skv, Skv not a multiple of 64; each launch on the tensor
+    cores, counted by ``ops.tc_counter``."""
+    q, k, v = _qkv(sq + skv + d, sq, skv, h, hkv, d, torch.bfloat16,
+                   kv_dtype, cuda)
+    before = (ops.counter.value, ops.tc_counter.value)
+    got = ops.attention(q, k, v, causal=False)
+    assert (ops.counter.value, ops.tc_counter.value) == (before[0] + 1,
+                                                          before[1] + 1)
+    _assert_matches(got, ref.attention(q, k, v, causal=False))
 
 
 @pytest.mark.parametrize("d", [128, 192])
@@ -211,7 +237,8 @@ def test_tensor_core_kernel_takes_strided_arena_views(cuda, d, kv_dtype, h,
     (torch.bfloat16, 128, 128, "wgmma"), (torch.float32, 128, 128, "simt"),
     (torch.bfloat16, 16, 16, "simt"), (torch.float32, 16, 16, "simt"),
     (torch.bfloat16, 192, 192, "wgmma"), (torch.float32, 192, 192, "simt"),
-    (torch.bfloat16, 192, 128, "simt"), (torch.float32, 192, 128, "simt")])
+    (torch.bfloat16, 192, 128, "simt"), (torch.float32, 192, 128, "simt"),
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.float32, 64, 64, "simt")])
 def test_variant_follows_the_query_type(cuda, q_dtype, d, dv, variant):
     q, k, v = _qkv(d, 70, 90, 8, 2, d, q_dtype, torch.float32, cuda, dv=dv)
     before = (ops.counter.value, ops.tc_counter.value)
@@ -224,7 +251,7 @@ def test_variant_follows_the_query_type(cuda, q_dtype, d, dv, variant):
 
 
 def test_kernel_refuses_unsupported_head_dim(cuda):
-    q, k, v = _qkv(0, 8, 8, 4, 2, 64, torch.float32, torch.float32, cuda)
+    q, k, v = _qkv(0, 8, 8, 4, 2, 32, torch.float32, torch.float32, cuda)
     with pytest.raises(ValueError, match="D in"):
         kernel.flash_attention(q, k, v)
     # a pair the library is not built for, though each dim is
@@ -247,6 +274,61 @@ def test_reduced_model_prefill_on_card_matches_cpu(cuda):
                               caches)
         logits.append(lg.cpu())
     torch.testing.assert_close(logits[1], logits[0], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-large-v2"])
+def test_embeddings_archs_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """The reduced qwen2-vl-7b (inputs_embeds and the stub's M-RoPE
+    positions, then 3 decode steps at explicit (3, B, 1) positions) and
+    seamless-m4t-large-v2 (frames and a prompt, then 3 decode steps)
+    through ``Model.prefill`` / ``Model.decode_step`` on the card and on
+    the CPU from the same weights and inputs: every step's logits within
+    1e-3 (f32; the card sums in another order), and the card's flash
+    launches (f32 q: the CUDA-core variant at the reduced D 16): qwen2-vl
+    one a layer a prefill; seamless one an encoder layer and two a
+    decoder layer a prefill, one a decoder layer a step."""
+    from repro_torch.models import frontends
+    model = build_model(get_config(arch, reduced=True))
+    cfg = model.cfg
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    b, n, steps = 2, 24, 3
+    if model.kind == "encdec":
+        frames = torch.from_numpy((rng.randn(b, 40, cfg.d_model) * 0.05
+                                   ).astype(np.float32))
+        toks = torch.from_numpy(rng.randint(0, 256, (b, n + steps)))
+        pre = {"frame_embeds": frames, "tokens": toks[:, :n]}
+        dec = [{"tokens": toks[:, t:t + 1]} for t in range(n, n + steps)]
+        want = (cfg.enc_layers + 2 * cfg.dec_layers
+                + steps * cfg.dec_layers)
+        kw = {"enc_len": 40}
+    else:
+        embeds = torch.from_numpy((rng.randn(b, n + steps, cfg.d_model)
+                                   * 0.02).astype(np.float32))
+        pos = frontends.vision_positions(b, n + steps)
+        pre = {"inputs_embeds": embeds[:, :n], "positions": pos[:, :, :n]}
+        dec = [{"inputs_embeds": embeds[:, t:t + 1],
+                "positions": pos[:, :, t:t + 1]} for t in range(n, n + steps)]
+        want = cfg.num_layers
+        kw = {}
+    logits = []
+    for dev in ("cpu", cuda):
+        params = map_tree(lambda t: t.to(dev), cpu_params)
+        caches = model.init_caches(b, n + steps, dtype=torch.float32,
+                                   device=dev, **kw)
+        before = ops.counter.value
+        lg, caches = model.prefill(
+            params, map_tree(lambda t: t.to(dev), pre), caches)
+        got = [lg.cpu()]
+        for step in dec:
+            lg, caches = model.decode_step(
+                params, map_tree(lambda t: t.to(dev), step), caches)
+            got.append(lg.cpu())
+        logits.append(got)
+        if dev == cuda:
+            assert ops.counter.value - before == want
+    for cpu, card in zip(*logits):
+        torch.testing.assert_close(card, cpu, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])

@@ -6,8 +6,10 @@ function the CUDA kernel is held against on the card — to the reference's
 three implementations of the same function: ``chunk_attention`` (chunked
 prefill), ``flash_attention_jnp`` (one-shot prefill) and the Pallas kernel
 in interpret mode.  Inputs come from a seeded numpy generator and go to
-both packages as the same arrays.  Head dims: 16 (reduced), 128, 192
-(nemotron-4-340b) and MLA's 192-dim scores against 128-dim values
+both packages as the same arrays.  Head dims: 16 (reduced), 64
+(seamless-m4t-large-v2: its non-causal encoder and cross-attention, and
+its causal self-attention), 128, 192 (nemotron-4-340b) and MLA's
+192-dim scores against 128-dim values
 (deepseek-v3, 128 heads, one KV head a query head), which the Pallas
 kernel does not take (its output has q's head dim).
 
@@ -128,6 +130,41 @@ def test_plain_flash_matches_pallas_kernel_interpret(h, hkv, sq, skv, off):
                           force_kernel=True, block_q=128, block_k=128)
     got = tops.attention(_t(q), _t(k), _t(v), causal=True, q_offset=off)
     _close(got, want, F32_ATOL)
+
+
+# (H, Hkv, Sq, Skv, causal) at D 64, seamless-m4t-large-v2's heads: the
+# non-causal encoder (Sq = Skv), cross-attention of a prompt and of a
+# decode step (Sq != Skv), and the causal self-attention.
+D64_CASES = [(16, 16, 128, 128, False), (16, 16, 4, 128, False),
+             (16, 16, 1, 128, False), (8, 8, 128, 128, True),
+             (4, 2, 8, 256, False)]
+
+
+@pytest.mark.parametrize("h,hkv,sq,skv,causal", D64_CASES)
+def test_plain_flash_d64_matches_pallas_kernel_interpret(h, hkv, sq, skv,
+                                                         causal):
+    q, k, v = _qkv(sq + skv + h, 1, sq, skv, h, hkv, 64)
+    want = jops.attention(_j(q), _j(k), _j(v), causal=causal,
+                          force_kernel=True, block_q=128, block_k=128)
+    got = tops.attention(_t(q), _t(k), _t(v), causal=causal)
+    _close(got, want, F32_ATOL)
+
+
+@pytest.mark.parametrize("h,hkv,sq,skv,causal", D64_CASES + [
+    (16, 16, 37, 37, False), (16, 16, 3, 45, False)])
+def test_plain_flash_d64_matches_flash_attention_jnp(h, hkv, sq, skv,
+                                                     causal):
+    """Also at lengths that are not a multiple of the reference's 16-key
+    block."""
+    q, k, v = _qkv(sq + skv, 2, sq, skv, h, hkv, 64)
+    want = JL.flash_attention_jnp(_j(q), _j(k), _j(v), causal=causal,
+                                  block_k=16)
+    got = TL.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    _close(got, want, F32_ATOL)
+
+
+def test_kernel_head_dims_include_d64():
+    assert (64, 64) in tkernel.HEAD_DIMS
 
 
 def test_cpu_tensors_take_the_plain_path_without_launching():

@@ -11,7 +11,9 @@ to the port's plain version and to the JAX package's ``chunk_attention``
 (chunked prefill) and ``flash_attention_jnp`` (one-shot prefill): shapes
 with GQA 8/1, 64/8 and 96/8 (nemotron-4-340b's, at D 192; the others at
 D 128), 512-1024 keys, offsets 0, 100 and late,
-query counts that are not tile multiples, and both cache dtypes.
+query counts that are not tile multiples, and both cache dtypes; and at
+D 64 without the causal mask (seamless-m4t-large-v2's encoder over its
+frames and its cross-attention of a prompt and of a decode step).
 """
 
 import jax.numpy as jnp
@@ -26,8 +28,8 @@ REL_TOL = 2.0 ** -6     # of max|plain|, for a bf16 output
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
-def _inputs(seed, sq, skv, h, hkv, kv_dtype, q_gain=1.0):
-    d = 192 if h == 96 else 128             # nemotron-4-340b's head dim
+def _inputs(seed, sq, skv, h, hkv, kv_dtype, q_gain=1.0, d=None):
+    d = d or (192 if h == 96 else 128)      # nemotron-4-340b's head dim
     rng = np.random.RandomState(seed)
     q = (q_gain * rng.randn(1, sq, h, d)).astype(np.float32)
     k = rng.randn(1, skv, hkv, d).astype(np.float32)
@@ -89,6 +91,23 @@ def test_bf16_products_match_plain_and_flash_attention_jnp(h, hkv, seq,
         jnp.asarray(q.float().numpy(), jnp.bfloat16),
         jnp.asarray(k.float().numpy(), JDT[kv_dtype]),
         jnp.asarray(v.float().numpy(), JDT[kv_dtype]), block_k=128)
+    _within(got, np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("sq,skv,kv_dtype", [
+    (1000, 1000, torch.bfloat16), (4, 1000, torch.float32),
+    (1, 1000, torch.bfloat16), (77, 300, torch.float32)])
+def test_bf16_products_non_causal_d64_match_plain_and_flash_attention_jnp(
+        sq, skv, kv_dtype):
+    """16 / 16 heads at D 64, every key visible to every query."""
+    q, k, v = _inputs(sq + skv, sq, skv, 16, 16, kv_dtype, d=64)
+    got = ref.attention_bf16_products(q, k, v, causal=False)
+    _within(got, ref.attention(q, k, v, causal=False).float().numpy())
+    want = JL.flash_attention_jnp(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16),
+        jnp.asarray(k.float().numpy(), JDT[kv_dtype]),
+        jnp.asarray(v.float().numpy(), JDT[kv_dtype]), causal=False,
+        block_k=128)
     _within(got, np.asarray(want.astype(jnp.float32)))
 
 

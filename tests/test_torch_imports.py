@@ -2,8 +2,9 @@
 ``chip_smoke.py`` imports JAX or the JAX package, and importing the
 serving and training entry points, the schedule IR, the checkpoint
 store, the elastic runtime, the collective library's protocol
-modules, the multi-axis modules (two-phase protocols, the model split)
-and the state-space block and configs leaves ``jax`` out of ``sys.modules``.
+modules, the multi-axis modules (two-phase protocols, the model split),
+the state-space block and configs, and the embeddings families'
+frontends, encoder-decoder and configs leaves ``jax`` out of ``sys.modules``.
 The elastic launchers, like the others, run on ``cuda`` unless asked for
 the CPU, and raise without CUDA."""
 
@@ -64,6 +65,14 @@ def test_state_space_modules_import_without_jax():
                           "repro_torch.configs.mamba2_1_3b",
                           "repro_torch.configs.jamba_1_5_large_398b",
                           "repro_torch.configs.shapes"])
+
+
+def test_embeddings_families_import_without_jax():
+    _imports_without_jax(["repro_torch.models.frontends",
+                          "repro_torch.models.encdec",
+                          "repro_torch.configs.qwen2_vl_7b",
+                          "repro_torch.configs.seamless_m4t_large_v2",
+                          "repro_torch.data.pipeline"])
 
 
 def test_training_entry_points_import_without_jax():

@@ -205,8 +205,9 @@ def test_chunked_calls_and_the_model_axis_are_refused():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_supports_chunked_prefill_follows_the_mixers(arch):
     cfg = get_config(arch, reduced=True)
+    # the state-space archs and the encoder-decoder prefill one-shot
     assert build_model(cfg).supports_chunked_prefill == (
-        arch not in SSM_ARCHS)
+        arch not in SSM_ARCHS and arch != "seamless-m4t-large-v2")
     assert (build_model(cfg).supports_chunked_prefill
             == jbuild_model(jget_config(arch, reduced=True))
             .supports_chunked_prefill)
