@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              with q bf16 (as served: the tensor-core variant) and f32 (the
              CUDA-core variant), each over an f32 and a bf16 cache; and
              deepseek-v3's MLA one-shot prefill (128 heads, 192-dim scores
-             against 128-dim values, 1000 tokens, the CUDA-core variant
-             for either q); qwen2-vl-7b's 2048-position prefill (28 / 4
+             against 128-dim values, 1000 tokens: a bf16 q on the
+             tensor-core variant, an f32 one on the CUDA cores);
+             qwen2-vl-7b's 2048-position prefill (28 / 4
              heads, D 128, batch 8); and seamless-m4t-large-v2's launches
              at D 64 (16 / 16 heads, batch 8): the non-causal encoder
              over 1024 frames, the non-causal cross-attention of a
@@ -71,8 +72,11 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              batch 8 and 4 (bit for bit), and the two checked prompts
              prefilled one-shot through ``Model.prefill``: MLA's
              materialized form, each layer's flash launch at (192, 128)
-             held against plain, last logits within ``MLA_FORMS_TOL`` of
-             the chunked path's.
+             on the tensor cores and held against plain, last logits
+             within ``MLA_FORMS_TOL`` of the chunked path's (its expert
+             choices replayed; the own-routing difference printed); then
+             the same prompts one-shot again, unhooked, timed (wall
+             seconds a prompt).
 4e. serve_jamba — jamba-1.5-large-398b at its published widths (d_model
              8192, 64/8 heads at head_dim 128, Mamba2 blocks of 256
              heads x 64 with d_state 128, SwiGLU ff 24576, 16 experts
@@ -425,12 +429,20 @@ DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # form in f32) on the same weights: last-position logits within this
 # share of the chunked logits' largest magnitude.  The two forms round
 # at different places (K and V rounded to bf16 once per head, against
-# f32 products of the bf16 latents): about 2**-9 of each attention
-# output per layer, carried through 4 layers and the unembedding.  Both
-# run with expert capacity factor CHECK_CAPACITY, so no token drops in
-# either (the reference's twin test equalizes capacity the same way):
-# at the served 1.25 a 256-token chunk and a 2988-token prompt drop
-# different tokens, which is not a difference of the two forms.
+# f32 products of the bf16 latents; on the tensor cores P too): about
+# 2**-9 of each attention output per layer, carried through 4 layers and
+# the unembedding.  Both run with expert capacity factor CHECK_CAPACITY,
+# so no token drops in either (the reference's twin test equalizes
+# capacity the same way): at the served 1.25 a 256-token chunk and a
+# 2988-token prompt drop different tokens, which is not a difference of
+# the two forms.  For the same reason the one-shot replays the chunked
+# path's expert choices: about one token in nine has a top-8 choice
+# among 256 sigmoid scores whose 8th and 9th lie within the forms'
+# rounding, and where that is the last token its logits move by several
+# percent (on an H100, 7.1e-2 of max for one checked prompt through the
+# tensor-core kernel and through its arithmetic in plain torch, 1.2e-2
+# with the choices replayed; PERF.md §6).  The own-routing numbers
+# are printed beside it.
 MLA_FORMS_TOL = 2.0 ** -4
 CHECK_CAPACITY = 8.0
 JAMBA_ARCH = "jamba-1.5-large-398b"  # [serve_jamba]
@@ -538,6 +550,10 @@ def phase_build(libraries):
               f"{os.path.relpath(b.path, HERE)}")
         for fn, regs, spills in _ptxas_usage(b.log):
             print(f"[build]   {fn}: {regs} registers; {spills}")
+        # ptxas's notes, e.g. C7512-C7514: a kernel's wgmmas serialized
+        for line in b.log.splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"[build]   {line.strip()}")
     print(f"[build] all libraries in {time.perf_counter() - t0:.1f}s")
 
 
@@ -687,7 +703,8 @@ def phase_kernels(kernel, ref):
                   f"bound={bound_ms:.4f}ms ({by}, {peak} peak)")
             if not err <= tol:
                 raise AssertionError(f"kernel disagrees with plain: {row}")
-            want_variant = ("wgmma" if qdt == torch.bfloat16 and d == dv
+            want_variant = ("wgmma" if qdt == torch.bfloat16
+                            and (d, dv) in kernel.WGMMA_HEAD_DIMS
                             else "simt")
             if variant != want_variant:
                 raise AssertionError(f"q {qdt} at D {d}/{dv} ran the "
@@ -1088,9 +1105,16 @@ def _mla_one_shot_check(model, params, scfg, prompts, ref):
     kernel at head dims (192, 128), each launch held against plain by
     this script's hook) and in page-sized chunks through
     ``Model.prefill_chunk`` (the absorbed form, as the scheduler runs
-    it), both at capacity factor CHECK_CAPACITY.  Returns (flash
-    launches, tensor-core launches, [(max abs error, limit)] of the
-    hooked launches, [relative logit difference] a prompt)."""
+    it), both at capacity factor CHECK_CAPACITY, the one-shot with the
+    chunked path's expert choices replayed (``_moe_routing``; see
+    MLA_FORMS_TOL); then the one-shot with its own routing through the
+    kernel, through the kernel's arithmetic in plain torch
+    (``ref.attention_bf16_products``) and through plain f32 attention
+    (``ref.attention``), printed and not held; then each prompt
+    one-shot again, unhooked, timed.  Returns (flash launches,
+    tensor-core launches, [(max abs error, limit)] of the hooked
+    launches, [relative logit difference] a prompt, [(flash launches,
+    tensor-core launches, wall seconds)] of each timed prefill)."""
     import dataclasses
     from repro_torch.kernels import counter
     from repro_torch.models import build_model
@@ -1100,6 +1124,7 @@ def _mla_one_shot_check(model, params, scfg, prompts, ref):
         cfg.moe, capacity_factor=CHECK_CAPACITY)))
     pt = scfg.page_tokens
     errs, diffs = [], []
+    launches = tc = 0
     kernel_flash = L.flash_attention
 
     def checked_flash(q, k, v, *, causal=True, q_offset=0, sm_scale=None):
@@ -1109,45 +1134,86 @@ def _mla_one_shot_check(model, params, scfg, prompts, ref):
             q, k, v, causal=causal, q_offset=q_offset, sm_scale=sm_scale)))
         return out
 
-    counter.reset_all()
+    def one_shot(toks, flash, replay=None):
+        caches = m8.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        L.flash_attention = flash
+        routing = (contextlib.nullcontext([]) if replay is None
+                   else _moe_routing(replay=replay))
+        try:
+            with routing as differ:
+                logits, caches = m8.prefill(params, {"tokens": toks}, caches)
+        finally:
+            L.flash_attention = kernel_flash
+        return logits.float(), caches, sum(differ)
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
     for rid in CHECK_RIDS:
         prompt = prompts[rid]
         n = len(prompt)
+        toks = torch.tensor([prompt], device="cuda")
         caches = m8.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
-        for c in range(-(-n // pt)):
-            chunk = torch.zeros(1, pt, dtype=torch.long, device="cuda")
-            part = torch.tensor(prompt[c * pt:(c + 1) * pt], device="cuda")
-            chunk[0, :len(part)] = part
-            chunked, caches = m8.prefill_chunk(
-                params, {"tokens": chunk}, caches, q_offset=c * pt,
-                valid_len=min((c + 1) * pt, n),
-                last_index=min(n - 1 - c * pt, pt - 1))
+        choices = []
+        with _moe_routing(record=choices):
+            for c in range(-(-n // pt)):
+                chunk = torch.zeros(1, pt, dtype=torch.long, device="cuda")
+                part = torch.tensor(prompt[c * pt:(c + 1) * pt],
+                                    device="cuda")
+                chunk[0, :len(part)] = part
+                chunked, caches = m8.prefill_chunk(
+                    params, {"tokens": chunk}, caches, q_offset=c * pt,
+                    valid_len=min((c + 1) * pt, n),
+                    last_index=min(n - 1 - c * pt, pt - 1))
         ckv_chunked = [caches[s][l]["ckv"][:, 0, :n].float()
                        for s in caches for l in caches[s]]
         del caches
-        caches = m8.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
-        L.flash_attention = checked_flash
-        try:
-            one_shot, caches = m8.prefill(
-                params, {"tokens": torch.tensor([prompt], device="cuda")},
-                caches)
-        finally:
-            L.flash_attention = kernel_flash
+        # the chunks' calls, one MoE layer after another: each layer's
+        # rows in position order (the padded tail of the last chunk last)
+        per_chunk = len(choices) // -(-n // pt)
+        replay = [torch.cat(choices[l::per_chunk]) for l in range(per_chunk)]
         want = chunked.float()
-        diffs.append(((one_shot.float() - want).abs().max()
-                      / want.abs().max()).item())
+        counter.reset_all()
+        got, caches, flipped = one_shot(toks, checked_flash, replay)
+        counts = counter.counts()
+        launches += counts["flash_attention"]
+        tc += counts["flash_attention_tc"]
+        diffs.append(rel(got, want))
         ckv = [caches[s][l]["ckv"][:, 0, :n].float()
                for s in caches for l in caches[s]]
         cache_diffs = [((a - b).abs().amax() / b.abs().amax()).item()
                        for a, b in zip(ckv, ckv_chunked)]
+        del caches
+        own = [rel(one_shot(toks, flash)[0], want) for flash in (
+            kernel_flash, ref.attention_bf16_products, ref.attention)]
         print(f"[serve_deepseek] rid {rid} ({n} tokens): one-shot vs "
               f"chunked last logits {diffs[-1]:.3e} of max|chunked| (tol "
-              f"{MLA_FORMS_TOL:.3g}); latent cache rows per stage: "
+              f"{MLA_FORMS_TOL:.3g}) with the chunked path's expert "
+              f"choices replayed ({flipped} of {n} tokens x "
+              f"{len(replay)} MoE layers would choose otherwise); with its "
+              f"own choices {own[0]:.3e}, through the kernel's arithmetic "
+              f"in torch {own[1]:.3e}, through plain f32 attention "
+              f"{own[2]:.3e} (not held); latent cache rows per stage: "
               + ", ".join(f"{d:.3e}" for d in cache_diffs))
+    timed_runs = []
+    for rid in CHECK_RIDS:
+        toks = torch.tensor([prompts[rid]], device="cuda")
+        caches = m8.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        torch.cuda.synchronize()
+        counter.reset_all()
+        t0 = time.perf_counter()
+        m8.prefill(params, {"tokens": toks}, caches)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c = counter.counts()
+        timed_runs.append((c["flash_attention"], c["flash_attention_tc"],
+                           seconds))
+        print(f"[serve_deepseek] rid {rid} ({toks.shape[1]} tokens): "
+              f"one-shot Model.prefill {seconds * 1e3:.3f} ms wall, "
+              f"{c['flash_attention']} flash launches "
+              f"({c['flash_attention_tc']} tensor-core)")
         del caches
-    counts = counter.counts()
-    return (counts["flash_attention"], counts["flash_attention_tc"], errs,
-            diffs)
+    return launches, tc, errs, diffs, timed_runs
 
 
 def phase_serve_deepseek(ref):
@@ -1161,31 +1227,35 @@ def phase_serve_deepseek(ref):
     the interleaved run's; decode rows at batch 8 and 4, bit for bit;
     and CHECK_RIDS' prompts one-shot through ``Model.prefill``, whose
     flash launches at (192, 128) are held against plain and whose last
-    logits must agree with the chunked path's (``_mla_one_shot_check``).
-    Returns the timed run's numbers."""
+    logits must agree with the chunked path's, the chunked path's expert
+    choices replayed (``_mla_one_shot_check``).  Returns the timed run's
+    numbers."""
     out = _serve_phase(ref, DEEPSEEK_ARCH, "serve_deepseek")
     model, params, scfg, prompts, checked = out.pop("run")
     _back_to_back_check("serve_deepseek", model, params, scfg, prompts,
                         checked)
     _decode_rows_check("serve_deepseek", model, params, scfg)
-    launches, tc, errs, diffs = _mla_one_shot_check(model, params, scfg,
-                                                    prompts, ref)
+    launches, tc, errs, diffs, timed_runs = _mla_one_shot_check(
+        model, params, scfg, prompts, ref)
     worst = max(errs, key=lambda e: e[0] / e[1])
     print(f"[serve_deepseek] one-shot prefill: {launches} flash launches "
           f"({tc} tensor-core) = {SERVE_LAYERS} layers x "
           f"{len(CHECK_RIDS)} prompts; held against plain: max err "
           f"{max(e[0] for e in errs):.3e}, worst {worst[0]:.3e} against "
           f"its tol {worst[1]:.3e}")
-    if launches != SERVE_LAYERS * len(CHECK_RIDS) or tc != 0:
+    if launches != SERVE_LAYERS * len(CHECK_RIDS) or tc != launches:
         raise AssertionError(f"one-shot MLA prefill: {launches} launches, "
                              f"{tc} tensor-core")
+    if any((n, t) != (SERVE_LAYERS, SERVE_LAYERS) for n, t, _ in timed_runs):
+        raise AssertionError(f"timed one-shot MLA prefill: {timed_runs}")
     if len(errs) != launches or not all(e <= t for e, t in errs):
         raise AssertionError(f"one-shot flash vs plain: {errs}")
     if not all(d <= MLA_FORMS_TOL for d in diffs):
         raise AssertionError(f"one-shot and chunked MLA prefill differ: "
                              f"{diffs}")
     out.update(one_shot_launches=launches,
-               one_shot_max_abs_err=max(e[0] for e in errs))
+               one_shot_max_abs_err=max(e[0] for e in errs),
+               one_shot_prefill_s=[t for _, _, t in timed_runs])
     del model, params
     _free()
     return out
@@ -3935,7 +4005,8 @@ def main() -> int:
         "bound_ms_bf16_cache": bf16_row["bound_ms"],
         "library_ms_bf16_cache": bf16_row["library_ms"],
         # nemotron-4-340b's late chunk (bf16 q on the tensor cores),
-        # deepseek-v3's 1000-token MLA one-shot (on the CUDA cores), and
+        # deepseek-v3's 1000-token MLA one-shot (bf16 q on the tensor
+        # cores), and
         # seamless's launches at D 64 (bf16 q on the tensor cores: the
         # encoder and cross-attention over a bf16 memory, the prefill's
         # cross-attention over the f32 one, the causal self-attention)

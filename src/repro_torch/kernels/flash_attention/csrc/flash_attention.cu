@@ -2,11 +2,11 @@
 // not: the CUDA-core variant, and the C entry of both variants.
 //
 // The C entry `flash_attention_fwd` (end of file) chooses by type and
-// head dims: a bf16 query at (DQK, DV) = (64, 64), (128, 128) or
-// (192, 192) (every launch of the full-width serve paths but MLA's)
+// head dims: a bf16 query at (DQK, DV) = (64, 64), (128, 128), (192,
+// 192) or MLA's (192, 128) (every launch of the full-width serve paths)
 // runs the tensor-core kernel of flash_attention_wgmma.cu; any other
-// query (f32, whose output is held to 1e-4, the reduced head dim 16,
-// or MLA's one-shot prefill at (192, 128)) runs the kernel below.  The choice is explicit and reported to the
+// query (f32, whose output is held to 1e-4, or the reduced head dim 16)
+// runs the kernel below.  The choice is explicit and reported to the
 // caller; nothing retries on the other kernel.
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` /

@@ -1,25 +1,27 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a), causal or
 // not: the variant for a bf16 query with head dims (DQK, DV) = (64, 64),
-// (128, 128) or (192, 192), over an f32 or a bf16 cache.  That is every
-// flash launch of the full-width serve paths but MLA's (qwen2-72b,
-// qwen3-moe and qwen2-vl-7b at 128, nemotron-4-340b at 192, and
+// (128, 128), (192, 192) or (192, 128), over an f32 or a bf16 cache.
+// That is every flash launch of the full-width serve paths (qwen2-72b,
+// qwen3-moe and qwen2-vl-7b at 128, nemotron-4-340b at 192,
 // seamless-m4t-large-v2 at 64: its non-causal encoder and
-// cross-attention, and its causal decoder self-attention).
+// cross-attention, and its causal decoder self-attention; and
+// deepseek-v3's MLA one-shot prefill at (192, 128)).
 //
 // Replaces, like flash_attention.cu, the Pallas TPU kernel
 // `flash_attention_bhsd` / `_flash_kernel` in
 // src/repro/kernels/flash_attention/kernel.py.  flash_attention.cu keeps
-// the f32-query kernel (held to 1e-4, which bf16 products cannot meet),
-// the reduced head dim 16 and MLA's (192, 128); its C entry
-// `flash_attention_fwd` calls `flash_wgmma_launch` below for q bf16 at
-// (64, 64), (128, 128) or (192, 192), by type and head dims, never as a
-// fallback.
+// the f32-query kernel (held to 1e-4, which bf16 products cannot meet)
+// and the reduced head dim 16; its C entry `flash_attention_fwd` calls
+// `flash_wgmma_launch` below for q bf16 at the head dims above, by type
+// and head dims, never as a fallback.
 //
 // Function.  q (B, Sq, H, DQK) bf16; k (B, Skv, Hkv, DQK) and v (B, Skv,
 // Hkv, DV) f32 or bf16, strided views (a layer of the stacked cache
-// arena); o (B, Sq, H, DV) bf16.  The kernel is a template on (DQK, DV),
-// both multiples of 64; the library instantiates (64, 64), (128, 128)
-// and (192, 192).  Query head h reads KV head h / (H / Hkv).  Query row
+// arena; MLA's v is the tail of each head's 256-wide row of its
+// up-projection, 256 bytes past the allocation's base); o (B, Sq, H, DV)
+// bf16.  The kernel is a template on (DQK, DV), both multiples of 64;
+// the library instantiates (64, 64), (128, 128), (192, 192) and (192,
+// 128).  Query head h reads KV head h / (H / Hkv).  Query row
 // i sits at absolute position q_offset + i and sees keys at positions <=
 // that (causal) and < Skv; with causal = 0 every row sees all Skv keys
 // (a cross-attention decode step is Sq = 1: one live row of the block's
@@ -35,8 +37,12 @@
 // K/V prefix, 0.013 ms at the memory rate (H100 SXM data sheet at its
 // 700 W limit: 989 TFLOP/s, 3.35 TB/s): the tensor cores set the least
 // time.  At nemotron-4-340b's late chunk (96/8 heads, D 192) it is
-// 4 * 96 * 192 * 1,015,936 = 7.5e10 FLOPs, 0.076 ms.  PERF.md has the
-// measured times against both.
+// 4 * 96 * 192 * 1,015,936 = 7.5e10 FLOPs, 0.076 ms.  MLA's one-shot
+// (1000 tokens, 128 heads each with its own K/V) is 2 * 128 * (192 + 128)
+// * 500,500 = 4.1e10 FLOPs, 0.041 ms, against 164 MB of q, o and one read
+// of K/V, 0.049 ms: there the bytes set the least time, if each head's
+// K/V is read from HBM once.  PERF.md has the measured times against
+// both.
 //
 // Design.
 // - Block: 3 warpgroups.  Warpgroups 0 and 1 are consumers, each owning
@@ -48,15 +54,26 @@
 //   thread whatever the split (56/224, 40/232 and 24/240 gave the same
 //   code on the card's toolkit), so at D 192, where a consumer holds Q
 //   (48 registers) and O (96) for the block's life beside S (32), it
-//   spills to local memory (chip_smoke.py [build] prints ptxas's
-//   counts); PERF.md has what the D 192 kernel costs.
+//   spills to local memory and ptxas serializes its wgmmas (C7512;
+//   chip_smoke.py [build] prints ptxas's counts and such warnings);
+//   PERF.md has what the D 192 kernel costs.  At (192, 128) a consumer
+//   would hold Q (48) and O (64) beside S (32): there `consume_mla`
+//   keeps Q in shared memory instead (48 KB a block, the A operand of an
+//   SS wgmma), beside the same rings, and compiles without spills.
 //   Grid (B * H, Sq / 128): consecutive blocks are the heads of one KV
 //   group, which read the same K/V through L2; query tiles run last-first
-//   so the longest causal rows start earliest.
+//   so the longest causal rows start earliest.  At (192, 128) with a KV
+//   head a query head (MLA), a wave of blocks in that order is ~132
+//   heads at one query tile, whose K/V (640 KB a head at 1000 tokens, 82
+//   MB in all) outgrow the 50 MB L2, so each head's K/V prefix would come
+//   from HBM once a tile; there consecutive blocks are one head's query
+//   tiles instead, last-first, and its K/V is read about once.
 // - Products: `wgmma.mma_async` m64nNk16 bf16 -> f32, accumulators in
 //   registers.  Q lives in registers for the block's life, already in
 //   wgmma's A-fragment layout (DQK / 4 registers a thread), so S = Q.K^T
-//   (m64n64, DQK / 16 k-steps) reads only K from shared memory.  P is
+//   (m64n64, DQK / 16 k-steps) reads only K from shared memory; at (192,
+//   128) each consumer writes its 64 Q rows once into shared memory in
+//   a K tile's swizzled layout, and S = Q.K^T reads both from there.  P is
 //   converted to bf16 in registers, and its S-accumulator fragment is
 //   exactly the A fragment of O += P.V (m64nDV, 4 k-steps over 64
 //   keys): P never goes through shared memory.  K is B in K-major form;
@@ -82,9 +99,13 @@
 //   chosen from the 227 KB budget (`Plan`): 2 slots of 64 KB at D 128;
 //   at D 192 a slot is 96 KB, so 2 ring stages and 1 slot (192 KB) are
 //   what fits, and the next tile's load waits for this one's
-//   conversion.  Staging through TMA keeps 64-128 KB of loads in flight
-//   an SM with 56 registers a producer thread; loading through the producer's registers instead (32 float4s
-//   a thread, 64 KB in flight) was measured slower.  What bounds this
+//   conversion; at (192, 128) a slot is 80 KB, and 2 stages of 40 KB, 1
+//   slot and Q (48 KB) fit (209 KB; a bf16 cache: 4 stages and Q).  With
+//   DQK != DV, K's items and V's convert in two loops, each at its own
+//   compile-time width.  Staging through TMA keeps 64-128 KB of loads in
+//   flight an SM with 56 registers a producer thread; loading through
+//   the producer's registers instead (32 float4s a thread, 64 KB in
+//   flight) was measured slower.  What bounds this
 //   path is the staging's shared-memory traffic (f32 written and read
 //   again, on top of the bf16 writes and the wgmma reads): without the
 //   conversion it ran at the bf16 cache's speed.  Tensor maps are
@@ -97,7 +118,9 @@
 //   probability as 0 * NaN.  The consumers mask keys >= Skv and keys > a
 //   row's position only on the tiles that hold any (the last one or
 //   two), so the rest run unmasked.  KV tiles past the block's last
-//   query are never loaded (the causal skip).
+//   query are never loaded (the causal skip); at (192, 128) the first
+//   consumer also hands back unread the last tile, which only the second
+//   one's rows see.
 // - A barrier wait that spins for ~2^24 polls traps, so a protocol fault
 //   ends the launch with an error instead of hanging the card.
 
@@ -128,13 +151,20 @@ struct Plan {
   static constexpr int F32_K = BK * DQK * 4;          // f32 K tile
   static constexpr int F32_SLOT = BK * (DQK + DV) * 4;  // f32 K + V
   static constexpr int FIXED = 1024 /* alignment slack */ + 128 /* bars */;
+  // MLA's materialized prefill, (192, 128): `consume_mla` (Q in shared
+  // memory), and one head's query tiles back to back when every query
+  // head has its own K/V.  The other instantiations keep `consume` (Q in
+  // registers) and the GQA order.
+  static constexpr bool MLA = DQK == 192 && DV == 128;
+  static constexpr int Q_BYTES = MLA ? BQ * DQK * 2 : 0;  // bf16 Q tile
   static constexpr int RING = F32KV ? 2 : 4;          // bf16 K/V stages
   // f32 K/V slots: two where they fit beside the ring, else one
   static constexpr int STAGING = !F32KV ? 0
-      : (FIXED + RING * STAGE_BYTES + 2 * F32_SLOT <= SMEM_BUDGET ? 2 : 1);
+      : (FIXED + RING * STAGE_BYTES + 2 * F32_SLOT + Q_BYTES <= SMEM_BUDGET
+             ? 2 : 1);
   static constexpr int FULL_COUNT = F32KV ? 128 : 1;  // arrivals a fill
   static constexpr int SMEM = FIXED + RING * STAGE_BYTES
-      + STAGING * F32_SLOT;
+      + STAGING * F32_SLOT + Q_BYTES;
   // registers moved from the producer to the consumers (setmaxnreg)
   static constexpr bool SPLIT_REGS = F32KV;
   static_assert(SMEM <= SMEM_BUDGET, "shared-memory plan over budget");
@@ -182,6 +212,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void producer_bar_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// The 128 threads of consumer warpgroup `wg` (named barriers 2 and 3).
+__device__ __forceinline__ void consumer_bar_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -237,6 +272,21 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
       : F16(d, 0), F16(d, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both K-major in smem.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32],
+                                                uint64_t adesc,
+                                                uint64_t bdesc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
 }
 
 // d[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (MN-major in smem).
@@ -326,6 +376,27 @@ struct Args {
   float scale_log2;            // softmax scale * log2(e): exp2 domain
 };
 
+// An f32 tile of 64 rows x D as TMA staged it (row-major, unswizzled)
+// into D / 64 bf16 parts, 128-byte swizzled.  A warp converts 128
+// contiguous values a step: 32 float4 reads of 512 contiguous bytes, 32
+// 8-byte writes to swizzled 128-byte lines.
+template <int D>
+__device__ __forceinline__ void convert_tile(const uint8_t* src,
+                                             uint8_t* dst, int tid) {
+#pragma unroll 4
+  for (int i = 0; i < BK * D / 4 / 128; ++i) {
+    const int it = tid + 128 * i;
+    const int row = it / (D / 4), f = it % (D / 4);
+    const float4 x = *reinterpret_cast<const float4*>(src + row * D * 4
+                                                      + f * 16);
+    const int part = f / 16, chunk = (f % 16) / 2, sub = f % 2;
+    uint8_t* out = dst + part * HALF_BYTES + row * 128
+                   + ((chunk ^ (row & 7)) << 4) + sub * 8;
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+  }
+}
+
 // Producer: fill ring stage j % RING with K/V tile j.
 template <int DQK, int DV, bool F32KV>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_k,
@@ -374,29 +445,29 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_k,
       mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
       const uint8_t* src = staging + (j % NS) * P::F32_SLOT;
       uint8_t* dst = ring + r * P::STAGE_BYTES;
-      // A warp converts 128 contiguous values a step: 32 float4 reads of
-      // 512 contiguous bytes, 32 8-byte writes to swizzled 128-byte lines.
-      // K's items come first, then V's (both multiples of a warp).  At
-      // DQK == DV the index arithmetic is one (K, V) pair's, which the
-      // compiler folds over the unrolled steps; a select between K's and
-      // V's row widths there made the f32 path 34% slower at D 128.
-      constexpr int K_ITEMS = BK * DQK / 4;
+      if constexpr (DQK == DV) {
+        // K's items, then V's, as `convert_tile` does, in one loop: the
+        // index arithmetic is one (K, V) pair's, which the compiler folds
+        // over the unrolled steps; a select between K's and V's row
+        // widths made the f32 path 34% slower at D 128.
+        constexpr int K_ITEMS = BK * DQK / 4;
 #pragma unroll 4
-      for (int i = 0; i < BK * (DQK + DV) / 4 / 128; ++i) {
-        const int it = tid + 128 * i;
-        const bool is_v = DQK == DV ? it / K_ITEMS : it >= K_ITEMS;
-        const int d = DQK == DV ? DQK : (is_v ? DV : DQK);
-        const int row = DQK == DV ? (it / (DQK / 4)) % BK
-                                  : (is_v ? it - K_ITEMS : it) / (d / 4);
-        const int f = DQK == DV ? it % (DQK / 4)
-                                : (is_v ? it - K_ITEMS : it) % (d / 4);
-        const float4 x = *reinterpret_cast<const float4*>(
-            src + (is_v ? P::F32_K : 0) + row * d * 4 + f * 16);
-        const int part = f / 16, chunk = (f % 16) / 2, sub = f % 2;
-        uint8_t* out = dst + (is_v ? P::K_TILE : 0) + part * HALF_BYTES
-                       + row * 128 + ((chunk ^ (row & 7)) << 4) + sub * 8;
-        *reinterpret_cast<uint2*>(out) =
-            make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+        for (int i = 0; i < BK * 2 * DQK / 4 / 128; ++i) {
+          const int it = tid + 128 * i;
+          const bool is_v = it / K_ITEMS;
+          const int row = (it / (DQK / 4)) % BK;
+          const int f = it % (DQK / 4);
+          const float4 x = *reinterpret_cast<const float4*>(
+              src + (is_v ? P::F32_K : 0) + row * DQK * 4 + f * 16);
+          const int part = f / 16, chunk = (f % 16) / 2, sub = f % 2;
+          uint8_t* out = dst + (is_v ? P::K_TILE : 0) + part * HALF_BYTES
+                         + row * 128 + ((chunk ^ (row & 7)) << 4) + sub * 8;
+          *reinterpret_cast<uint2*>(out) =
+              make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+        }
+      } else {   // each with its own compile-time width
+        convert_tile<DQK>(src, dst, tid);
+        convert_tile<DV>(src + P::F32_K, dst + P::K_TILE, tid);
       }
       fence_proxy_async();       // the generic writes, before wgmma reads
       mbar_arrive(&full[r]);
@@ -565,6 +636,174 @@ __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
   }
 }
 
+// Consumer warpgroup `wg` at MLA's (192, 128): `consume`, line for line,
+// but for Q, which sits in shared memory as the A operand of an SS wgmma
+// for S = Q.K^T (in registers it would take 48 a thread beside O's 64
+// and S's 32), and for the tail: causal, the tiles past this
+// warpgroup's last row's keys (the block's last tile, for its first
+// warpgroup) hold no key it sees, and it hands them back unread.
+// (`consume` keeps its code, as measured, at the other head dims.)
+template <int DQK, int DV, bool F32KV>
+__device__ __forceinline__ void consume_mla(const Args& a, uint8_t* ring,
+                                            uint8_t* qsmem, uint64_t* full,
+                                            uint64_t* empty, int n_tiles,
+                                            int wg, int b, int h, int q0) {
+  using P = Plan<DQK, DV, F32KV>;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rr0 = q0 + wg * BM + warp * 16 + g;
+  const int rows[2] = {rr0, rr0 + 8};
+
+  // This warpgroup's 64 Q rows, laid out as a K tile (DQK / 64 parts of
+  // 64 rows x 128 bytes, 128-byte swizzled), rows past Sq zero.  Each
+  // thread issues all its 16-byte loads before its first store.
+  constexpr int PIECES = BM * DQK / 8 / 128;     // 16-byte pieces a thread
+  uint8_t* qs = qsmem + wg * (BM * DQK * 2);
+  const uint32_t qaddr = smem_u32(qs);
+  {
+    const __nv_bfloat16* qb = a.q + b * a.q_sb + h * a.q_sh;
+    uint4 x[PIECES];
+#pragma unroll
+    for (int n = 0; n < PIECES; ++n) {
+      const int i = tid + 128 * n, r = i / (DQK / 8), c = i % (DQK / 8);
+      const int row = q0 + wg * BM + r;
+      x[n] = row < a.Sq ? *reinterpret_cast<const uint4*>(
+                              qb + static_cast<int64_t>(row) * a.q_ss + 8 * c)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int n = 0; n < PIECES; ++n) {
+      const int i = tid + 128 * n, r = i / (DQK / 8), c = i % (DQK / 8);
+      *reinterpret_cast<uint4*>(qs + (c / 8) * HALF_BYTES + r * 128
+                                + (((c % 8) ^ (r & 7)) << 4)) = x[n];
+    }
+    fence_proxy_async();       // the generic writes, before wgmma reads
+    consumer_bar_sync(wg);
+  }
+
+  int lim[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    lim[e] = a.causal ? min(a.Skv, a.q_offset + rows[e] + 1) : a.Skv;
+  }
+  const int mask_from = a.causal
+      ? min(a.Skv, a.q_offset + q0 + wg * BM + 1) : a.Skv;
+  int own_tiles = n_tiles;
+  if (a.causal) {
+    const int seen = min(a.Skv, a.q_offset + min(q0 + wg * BM + BM, a.Sq));
+    own_tiles = min(n_tiles, (max(seen, 0) + BK - 1) / BK);
+  }
+
+  float acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < own_tiles; ++j) {
+    const int r = j % P::RING;
+    mbar_wait(&full[r], (j / P::RING) & 1);
+    const uint32_t kaddr = smem_u32(ring + r * P::STAGE_BYTES);
+    const uint32_t vaddr = kaddr + P::K_TILE;
+
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQK / 16; ++kk) {
+      const uint32_t step = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
+      wgmma_m64n64_ss(s, sw128_desc(qaddr + step, 16, 1024),
+                      sw128_desc(kaddr + step, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    const int k0 = j * BK;
+    if (k0 + BK > mask_from) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (key >= lim[(i >> 1) & 1]) s[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] *= a.scale_log2;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      const float m_new = fmaxf(m[e], mx[e]);
+      mu[e] = (m_new == -INFINITY) ? 0.f : m_new;
+      alpha[e] = exp2f(m[e] - mu[e]);
+      m[e] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = exp2f(s[i] - mu[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + rs[e];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      }
+    }
+
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_pv(acc, pf[kk],
+               sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES, 1024));
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(&empty[r]);
+  }
+  for (int j = own_tiles; j < n_tiles; ++j) {
+    const int r = j % P::RING;
+    mbar_wait(&full[r], (j / P::RING) & 1);
+    mbar_arrive(&empty[r]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    inv[e] = 1.f / (l[e] == 0.f ? 1.f : l[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (rows[e] >= a.Sq) continue;
+    __nv_bfloat16* orow = a.o + b * a.o_sb
+        + static_cast<int64_t>(rows[e]) * a.o_ss + h * a.o_sh;
+#pragma unroll
+    for (int c = 0; c < DV / 8; ++c) {
+      const int i = 4 * c + 2 * e;
+      *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
+          pack_bf16(acc[i] * inv[e], acc[i + 1] * inv[e]);
+    }
+  }
+}
+
 template <int DQK, int DV, bool F32KV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -575,14 +814,27 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* staging = ring + P::RING * P::STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      staging + P::STAGING * P::F32_SLOT);
+  uint8_t* qsmem = staging + P::STAGING * P::F32_SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(qsmem + P::Q_BYTES);
   uint64_t* empty = full + P::RING;
   uint64_t* staged = empty + P::RING;
 
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  // Block (batch x head, query tile).  In launch order blocks walk the
+  // heads of one query tile (a KV group's heads share K/V through L2).
+  // At MLA's (192, 128) with a KV head a query head they walk one head's
+  // query tiles instead, so its K/V is read from HBM about once, not once
+  // a tile.  Tiles run last-first either way.
+  unsigned bh = blockIdx.x, tile = blockIdx.y;
+  if constexpr (P::MLA) {
+    if (a.group == 1) {
+      const unsigned linear = blockIdx.y * gridDim.x + blockIdx.x;
+      bh = linear / gridDim.y;
+      tile = linear % gridDim.y;
+    }
+  }
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int q0 = (gridDim.y - 1 - tile) * BQ;
   int kv_end = a.Skv;                  // keys the block's last row sees
   if (a.causal) {
     kv_end = max(0, min(a.Skv, a.q_offset + min(q0 + BQ, a.Sq)));
@@ -610,7 +862,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     if constexpr (P::SPLIT_REGS) {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
     }
-    consume<DQK, DV, F32KV>(a, ring, full, empty, n_tiles, wg, b, h, q0);
+    if constexpr (P::MLA) {
+      consume_mla<DQK, DV, F32KV>(a, ring, qsmem, full, empty, n_tiles, wg,
+                                  b, h, q0);
+    } else {
+      consume<DQK, DV, F32KV>(a, ring, full, empty, n_tiles, wg, b, h, q0);
+    }
   }
 }
 
@@ -693,7 +950,7 @@ int launch(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Args& a,
 // Whether the tensor-core kernel is built for head dims (dqk, dv).
 bool flash_wgmma_takes(int dqk, int dv) {
   return (dqk == 64 && dv == 64) || (dqk == 128 && dv == 128)
-      || (dqk == 192 && dv == 192);
+      || (dqk == 192 && (dv == 192 || dv == 128));
 }
 
 // Called by flash_attention.cu's C entry for q bf16 at head dims that
@@ -725,6 +982,9 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
   a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
   a.scale_log2 = scale * LOG2E;
+  if (dqk == 192 && dv == 128) {
+    return launch<192, 128>(tm_k, tm_v, a, kv_f32, B, stream);
+  }
   if (dqk == 192) return launch<192, 192>(tm_k, tm_v, a, kv_f32, B, stream);
   if (dqk == 64) return launch<64, 64>(tm_k, tm_v, a, kv_f32, B, stream);
   return launch<128, 128>(tm_k, tm_v, a, kv_f32, B, stream);

@@ -12,13 +12,14 @@ the wrapper checks every argument, allocates the output, and raises if
 the launch returns an error.
 
 Two kernels share the library, chosen by type and head dims in the C
-entry: a bf16 query at head dims (q/k, v) of (64, 64), (128, 128) or
-(192, 192) (the full-width serve paths) runs on the tensor cores
-(``csrc/flash_attention_wgmma.cu``, variant ``"wgmma"``); any other
-query runs on the CUDA cores in f32 (``csrc/flash_attention.cu``, variant
-``"simt"``), MLA's (192, 128) among them.  ``launch`` returns the variant
-the C entry reports.  Both take ``causal=False`` (every query sees every
-key: the encoder-decoder's encoder and cross-attention).
+entry: a bf16 query at head dims (q/k, v) in ``WGMMA_HEAD_DIMS`` ((64,
+64), (128, 128), (192, 192) and MLA's (192, 128): every full-width serve
+path) runs on the tensor cores (``csrc/flash_attention_wgmma.cu``,
+variant ``"wgmma"``); any other query (f32, or the reduced configs' head
+dim 16) runs on the CUDA cores in f32 (``csrc/flash_attention.cu``,
+variant ``"simt"``).  ``launch`` returns the variant the C entry reports.
+Both take ``causal=False`` (every query sees every key: the
+encoder-decoder's encoder and cross-attention).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_attention_wgmma.cu")
 #: the (q/k, v) head dims the library is built for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 192), (192, 128))
+#: the head dims at which a bf16 query runs on the tensor cores
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 192), (192, 128))
 VARIANTS = ("simt", "wgmma")   # as the C entry reports them: 0, 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -31,9 +31,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) ->
     (B, Sq, H, Dv) in q's dtype; ``q_offset`` is the absolute position of
     query 0.  The softmax runs in float32; on the card a bf16 query with
-    head dims (64, 64), (128, 128) or (192, 192) takes bf16 products (K, V and P
-    rounded to bf16, as the reference's kernel does for a bf16 cache),
-    every other query f32 ones."""
+    head dims in ``kernel.WGMMA_HEAD_DIMS`` ((64, 64), (128, 128), (192,
+    192) or MLA's (192, 128)) takes bf16 products (K, V and P rounded to
+    bf16, as the reference's kernel does for a bf16 cache), every other
+    query f32 ones."""
     if q.device.type == "cuda":
         out, variant = kernel.launch(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)

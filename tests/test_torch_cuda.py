@@ -44,9 +44,10 @@ so they run on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Flash attention has two variants, chosen by the query's type and the
-head dims: a bf16 query at (D, Dv) = (64, 64), (128, 128) or (192, 192)
-runs on the tensor cores (``wgmma``), causal or not, any other (MLA's (192, 128) among them) on
-the CUDA cores in f32 (``simt``).  ``kernel.launch`` returns the
+head dims: a bf16 query at (D, Dv) = (64, 64), (128, 128), (192, 192) or
+MLA's (192, 128) runs on the tensor cores (``wgmma``), causal or not, any
+other (an f32 query, or the reduced head dim 16) on the CUDA cores in
+f32 (``simt``).  ``kernel.launch`` returns the
 variant that ran and ``ops.tc_counter`` counts the tensor-core launches,
 so these tests pick a variant by the dtype of q and check that it ran.
 
@@ -127,16 +128,61 @@ def test_kernel_matches_plain_at_serving_shapes(cuda, h, hkv, d, q_dtype,
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 def test_mla_one_shot_prefill_matches_plain(cuda, q_dtype, kv_dtype):
     """deepseek-v3's materialized MLA prefill: 128 heads (K/V per head),
-    192-dim scores against 128-dim values, 1000 tokens, on the CUDA
-    cores."""
+    192-dim scores against 128-dim values, 1000 tokens; a bf16 query on
+    the tensor cores, an f32 one on the CUDA cores."""
     q, k, v = _qkv(5, 1000, 1000, 128, 128, 192, q_dtype, kv_dtype, cuda,
                    dv=128)
     before = (ops.counter.value, ops.tc_counter.value)
     got = ops.attention(q, k, v)
-    assert (ops.counter.value, ops.tc_counter.value) == (before[0] + 1,
-                                                          before[1])
+    assert (ops.counter.value, ops.tc_counter.value) == (
+        before[0] + 1, before[1] + (q_dtype == torch.bfloat16))
     assert got.shape == (1, 1000, 128, 128) and got.dtype == q_dtype
     _assert_matches(got, ref.attention(q, k, v))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(16, 16), (8, 1)])
+@pytest.mark.parametrize("sq,skv,off", [(77, 300, 100), (130, 4096, 3841),
+                                        (1000, 1000, 0), (5, 4096, 3841),
+                                        (200, 523, 0), (333, 1000, 667)])
+def test_mla_head_dims_on_the_tensor_cores_at_ragged_shapes(
+        cuda, kv_dtype, h, hkv, sq, skv, off):
+    """(192, 128), causal: Sq, Skv and offsets that are not tile
+    multiples, a KV head a query head (MLA's, one head's query tiles back
+    to back) and GQA 8/1 (the launch order of the other head dims), both
+    cache types; each launch on the tensor cores."""
+    q, k, v = _qkv(sq + off + h, sq, skv, h, hkv, 192, torch.bfloat16,
+                   kv_dtype, cuda, dv=128)
+    before = (ops.counter.value, ops.tc_counter.value)
+    got = ops.attention(q, k, v, q_offset=off, sm_scale=192 ** -0.5)
+    assert (ops.counter.value, ops.tc_counter.value) == (before[0] + 1,
+                                                          before[1] + 1)
+    _assert_matches(got, ref.attention(q, k, v, q_offset=off,
+                                       sm_scale=192 ** -0.5))
+
+
+@pytest.mark.parametrize("s", [1000, 77])
+def test_mla_layout_on_the_tensor_cores(cuda, s):
+    """MLA's own views at 128 / 128 heads (``models/mla.py``): q and k
+    from ``torch.cat`` of the 128-dim no-position part and the 64-dim
+    rotary part (k's shared across heads by ``expand``), v the last 128
+    of each head's 256-wide row of the up-projection, a view 256 bytes
+    past its allocation's base with a head stride of 256 elements."""
+    h, rng = 128, np.random.RandomState(s)
+    x = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    kv = x(1, s, h, 256)
+    krope = x(1, s, 64)
+    k_nope, v = kv[..., :128], kv[..., 128:]
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(1, s, h, 64)], -1)
+    q = torch.cat([x(1, s, h, 128), x(1, s, h, 64)], -1)
+    assert not v.is_contiguous() and v.stride(2) == 256
+    assert v.data_ptr() - kv.data_ptr() == 256
+    before = ops.tc_counter.value
+    got = ops.attention(q, k, v, sm_scale=192 ** -0.5)
+    assert ops.tc_counter.value == before + 1
+    assert got.shape == (1, s, h, 128)
+    _assert_matches(got, ref.attention(q, k, v, sm_scale=192 ** -0.5))
 
 
 @pytest.mark.parametrize("h,hkv,d,causal,dv", [(4, 2, 16, True, 16),
@@ -237,7 +283,7 @@ def test_tensor_core_kernel_takes_strided_arena_views(cuda, d, kv_dtype, h,
     (torch.bfloat16, 128, 128, "wgmma"), (torch.float32, 128, 128, "simt"),
     (torch.bfloat16, 16, 16, "simt"), (torch.float32, 16, 16, "simt"),
     (torch.bfloat16, 192, 192, "wgmma"), (torch.float32, 192, 192, "simt"),
-    (torch.bfloat16, 192, 128, "simt"), (torch.float32, 192, 128, "simt"),
+    (torch.bfloat16, 192, 128, "wgmma"), (torch.float32, 192, 128, "simt"),
     (torch.bfloat16, 64, 64, "wgmma"), (torch.float32, 64, 64, "simt")])
 def test_variant_follows_the_query_type(cuda, q_dtype, d, dv, variant):
     q, k, v = _qkv(d, 70, 90, 8, 2, d, q_dtype, torch.float32, cuda, dv=dv)

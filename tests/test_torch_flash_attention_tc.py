@@ -11,9 +11,12 @@ to the port's plain version and to the JAX package's ``chunk_attention``
 (chunked prefill) and ``flash_attention_jnp`` (one-shot prefill): shapes
 with GQA 8/1, 64/8 and 96/8 (nemotron-4-340b's, at D 192; the others at
 D 128), 512-1024 keys, offsets 0, 100 and late,
-query counts that are not tile multiples, and both cache dtypes; and at
+query counts that are not tile multiples, and both cache dtypes; at
 D 64 without the causal mask (seamless-m4t-large-v2's encoder over its
-frames and its cross-attention of a prompt and of a decode step).
+frames and its cross-attention of a prompt and of a decode step); and
+at MLA's head dims (192, 128) (deepseek-v3's materialized prefill, 16/16
+heads here), with v the strided tail of each head's 256-wide row, as
+``models/mla.py`` slices the up-projection.
 """
 
 import jax.numpy as jnp
@@ -130,3 +133,37 @@ def test_bf16_products_never_read_keys_past_the_last_query():
     k[:, 140:], v[:, 140:] = float("nan"), float("nan")
     got = ref.attention_bf16_products(q, k, v, q_offset=100)
     assert torch.equal(got, want)
+
+
+def _mla_inputs(seed, sq, skv, kv_dtype, h=16):
+    """q and k at D 192; v the last 128 of each head's 256-wide row of
+    one (1, Skv, H, 256) tensor: a view at element offset 128 whose head
+    stride is 256, as MLA splits ``ckv @ w_ukv`` into k_nope and v."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(1, sq, h, 192).astype(np.float32))
+    k = torch.from_numpy(rng.randn(1, skv, h, 192).astype(np.float32))
+    kv = torch.from_numpy(rng.randn(1, skv, h, 256).astype(np.float32))
+    return q.to(torch.bfloat16), k.to(kv_dtype), kv.to(kv_dtype)[..., 128:]
+
+
+@pytest.mark.parametrize("sq,skv,off,kv_dtype", [
+    (515, 515, 0, torch.bfloat16), (515, 515, 0, torch.float32),
+    (77, 300, 100, torch.bfloat16), (77, 300, 100, torch.float32)])
+def test_bf16_products_at_mla_head_dims_match_plain_and_flash_attention_jnp(
+        sq, skv, off, kv_dtype):
+    """(192, 128), causal, MLA's scale 1/sqrt(192): a one-shot whose
+    length is not a tile multiple, and a 77-query chunk at offset 100
+    over 300 keys (keys past its last position unseen)."""
+    q, k, v = _mla_inputs(sq + off, sq, skv, kv_dtype)
+    assert v.storage_offset() == 128 and v.stride(2) == 256
+    scale = 192 ** -0.5
+    got = ref.attention_bf16_products(q, k, v, q_offset=off, sm_scale=scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, sq, 16, 128)
+    _within(got, ref.attention(q, k, v, q_offset=off,
+                               sm_scale=scale).float().numpy())
+    want = JL.flash_attention_jnp(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16),
+        jnp.asarray(k.float().numpy(), JDT[kv_dtype]),
+        jnp.asarray(v.float().numpy(), JDT[kv_dtype]), q_offset=off,
+        block_k=128, sm_scale=scale)
+    _within(got, np.asarray(want.astype(jnp.float32)))

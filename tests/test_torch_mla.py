@@ -9,6 +9,11 @@ reference, on the CPU.
   caches within 1e-5 of the largest reference value (f32; the absorbed
   and materialized forms sum in different orders, so each is held to the
   reference's own form).
+- The materialized one-shot at deepseek-v3's published head dims (dh_nope
+  128, dh_rope 64, dh_v 128: flash at (192, 128)) with the flash op
+  doing the tensor-core kernel's arithmetic
+  (``ref.attention_bf16_products``) against the reference's f32
+  ``mla_forward`` within ``BF16_PRODUCTS_TOL``.
 - The paging probe classifies ``ckv``/``krope`` as token leaves and
   ``len`` as a state leaf, with the reference's axes and pool shapes.
 - Reduced deepseek-v3 served through ``BatchScheduler``: greedy streams
@@ -43,6 +48,7 @@ from repro.serve.engine import ServeCfg as JaxServeCfg
 from repro.serve.paging import PagePool as JaxPagePool
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.launch.train import build_session
 from repro_torch.models import build_model
 from repro_torch.models import mla as MLA
@@ -60,6 +66,11 @@ TOL = 1e-5
 TP_LOSS_RTOL = 2e-3            # chip_smoke.py's [train_tp] tolerances
 TP_NORM_RTOL = 5e-3
 SERVE_LEN, SERVE_PT = 96, 32
+# The one-shot through the tensor-core kernel's arithmetic (q, K, V and P
+# rounded to bf16, about 2**-9 of each) against the reference's f32:
+# the kernel's own tolerance (2**-6 of the largest value), carried
+# through w_o.
+BF16_PRODUCTS_TOL = 2.0 ** -6
 
 
 def _rel(got, want) -> float:
@@ -108,6 +119,42 @@ def test_materialized_forward_matches_reference(mla_pair, train):
     tout, tc = MLA.mla_forward(tp, tcfg, torch.from_numpy(x), kv_cache=tc,
                                train=train, block_k=8)
     assert _rel(tout.detach().numpy(), jout) <= TOL
+    _assert_caches(jc, tc)
+
+
+@pytest.fixture(scope="module")
+def mla_published_pair():
+    """MLA at deepseek-v3's published head dims (scores 128 + 64 = 192,
+    values 128) at a narrow width: 4 heads, d_model 64, lora ranks 32."""
+    kw = dict(d_model=64, num_heads=4, q_lora=32, kv_lora=32, dh_nope=128,
+              dh_rope=64, dh_v=128)
+    jcfg, tcfg = JMLA.MLACfg(**kw), MLA.MLACfg(**kw)
+    jp, _ = JMLA.init_mla(jax.random.PRNGKey(5), jcfg)
+    tp = map_tree(lambda a: torch.from_numpy(np.array(a)),
+                  jax.device_get(jp))
+    return jcfg, jp, tcfg, tp
+
+
+def test_materialized_one_shot_at_published_head_dims(mla_published_pair,
+                                                      monkeypatch):
+    """``Model.prefill``'s MLA form at (192, 128): a 77-token one-shot
+    (not a multiple of the kernel's 64-key tile) of 2 rows into a cache,
+    the flash op replaced by the tensor-core kernel's arithmetic, which
+    it runs on the card for a bf16 query."""
+    jcfg, jp, tcfg, tp = mla_published_pair
+    calls = []
+
+    def bf16_products(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(v.shape)))
+        return flash_ref.attention_bf16_products(q, k, v, **kw)
+
+    monkeypatch.setattr(MLA.L, "flash_attention", bf16_products)
+    x = _x(7, 2, 77)
+    jc, tc = _caches(jcfg, tcfg, 2, 80)
+    jout, jc = JMLA.mla_forward(jp, jcfg, jnp.asarray(x), kv_cache=jc)
+    tout, tc = MLA.mla_forward(tp, tcfg, torch.from_numpy(x), kv_cache=tc)
+    assert calls == [((2, 77, 4, 192), (2, 77, 4, 128))]
+    assert _rel(tout.numpy(), jout) <= BF16_PRODUCTS_TOL
     _assert_caches(jc, tc)
 
 

@@ -25,6 +25,14 @@ warm-up:
 3. with the allocator's history recorded: the largest tensors alive at
    the peak of allocated memory, with the port's line that made each.
 
+With ``--one-shot`` it profiles instead the phase's checked prompts
+(``chip_smoke.CHECK_RIDS``) prefilled one-shot through ``Model.prefill``
+(for deepseek-v3-671b MLA's materialized form, whose attention is the
+flash kernel at (192, 128)): each prompt's wall time once warm, then
+device time by kernel and by part (the flash kernel, launched through
+ctypes, has no aten op above it, so it counts to no part: read it from
+the kernels).
+
 Exits non-zero when CUDA is unavailable.
 """
 
@@ -161,6 +169,58 @@ def _device_us_by_part(prof):
     return out
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
+def _print_profile(prof, wall):
+    """Device busy share of ``wall`` seconds, the 15 kernels with the
+    most device time, and device time by part of the model."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("part: ")]
+    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    print(f"[profile] wall {wall:.3f}s (profiled), device busy {busy:.3f}s "
+          f"= {busy / wall:.1%}; kernels by device time:")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:15]:
+        print(f"[profile] {_dev_us(e) / 1e3:10.1f} ms {e.count:6d}x "
+              f"{_dev_us(e) / 1e6 / busy:6.1%}  {e.key[:100]}")
+    parts = _device_us_by_part(prof)
+    total = sum(parts.values()) / 1e6
+    print(f"[profile] device time by part of the model ({total:.3f}s):")
+    for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] {us / 1e3:10.1f} ms {us / 1e6 / total:6.1%}  "
+              f"{part}")
+
+
+def _one_shot(model, params, scfg, prompts, out: str) -> int:
+    """``--one-shot``: the checked prompts through ``Model.prefill``."""
+    import chip_smoke
+
+    def run(rid):
+        caches = model.init_caches(1, scfg.max_len, dtype=scfg.cache_dtype)
+        toks = torch.tensor([prompts[rid]], device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, caches)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for rid in chip_smoke.CHECK_RIDS:
+        run(rid)                                      # warm
+    for rid in chip_smoke.CHECK_RIDS:
+        print(f"[one-shot] rid {rid} ({len(prompts[rid])} tokens): "
+              f"Model.prefill {run(rid) * 1e3:.3f} ms wall")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with _parts_marked(), torch.profiler.profile(activities=acts) as prof:
+        wall = sum(run(rid) for rid in chip_smoke.CHECK_RIDS)
+    prof.export_chrome_trace(os.path.join(out, "one_shot_trace.json"))
+    _print_profile(prof, wall)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build", "profile"),
@@ -170,6 +230,9 @@ def main(argv=None) -> int:
                          "qwen3-moe-30b-a3b, nemotron-4-340b, "
                          "deepseek-v3-671b, jamba-1.5-large-398b, "
                          "mamba2-1.3b: their serve phases)")
+    ap.add_argument("--one-shot", action="store_true",
+                    help="profile Model.prefill of the checked prompts "
+                         "one-shot instead of the scheduler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: CUDA is not available", file=sys.stderr)
@@ -181,6 +244,8 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
 
     model, params, scfg, prompts = chip_smoke.serve_workload(args.arch)
+    if args.one_shot:
+        return _one_shot(model, params, scfg, prompts, args.out)
 
     def submit(sched):
         for rid, p in enumerate(prompts):
@@ -225,26 +290,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(os.path.join(args.out, "serve_trace.json"))
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("part: ")]
-    busy = sum(dev_us(e) for e in kernels) / 1e6
-    print(f"[profile] wall {wall:.3f}s (profiled), device busy {busy:.3f}s "
-          f"= {busy / wall:.1%}; kernels by device time:")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
-        print(f"[profile] {dev_us(e) / 1e3:10.1f} ms {e.count:6d}x "
-              f"{dev_us(e) / 1e6 / busy:6.1%}  {e.key[:100]}")
-    parts = _device_us_by_part(prof)
-    total = sum(parts.values()) / 1e6
-    print(f"[profile] device time by part of the model ({total:.3f}s):")
-    for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {us / 1e3:10.1f} ms {us / 1e6 / total:6.1%}  "
-              f"{part}")
+    _print_profile(prof, wall)
     del sched, prof
 
     # 3. allocator history
