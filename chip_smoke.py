@@ -249,6 +249,27 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              ``sum_chunks`` launches as planned (17 model-axis
              all-reduces a rank a step with the model axis).  Prints
              step time, tokens/s and peak memory.
+8f. train_adafactor — mistral-large-123b at its published widths cut to
+             2 of 88 layers, random bf16 weights from a seed, [train]'s
+             data, Adafactor: data-parallel composed with the sync
+             kernels and plain (bit-identical) and at lr 1e-5 (the loss
+             falls); ZeRO-1 (each rank's flat chunks unfactored); (data
+             2, model 2) with ``check_model_replicas``, losses and
+             gradient norms within ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL``
+             of the data-parallel run, Adafactor's model-axis sums
+             counted in the plan; compressed at 1 layer (2 reckon over
+             the card).
+8g. train_deepseek — deepseek-v3-671b at its published widths cut to
+             its 2 first (dense MLA) layers and the MTP block, Adafactor,
+             bf16 gradient accumulation over 2 microbatches: kernels and
+             plain (bit-identical), lr 1e-5; the MTP metric finite.
+8h. train_mamba2 — mamba2-1.3b at its published widths cut to
+             ``MAMBA2_TRAIN_LAYERS`` of 48 layers (full depth does not
+             fit two replicas' training), AdamW: kernels and plain
+             (bit-identical), lr 1e-5.  Every large-arch run: finite
+             losses, identical replicas, every sync kernel's launches as
+             planned; each phase prints the card, step time, tokens/s
+             and peak memory.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -422,6 +443,17 @@ POD_LAYERS = 1              # 4 full replicas of 2 layers exceed 80 GB
 POD_LOSS_RTOL = 2e-3
 POD_NORM_RTOL = 2e-2
 MOE_ARCH = "qwen3-moe-30b-a3b"   # [serve_moe], [train_moe]
+ADAFACTOR_ARCH = "mistral-large-123b"   # [train_adafactor]
+# [train_adafactor]'s compressed run is cut to 1 layer: at 2 the two
+# replicas' f32 error-feedback residuals (28.6 GB) and the int8 ring's
+# f32 temporaries of a 704 M-value leaf (~25 GB for two ranks) on top of
+# the composed run's ~36 GB reckon ~89 GB, over the card (PERF.md §4)
+ADAFACTOR_COMPRESSED_LAYERS = 1
+MAMBA2_ARCH = "mamba2-1.3b"             # [train_mamba2]
+# [train_mamba2]'s depth: SSD keeps ~2.1 GB of f32 temporaries a layer a
+# rank for the backward (no rematerialization), so 48 layers reckon
+# ~240 GB for two ranks; 12 layers reckon 66 GB (PERF.md §4)
+MAMBA2_TRAIN_LAYERS = 12
 NEMOTRON_ARCH = "nemotron-4-340b"   # [serve_nemotron]
 DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # [serve_deepseek]'s one-shot prefill (MLA's materialized form, bf16 K/V
@@ -2612,16 +2644,19 @@ def phase_train_tp(train):
 
 
 def _train_check(phase, tag, model, mesh, session, states, metrics, counts,
-                 losses, kernels: bool, extra_psums=0):
-    """The checks every [train_moe] run makes: finite losses, identical
-    replicas (and model-replicated leaves), and ``sum_chunks`` launches
-    equal to the plan's count (the data sync's, plus ``extra_psums``
-    model-axis all-reduces of p-1 combines each, a rank a step; 0 for a
-    run with the plain sync ops)."""
+                 losses, kernels: bool, extra_psums=0, sync="composed",
+                 zero=False):
+    """The checks every [train_moe] and large-arch run makes: finite
+    losses, identical replicas (and model-replicated leaves), and each
+    sync kernel's launches equal to the plan's count (the data sync's,
+    plus ``extra_psums`` model-axis all-reduces of p-1 combines each, a
+    rank a step; ZeRO's squared norm is a second all-reduced scalar; 0
+    for a run with the plain sync ops)."""
     from repro_torch.tree import leaves
     same = _replicas_check(mesh, model, states)
     plan, _ = planned_launches(session.engine, leaves(states[0]["params"]),
-                               [metrics["loss"]], TRAIN_RANKS, False)
+                               [metrics["loss"]] * (2 if zero else 1),
+                               TRAIN_RANKS, sync == "compressed")
     per = plan["sum_chunks"][0] + extra_psums * (TP_MODEL - 1)
     want = per * mesh.size * TRAIN_STEPS if kernels else 0
     print(f"[{phase}]   {tag}: sum_chunks {counts['sum_chunks']} launches; "
@@ -2634,6 +2669,146 @@ def _train_check(phase, tag, model, mesh, session, states, metrics, counts,
     if counts["sum_chunks"] != want:
         raise AssertionError(f"{tag}: sum_chunks launched "
                              f"{counts['sum_chunks']} times, plan {want}")
+    for name in SYNC_KERNELS[1:]:
+        per_q, formula = plan.get(name, (0, "not on this path"))
+        want_q = per_q * mesh.size * TRAIN_STEPS if kernels else 0
+        if per_q and kernels:
+            print(f"[{phase}]   {tag}: {name} {counts[name]} launches; plan "
+                  f"{want_q} = {per_q} a rank a step x {mesh.size} ranks x "
+                  f"{TRAIN_STEPS} steps ({formula})")
+        if counts[name] != want_q or (sync == "compressed" and kernels
+                                      and not want_q):
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} "
+                                 f"times, plan {want_q}")
+
+
+def _adafactor(lr: float, **kw):
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    return make_optimizer("adafactor", lr=cosine_schedule(
+        lr, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS), **kw)
+
+
+def adafactor_psums(model, opt) -> int:
+    """Model-axis all-reduces the Adafactor ``opt``'s update adds a rank
+    a step (the trainer's ``split_sum`` hook, p-1 ``sum_chunks`` launches
+    each), read off ``opt``'s own state of the global params and
+    ``sharding.leaf_split``: per leaf split over "model" its RMS clip's
+    sum of squares, one for each statistic left whole by a mean over the
+    split dim, and the normaliser's mean over a ``vr`` split at -1."""
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.tree import flatten
+    lay = model.layout
+    state = opt.init(build_model(model.cfg).abstract_params())
+    stats = {}
+    for path in flatten({"opt": state})[1]:
+        if path[1] == "f":
+            pp = sharding.opt_leaf(path, lay)[0]
+            stats.setdefault(pp, {})[path[-1]] = sharding.leaf_split(path,
+                                                                     lay)
+    n = 0
+    for pp, split in stats.items():
+        if sharding.leaf_split(pp, lay) is None:
+            continue
+        n += 1                                          # the RMS clip
+        n += sum(split.get(k, 0) is None for k in ("vr", "vc"))  # means
+        n += split.get("vr") == -1                      # the normaliser
+    return n
+
+
+def _large_workload(phase, arch, layers):
+    """``arch`` at its published widths cut to ``layers`` layers, random
+    bf16 weights from seed 0 on the card, [train]'s data: (model,
+    initial params, mesh, dataset)."""
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import leaves
+    full = get_config(arch)
+    cfg = with_num_layers(full, layers)
+    model = build_model(cfg)
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    mesh = substrate.make_host_mesh(TRAIN_RANKS, device="cuda")
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=0)
+    print(f"[{phase}] {cfg.name} d_model={cfg.d_model} "
+          f"{_mixer_desc(cfg)} {_ffn_desc(cfg)} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers} of {full.num_layers}: "
+          f"{model.param_count() / 1e9:.3f}B params "
+          f"({_nbytes(leaves(init)) / 1e9:.2f} GB bf16 a replica); "
+          f"{dict(mesh.shape)}, seq {TRAIN_SEQ}, global batch "
+          f"{TRAIN_BATCH}; {card()}")
+    return model, init, mesh, ds
+
+
+def _large_run(phase, tag, model, init, mesh, ds, opt, sync="composed",
+               plain=False, extra_psums=0, **cfg):
+    """One run through ``_mesh_run``, printed and checked as
+    ``_train_check`` checks it, its peak held below 95% of the card.
+    Returns (losses, grad norms, step ms, peak GiB, launches, rank 0's
+    params, states)."""
+    (losses, step_s, first_s, peak, counts, session, step_fn, states,
+     metrics) = _mesh_run(model, init, mesh, ds, opt, sync, plain=plain,
+                          **cfg)
+    print(f"[{phase}] {tag}: losses {losses}; step {step_s * 1e3:.1f} ms "
+          f"(steps 2-{TRAIN_STEPS}; first {first_s * 1e3:.1f} ms) = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+          f"allocated {peak / 2**30:.2f} GiB")
+    if not peak < 0.95 * torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError(f"{tag}: peak {peak} near the card")
+    _train_check(phase, tag, model, mesh, session, states, metrics, counts,
+                 losses, not plain, extra_psums, sync=sync,
+                 zero=cfg.get("zero", False))
+    del session, step_fn
+    return (losses, metrics["grad_norms"], step_s * 1e3, peak / 2**30,
+            counts, states)
+
+
+def _kernels_plain_low_lr(phase, model, init, mesh, ds, make_opt,
+                          check=None, **cfg):
+    """The three runs every large-arch phase makes: data-parallel
+    composed with the sync kernels and with the plain sync ops (the same
+    bits), then at LOW_LR (the last step's loss below the first's).
+    ``check(params)``, given the kernel run's rank-0 params before they
+    are dropped, returns more numbers.  Returns (the kernel run's
+    numbers, its launches)."""
+    import gc
+    from repro_torch.tree import leaves
+    kept = {}
+    for on in (True, False):
+        tag = f"data-parallel, {'kernels' if on else 'plain'}"
+        losses, norms, step_ms, peak, counts, states = _large_run(
+            phase, tag, model, init, mesh, ds, make_opt(TRAIN_LR),
+            plain=not on, **cfg)
+        kept[on] = (losses, states[0]["params"])
+        if on:
+            numbers = dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                           peak_gib=peak)
+            launches = counts
+        del states
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l_on, p_on), (l_off, p_off) = kept[True], kept.pop(False)
+    same = l_on == l_off and all(
+        _bits_equal(a, b) for a, b in zip(leaves(p_on), leaves(p_off)))
+    print(f"[{phase}] the kernel and plain runs give bit-identical losses "
+          f"and parameters: {same}")
+    if not same:
+        raise AssertionError(f"{phase}: kernel and plain runs differ")
+    if check is not None:
+        numbers.update(check(p_on))
+    del kept, p_on, p_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = _large_run(phase, f"data-parallel, kernels, lr {LOW_LR}",
+                        model, init, mesh, ds, make_opt(LOW_LR), **cfg)[0]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: lr {LOW_LR}: losses {losses} do not "
+                             "fall")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers, launches
 
 
 def phase_train_moe():
@@ -2647,63 +2822,16 @@ def phase_train_moe():
     must follow the data-parallel run's within ``TP_LOSS_RTOL`` and
     ``TP_NORM_RTOL``.  Returns ({"sum_chunks": launches}, numbers)."""
     import gc
-    from repro_torch.configs import get_config, with_num_layers
-    from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import build_model
     from repro_torch.runtime import substrate
-    from repro_torch.tree import leaves
-    cfg = with_num_layers(get_config(MOE_ARCH), TRAIN_LAYERS)
-    model = build_model(cfg)
-    init = model.init(torch.Generator(device="cuda").manual_seed(0))
-    mesh = substrate.make_host_mesh(TRAIN_RANKS, device="cuda")
-    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                            global_batch=TRAIN_BATCH, seed=0)
-    print(f"[train_moe] {cfg.name} d_model={cfg.d_model} heads="
-          f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} head_dim="
-          f"{cfg.attn.head_dim} {_ffn_desc(cfg)} vocab={cfg.vocab_size} "
-          f"layers={cfg.num_layers}: {model.param_count() / 1e9:.3f}B params"
-          f" ({_nbytes(leaves(init)) / 1e9:.2f} GB); {TRAIN_RANKS} ranks, "
-          f"seq {TRAIN_SEQ}, global batch {TRAIN_BATCH}")
-    numbers, launches, kept = {}, 0, {}
-    for tag, on, lr in (("data-parallel, kernels", True, TRAIN_LR),
-                        ("data-parallel, plain", False, TRAIN_LR),
-                        (f"data-parallel, kernels, lr {LOW_LR}", True,
-                         LOW_LR)):
-        (losses, step_s, first_s, peak, counts, session, step_fn, states,
-         metrics) = _mesh_run(model, init, mesh, ds, _adamw(lr),
-                              "composed", plain=not on)
-        print(f"[train_moe] {tag}: losses {losses}; step "
-              f"{step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; first "
-              f"{first_s * 1e3:.1f} ms) = "
-              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
-              f"allocated {peak / 2**30:.2f} GiB")
-        _train_check("train_moe", tag, model, mesh, session, states,
-                     metrics, counts, losses, on)
-        if on and lr == TRAIN_LR:
-            launches += counts["sum_chunks"]
-            numbers.update(dp_step_ms=step_s * 1e3, dp_peak_gib=peak / 2**30,
-                           dp_losses=losses,
-                           dp_grad_norms=metrics["grad_norms"])
-        if lr == TRAIN_LR:
-            kept[on] = (losses, leaves(states[0]["params"]))
-        del states, step_fn, session, metrics
-        if len(kept) == 2:
-            (l_on, p_on), (l_off, p_off) = kept.pop(True), kept.pop(False)
-            same = l_on == l_off and all(_bits_equal(a, b)
-                                         for a, b in zip(p_on, p_off))
-            print(f"[train_moe] the kernel and plain runs give "
-                  f"bit-identical losses and parameters: {same}")
-            if not same:
-                raise AssertionError("train_moe: kernel and plain runs "
-                                     "differ")
-            del p_on, p_off
-        # each step takes the next batch, whose loss differs: the last
-        # step's loss must be below the first's
-        if lr == LOW_LR and not losses[-1] < losses[0]:
-            raise AssertionError(f"lr {LOW_LR}: losses {losses} do not "
-                                 "fall")
-        gc.collect()
-        torch.cuda.empty_cache()
+    model, init, mesh, ds = _large_workload("train_moe", MOE_ARCH,
+                                            TRAIN_LAYERS)
+    cfg = model.cfg
+    dp, dp_counts = _kernels_plain_low_lr("train_moe", model, init, mesh,
+                                          ds, _adamw)
+    launches = dp_counts["sum_chunks"]
+    numbers = dict(dp_step_ms=dp["step_ms"], dp_peak_gib=dp["peak_gib"],
+                   dp_losses=dp["losses"], dp_grad_norms=dp["grad_norms"])
 
     ep_model = build_model(cfg, model_parallel=TP_MODEL)
     ep_mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
@@ -2745,6 +2873,139 @@ def phase_train_moe():
     gc.collect()
     torch.cuda.empty_cache()
     return {"sum_chunks": launches}, numbers
+
+
+def phase_train_adafactor():
+    """[train_adafactor]: mistral-large-123b at its published widths cut
+    to TRAIN_LAYERS of 88 layers, random bf16 weights from seed 0,
+    [train]'s data, Adafactor (the reference's optimizer for it):
+    data-parallel composed with the sync kernels and plain
+    (bit-identical) and at LOW_LR (the loss falls); ZeRO-1 (each rank's
+    flat chunks unfactored); (data 2, model 2) with
+    ``check_model_replicas``, its losses and gradient norms within
+    ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of the data-parallel run's, its
+    model-axis all-reduces Adafactor's split sums besides [train_tp]'s;
+    and compressed at ADAFACTOR_COMPRESSED_LAYERS layers.  Returns
+    ({kernel: launches}, numbers)."""
+    import gc
+    model, init, mesh, ds = _large_workload(
+        "train_adafactor", ADAFACTOR_ARCH, TRAIN_LAYERS)
+    dp, dp_counts = _kernels_plain_low_lr(
+        "train_adafactor", model, init, mesh, ds, _adafactor)
+    launches = {"sum_chunks": dp_counts["sum_chunks"]}
+    numbers = {"dp": dp}
+    out = _large_run("train_adafactor", "ZeRO-1, kernels", model, init,
+                     mesh, ds, _adafactor(TRAIN_LR), zero=True,
+                     overlap=True)
+    kinds = {k for k in out[5][0]["opt"]["f"]["lm_head"]}
+    print(f"[train_adafactor]   ZeRO-1: lm_head's statistics a rank "
+          f"{sorted(kinds)} (flat chunks: unfactored)")
+    if kinds != {"v"}:
+        raise AssertionError(f"ZeRO-1 chunks factored: {kinds}")
+    launches["sum_chunks"] += out[4]["sum_chunks"]
+    numbers["zero"] = dict(losses=out[0], step_ms=out[2], peak_gib=out[3])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    tp_model = build_model(model.cfg, model_parallel=TP_MODEL)
+    tp_mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
+                                       device="cuda")
+    n_ada = adafactor_psums(tp_model, _adafactor(TRAIN_LR))
+    extra = tp_psums(tp_model) + n_ada
+    print(f"[train_adafactor] on {dict(tp_mesh.shape)}: "
+          f"{n_ada} of Adafactor's model-axis sums a "
+          f"rank a step beside the model's {tp_psums(tp_model)}")
+    out = _large_run("train_adafactor", "(data 2, model 2), kernels",
+                     tp_model, init, tp_mesh, ds, _adafactor(TRAIN_LR),
+                     extra_psums=extra, check_model_replicas=True)
+    losses, norms = out[0], out[1]
+    launches["sum_chunks"] += out[4]["sum_chunks"]
+    numbers["tp"] = dict(losses=losses, grad_norms=norms, step_ms=out[2],
+                         peak_gib=out[3])
+    del out
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, dp["losses"])]
+    print(f"[train_adafactor] (data 2, model 2) against data-parallel: "
+          f"{losses} vs {dp['losses']}; rel err "
+          f"{['%.3e' % e for e in errs]} (tol {TP_LOSS_RTOL})")
+    if not max(errs) <= TP_LOSS_RTOL:
+        raise AssertionError(f"model-parallel losses {losses} vs "
+                             f"{dp['losses']}")
+    _norms_check("train_adafactor", "(data 2, model 2) against "
+                 "data-parallel", norms, dp["grad_norms"], TP_NORM_RTOL)
+    del init, model, tp_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, init, mesh, ds = _large_workload(
+        "train_adafactor", ADAFACTOR_ARCH, ADAFACTOR_COMPRESSED_LAYERS)
+    out = _large_run("train_adafactor",
+                     f"compressed, kernels, {ADAFACTOR_COMPRESSED_LAYERS} "
+                     f"layer", model, init, mesh, ds, _adafactor(TRAIN_LR),
+                     sync="compressed")
+    launches.update({k: out[4][k] for k in SYNC_KERNELS[1:]})
+    numbers["compressed"] = dict(losses=out[0], step_ms=out[2],
+                                 peak_gib=out[3])
+    del out, init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def phase_train_deepseek():
+    """[train_deepseek]: deepseek-v3-671b at its published widths cut to
+    its first TRAIN_LAYERS layers (dense MLA) and the MTP block (MLA and
+    a dense FFN), random bf16 weights from seed 0, [train]'s data,
+    Adafactor with the reference's settings (gradients accumulated in
+    bf16 over 2 microbatches; 8 cut to 2: a rank holds 2 rows):
+    data-parallel composed, kernels and plain (bit-identical) and at
+    LOW_LR (the loss falls); the MTP metric of the trained params finite.
+    Returns ({"sum_chunks": launches}, numbers)."""
+    import gc
+    model, init, mesh, ds = _large_workload(
+        "train_deepseek", DEEPSEEK_ARCH, TRAIN_LAYERS)
+
+    def mtp_finite(params):
+        with torch.no_grad():
+            batch = {k: torch.from_numpy(v[:1]).cuda()
+                     for k, v in ds.host_batch(TRAIN_STEPS).items()}
+            _, m = model.loss(params, batch)
+        mtp = m["mtp"].item()
+        print(f"[train_deepseek] the kernel run's params' metrics on the "
+              f"next batch's first row: nll {m['nll'].item():.4f}, mtp "
+              f"{mtp:.4f}")
+        if not np.isfinite(mtp):
+            raise AssertionError(f"mtp {mtp}")
+        return {"mtp": mtp}
+
+    dp, counts = _kernels_plain_low_lr(
+        "train_deepseek", model, init, mesh, ds, _adafactor,
+        check=mtp_finite, microbatches=2, grad_dtype=torch.bfloat16)
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": counts["sum_chunks"]}, dp
+
+
+def phase_train_mamba2():
+    """[train_mamba2]: mamba2-1.3b at its published widths cut to
+    MAMBA2_TRAIN_LAYERS of 48 layers (its full depth does not fit two
+    replicas' training), random bf16 weights from seed 0, [train]'s data
+    (seq 2048: a multiple of the SSD chunk), AdamW (the reference's
+    optimizer for it): data-parallel composed, kernels and plain
+    (bit-identical) and at LOW_LR (the loss falls).  Returns
+    ({"sum_chunks": launches}, numbers)."""
+    import gc
+    model, init, mesh, ds = _large_workload(
+        "train_mamba2", MAMBA2_ARCH, MAMBA2_TRAIN_LAYERS)
+    dp, counts = _kernels_plain_low_lr(
+        "train_mamba2", model, init, mesh, ds, _adamw)
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": counts["sum_chunks"]}, dp
 
 
 def phase_train_pod():
@@ -3952,6 +4213,11 @@ def main() -> int:
     by_path["train_tp"], _ = timed("train_tp", phase_train_tp, train)
     by_path["train_pod"], _ = timed("train_pod", phase_train_pod)
     by_path["train_moe"], _ = timed("train_moe", phase_train_moe)
+    by_path["train_adafactor"], _ = timed("train_adafactor",
+                                          phase_train_adafactor)
+    by_path["train_deepseek"], _ = timed("train_deepseek",
+                                         phase_train_deepseek)
+    by_path["train_mamba2"], _ = timed("train_mamba2", phase_train_mamba2)
     timed("ckpt", phase_ckpt)
     by_path["elastic_train"], _ = timed("elastic_train",
                                         phase_elastic_train)

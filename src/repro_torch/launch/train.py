@@ -19,6 +19,9 @@ in-process ranks on one device.
         --arch granite-34b --reduced --data 4 --model-parallel 2 \\
         --ckpt-dir /tmp/ck --ckpt-sharded --elastic --fault-plan lose@5:2 \\
         --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch mistral-large-123b --reduced --optimizer adafactor \\
+        --data 2 --model-parallel 2 --steps 8   # the large archs' optimizer
 
 Counterpart of ``repro.launch.train``: synthetic data -> the §2.2 scan
 and composed session (``build_session``) -> ``--data`` x
@@ -31,6 +34,9 @@ buckets (``--bucket-grads``), blocking or as an overlapped schedule-IR
 program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
 checkpoints (``--ckpt-dir``) in the reference's global layout, which
 restore onto another ``--data`` or ``--model-parallel`` width.
+``--optimizer`` is ``adamw`` (the default) or ``adafactor``, as the
+reference's launcher takes it; ZeRO-1 with Adafactor refuses a
+``--model-parallel`` above 1.
 ``--elastic`` hands the loop to ``ElasticController``: injected faults
 (``--fault-plan``), SIGTERM as a preemption notice, and with
 ``--ctrl-peers`` the control plane's epoch-fenced vote; it re-meshes
@@ -166,6 +172,10 @@ def main(argv=None) -> None:
                     help="tensor-parallel ranks a data rank (the mesh's "
                          "\"model\" axis; --data x --model-parallel "
                          "threads)")
+    ap.add_argument("--optimizer", choices=["adamw", "adafactor"],
+                    default="adamw",
+                    help="adafactor: the factored second moment the "
+                         "reference trains its 123B-671B archs with")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -205,8 +215,8 @@ def main(argv=None) -> None:
     logger.info("mesh: %s  model: %s (%.2fM params)", mesh, model.name,
                 model.param_count() / 1e6)
     opt = make_optimizer(
-        "adamw", lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 1),
-                                    total=args.steps))
+        args.optimizer, lr=cosine_schedule(
+            args.lr, warmup=max(args.steps // 20, 1), total=args.steps))
     tcfg = trainer.TrainCfg(microbatches=args.microbatches,
                             sync_mode=args.sync,
                             bucket_grads=args.bucket_grads,

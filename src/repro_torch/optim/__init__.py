@@ -1,7 +1,9 @@
-from repro_torch.optim.optimizer import (AdamWCfg, Optimizer,
+from repro_torch.optim.optimizer import (AdafactorCfg, AdamWCfg, Optimizer,
                                          clip_by_global_norm,
                                          cosine_schedule, global_norm,
-                                         make_adamw, make_optimizer)
+                                         make_adafactor, make_adamw,
+                                         make_optimizer)
 
-__all__ = ["AdamWCfg", "Optimizer", "clip_by_global_norm",
-           "cosine_schedule", "global_norm", "make_adamw", "make_optimizer"]
+__all__ = ["AdafactorCfg", "AdamWCfg", "Optimizer", "clip_by_global_norm",
+           "cosine_schedule", "global_norm", "make_adafactor", "make_adamw",
+           "make_optimizer"]

@@ -1,24 +1,43 @@
-"""Optimizers: AdamW, with global-norm clipping and a cosine schedule.
+"""Optimizers: AdamW and Adafactor, with global-norm clipping and a
+cosine schedule.
 
-Counterpart of ``repro.optim.optimizer`` (AdamW; Adafactor arrives with
-a later slice).  Same API: ``state = opt.init(params)``;
-``params, state, metrics = opt.update(grads, state, params)``.  The
-update runs in f32 whatever the param and state dtypes, in the
-reference's operation order; the learning rate is computed in f32
-tensors as the reference computes it in jnp.
+Counterpart of ``repro.optim.optimizer``.  Same API: ``state =
+opt.init(params)``; ``params, state, metrics = opt.update(grads, state,
+params)``.  The update runs in f32 whatever the param and state dtypes,
+in the reference's operation order; the learning rate is computed in
+f32 tensors as the reference computes it in jnp.  Adafactor's state is
+the reference's tree (``{"f": <per param {"vr", "vc"} or {"v"}>,
+"step"}``, all f32), so checkpoints cross.
 
 The update writes the new params and moments INTO the tensors it is
 given (the reference returns new trees), slice by slice, clipping each
 slice's gradient as it goes: a replica of a large model then never holds
 two copies of its params, moments or gradients, nor f32 temporaries of
-more than one slice.  It runs under ``torch.no_grad``.
+more than one slice.  It runs under ``torch.no_grad``.  Adafactor's
+means and its update-RMS clip span a whole leaf (one layer of it where
+the reference's ``_map_leading`` maps the leaf), so it reads each
+leaf's gradient in three passes of slices: the factored means, the
+update's sum of squares, and the update itself, clipped.  Its sums run
+in another order than the reference's: params and state agree to f32
+rounding, not bit for bit.
 
-The update is elementwise (clipping aside), so it runs unchanged on
+AdamW's update is elementwise (clipping aside), so it runs unchanged on
 ZeRO-1's flat, padded per-rank chunks (``repro_torch.train.trainer``):
 ``init`` over the chunk leaves gives a rank its 1/p of the moments, and
 ``update(..., global_norm_fn=...)`` takes the norm the ranks computed
-together.  Padding stays zero: a zero gradient moves a zero param by
-nothing.
+together.  Adafactor runs on the chunks as the reference's runs inside
+its ``shard_map``: 1-D chunks take the unfactored branch, and the RMS
+clip is over the rank's chunk.  Padding stays zero: a zero gradient
+moves a zero param by nothing.
+
+With a "model" axis each rank updates its block of a split leaf, and
+Adafactor's reductions over a split dim must span the whole leaf:
+``update(..., split_sum=fn)`` takes the trainer's hook,
+``fn(i, x, over) -> (sum, blocks)``, which sums a partial ``x`` of leaf
+``i``'s reduction over its columns (``over="cols"``), rows
+(``"rows"``) or all of it (``"all"``) across the ranks holding the
+other blocks of that dim, and says how many blocks were summed (1 where
+nothing crosses).  AdamW has no such reduction and ignores it.
 """
 
 from __future__ import annotations
@@ -78,6 +97,10 @@ class AdamWCfg:
 #: values updated at a time: the f32 temporaries of one slice, not of a
 #: whole 302 M-value embedding, are alive at once
 UPDATE_SLICE = 1 << 24
+#: the reference's ``_map_leading`` threshold: Adafactor updates a leaf
+#: of ndim >= 3 whose leading (stacked-layers) dim exceeds it one leading
+#: slice at a time, each slice with its own means and RMS clip
+MAP_LEADING = 4
 
 
 def _adamw_slice(cfg, p, g, m, v, bc1, bc2, lr, clip=None) -> None:
@@ -117,7 +140,7 @@ def make_adamw(cfg: AdamWCfg) -> Optimizer:
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params, global_norm_fn=None):
+    def update(grads, state, params, global_norm_fn=None, split_sum=None):
         step = state["step"] + 1
         gnorm = (global_norm_fn or global_norm)(grads)
         if cfg.clip_norm:
@@ -146,7 +169,181 @@ def make_adamw(cfg: AdamWCfg) -> Optimizer:
     return Optimizer(init=init, update=update, name="adamw")
 
 
+# ---------------------------------------------------------------------------
+# Adafactor
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AdafactorCfg:
+    lr: Callable | float = 1e-2
+    decay: float = 0.8                  # beta2(t) = 1 - t^-decay
+    eps: float = 1e-30
+    clip_threshold: float = 1.0         # update RMS clip (per tensor)
+    weight_decay: float = 0.0
+    clip_norm: float = 0.0              # 0 = rely on update clipping
+    min_dim_factored: int = 128         # don't factor tiny tensors
+
+
+def _factored(shape, min_dim: int = 128) -> bool:
+    return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
+
+
+def _groups(shape) -> int:
+    """The leaf's clip groups: its leading slices where the reference's
+    ``_map_leading`` maps it, else 1 (the whole leaf)."""
+    return shape[0] if len(shape) >= 3 and shape[0] > MAP_LEADING else 1
+
+
+def _spans(outer: int, inner: int, width: int):
+    """Slices (over ``outer``, over ``inner``) of a leaf viewed as
+    ``(outer, inner, width)`` that cover it with at most about
+    UPDATE_SLICE values each: whole ``outer`` items together where one
+    is small, else one item in runs of ``inner``."""
+    per = inner * width
+    if per <= UPDATE_SLICE:
+        k = max(1, UPDATE_SLICE // per)
+        return [(slice(o, o + k), slice(None)) for o in range(0, outer, k)]
+    step = max(1, UPDATE_SLICE // width)
+    return [(slice(o, o + 1), slice(i, i + step)) for o in range(outer)
+            for i in range(0, inner, step)]
+
+
+def _local_sum(x, over):
+    return x, 1
+
+
+class _AdafactorLeaf:
+    """One leaf's Adafactor update, in place, in the reference's
+    arithmetic; ``reduce(x, over)`` is the leaf's model-axis hook."""
+
+    def __init__(self, cfg, beta2, lr, clip, reduce):
+        self.cfg, self.beta2, self.lr, self.clip = cfg, beta2, lr, clip
+        self.reduce = reduce
+
+    def grad(self, g):
+        """f32 gradient of a slice, clipped in its own dtype first, as
+        ``clip_by_global_norm`` does."""
+        if self.clip is not None:
+            g = (g.float() * self.clip).to(g.dtype)
+        return g.float()
+
+    def clip_div(self, sq, n):
+        """Each group's ``max(1, rms / clip_threshold)`` from its sum of
+        squares ``sq`` over ``n`` values a model block."""
+        sq, k = self.reduce(sq, "all")
+        rms = torch.sqrt(sq / (n * k) + 1e-30)
+        return torch.clamp(rms / self.cfg.clip_threshold, min=1.0)
+
+    def apply(self, p, u):
+        pf = p.float()
+        pf = pf - self.lr * (u + self.cfg.weight_decay * pf)
+        p.copy_(pf)
+
+    def factored(self, p, g, vr, vc):
+        cfg, beta2, eps = self.cfg, self.beta2, self.cfg.eps
+        R, C = p.shape[-2:]
+        M = p.numel() // (R * C)            # the leaf's matrices
+        G = _groups(p.shape)
+        pm, gm = p.view(M, R, C), g.reshape(M, R, C)
+        vrm, vcm = vr.view(M, R), vc.view(M, C)
+        spans = _spans(M, R, C)
+        row, col = torch.empty_like(vrm), torch.zeros_like(vcm)
+        for ms, rs in spans:
+            gf = self.grad(gm[ms, rs])
+            g2 = gf * gf + eps
+            row[ms, rs] = g2.sum(-1)
+            col[ms] += g2.sum(-2)
+        row, kc = self.reduce(row, "cols")
+        col, kr = self.reduce(col, "rows")
+        vrm.copy_(beta2 * vrm + (1 - beta2) * (row / (C * kc)))
+        vcm.copy_(beta2 * vcm + (1 - beta2) * (col / (R * kr)))
+        vsum, _ = self.reduce(vrm.sum(-1), "rows")
+        norm = torch.sqrt(torch.clamp(vsum / (R * kr), min=eps))
+        r_inv = torch.rsqrt(torch.clamp(vrm, min=eps))
+        c_inv = torch.rsqrt(torch.clamp(vcm, min=eps))
+
+        def upd(ms, rs):
+            return (self.grad(gm[ms, rs]) * r_inv[ms, rs, None]
+                    * c_inv[ms, None, :] * norm[ms, None, None])
+
+        sq = torch.zeros(M, dtype=torch.float32, device=p.device)
+        for ms, rs in spans:
+            sq[ms] += upd(ms, rs).square().sum((-2, -1))
+        div = self.clip_div(sq.view(G, M // G).sum(1), p.numel() // G)
+        div = div.repeat_interleave(M // G)
+        for ms, rs in spans:
+            self.apply(pm[ms, rs], upd(ms, rs) / div[ms, None, None])
+
+    def unfactored(self, p, g, v):
+        beta2, eps = self.beta2, self.cfg.eps
+        G = _groups(p.shape)
+        n = p.numel() // G
+        pm, gm, vm = p.view(G, n), g.reshape(G, n), v.view(G, n)
+        spans = _spans(G, n, 1)
+        sq = torch.zeros(G, dtype=torch.float32, device=p.device)
+        for gs, es in spans:
+            gf = self.grad(gm[gs, es])
+            vf = beta2 * vm[gs, es] + (1 - beta2) * (gf * gf + eps)
+            vm[gs, es] = vf
+            sq[gs] += (gf * torch.rsqrt(torch.clamp(vf, min=eps))
+                       ).square().sum(-1)
+        div = self.clip_div(sq, n)
+        for gs, es in spans:
+            u = self.grad(gm[gs, es]) * torch.rsqrt(
+                torch.clamp(vm[gs, es], min=eps))
+            self.apply(pm[gs, es], u / div[gs, None])
+
+
+def make_adafactor(cfg: AdafactorCfg) -> Optimizer:
+    def init(params):
+        def leaf(p):
+            f32 = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                            device=p.device)
+            if _factored(p.shape, cfg.min_dim_factored):
+                return {"vr": f32(p.shape[:-1]),
+                        "vc": f32(p.shape[:-2] + p.shape[-1:])}
+            return {"v": f32(p.shape)}
+        return {"f": map_tree(leaf, params),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def update(grads, state, params, global_norm_fn=None, split_sum=None):
+        step = state["step"] + 1
+        gnorm = (global_norm_fn or global_norm)(grads)
+        t = step.to(torch.float32)
+        beta2 = 1.0 - torch.pow(t, -cfg.decay)
+        lr = _lr_at(cfg.lr, step)
+        clip = _clip_scale(cfg.clip_norm, gnorm) if cfg.clip_norm else None
+        ps, paths = flatten(params)
+        gs = flatten(grads)[0]
+        for i, (p, g, path) in enumerate(zip(ps, gs, paths)):
+            s = _subtree(state["f"], path)
+            dev = p.device
+            reduce = (_local_sum if split_sum is None else
+                      (lambda x, over, i=i: split_sum(i, x, over)))
+            leaf = _AdafactorLeaf(cfg, beta2.to(dev), lr.to(dev),
+                                  None if clip is None else clip.to(dev),
+                                  reduce)
+            if "vr" in s:
+                leaf.factored(p, g, s["vr"], s["vc"])
+            else:
+                leaf.unfactored(p, g, s["v"])
+        new_state = {"f": state["f"], "step": step}
+        return unflatten(paths, ps), new_state, {"grad_norm": gnorm,
+                                                 "lr": lr}
+
+    return Optimizer(init=init, update=update, name="adafactor")
+
+
+def _subtree(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def make_optimizer(name: str, **kwargs) -> Optimizer:
     if name == "adamw":
         return make_adamw(AdamWCfg(**kwargs))
-    raise ValueError(f"optimizer {name!r}: only adamw is ported")
+    if name == "adafactor":
+        return make_adafactor(AdafactorCfg(**kwargs))
+    raise ValueError(f"unknown optimizer {name!r}")

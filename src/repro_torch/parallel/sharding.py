@@ -27,7 +27,8 @@ partitioner, so it states the same Megatron-style split explicitly:
 - ``shard_params`` / ``unshard_params`` give a rank's shard of a full
   parameter tree and gather the shards back; they take a whole train
   state too, whose AdamW moments and per-leaf EF residual mirror their
-  parameter's split (a leaf's path ends in its parameter's path).
+  parameter's split (a leaf's path ends in its parameter's path) and
+  whose Adafactor statistics split as ``opt_leaf`` says.
   ``leaf_block`` / ``leaf_box`` are one leaf's block and its global box:
   the trainer's checkpoint layout (``train.trainer.gather_state``) is
   built from them.
@@ -139,8 +140,12 @@ def layout(cfg, model: int) -> TPLayout:
 
 
 def leaf_split(path, lay: TPLayout) -> Optional[int]:
-    """The dim (negative, from the end) of the leaf at ``path`` that a
-    model rank holds a block of, or None for a replicated leaf."""
+    """The dim (negative, from the end) of the leaf at ``path`` (in a
+    params tree or a train state) that a model rank holds a block of, or
+    None for a replicated leaf; an Adafactor statistic's as ``opt_leaf``
+    says."""
+    if path[0] == "opt" and path[1] == "f":
+        return opt_leaf(path, lay)[1]
     name = path[-1]
     if lay.model == 1 or (name in _KV and lay.kv_replicated):
         return None
@@ -151,6 +156,32 @@ def leaf_split(path, lay: TPLayout) -> Optional[int]:
     if name in _ROW:
         return -2
     return None
+
+
+def opt_leaf(path, lay: Optional[TPLayout]
+             ) -> Tuple[Tuple[Any, ...], Optional[int]]:
+    """The optimizer-state leaf at ``path`` in a train state
+    (``("opt", key, *param_path)`` of an AdamW moment, ``("opt", "f",
+    *param_path, stat)`` of Adafactor's statistic, ``("opt", "step")``):
+    its param's path and the dim (negative) of the leaf a model rank
+    holds a block of, or None (always without a ``lay``).  An AdamW
+    moment and Adafactor's ``v`` split as their param.  Adafactor's
+    ``vr`` (the param without its last dim) and ``vc`` (without its
+    second-to-last) keep the split dim where they keep it: ``vr`` of a
+    column-split param is whole and of a row-split one split at -1,
+    ``vc`` the other way round, and both of an expert stack (split at
+    -3) split at -2."""
+    if path[1] != "f":
+        pp = tuple(path[2:])
+        return pp, None if lay is None else leaf_split(path, lay)
+    pp, stat = tuple(path[2:-1]), path[-1]
+    d = None if lay is None else leaf_split(pp, lay)
+    if d is None or stat == "v":
+        return pp, d
+    if d == -3:
+        return pp, -2
+    return pp, {("vr", -1): None, ("vr", -2): -1, ("vc", -1): -1,
+                ("vc", -2): None}[stat, d]
 
 
 def partial_sum_leaves(paths, lay: TPLayout) -> List[bool]:

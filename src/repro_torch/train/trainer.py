@@ -38,9 +38,14 @@ and the reference's ways of running that sync:
                scatter half of the planned all-reduce, each rank updates
                its chunk of a flat, padded optimizer state, and the
                updated param chunks all-gather back; both halves are
-               schedule-IR programs over persistent handles.  The update
-               is elementwise, so at ``clip_norm=0`` on a power-of-two
-               width the losses are bit-identical to the per-leaf path.
+               schedule-IR programs over persistent handles.  AdamW's
+               update is elementwise, so at ``clip_norm=0`` on a
+               power-of-two width the losses are bit-identical to the
+               per-leaf path.  Adafactor runs on the 1-D chunks as the
+               reference's does: unfactored, its RMS clip over the
+               rank's chunk (padding included), not across ranks; with
+               a "model" axis that clip would span each model rank's
+               block, not the reference's chunk, so that is refused.
 
 ``TrainSession`` bundles what survives a re-mesh (model, optimizer,
 ``TrainCfg``) for the elastic controller.
@@ -62,7 +67,12 @@ Two things cross the model axis, through the monolithic default session
 leaves every model rank computes a part of (the K/V projections
 replicated under MQA: ``sharding.partial_sum_leaves``) are summed over
 "model", without a mean, before the sync; and the global gradient norm
-adds the model ranks' squares of the split leaves.  Norm gradients are
+adds the model ranks' squares of the split leaves.  Adafactor's
+reductions over a split dim (its factored means and normaliser, its RMS
+clip) are summed over "model" too, through the optimizer's
+``split_sum`` hook (``_ModelAxis.split_sum``), and its state is the
+block of the global state, factored by the global shapes
+(``sharding.opt_leaf`` says where each statistic splits).  Norm gradients are
 the same on every model rank already: nothing sums them, and
 ``TrainCfg.check_model_replicas`` asserts it each step.
 
@@ -207,13 +217,25 @@ def make_train_state(model, optimizer, params: Params,
     and the EF residual start at zero, as in the reference.  With
     ``cfg.zero`` the optimizer state covers this rank's flat padded chunk
     of every param (``mesh=`` gives the width); it starts at zero on
-    every rank, so one state replicates to all."""
+    every rank, so one state replicates to all.  With a model axis
+    (``params`` a model rank's shard) the state is the block of the
+    global params' state: Adafactor factors a leaf by its global shape,
+    as the reference's does under GSPMD."""
     device = leaves(params)[0].device
     if cfg.zero:
         p = zero_layout(cfg, mesh)[1]
         opt = optimizer.init(map_tree(lambda l: torch.empty(
             (_zero_pad_len(l.numel(), p) // p,), dtype=l.dtype,
             device=device), params))
+    elif model.layout is not None:
+        whole = optimizer.init(
+            with_model_parallel(model, 1).abstract_params())
+        ls, paths = flatten(whole)
+        opt = unflatten(paths, [
+            torch.zeros(sharding.leaf_block(("opt",) + path, l,
+                                            model.layout, 0).shape,
+                        dtype=l.dtype, device=device)
+            if l.is_meta else l for path, l in zip(paths, ls)])
     else:
         opt = optimizer.init(params)
     state = {"params": params, "opt": opt,
@@ -414,7 +436,7 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
                 ([[k * c, (k + 1) * c]], per_rank[r][i])
                 for k, r in enumerate(groups[0])]))
         elif cfg.zero and _zero_opt_leaf(path):
-            shape = shapes[path[2:]]
+            shape = shapes[sharding.opt_leaf(path, lay)[0]]
             n = math.prod(shape)
             whole, _ = sharding.leaf_box(path, shape, lay, 0)
             flat = torch.empty(_zero_pad_len(math.prod(whole), p),
@@ -473,7 +495,7 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
         if d is None:
             x = l
         elif cfg.zero and _zero_opt_leaf(path):
-            shape = shapes[path[2:]]
+            shape = shapes[sharding.opt_leaf(path, lay)[0]]
             x = sharding.leaf_block(path, l[:math.prod(shape)].view(shape),
                                     lay, m).reshape(-1)
             x = torch.cat([x, x.new_zeros(
@@ -516,7 +538,8 @@ def logical_state(tree) -> Any:
     for path, l in zip(paths, ls):
         if isinstance(l, ShardedTensor):
             l = l.dense(device=l.shards[0][1].device)
-        n = sizes.get(path[2:]) if path[0] == "opt" else None
+        n = (sizes.get(sharding.opt_leaf(path, None)[0])
+             if path[0] == "opt" else None)
         out.append(l[:n] if n is not None and l.ndim == 1 else l)
     return unflatten(paths, out)
 
@@ -691,6 +714,14 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             f"of cfg.data_axes={cfg.data_axes} exist in the mesh axes "
             f"{mesh.axis_names}")
     tp = _model_axis(model, mesh)
+    if cfg.zero and tp is not None and optimizer.name == "adafactor":
+        raise ValueError(
+            "ZeRO-1 with Adafactor on a mesh with a \"model\" axis is not "
+            "ported: a rank's ZeRO chunks are of its model block of each "
+            "param, so Adafactor's update-RMS clip over a chunk (the "
+            "reference's, over the whole param's flat padded chunk) would "
+            "clip other values; use zero=False or AdamW on this mesh")
+    split_sum = None if tp is None else tp.split_sum
     if cfg.sync_mode == "auto":
         return _auto_train_step(model, optimizer, cfg, mesh, data_axes, tp)
     compress = cfg.sync_mode == "compressed"
@@ -838,7 +869,8 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             loss = scale_by(loss, dcomm.mean_scale())
             new_params, new_opt, om = optimizer.update(
                 grads, st["opt"], st["params"],
-                global_norm_fn=None if tp is None else tp.global_norm)
+                global_norm_fn=None if tp is None else tp.global_norm,
+                split_sum=split_sum)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": st["step"] + 1}
         if compress:
@@ -854,11 +886,33 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
 @dataclasses.dataclass(frozen=True)
 class _ModelAxis:
     """What the step does across a model axis, static in the param
-    layout: ``partial`` / ``split`` mark the gradient leaves that are
-    partial sums over the model ranks / a block of a split leaf."""
+    layout: ``partial`` marks the gradient leaves that are partial sums
+    over the model ranks, ``dims`` the dim each leaf is split at (None:
+    every model rank holds it whole), ``model`` the axis size."""
 
     partial: Tuple[bool, ...]
-    split: Tuple[bool, ...]
+    dims: Tuple[Optional[int], ...]
+    model: int
+
+    @property
+    def split(self) -> Tuple[bool, ...]:
+        """Per leaf: is it a block of a split leaf?"""
+        return tuple(d is not None for d in self.dims)
+
+    def split_sum(self, i: int, x: torch.Tensor, over: str
+                  ) -> Tuple[torch.Tensor, int]:
+        """The optimizer's hook (``optimizer.update(..., split_sum=)``):
+        ``x``, a partial of a reduction of leaf ``i`` over its columns
+        (``over="cols"``), rows (``"rows"``) or all of it (``"all"``),
+        summed over "model" when that reduction crosses the leaf's split
+        dim, with the number of blocks summed.  A replicated or
+        partial-sum leaf is whole on every rank, and an expert stack's
+        (split at -3) rows and columns are each rank's own."""
+        d = self.dims[i]
+        if d is None or (over == "cols" and d != -1) or (
+                over == "rows" and d != -2):
+            return x, 1
+        return sharding.psum(x), self.model
 
     def reduce_partials(self, grads):
         """Sum the partial-sum leaves over "model" (no mean)."""
@@ -912,7 +966,8 @@ def _model_axis(model, mesh) -> Optional[_ModelAxis]:
     paths = flatten(model.abstract_params())[1]
     return _ModelAxis(
         partial=tuple(sharding.partial_sum_leaves(paths, model.layout)),
-        split=tuple(sharding.sharded_leaves(paths, model.layout)))
+        dims=tuple(sharding.leaf_split(p, model.layout) for p in paths),
+        model=m)
 
 
 def _spmd_step(rank_step, mesh, data_axes) -> Callable:
@@ -965,7 +1020,8 @@ def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
                 loss = collectives.pmean(loss, a)
             new_params, new_opt, om = optimizer.update(
                 grads, st["opt"], st["params"],
-                global_norm_fn=None if tp is None else tp.global_norm)
+                global_norm_fn=None if tp is None else tp.global_norm,
+                split_sum=None if tp is None else tp.split_sum)
         return ({"params": new_params, "opt": new_opt,
                  "step": st["step"] + 1}, {"loss": loss, **om})
 

@@ -18,6 +18,14 @@ two packages.
   restores through ``repro.checkpoint.restore_checkpoint`` bit-equal;
   bf16 leaves cross both ways.  One child interpreter with 4 host
   devices does the reference's side.
+- Adafactor (reduced mistral-large-123b, ``min_dim_factored`` 32): a
+  (2, 2) run's state gathers to the paths and shapes of the reference's
+  ``make_train_state``, each leaf split over "model" where the
+  reference's ``state_specs`` puts "model" (``vr`` / ``vc`` included);
+  it scatters back onto (2, 2) and onto (1, 2) bit-equal and trains on;
+  ZeRO-1 saved per shard at data 4 restores at data 3; a
+  reference-written state restores through the port and a port-written
+  (2, 2) checkpoint through the reference, bit-equal (in this process).
 """
 
 import dataclasses
@@ -567,3 +575,145 @@ def test_train_cli_restores_onto_another_width(tmp_path):
     assert latest_step(d) == 3
     assert sorted(os.listdir(d)) == ["step_00000002", "step_00000003"]
 
+
+
+# ---------------------------------------------------------------------------
+# Adafactor's state in the checkpoint layout
+# ---------------------------------------------------------------------------
+
+AF_ARCH = "mistral-large-123b"
+
+
+def _adafactor_session(model_parallel, **cfg_kw):
+    """Reduced mistral-large-123b with Adafactor (``min_dim_factored``
+    32: the reduced widths factor) on ``model_parallel`` model ranks."""
+    return trainer.TrainSession(
+        build_model(get_config(AF_ARCH, reduced=True),
+                    model_parallel=model_parallel),
+        make_optimizer("adafactor", lr=1e-3, min_dim_factored=32),
+        trainer.TrainCfg(data_axes=("data",), **cfg_kw))
+
+
+def _adafactor_run(sess, mesh, steps=1, states=None):
+    cfg = sess.model.cfg
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=16,
+                            global_batch=12)
+    if states is None:
+        states = sess.init_state(torch.Generator().manual_seed(0), mesh=mesh)
+    step_fn = sess.step_fn(build_session(
+        mesh, sess.model_for(mesh), sess.optimizer, ds, sess.cfg).world)
+    for s in range(steps):
+        states, metrics = step_fn(states, ds.host_batch(s))
+        assert np.isfinite(metrics["loss"].item())
+    return states
+
+
+def _reference_adafactor():
+    """(the reference's model, optimizer and TrainCfg) of the reduced
+    arch, as ``_adafactor_session`` builds it."""
+    from repro.configs import get_config as jget_config
+    from repro.models import build_model as jbuild_model
+    from repro.optim import make_optimizer as jmake_optimizer
+    from repro.train import trainer as jtrainer
+    return (jbuild_model(jget_config(AF_ARCH, reduced=True)),
+            jmake_optimizer("adafactor", lr=1e-3, min_dim_factored=32),
+            jtrainer.TrainCfg())
+
+
+def test_adafactor_state_gathers_to_the_reference_tree():
+    """A (2, 2) run's state gathered: the paths and shapes of the
+    reference's ``make_train_state`` for Adafactor, and each leaf split
+    over "model" at the dim where the reference's ``state_specs`` puts
+    "model" (Adafactor's ``vr`` / ``vc`` included)."""
+    from jax.sharding import PartitionSpec as P
+    from repro.train import trainer as jtrainer
+    sess = _adafactor_session(2)
+    mesh = S.make_mesh((2, 2), ("data", "model"), device="cpu")
+    got = sess.gather(_adafactor_run(sess, mesh), mesh)
+    jmodel, jopt, jcfg = _reference_adafactor()
+    want = jtrainer.make_train_state(jmodel, jopt, abstract=True, cfg=jcfg)
+    specs = jtrainer.state_specs(jmodel, jopt, jcfg)
+    wpaths, wl = zip(*jax.tree_util.tree_flatten_with_path(want)[0])
+    sl = jax.tree_util.tree_leaves(specs,
+                                   is_leaf=lambda x: isinstance(x, P))
+    gl, gpaths = flatten(got)
+    assert gpaths == [tuple(k.key for k in p) for p in wpaths]
+    assert any(p[-1] == "vr" for p in gpaths)
+    lay = sess.model_for(mesh).layout
+    for path, g, w, spec in zip(gpaths, gl, wl, sl):
+        assert tuple(g.shape) == tuple(w.shape), path
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), path
+        entries = tuple(spec) + (None,) * (len(w.shape) - len(spec))
+        model_dims = [i - len(entries) for i, e in enumerate(entries)
+                      if e == "model"]
+        assert sharding.leaf_split(path, lay) == (
+            model_dims[0] if model_dims else None), path
+        assert isinstance(g, ShardedTensor) == bool(model_dims), path
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 2)])
+def test_adafactor_state_scatters_back_bit_equal(shape):
+    """Gathered on (2, 2), scattered onto ``shape`` and gathered again:
+    the same global tree, bit for bit, which trains on."""
+    sess = _adafactor_session(2)
+    mesh = S.make_mesh((2, 2), ("data", "model"), device="cpu")
+    tree = sess.gather(_adafactor_run(sess, mesh), mesh)
+    tree = unflatten(flatten(tree)[1], [t.clone() for t in _dense(tree)])
+    want = trainer.logical_state(tree)
+    new = S.make_mesh(shape, ("data", "model"), device="cpu")
+    states = sess.scatter(tree, new)
+    assert len(states) == new.size
+    _assert_trees_equal(trainer.logical_state(sess.gather(states, new)),
+                        want)
+    _adafactor_run(sess, new, states=states)
+
+
+def test_adafactor_zero_checkpoint_restores_onto_another_width(tmp_path):
+    """ZeRO-1 with Adafactor saved per shard at data 4, restored at data
+    3: the logical state (each flat statistic cut to its param's size)
+    bit-equal, and it trains."""
+    sess = _adafactor_session(1, zero=True, overlap=True)
+    mesh = S.make_mesh((4,), ("data",), device="cpu")
+    saved = sess.gather(_adafactor_run(sess, mesh), mesh)
+    assert all(p[-1] == "v" for p in flatten(saved["opt"]["f"])[1])
+    want = map_tree(lambda t: t.clone(), trainer.logical_state(saved))
+    d = str(tmp_path / "ck")
+    save_checkpoint(d, 1, saved, sharded=True)
+    new = S.make_mesh((3,), ("data",), device="cpu")
+    tree = restore_checkpoint(d, sess.abstract_state(mesh=new),
+                              allow_resize_1d=True)
+    states = sess.scatter(tree, new)
+    _assert_trees_equal(trainer.logical_state(sess.gather(states, new)),
+                        want)
+    _adafactor_run(sess, new, states=states)
+
+
+def test_adafactor_checkpoints_cross_both_ways(tmp_path):
+    """A reference-written Adafactor train state (random values) restores
+    through the port bit-equal and trains on (2, 2); the port's (2, 2)
+    run saved per shard restores through the reference bit-equal."""
+    from repro.train import trainer as jtrainer
+    jmodel, jopt, jcfg = _reference_adafactor()
+    rng = np.random.RandomState(5)
+    state = jax.tree_util.tree_map(
+        lambda x: (np.abs(rng.randn(*x.shape)) if x.ndim
+                   else np.asarray(3)).astype(x.dtype),
+        jtrainer.make_train_state(jmodel, jopt, abstract=True, cfg=jcfg))
+    d_ref = str(tmp_path / "ref")
+    jmanager.save_checkpoint(d_ref, 1, state)
+    sess = _adafactor_session(2)
+    mesh = S.make_mesh((2, 2), ("data", "model"), device="cpu")
+    got = restore_checkpoint(d_ref, sess.abstract_state(mesh=mesh))
+    want = jax.tree_util.tree_leaves(state)
+    assert len(leaves(got)) == len(want)
+    for t, w in zip(leaves(got), want):
+        assert _bits_equal(t, torch.from_numpy(np.array(w)))
+    states = _adafactor_run(sess, mesh, states=sess.scatter(got, mesh))
+    d_port = str(tmp_path / "port")
+    tree = sess.gather(states, mesh)
+    save_checkpoint(d_port, 2, tree, sharded=True)
+    assert any("shards" in e for e in load_manifest(d_port)["leaves"])
+    back = jmanager.restore_checkpoint(d_port, jtrainer.make_train_state(
+        jmodel, jopt, abstract=True, cfg=jcfg))
+    for w, t in zip(jax.tree_util.tree_leaves(back), _dense(tree)):
+        assert _bits_equal(torch.from_numpy(np.array(w)), t)

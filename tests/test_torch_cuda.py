@@ -911,3 +911,36 @@ def test_model_parallel_train_step_on_cuda_ranks(cuda, sync):
                         leaves(states[2]["params"])):   # data 1, model 0
             _bits_equal(a, b)
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+def test_adafactor_update_on_card_matches_cpu(cuda):
+    """One Adafactor update of a stacked bf16 leaf of 8 layers (mapped
+    one layer at a time, each its own means and RMS clip, which a clip
+    threshold of 0.5 engages) on the card and on the CPU: the f32
+    statistics within 1e-6 of the largest value (the sums run in another
+    order), each bf16 param within 1e-6 of the largest value or one bf16
+    ulp of its own (the f32 updates before rounding differ in their last
+    bits, which can tip a rounding), at most 1 in 1000 values so."""
+    from repro_torch.optim import make_optimizer
+    rng = np.random.RandomState(6)
+    p = torch.from_numpy(rng.randn(8, 512, 1024).astype(np.float32))
+    g = torch.from_numpy((rng.randn(8, 512, 1024) * 3).astype(np.float32))
+    out = {}
+    for device in ("cpu", cuda):
+        opt = make_optimizer("adafactor", lr=1e-2, clip_threshold=0.5)
+        params = {"w": p.to(device, torch.bfloat16)}
+        state = opt.init(params)
+        params, state, _ = opt.update({"w": g.to(device, torch.bfloat16)},
+                                      state, params)
+        out[str(device)] = (params["w"].float().cpu(),
+                            {k: v.cpu() for k, v in state["f"]["w"].items()})
+    (pc, sc), (pg, sg) = out["cpu"], out["cuda"]
+    assert sorted(sg) == ["vc", "vr"]
+    for k in sc:
+        err = (sg[k] - sc[k]).abs().max().item()
+        assert err <= 1e-6 * sc[k].abs().max().item(), k
+    err = (pg - pc).abs()
+    near = err <= 1e-6 * pc.abs().max()
+    ulp = torch.ldexp(torch.ones_like(pc), torch.frexp(pc)[1] - 8)  # bf16
+    assert bool((near | (err <= ulp)).all())
+    assert (~near).float().mean().item() <= 1e-3
