@@ -193,7 +193,13 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              against the count the plan predicts.  A fifth run, composed
              at lr 1e-5, must lower the loss: at lr 1e-3 the first AdamW
              step moves every weight of these 6144-wide layers by about
-             1e-3, and the loss rises.
+             1e-3, and the loss rises.  Every training phase runs with
+             the config's default remat (each block's activations
+             recomputed in the backward, as the reference's
+             ``jax.checkpoint``); one more composed run with
+             ``remat=False`` prints its step time and peak beside the
+             remat run's and must give its losses and parameters bit for
+             bit.
 8. train (sync) — the same workload's sync three more ways, 3 steps a
              run, each run against the one it must equal bit for bit
              (losses and parameters): composed in fused dtype buckets,
@@ -263,13 +269,30 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              its 2 first (dense MLA) layers and the MTP block, Adafactor,
              bf16 gradient accumulation over 2 microbatches: kernels and
              plain (bit-identical), lr 1e-5; the MTP metric finite.
-8h. train_mamba2 — mamba2-1.3b at its published widths cut to
-             ``MAMBA2_TRAIN_LAYERS`` of 48 layers (full depth does not
-             fit two replicas' training), AdamW: kernels and plain
-             (bit-identical), lr 1e-5.  Every large-arch run: finite
-             losses, identical replicas, every sync kernel's launches as
-             planned; each phase prints the card, step time, tokens/s
-             and peak memory.
+8h. train_mamba2 — mamba2-1.3b at its published widths and full depth
+             (48 layers; remat keeps one layer's SSD temporaries at a
+             time), AdamW: kernels and plain (bit-identical), lr 1e-5;
+             and one kernel run cut to ``MAMBA2_REMAT_CUT`` layers, whose
+             peak is printed beside the one it took without remat.
+8i. train_vl — qwen2-vl-7b at its published widths cut to 4 of 28
+             layers, AdamW over 2 microbatches: ``SyntheticLMDataset``'s
+             embeddings batches (``inputs_embeds`` 3584 wide, the text
+             positions' taken from a fixed table by token, see
+             ``_VLBatches``) with M-RoPE positions that differ per row
+             (the vision positions, each row's text moved on by its own
+             offset), so that the trainer's split of (3, B, S)
+             positions at dim 1, over the ranks and the microbatches,
+             runs on the card: kernels and plain (bit-identical), lr
+             1e-5.
+8j. train_seamless — seamless-m4t-large-v2 at its published widths and
+             full depth (24 + 24 layers), AdamW, 1 microbatch: 2048
+             frames x 1024 f32 a row from numpy seeded by (seed, step)
+             (``_FrameBatches``) beside the dataset's tokens and labels;
+             kernels and plain (bit-identical), lr 1e-5.  Every
+             large-arch run: finite losses, identical replicas, every
+             sync kernel's launches as planned, peak below 95% of the
+             card; each phase prints the card, step time, tokens/s and
+             peak memory.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -449,11 +472,12 @@ ADAFACTOR_ARCH = "mistral-large-123b"   # [train_adafactor]
 # f32 temporaries of a 704 M-value leaf (~25 GB for two ranks) on top of
 # the composed run's ~36 GB reckon ~89 GB, over the card (PERF.md §4)
 ADAFACTOR_COMPRESSED_LAYERS = 1
-MAMBA2_ARCH = "mamba2-1.3b"             # [train_mamba2]
-# [train_mamba2]'s depth: SSD keeps ~2.1 GB of f32 temporaries a layer a
-# rank for the backward (no rematerialization), so 48 layers reckon
-# ~240 GB for two ranks; 12 layers reckon 66 GB (PERF.md §4)
-MAMBA2_TRAIN_LAYERS = 12
+MAMBA2_ARCH = "mamba2-1.3b"             # [train_mamba2], at full depth
+# [train_mamba2] also trains this many layers once, to print its peak
+# with remat beside the 64.97 GiB that 12 layers took without (PERF.md)
+MAMBA2_REMAT_CUT = 12
+VL_TRAIN_LAYERS = 4                     # [train_vl]: 4 of qwen2-vl's 28
+VL_TRAIN_MICRO = 2                      # the reference's microbatches
 NEMOTRON_ARCH = "nemotron-4-340b"   # [serve_nemotron]
 DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # [serve_deepseek]'s one-shot prefill (MLA's materialized form, bf16 K/V
@@ -2412,6 +2436,9 @@ def phase_train():
               f"bit-identical losses and parameters: {same}")
         if not same:
             raise AssertionError(f"{sync}: kernel and plain runs differ")
+        if sync == "composed":
+            out.update(_remat_off_run(model, init, mesh, ds, opt, l_on,
+                                      p_on, out))
         del p_on, p_off
     session, states, step_fn = train_run(model, init, mesh, ds,
                                          _adamw(LOW_LR), "composed")
@@ -2425,6 +2452,40 @@ def phase_train():
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _remat_off_run(model, init, mesh, ds, opt, losses, params, on):
+    """[train]'s composed kernel run once more with ``remat=False``: its
+    step time and peak printed beside the remat run's (``on``: [train]'s
+    numbers), its losses and parameters held to the remat run's
+    (``losses``, rank 0's ``params``) bit for bit.  Returns its
+    numbers."""
+    import dataclasses
+    import gc
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    off = build_model(dataclasses.replace(model.cfg, remat=False))
+    session, states, step_fn = train_run(off, init, mesh, ds, opt,
+                                         "composed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    states, l_off, times, _ = _train_steps(step_fn, states, ds)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(times[1:]))
+    same = l_off == losses and all(_bits_equal(a, b) for a, b in zip(
+        leaves(states[0]["params"]), params))
+    print(f"[train] composed, kernels, remat off: losses {l_off}; step "
+          f"{step_s * 1e3:.1f} ms, peak allocated {peak / 2**30:.2f} GiB; "
+          f"remat on: step {on['composed_step_ms']:.1f} ms, peak "
+          f"{on['composed_peak_gib']:.2f} GiB; losses and parameters "
+          f"bit-identical: {same}")
+    if not same:
+        raise AssertionError("remat on and off give other bits")
+    del states, step_fn, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"remat_off_step_ms": step_s * 1e3,
+            "remat_off_peak_gib": peak / 2**30}
 
 
 def phase_train_auto(train):
@@ -2716,24 +2777,90 @@ def adafactor_psums(model, opt) -> int:
     return n
 
 
-def _large_workload(phase, arch, layers):
-    """``arch`` at its published widths cut to ``layers`` layers, random
-    bf16 weights from seed 0 on the card, [train]'s data: (model,
-    initial params, mesh, dataset)."""
-    from repro_torch.configs import get_config, with_num_layers
+class _VLBatches:
+    """[train_vl]'s data: ``SyntheticLMDataset``'s embeddings batches with
+    M-RoPE positions that differ per section and per row (Qwen2-VL's
+    vision positions, row r's text moved on by 5r + step, as in
+    ``tests/test_torch_train_embeds.py``; the dataset's own are one
+    ``arange`` in every row and section), and text that carries its
+    tokens.  The dataset's ``inputs_embeds`` are noise drawn apart from
+    its labels, so a model can learn no more than the labels' unigram
+    from them, and at LOW_LR the loss of 3 steps on 3 batches did not
+    fall (12.348, 12.436, 12.373 on an NVIDIA H100 80GB HBM3, PERF.md).
+    The text positions (the last 3/4 of a row) here take their token's
+    row of a fixed table (``TEXT_TABLE`` rows, N(0, 0.02^2), seed 0, by
+    the token id modulo its size), as an embedding table gives a VLM's
+    text; the image quarter keeps the dataset's noise."""
+
+    TEXT_TABLE = 4096
+
+    def __init__(self, ds, d_model: int):
+        self.ds = ds
+        self.table = np.random.default_rng(0).standard_normal(
+            (self.TEXT_TABLE, d_model), dtype=np.float32) * np.float32(0.02)
+
+    def host_batch(self, step):
+        from repro_torch.models.frontends import vision_positions
+        batch = self.ds.host_batch(step)
+        b, s = batch["labels"].shape
+        pos = vision_positions(b, s).numpy().copy()
+        pos[:, :, s // 4:] += (5 * np.arange(b, dtype=np.int32)
+                               + step)[None, :, None]
+        batch["positions"] = pos
+        text = batch["tokens"][:, s // 4:] % self.TEXT_TABLE
+        batch["inputs_embeds"][:, s // 4:] = self.table[text]
+        return batch
+
+
+class _FrameBatches:
+    """[train_seamless]'s data: ``SyntheticLMDataset``'s tokens and
+    labels beside ``frame_embeds`` (B, S, ``d_model``) f32, N(0, 0.05^2)
+    from numpy seeded by (seed, step); the dataset has no frames."""
+
+    def __init__(self, ds, d_model: int):
+        self.ds, self.d_model = ds, d_model
+
+    def host_batch(self, step):
+        batch = self.ds.host_batch(step)
+        rng = np.random.default_rng([self.ds.seed, step])
+        batch["frame_embeds"] = rng.standard_normal(
+            batch["labels"].shape + (self.d_model,),
+            dtype=np.float32) * np.float32(0.05)
+        return batch
+
+
+def _train_data(cfg, **kw):
+    """[train]'s ``SyntheticLMDataset`` for ``cfg`` (``kw``: its
+    embeddings options)."""
     from repro_torch.data import SyntheticLMDataset
+    return SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0, **kw)
+
+
+def _large_workload(phase, arch, layers=None, data=_train_data):
+    """``arch`` at its published widths cut to ``layers`` layers (None:
+    full depth), random bf16 weights from seed 0 on the card, the data
+    ``data(cfg)``: (model, initial params, mesh, dataset)."""
+    from repro_torch.configs import get_config, with_num_layers
     from repro_torch.models import build_model
+    from repro_torch.models.encdec import EncDecCfg
     from repro_torch.runtime import substrate
     from repro_torch.tree import leaves
     full = get_config(arch)
-    cfg = with_num_layers(full, layers)
+    cfg = full if layers is None else with_num_layers(full, layers)
     model = build_model(cfg)
     init = model.init(torch.Generator(device="cuda").manual_seed(0))
     mesh = substrate.make_host_mesh(TRAIN_RANKS, device="cuda")
-    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                            global_batch=TRAIN_BATCH, seed=0)
+    ds = data(cfg)
+    if isinstance(cfg, EncDecCfg):
+        a = cfg.attn
+        desc = (f"encoder {cfg.enc_layers} + decoder {cfg.dec_layers} "
+                f"layers, heads={a.num_heads}/{a.num_kv_heads} head_dim="
+                f"{a.head_dim} ff={cfg.mlp.d_ff} ({cfg.mlp.activation})")
+    else:
+        desc = f"{_mixer_desc(cfg)} {_ffn_desc(cfg)}"
     print(f"[{phase}] {cfg.name} d_model={cfg.d_model} "
-          f"{_mixer_desc(cfg)} {_ffn_desc(cfg)} vocab={cfg.vocab_size} "
+          f"{desc} vocab={cfg.vocab_size} remat={cfg.remat} "
           f"layers={cfg.num_layers} of {full.num_layers}: "
           f"{model.param_count() / 1e9:.3f}B params "
           f"({_nbytes(leaves(init)) / 1e9:.2f} GB bf16 a replica); "
@@ -2990,18 +3117,83 @@ def phase_train_deepseek():
 
 
 def phase_train_mamba2():
-    """[train_mamba2]: mamba2-1.3b at its published widths cut to
-    MAMBA2_TRAIN_LAYERS of 48 layers (its full depth does not fit two
-    replicas' training), random bf16 weights from seed 0, [train]'s data
-    (seq 2048: a multiple of the SSD chunk), AdamW (the reference's
-    optimizer for it): data-parallel composed, kernels and plain
+    """[train_mamba2]: mamba2-1.3b at its published widths and full depth
+    (48 layers), random bf16 weights from seed 0, [train]'s data (seq
+    2048: a multiple of the SSD chunk), AdamW (the reference's optimizer
+    for it): data-parallel composed, kernels and plain (bit-identical)
+    and at LOW_LR (the loss falls); then one kernel run cut to
+    MAMBA2_REMAT_CUT layers, whose peak with remat is printed.  Returns
+    ({"sum_chunks": launches}, numbers)."""
+    import gc
+    model, init, mesh, ds = _large_workload("train_mamba2", MAMBA2_ARCH)
+    dp, counts = _kernels_plain_low_lr(
+        "train_mamba2", model, init, mesh, ds, _adamw)
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init, mesh, ds = _large_workload("train_mamba2", MAMBA2_ARCH,
+                                            MAMBA2_REMAT_CUT)
+    peak = _large_run("train_mamba2", f"{MAMBA2_REMAT_CUT} layers, kernels",
+                      model, init, mesh, ds, _adamw(TRAIN_LR))[3]
+    print(f"[train_mamba2] {MAMBA2_REMAT_CUT} layers with remat: peak "
+          f"{peak:.2f} GiB (without remat: 64.97 GiB on an NVIDIA H100 "
+          "80GB HBM3 at 700 W, PERF.md)")
+    dp["peak_gib_cut"] = peak
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": counts["sum_chunks"]}, dp
+
+
+def vl_workload(phase):
+    """[train_vl]'s workload: qwen2-vl-7b cut to VL_TRAIN_LAYERS layers on
+    ``_VLBatches`` (``_large_workload``'s tuple)."""
+    return _large_workload(
+        phase, VL_ARCH, VL_TRAIN_LAYERS,
+        data=lambda cfg: _VLBatches(_train_data(
+            cfg, embed_dim=cfg.d_model, with_embeds=True, mrope=True),
+            cfg.d_model))
+
+
+def seamless_workload(phase):
+    """[train_seamless]'s workload: seamless-m4t-large-v2 at full depth
+    on ``_FrameBatches`` (``_large_workload``'s tuple)."""
+    return _large_workload(
+        phase, SEAMLESS_ARCH,
+        data=lambda cfg: _FrameBatches(_train_data(cfg), cfg.d_model))
+
+
+def phase_train_vl():
+    """[train_vl]: qwen2-vl-7b at its published widths cut to
+    VL_TRAIN_LAYERS of 28 layers, random bf16 weights from seed 0,
+    [train]'s data as embeddings batches with per-row M-RoPE positions
+    (``_VLBatches``), AdamW over VL_TRAIN_MICRO microbatches (the
+    reference's settings): each rank splits its rows, positions at dim
+    1, into the microbatches.  Data-parallel composed, kernels and plain
     (bit-identical) and at LOW_LR (the loss falls).  Returns
     ({"sum_chunks": launches}, numbers)."""
     import gc
-    model, init, mesh, ds = _large_workload(
-        "train_mamba2", MAMBA2_ARCH, MAMBA2_TRAIN_LAYERS)
+    model, init, mesh, ds = vl_workload("train_vl")
     dp, counts = _kernels_plain_low_lr(
-        "train_mamba2", model, init, mesh, ds, _adamw)
+        "train_vl", model, init, mesh, ds, _adamw,
+        microbatches=VL_TRAIN_MICRO)
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": counts["sum_chunks"]}, dp
+
+
+def phase_train_seamless():
+    """[train_seamless]: seamless-m4t-large-v2 at its published widths
+    and full depth (24 + 24 layers), random bf16 weights from seed 0,
+    [train]'s tokens beside numpy frames (``_FrameBatches``), AdamW, 1
+    microbatch (the reference's settings): data-parallel composed,
+    kernels and plain (bit-identical) and at LOW_LR (the loss falls).
+    Returns ({"sum_chunks": launches}, numbers)."""
+    import gc
+    model, init, mesh, ds = seamless_workload("train_seamless")
+    dp, counts = _kernels_plain_low_lr(
+        "train_seamless", model, init, mesh, ds, _adamw)
     del init, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4218,6 +4410,9 @@ def main() -> int:
     by_path["train_deepseek"], _ = timed("train_deepseek",
                                          phase_train_deepseek)
     by_path["train_mamba2"], _ = timed("train_mamba2", phase_train_mamba2)
+    by_path["train_vl"], _ = timed("train_vl", phase_train_vl)
+    by_path["train_seamless"], _ = timed("train_seamless",
+                                         phase_train_seamless)
     timed("ckpt", phase_ckpt)
     by_path["elastic_train"], _ = timed("elastic_train",
                                         phase_elastic_train)

@@ -15,7 +15,10 @@ frames) and through the differentiable ``layers.train_attention`` in
 ``loss_fn`` (``train=True``).  Cross-attention projects the memory's K
 and V anew at every call, decode steps included, as the reference does.
 The decoder's self-attention KV cache is written in place, as the
-decoder LM's is.
+decoder LM's is.  With ``remat`` (the reference's field and default) the
+training forward checkpoints each encoder and each decoder layer under
+policy "nothing", as the reference's ``encode`` / ``decode_train`` do
+(``models.remat``); prefill and decode never do.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import remat as R
 from repro_torch.models import transformer as T
 from repro_torch.tree import map_tree
 
@@ -44,6 +48,7 @@ class EncDecCfg:
     mlp: L.MLPCfg = None
     norm: str = "layernorm"
     param_dtype: Any = torch.float32
+    remat: bool = True
     block_k: int = 512                   # training attention kv block
 
     @property
@@ -153,9 +158,11 @@ def encode(params: Params, cfg: EncDecCfg, frame_embeds: torch.Tensor, *,
     """frame_embeds: (B, S_enc, D) from the stub frontend -> the memory
     (B, S_enc, D) in the param dtype."""
     x = frame_embeds.to(cfg.param_dtype)
+    remat = R.active(cfg.remat, train)
     for i in range(cfg.enc_layers):
-        x = _apply_enc_layer(_layer(params["encoder"], i), cfg, x,
-                             train=train)
+        args = (_layer(params["encoder"], i), cfg, x)
+        x = (R.checkpointed(_apply_enc_layer, *args, train=True) if remat
+             else _apply_enc_layer(*args, train=train))
     return _norm(cfg, params["enc_norm"], x)
 
 
@@ -168,9 +175,11 @@ def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
                  ) -> torch.Tensor:
     """Teacher-forced decoder pass -> logits (B, S_dec, V)."""
     x = _embed(params, tokens)
+    remat = R.active(cfg.remat, train)
     for i in range(cfg.dec_layers):
-        x, _ = _apply_dec_layer(_layer(params["decoder"], i), cfg, x, memory,
-                                train=train)
+        args = (_layer(params["decoder"], i), cfg, x, memory)
+        x, _ = (R.checkpointed(_apply_dec_layer, *args, train=True) if remat
+                else _apply_dec_layer(*args, train=train))
     return _norm(cfg, params["dec_norm"], x) @ params["lm_head"]
 
 

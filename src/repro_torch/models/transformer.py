@@ -19,7 +19,10 @@ before it): a chunked call on one raises, as the reference's does.
 ``embed_inputs=False`` (qwen2-vl-7b) drops the embedding table: the
 batch carries ``inputs_embeds`` from a frontend instead of ``tokens``,
 and its ``positions`` ((3, B, S) under M-RoPE) reach every attention
-layer, in prefill and decode alike.
+layer, in prefill and decode alike.  ``remat`` / ``remat_policy`` are
+the reference's: the training forward checkpoints each stage's block
+(``apply_stage``, ``models.remat``); the MTP block runs outside the
+stages and is not checkpointed, as in the reference.
 
 Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
 ``cfg`` is then the rank's local config (``local_config``: its heads,
@@ -45,6 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import remat as R
 from repro_torch.parallel import sharding as S
 from repro_torch.tree import map_tree
 
@@ -80,6 +84,8 @@ class TransformerCfg:
     mtp: bool = False              # deepseek-v3 multi-token prediction head
     mtp_loss_weight: float = 0.3
     param_dtype: Any = torch.float32
+    remat: bool = True
+    remat_policy: str = "nothing"  # nothing | dots
     block_k: int = 512             # training attention kv block
 
     @property
@@ -251,10 +257,35 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
     their aux losses).  ``caches``: stacked cache tree with leading dim
     = repeat (or None).  Cache rows (K/V, or MLA's latents) are written
     into the stacked tensors in place; the ``len`` counters and Mamba's
-    ``conv`` / ``ssm`` state come back stacked."""
+    ``conv`` / ``ssm`` state come back stacked.
+
+    With ``cfg.remat`` the training forward checkpoints each block (one
+    repeat of all of ``stage.layers``, the reference's scanned ``block``)
+    under ``cfg.remat_policy`` (``models.remat``).  A layer over a
+    "model" axis (``tp``) is not checkpointed: its forward issues
+    collectives and cuts the residual for the staged backward, which a
+    recompute on autograd's thread would repeat there and deadlock."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if caches is None and not tp and R.active(cfg.remat, train):
+
+        def block(x, layer_params):
+            auxes = []
+            for i, spec in enumerate(stage.layers):
+                x, _, aux = apply_layer(layer_params[f"layer{i}"], cfg, spec,
+                                        x, positions=positions,
+                                        q_offset=q_offset, train=True)
+                auxes.append(aux)
+            return (x, *auxes)
+
+        for r in range(stage.repeat):
+            x, *auxes = R.checkpointed(
+                block, x, map_tree(lambda t: t[r], params_stage),
+                policy=cfg.remat_policy)
+            for aux in auxes:            # in layer order, as without remat
+                aux_total = aux_total + aux
+        return x, None, aux_total
     carried = {f"layer{i}": {k: [] for k in _CARRIED[spec.mixer]}
                for i, spec in enumerate(stage.layers)}
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(stage.repeat):
         for i, spec in enumerate(stage.layers):
             name = f"layer{i}"

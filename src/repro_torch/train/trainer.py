@@ -79,7 +79,9 @@ the same on every model rank already: nothing sums them, and
 Ranks are the threads of ``substrate.run_spmd``.  Each holds its own
 state (a list, one per rank); ``train_step(states, batch)`` gives every
 rank its rows of the global batch, as the reference's ``shard_map``
-splits the batch over the data axes.  Handles, schedules and the bucket
+splits the batch over the data axes (``batch_dim``: M-RoPE
+``positions`` (3, B, S) at dim 1, every other key at dim 0; microbatches
+split the same way).  Handles, schedules and the bucket
 layout are static in (param shapes, dtypes, data-parallel width) and are
 built once per ``make_train_step``.
 """
@@ -548,9 +550,30 @@ def logical_state(tree) -> Any:
 # Grad accumulation over microbatches
 # ---------------------------------------------------------------------------
 
+def batch_dim(name: str, x) -> int:
+    """The dim of batch key ``name`` that holds its rows: 1 for M-RoPE
+    ``positions`` (3, B, S), 0 for every other key (the reference's
+    ``batch_specs`` and ``_split_micro`` key on the name)."""
+    return 1 if name == "positions" and x.ndim == 3 else 0
+
+
+def batch_rows(name: str, x, lo: int, hi: int):
+    """Rows [lo, hi) of batch key ``name`` (numpy or a tensor), cut at
+    its ``batch_dim``."""
+    return x[:, lo:hi] if batch_dim(name, x) == 1 else x[lo:hi]
+
+
 def _split_micro(batch: Dict[str, torch.Tensor], n: int):
-    return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
-             for k, v in batch.items()} for i in range(n)]
+    """``n`` microbatches of equal rows, in order; a microbatch's
+    ``positions`` is ``positions[:, i*b:(i+1)*b]``."""
+    out = []
+    for i in range(n):
+        mb = {}
+        for k, v in batch.items():
+            b = v.shape[batch_dim(k, v)] // n
+            mb[k] = batch_rows(k, v, i * b, (i + 1) * b)
+        out.append(mb)
+    return out
 
 
 def _accumulate_grads(model, params: Params, batch, n_micro: int,
@@ -682,11 +705,12 @@ def _leaf_sync(dcomm, axis_comms, grads, compress, ef_tree, sched):
     return unflatten(paths, out), ef_tree
 
 
-def _rank_rows(x, lo: int, hi: int, device) -> torch.Tensor:
+def _rank_rows(name: str, x, lo: int, hi: int, device) -> torch.Tensor:
+    """A rank's rows [lo, hi) of the global batch's key ``name`` on
+    ``device``."""
+    x = batch_rows(name, x, lo, hi)
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x[lo:hi]))
-    else:
-        x = x[lo:hi]
+        x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device)
 
 
@@ -699,10 +723,10 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     """Returns ``train_step(states, batch) -> (states, metrics)``.
 
     ``states``: one state per rank of the communicator's mesh;
-    ``batch``: the global batch (numpy arrays or tensors, rows first),
-    split over the data axes.  ``metrics`` are rank 0's (every rank
-    holds the same all-reduced loss).  ``train_step.schedule`` is the
-    executed sync program (ZeRO: its RS half; the AG half is
+    ``batch``: the global batch (numpy arrays or tensors, rows at
+    ``batch_dim``), split over the data axes.  ``metrics`` are rank 0's
+    (every rank holds the same all-reduced loss).  ``train_step.schedule``
+    is the executed sync program (ZeRO: its RS half; the AG half is
     ``train_step.ag_schedule``, None without ZeRO)."""
     mesh = comm.mesh
     if mesh is None:
@@ -843,7 +867,7 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
 
     def rank_step(st, host_batch, lo, hi):
         dev = leaves(st["params"])[0].device
-        batch = {k: _rank_rows(v, lo, hi, dev)
+        batch = {k: _rank_rows(k, v, lo, hi, dev)
                  for k, v in host_batch.items()}
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)
@@ -978,7 +1002,8 @@ def _spmd_step(rank_step, mesh, data_axes) -> Callable:
     n_data = math.prod(mesh.shape[a] for a in data_axes)
 
     def train_step(states, batch):
-        rows = next(iter(batch.values())).shape[0]
+        k, v = next(iter(batch.items()))
+        rows = v.shape[batch_dim(k, v)]
         if rows % n_data:
             raise ValueError(f"global batch {rows} does not split over "
                              f"{n_data} data ranks")
@@ -1006,7 +1031,7 @@ def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
 
     def rank_step(st, host_batch, lo, hi):
         dev = leaves(st["params"])[0].device
-        batch = {k: _rank_rows(v, lo, hi, dev)
+        batch = {k: _rank_rows(k, v, lo, hi, dev)
                  for k, v in host_batch.items()}
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)

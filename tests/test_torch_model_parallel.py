@@ -356,9 +356,9 @@ def _rank_rows(step_fn, states, batch):
     seen = {}
     real = trainer._rank_rows
 
-    def spy(x, lo, hi, device):
+    def spy(name, x, lo, hi, device):
         seen[substrate.current_rank()] = (lo, hi)
-        return real(x, lo, hi, device)
+        return real(name, x, lo, hi, device)
 
     trainer._rank_rows = spy
     try:

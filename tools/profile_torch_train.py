@@ -9,10 +9,11 @@ of 88 layers, 2 thread ranks, seq 2048, global batch 4) and, for each
 run (``--sync composed`` and ``compressed`` per leaf; with ``--runs``
 also ``bucketed`` (composed, fused buckets, overlapped depth 2),
 ``zero`` (ZeRO-1, overlapped, with its per-leaf twin ``leaf0``, both at
-clip_norm 0) and ``adafactor`` (``chip_smoke.py`` [train_adafactor]'s
+clip_norm 0), ``adafactor`` (``chip_smoke.py`` [train_adafactor]'s
 data-parallel composed run: mistral-large-123b, 2 of 88 layers,
-Adafactor)), runs two warm-up steps and then one step under
-``torch.profiler``: device time by kernel, the gradient-sync kernels'
+Adafactor), ``vl`` and ``seamless`` ([train_vl]'s and
+[train_seamless]'s, AdamW)), runs two warm-up steps and then one step
+under ``torch.profiler``: device time by kernel, the gradient-sync kernels'
 share, the optimizer update's share (its kernels, both ranks', run on
 a stream of their own) with the kernels outside it, and the share of
 the step's wall time the device was busy
@@ -83,7 +84,7 @@ def main(argv=None) -> int:
                     help="directory for the profiler's timelines")
     ap.add_argument("--runs", default="composed,compressed",
                     help="comma-separated: composed, compressed, "
-                         "bucketed, leaf0, zero, adafactor")
+                         "bucketed, leaf0, zero, adafactor, vl, seamless")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_train: CUDA is not available", file=sys.stderr)
@@ -104,13 +105,21 @@ def main(argv=None) -> int:
                 chip_smoke.TRAIN_LR, clip_norm=0.0), dict(zero=True,
                                                           overlap=True)),
             "adafactor": ("composed", chip_smoke._adafactor(
-                chip_smoke.TRAIN_LR), {})}
+                chip_smoke.TRAIN_LR), {}),
+            "vl": ("composed", chip_smoke._adamw(chip_smoke.TRAIN_LR),
+                   dict(microbatches=chip_smoke.VL_TRAIN_MICRO)),
+            "seamless": ("composed", chip_smoke._adamw(chip_smoke.TRAIN_LR),
+                         {})}
     granite, opt_stream = None, torch.cuda.Stream()
     for sync in args.runs.split(","):
         kind, run_opt, cfg = runs[sync]
         if sync == "adafactor":
             work = chip_smoke._large_workload(
                 "profile", chip_smoke.ADAFACTOR_ARCH, chip_smoke.TRAIN_LAYERS)
+        elif sync == "vl":
+            work = chip_smoke.vl_workload("profile")
+        elif sync == "seamless":
+            work = chip_smoke.seamless_workload("profile")
         else:
             granite = granite or chip_smoke.train_workload()
             work, run_opt = granite[:4], run_opt or granite[4]
