@@ -478,6 +478,26 @@ MAMBA2_ARCH = "mamba2-1.3b"             # [train_mamba2], at full depth
 MAMBA2_REMAT_CUT = 12
 VL_TRAIN_LAYERS = 4                     # [train_vl]: 4 of qwen2-vl's 28
 VL_TRAIN_MICRO = 2                      # the reference's microbatches
+# [train_seamless]: 12 + 12 of the 24 + 24 layers.  Its (data 2, model 2)
+# run does not checkpoint a layer over "model" (the full depth took
+# 62.00 GiB with remat, PERF.md), and the data-parallel runs take the
+# same cut: with them at full depth beside the (2, 2) run the phase took
+# 108 s and the whole script 1089 s on an H100 (PERF.md)
+SEAMLESS_TRAIN_LAYERS = 12
+# [train_jamba]: the first 2 of jamba's 72 layers, attn+dense and
+# mamba+moe: the one cut with a Mamba and a MoE layer that one replica
+# and its gradients fit (~11.9 B params, 47.6 GB bf16 with gradients)
+JAMBA_TRAIN_LAYERS = 2
+# one microbatch where the reference takes 8: with 2 the accumulation
+# (``trainer._accumulate_grads``) holds the running sum, a microbatch's
+# gradients and their sum beside the params, ~95 GB
+JAMBA_TRAIN_MICRO = 1
+# and 2 rows a step where [train] takes 4: on (data 1, model 2) a layer
+# over "model" is not checkpointed, so both model ranks hold the whole
+# step's activations (~30 GB at 4 rows) beside the params and bf16
+# gradients (47.6 GB); at 4 rows the backward ran out of the card at
+# 67.84 GiB allocated (PERF.md)
+JAMBA_TRAIN_BATCH = 2
 NEMOTRON_ARCH = "nemotron-4-340b"   # [serve_nemotron]
 DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # [serve_deepseek]'s one-shot prefill (MLA's materialized form, bf16 K/V
@@ -501,7 +521,7 @@ DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # are printed beside it.
 MLA_FORMS_TOL = 2.0 ** -4
 CHECK_CAPACITY = 8.0
-JAMBA_ARCH = "jamba-1.5-large-398b"  # [serve_jamba]
+JAMBA_ARCH = "jamba-1.5-large-398b"  # [serve_jamba], [train_jamba]
 MAMBA2_ARCH = "mamba2-1.3b"         # [serve_mamba2], at full depth
 # [serve_jamba] / [serve_mamba2]: the last logits of a one-shot prefill
 # of n tokens against a prefill of n - SSM_FORMS_DECODE tokens followed by
@@ -1908,26 +1928,51 @@ def phase_collectives():
     return rows
 
 
-def tp_psums(model) -> int:
+def tp_psums(model, microbatches: int = 1) -> int:
     """All-reduces over "model" one rank makes in one step of a
     model-parallel run (through the monolithic default session's ring,
-    p-1 ``sum_chunks`` launches each): in the forward the embedding's
-    *g*, each layer's two *g* (attention; the MLP's or the experts'),
-    the loss's sum of exponentials and label logit; in the staged
-    backward each layer's *f* (attention's and the MLP's; a MoE layer's
-    two: its input and its routing weights) and the final one; then the
-    partial-sum leaves (MQA's K/V, qwen3's q/k norms) and the gradient
-    norm."""
+    p-1 ``sum_chunks`` launches each).  A microbatch's forward: the
+    embedding's *g* (none without an embedding table), each layer's *g*
+    after its mixer and its FFN (a Mamba mixer's two more: B and C
+    gathered, its gated norm's mean square), the loss's sum of
+    exponentials and label logit; its staged backward: each layer's *f*
+    (attention's, MLA's and the MLP's; a Mamba mixer's three; a MoE
+    layer's two: its input and its routing weights) and the head's.  The
+    MTP head adds its embedding's *g*, its block's and its loss's, and
+    the encoder-decoder its encoder's and decoder's layers (self- and
+    cross-attention, MLP) and the memory's *f*.  Once a step: the
+    partial-sum leaves (MQA's K/V, qwen3's q/k norms, MLA's low-rank
+    leaves) and the gradient norm.  ``tests/test_torch_tp_families.py``
+    holds the plan to a count of the sums one step of each reduced
+    family makes on the CPU."""
+    from repro_torch.models.encdec import EncDecCfg
     from repro_torch.parallel import sharding
     from repro_torch.tree import flatten
-    specs = [spec for st in model.cfg.stages for _ in range(st.repeat)
-             for spec in st.layers]
-    fwd = 1 + sum(1 + (spec.ffn != "none") for spec in specs) + 2
-    bwd = sum({"dense": 2, "moe": 3, "none": 1}[spec.ffn]
-              for spec in specs) + 1
+    cfg = model.cfg
+    if isinstance(cfg, EncDecCfg):
+        fwd = 1 + 2 * cfg.enc_layers + 3 * cfg.dec_layers + 2
+        bwd = 2 * cfg.enc_layers + 3 * cfg.dec_layers + 2
+    else:
+        specs = [spec for st in cfg.stages for _ in range(st.repeat)
+                 for spec in st.layers]
+        if cfg.mtp:
+            specs.append(cfg.stages[-1].layers[-1])
+
+        def g(spec):
+            return (1 + 2 * (spec.mixer == "mamba")
+                    + (spec.ffn != "none"))
+
+        def f(spec):
+            return (1 + 2 * (spec.mixer == "mamba")
+                    + {"dense": 1, "moe": 2, "none": 0}[spec.ffn])
+
+        heads = 1 + cfg.mtp
+        fwd = (cfg.embed_inputs * heads + sum(g(s) for s in specs)
+               + 2 * heads)
+        bwd = sum(f(s) for s in specs) + heads
     paths = flatten(model.abstract_params())[1]
     partial = sum(sharding.partial_sum_leaves(paths, model.layout))
-    return fwd + bwd + partial + 1
+    return (fwd + bwd) * microbatches + partial + 1
 
 
 def planned_launches(engine, synced, scalars, p: int, compress: bool):
@@ -2574,8 +2619,11 @@ def _mesh_run(model, init, mesh, ds, opt, sync, plain=False, **cfg):
     """A fresh session and per-rank states (``trainer.init_states``: each
     rank's shard of ``init``) on ``mesh``, TRAIN_STEPS steps (with the
     plain sync ops when ``plain``); ``cfg``: other ``TrainCfg`` fields.
-    Returns (losses, step seconds, first step seconds, peak bytes,
-    launches, session, step function, states, metrics)."""
+    ``init`` is the full params, or a function that makes them anew (for
+    a model that the card holds once only: they are dropped once the
+    states hold them).  Returns (losses, step seconds, first step
+    seconds, peak bytes, launches, session, step function, states,
+    metrics)."""
     from repro_torch.kernels import counter
     from repro_torch.launch.train import build_session
     from repro_torch.train import trainer
@@ -2584,9 +2632,11 @@ def _mesh_run(model, init, mesh, ds, opt, sync, plain=False, **cfg):
     session = build_session(mesh, model, opt, ds, tcfg)
     # without a model axis rank 0's state holds the tensors it is given,
     # which the optimizer updates in place
-    states = trainer.init_states(
-        model, opt, init if model.layout is not None else map_tree(
-            lambda t: t.clone(), init), tcfg, mesh)
+    params = init() if callable(init) else (
+        init if model.layout is not None
+        else map_tree(lambda t: t.clone(), init))
+    states = trainer.init_states(model, opt, params, tcfg, mesh)
+    del params
     step_fn = trainer.make_train_step(model, opt, tcfg, comm=session.world)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2717,7 +2767,7 @@ def _train_check(phase, tag, model, mesh, session, states, metrics, counts,
     same = _replicas_check(mesh, model, states)
     plan, _ = planned_launches(session.engine, leaves(states[0]["params"]),
                                [metrics["loss"]] * (2 if zero else 1),
-                               TRAIN_RANKS, sync == "compressed")
+                               dict(mesh.shape)["data"], sync == "compressed")
     per = plan["sum_chunks"][0] + extra_psums * (TP_MODEL - 1)
     want = per * mesh.size * TRAIN_STEPS if kernels else 0
     print(f"[{phase}]   {tag}: sum_chunks {counts['sum_chunks']} launches; "
@@ -2754,13 +2804,20 @@ def adafactor_psums(model, opt) -> int:
     a step (the trainer's ``split_sum`` hook, p-1 ``sum_chunks`` launches
     each), read off ``opt``'s own state of the global params and
     ``sharding.leaf_split``: per leaf split over "model" its RMS clip's
-    sum of squares, one for each statistic left whole by a mean over the
-    split dim, and the normaliser's mean over a ``vr`` split at -1."""
+    sum of squares (none where the clip groups are the leaf's leading
+    slices and the split is of that dim: an expert stack of one layer,
+    each rank clipping its own experts), one for each statistic left
+    whole by a mean over the split dim, and the normaliser's mean over a
+    ``vr`` split at -1."""
     from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import clip_groups
     from repro_torch.parallel import sharding
     from repro_torch.tree import flatten
     lay = model.layout
-    state = opt.init(build_model(model.cfg).abstract_params())
+    params = build_model(model.cfg).abstract_params()
+    shapes = dict(zip(flatten(params)[1],
+                      (tuple(t.shape) for t in flatten(params)[0])))
+    state = opt.init(params)
     stats = {}
     for path in flatten({"opt": state})[1]:
         if path[1] == "f":
@@ -2769,9 +2826,10 @@ def adafactor_psums(model, opt) -> int:
                                                                      lay)
     n = 0
     for pp, split in stats.items():
-        if sharding.leaf_split(pp, lay) is None:
+        dim, shape = sharding.leaf_split(pp, lay), shapes[pp]
+        if dim is None:
             continue
-        n += 1                                          # the RMS clip
+        n += dim != -len(shape) or clip_groups(shape) == 1  # the RMS clip
         n += sum(split.get(k, 0) is None for k in ("vr", "vc"))  # means
         n += split.get("vr") == -1                      # the normaliser
     return n
@@ -2829,18 +2887,29 @@ class _FrameBatches:
         return batch
 
 
-def _train_data(cfg, **kw):
-    """[train]'s ``SyntheticLMDataset`` for ``cfg`` (``kw``: its
-    embeddings options)."""
+def _train_data(cfg, batch=TRAIN_BATCH, **kw):
+    """[train]'s ``SyntheticLMDataset`` for ``cfg`` (``batch`` rows a
+    step; ``kw``: its embeddings options)."""
     from repro_torch.data import SyntheticLMDataset
     return SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH, seed=0, **kw)
+                              global_batch=batch, seed=0, **kw)
 
 
-def _large_workload(phase, arch, layers=None, data=_train_data):
+def _tokens(ds) -> int:
+    """Tokens a step of the dataset ``ds`` (a ``SyntheticLMDataset``, or
+    ``_VLBatches`` / ``_FrameBatches`` around one)."""
+    base = getattr(ds, "ds", ds)
+    return base.global_batch * base.seq_len
+
+
+def _large_workload(phase, arch, layers=None, data=_train_data, cut=None,
+                    ranks=TRAIN_RANKS, lazy=False):
     """``arch`` at its published widths cut to ``layers`` layers (None:
-    full depth), random bf16 weights from seed 0 on the card, the data
-    ``data(cfg)``: (model, initial params, mesh, dataset)."""
+    full depth; ``cut``: a function cutting the config instead), random
+    bf16 weights from seed 0 on the card, the data ``data(cfg)``, over
+    ``ranks`` data ranks: (model, initial params, mesh, dataset).  With
+    ``lazy`` the params are a function that makes them anew (the same
+    bits each call), for a model the card holds once only."""
     from repro_torch.configs import get_config, with_num_layers
     from repro_torch.models import build_model
     from repro_torch.models.encdec import EncDecCfg
@@ -2848,9 +2917,14 @@ def _large_workload(phase, arch, layers=None, data=_train_data):
     from repro_torch.tree import leaves
     full = get_config(arch)
     cfg = full if layers is None else with_num_layers(full, layers)
+    cfg = cfg if cut is None else cut(cfg)
     model = build_model(cfg)
-    init = model.init(torch.Generator(device="cuda").manual_seed(0))
-    mesh = substrate.make_host_mesh(TRAIN_RANKS, device="cuda")
+
+    def make():
+        return model.init(torch.Generator(device="cuda").manual_seed(0))
+
+    init = make if lazy else make()
+    mesh = substrate.make_host_mesh(ranks, device="cuda")
     ds = data(cfg)
     if isinstance(cfg, EncDecCfg):
         a = cfg.attn
@@ -2863,9 +2937,9 @@ def _large_workload(phase, arch, layers=None, data=_train_data):
           f"{desc} vocab={cfg.vocab_size} remat={cfg.remat} "
           f"layers={cfg.num_layers} of {full.num_layers}: "
           f"{model.param_count() / 1e9:.3f}B params "
-          f"({_nbytes(leaves(init)) / 1e9:.2f} GB bf16 a replica); "
-          f"{dict(mesh.shape)}, seq {TRAIN_SEQ}, global batch "
-          f"{TRAIN_BATCH}; {card()}")
+          f"({_nbytes(leaves(model.abstract_params())) / 1e9:.2f} GB bf16 "
+          f"a replica); {dict(mesh.shape)}, seq {TRAIN_SEQ}, global batch "
+          f"{_tokens(ds) // TRAIN_SEQ}; {card()}")
     return model, init, mesh, ds
 
 
@@ -2880,7 +2954,7 @@ def _large_run(phase, tag, model, init, mesh, ds, opt, sync="composed",
                           **cfg)
     print(f"[{phase}] {tag}: losses {losses}; step {step_s * 1e3:.1f} ms "
           f"(steps 2-{TRAIN_STEPS}; first {first_s * 1e3:.1f} ms) = "
-          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+          f"{_tokens(ds) / step_s:.0f} tokens/s; peak "
           f"allocated {peak / 2**30:.2f} GiB")
     if not peak < 0.95 * torch.cuda.get_device_properties(0).total_memory:
         raise AssertionError(f"{tag}: peak {peak} near the card")
@@ -2899,7 +2973,8 @@ def _kernels_plain_low_lr(phase, model, init, mesh, ds, make_opt,
     bits), then at LOW_LR (the last step's loss below the first's).
     ``check(params)``, given the kernel run's rank-0 params before they
     are dropped, returns more numbers.  Returns (the kernel run's
-    numbers, its launches)."""
+    numbers, with its LOW_LR run's losses and gradient norms under
+    "low_lr", its launches)."""
     import gc
     from repro_torch.tree import leaves
     kept = {}
@@ -2928,14 +3003,108 @@ def _kernels_plain_low_lr(phase, model, init, mesh, ds, make_opt,
     del kept, p_on, p_off
     gc.collect()
     torch.cuda.empty_cache()
-    losses = _large_run(phase, f"data-parallel, kernels, lr {LOW_LR}",
-                        model, init, mesh, ds, make_opt(LOW_LR), **cfg)[0]
+    losses, norms = _large_run(phase, f"data-parallel, kernels, lr {LOW_LR}",
+                               model, init, mesh, ds, make_opt(LOW_LR),
+                               **cfg)[:2]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: lr {LOW_LR}: losses {losses} do not "
                              "fall")
+    numbers["low_lr"] = dict(losses=losses, grad_norms=norms)
     gc.collect()
     torch.cuda.empty_cache()
     return numbers, launches
+
+
+def _layout_desc(model) -> str:
+    """What a model rank holds of each split family."""
+    from repro_torch.models.encdec import EncDecCfg
+    lay, cfg = model.layout, model.cfg
+    parts = []
+    if isinstance(cfg, EncDecCfg):
+        parts.append(f"{lay.heads} of {cfg.attn.num_heads} self- and "
+                     f"{cfg.cross.num_heads // lay.model} of "
+                     f"{cfg.cross.num_heads} cross-attention heads")
+    elif lay.heads:
+        parts.append(f"{lay.heads} of {cfg.attn.num_heads} query heads, "
+                     f"{lay.kv_heads} of {cfg.attn.num_kv_heads} KV heads")
+    if lay.mla_heads:
+        parts.append(f"{lay.mla_heads} of {cfg.mla.num_heads} MLA heads "
+                     "(the latents whole)")
+    if lay.sections:
+        parts.append(f"{cfg.mamba.nheads // lay.model} of "
+                     f"{cfg.mamba.nheads} Mamba heads, in_proj sectioned "
+                     f"{dict(lay.sections)['in_proj']}")
+    if lay.d_ff:
+        parts.append(f"{lay.d_ff} of {cfg.mlp.d_ff} FFN columns")
+    if lay.experts and any(spec.ffn == "moe" for st in cfg.stages
+                           for spec in st.layers):
+        parts.append(f"{lay.experts} of {cfg.moe.num_experts} experts")
+    parts.append(f"{lay.vocab} of {cfg.vocab_size} vocabulary rows")
+    return "; ".join(parts)
+
+
+def _tp_run(phase, model, init, mesh, ds, make_opt, want=None,
+            plain=False, lr=LOW_LR, **cfg):
+    """``model`` (built for the mesh's "model" axis) on ``mesh`` from
+    ``init``, composed, with ``check_model_replicas``, its launches
+    checked against the data sync's plan plus the model axis's
+    all-reduces (``tp_psums``, Adafactor's ``split_sum`` ones too), and,
+    given ``want`` (the unsplit run's numbers at the same ``lr``), its
+    losses and gradient norms within ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL``
+    of them.  At LOW_LR its last loss must be below its first.  The
+    model-axis runs compare at LOW_LR: at TRAIN_LR the first update
+    throws the weights far (qwen2-vl's loss rose from 12.54 to 20.37,
+    deepseek's from 15.9 to 36.0), and the split's bf16 roundings,
+    carried through it, moved the third step's gradient norms 2.8e-3 to
+    6.0e-3 from the unsplit run's on the card, where the first step's
+    agreed within 2.1e-4 (PERF.md).  Returns (numbers, launches,
+    states)."""
+    opt = make_opt(lr)
+    n_ada = (adafactor_psums(model, opt) if opt.name == "adafactor"
+             else 0)
+    n_model = tp_psums(model, cfg.get("microbatches", 1))
+    tag = f"{dict(mesh.shape)}, {'plain' if plain else 'kernels'}, lr {lr}"
+    print(f"[{phase}] on {dict(mesh.shape)}: a rank holds "
+          f"{_layout_desc(model)}; {n_model} model-axis all-reduces a rank "
+          f"a step (and {n_ada} of Adafactor's)")
+    losses, norms, step_ms, peak, counts, states = _large_run(
+        phase, tag, model, init, mesh, ds, opt, plain=plain,
+        extra_psums=n_model + n_ada, check_model_replicas=True, **cfg)
+    numbers = dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                   peak_gib=peak,
+                   tokens_per_s=_tokens(ds) / step_ms * 1e3)
+    if want is not None:
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+        print(f"[{phase}] {tag} against the unsplit run: {losses} vs "
+              f"{want['losses']}; rel err {['%.3e' % e for e in errs]} "
+              f"(tol {TP_LOSS_RTOL})")
+        if not max(errs) <= TP_LOSS_RTOL:
+            raise AssertionError(f"{phase}: model-parallel losses {losses} "
+                                 f"vs {want['losses']}")
+        _norms_check(phase, f"{tag} against the unsplit run", norms,
+                     want["grad_norms"], TP_NORM_RTOL)
+    if lr == LOW_LR and not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: {tag}: losses {losses} do not fall")
+    return numbers, counts, states
+
+
+def _tp_twin(phase, cfg, init, ds, make_opt, want, **tcfg):
+    """One [phase] run more: ``cfg`` on (data TRAIN_RANKS, model
+    TP_MODEL) from ``init`` at LOW_LR (``_tp_run``, against the
+    data-parallel kernel run's numbers at LOW_LR ``want``).  Returns
+    (numbers, launches)."""
+    import gc
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    model = build_model(cfg, model_parallel=TP_MODEL)
+    mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
+                                    device="cuda")
+    numbers, counts, states = _tp_run(phase, model, init, mesh, ds,
+                                      make_opt, want, **tcfg)
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers, counts
 
 
 def phase_train_moe():
@@ -3088,7 +3257,9 @@ def phase_train_deepseek():
     Adafactor with the reference's settings (gradients accumulated in
     bf16 over 2 microbatches; 8 cut to 2: a rank holds 2 rows):
     data-parallel composed, kernels and plain (bit-identical) and at
-    LOW_LR (the loss falls); the MTP metric of the trained params finite.
+    LOW_LR (the loss falls); the MTP metric of the trained params finite;
+    then on (data TRAIN_RANKS, model TP_MODEL), MLA and the MTP head
+    split by heads, against the data-parallel kernel run (``_tp_twin``).
     Returns ({"sum_chunks": launches}, numbers)."""
     import gc
     model, init, mesh, ds = _large_workload(
@@ -3107,13 +3278,78 @@ def phase_train_deepseek():
             raise AssertionError(f"mtp {mtp}")
         return {"mtp": mtp}
 
+    tcfg = dict(microbatches=2, grad_dtype=torch.bfloat16)
     dp, counts = _kernels_plain_low_lr(
         "train_deepseek", model, init, mesh, ds, _adafactor,
-        check=mtp_finite, microbatches=2, grad_dtype=torch.bfloat16)
+        check=mtp_finite, **tcfg)
+    dp["tp"], tp_counts = _tp_twin("train_deepseek", model.cfg, init, ds,
+                                   _adafactor, dp["low_lr"], **tcfg)
     del init, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"sum_chunks": counts["sum_chunks"]}, dp
+    return {"sum_chunks": counts["sum_chunks"] + tp_counts["sum_chunks"]}, dp
+
+
+def phase_train_jamba():
+    """[train_jamba]: jamba-1.5-large-398b at its published widths cut to
+    its first JAMBA_TRAIN_LAYERS of 72 layers (``attn+dense``,
+    ``mamba+moe``), random bf16 weights from seed 0 made anew for each
+    run (the card holds one replica and its gradients), [train]'s data at
+    JAMBA_TRAIN_BATCH rows a step, Adafactor with bf16 gradients (the
+    reference's settings) over JAMBA_TRAIN_MICRO microbatch, every run at
+    LOW_LR (each run's loss
+    falls).  Unsplit on (data 1, model 1), then on (data 1, model
+    TP_MODEL) with the experts, the Mamba heads and the attention heads
+    split and ``check_model_replicas``, with the sync kernels and plain
+    (the same bits), their losses and gradient norms within
+    ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of the unsplit run's.  Returns
+    ({"sum_chunks": launches}, numbers)."""
+    import gc
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.tree import leaves
+    model, init, mesh, ds = _large_workload(
+        "train_jamba", JAMBA_ARCH, JAMBA_TRAIN_LAYERS, ranks=1, lazy=True,
+        data=lambda cfg: _train_data(cfg, batch=JAMBA_TRAIN_BATCH))
+    tcfg = dict(microbatches=JAMBA_TRAIN_MICRO, grad_dtype=torch.bfloat16)
+    losses, norms, step_ms, peak, counts, states = _large_run(
+        "train_jamba", f"(data 1, model 1), kernels, lr {LOW_LR}", model,
+        init, mesh, ds, _adafactor(LOW_LR), **tcfg)
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_jamba: unsplit losses {losses} do not "
+                             "fall")
+    numbers = {"whole": dict(losses=losses, grad_norms=norms,
+                             step_ms=step_ms, peak_gib=peak)}
+    launches = counts["sum_chunks"]
+    tp_model = build_model(model.cfg, model_parallel=TP_MODEL)
+    tp_mesh = substrate.make_host_mesh(1, model_parallel=TP_MODEL,
+                                       device="cuda")
+    for on in (True, False):
+        out, counts, states = _tp_run(
+            "train_jamba", tp_model, init, tp_mesh, ds, _adafactor,
+            numbers["whole"], plain=not on, **tcfg)
+        got = [t for st in states for t in leaves(st["params"])]
+        if on:
+            numbers["tp"] = out
+            launches += counts["sum_chunks"]
+            # every rank's params, on the host: the card holds one run
+            kept = [t.to("cpu") for t in got]
+        else:
+            same = out["losses"] == numbers["tp"]["losses"] and all(
+                _bits_equal(a, b.to("cpu")) for a, b in zip(kept, got))
+        del states, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del kept
+    print(f"[train_jamba] the kernel and plain runs on "
+          f"{dict(tp_mesh.shape)} give bit-identical losses and every "
+          f"rank's parameters: {same}")
+    if not same:
+        raise AssertionError("train_jamba: kernel and plain runs differ")
+    return {"sum_chunks": launches}, numbers
 
 
 def phase_train_mamba2():
@@ -3156,10 +3392,14 @@ def vl_workload(phase):
 
 
 def seamless_workload(phase):
-    """[train_seamless]'s workload: seamless-m4t-large-v2 at full depth
-    on ``_FrameBatches`` (``_large_workload``'s tuple)."""
+    """[train_seamless]'s workload: seamless-m4t-large-v2 cut to
+    SEAMLESS_TRAIN_LAYERS + SEAMLESS_TRAIN_LAYERS layers on
+    ``_FrameBatches`` (``_large_workload``'s tuple)."""
+    import dataclasses
     return _large_workload(
-        phase, SEAMLESS_ARCH,
+        phase, SEAMLESS_ARCH, cut=lambda cfg: dataclasses.replace(
+            cfg, enc_layers=SEAMLESS_TRAIN_LAYERS,
+            dec_layers=SEAMLESS_TRAIN_LAYERS),
         data=lambda cfg: _FrameBatches(_train_data(cfg), cfg.d_model))
 
 
@@ -3170,34 +3410,42 @@ def phase_train_vl():
     (``_VLBatches``), AdamW over VL_TRAIN_MICRO microbatches (the
     reference's settings): each rank splits its rows, positions at dim
     1, into the microbatches.  Data-parallel composed, kernels and plain
-    (bit-identical) and at LOW_LR (the loss falls).  Returns
-    ({"sum_chunks": launches}, numbers)."""
+    (bit-identical) and at LOW_LR (the loss falls); then on (data
+    TRAIN_RANKS, model TP_MODEL), the inputs_embeds and positions whole on
+    every model rank, against the data-parallel kernel run
+    (``_tp_twin``).  Returns ({"sum_chunks": launches}, numbers)."""
     import gc
     model, init, mesh, ds = vl_workload("train_vl")
     dp, counts = _kernels_plain_low_lr(
         "train_vl", model, init, mesh, ds, _adamw,
         microbatches=VL_TRAIN_MICRO)
+    dp["tp"], tp_counts = _tp_twin("train_vl", model.cfg, init, ds, _adamw,
+                                   dp["low_lr"], microbatches=VL_TRAIN_MICRO)
     del init, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"sum_chunks": counts["sum_chunks"]}, dp
+    return {"sum_chunks": counts["sum_chunks"] + tp_counts["sum_chunks"]}, dp
 
 
 def phase_train_seamless():
     """[train_seamless]: seamless-m4t-large-v2 at its published widths
-    and full depth (24 + 24 layers), random bf16 weights from seed 0,
-    [train]'s tokens beside numpy frames (``_FrameBatches``), AdamW, 1
-    microbatch (the reference's settings): data-parallel composed,
-    kernels and plain (bit-identical) and at LOW_LR (the loss falls).
+    cut to SEAMLESS_TRAIN_LAYERS + SEAMLESS_TRAIN_LAYERS of its 24 + 24
+    layers, random bf16 weights from seed 0, [train]'s tokens beside
+    numpy frames (``_FrameBatches``), AdamW, 1 microbatch (the
+    reference's settings): data-parallel composed, kernels and plain
+    (bit-identical) and at LOW_LR (the loss falls); then on (data
+    TRAIN_RANKS, model TP_MODEL) against the LOW_LR run (``_tp_twin``).
     Returns ({"sum_chunks": launches}, numbers)."""
     import gc
     model, init, mesh, ds = seamless_workload("train_seamless")
     dp, counts = _kernels_plain_low_lr(
         "train_seamless", model, init, mesh, ds, _adamw)
+    dp["tp"], tp_counts = _tp_twin("train_seamless", model.cfg, init, ds,
+                                   _adamw, dp["low_lr"])
     del init, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"sum_chunks": counts["sum_chunks"]}, dp
+    return {"sum_chunks": counts["sum_chunks"] + tp_counts["sum_chunks"]}, dp
 
 
 def phase_train_pod():
@@ -4409,6 +4657,7 @@ def main() -> int:
                                           phase_train_adafactor)
     by_path["train_deepseek"], _ = timed("train_deepseek",
                                          phase_train_deepseek)
+    by_path["train_jamba"], _ = timed("train_jamba", phase_train_jamba)
     by_path["train_mamba2"], _ = timed("train_mamba2", phase_train_mamba2)
     by_path["train_vl"], _ = timed("train_vl", phase_train_vl)
     by_path["train_seamless"], _ = timed("train_seamless",

@@ -22,6 +22,10 @@ in-process ranks on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch mistral-large-123b --reduced --optimizer adafactor \\
         --data 2 --model-parallel 2 --steps 8   # the large archs' optimizer
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch jamba-1.5-large-398b --reduced --optimizer adafactor \\
+        --data 2 --model-parallel 2 --steps 4 --seq-len 16 \\
+        --global-batch 4     # Mamba, MoE and attention heads over "model"
 
 Counterpart of ``repro.launch.train``: synthetic data -> the §2.2 scan
 and composed session (``build_session``) -> ``--data`` x
@@ -97,9 +101,17 @@ def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
                                          comm=probe.world)
     # with ZeRO the state's chunks follow the probe's width
     abstate = trainer.abstract_state(model, opt, tcfg, mesh=probe.mesh)
-    abatch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
-                             device="meta")
-              for k, v in ds.host_batch(0).items()}
+    # the probe's ranks each take at least a row a microbatch (a batch
+    # of fewer rows than the probe has ranks, e.g. 2 on (data 1, model
+    # 2), still probes): the collective set does not depend on the rows
+    m = tcfg.microbatches
+    abatch = {}
+    for k, v in ds.host_batch(0).items():
+        shape, d = list(v.shape), trainer.batch_dim(k, v)
+        per = -(-shape[d] // PROBE_SHAPE[0])
+        shape[d] = -(-per // m) * m * PROBE_SHAPE[0]
+        abatch[k] = torch.empty(shape, dtype=torch.from_numpy(v).dtype,
+                                device="meta")
     return Session.from_application(
         probe_step, [abstate] * probe.mesh.size, abatch, mesh=mesh,
         probe=probe, config=config)

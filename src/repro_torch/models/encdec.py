@@ -19,6 +19,14 @@ decoder LM's is.  With ``remat`` (the reference's field and default) the
 training forward checkpoints each encoder and each decoder layer under
 policy "nothing", as the reference's ``encode`` / ``decode_train`` do
 (``models.remat``); prefill and decode never do.
+
+Over a "model" axis (training only: ``loss_fn(..., tp_index=)``, ``cfg``
+the rank's ``local_config``) every layer runs as the decoder LM's do
+(``transformer.apply_layer``): the residual cut ahead of each norm, each
+normed input entering the rank's heads or MLP columns through *f*, each
+output leaving through *g*; the cross-attention splits by heads over
+the whole memory, which enters every decoder layer through one *f*
+after ``enc_norm``; the embedding and the loss are vocab-parallel.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import remat as R
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as S
 from repro_torch.tree import map_tree
 
 Params = Dict[str, Any]
@@ -86,13 +95,15 @@ def _init_enc_layers(gen, cfg: EncDecCfg, device) -> Params:
 
 
 def _apply_enc_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor, *,
-                     train: bool = False) -> torch.Tensor:
-    h = _norm(cfg, params["norm1"], x)
+                     train: bool = False, tp: bool = False) -> torch.Tensor:
+    cut, f, g = T._tp_ops(tp)
+    x = cut(x)
+    h = f(_norm(cfg, params["norm1"], x))
     out, _ = L.attention_forward(params["attn"], _enc_attn(cfg), h,
                                  train=train, block_k=cfg.block_k)
-    x = x + out
-    h = _norm(cfg, params["norm2"], x)
-    return x + L.mlp_forward(params["mlp"], cfg.mlp, h)
+    x = cut(x + g(out))
+    h = f(_norm(cfg, params["norm2"], x))
+    return x + g(L.mlp_forward(params["mlp"], cfg.mlp, h))
 
 
 def _init_dec_layers(gen, cfg: EncDecCfg, device) -> Params:
@@ -109,9 +120,11 @@ def _init_dec_layers(gen, cfg: EncDecCfg, device) -> Params:
 def _apply_dec_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor,
                      memory: torch.Tensor, *, q_offset: int = 0,
                      cache: Optional[Params] = None, decode: bool = False,
-                     train: bool = False
+                     train: bool = False, tp: bool = False
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
-    h = _norm(cfg, params["norm1"], x)
+    cut, f, g = T._tp_ops(tp)
+    x = cut(x)
+    h = f(_norm(cfg, params["norm1"], x))
     if decode:
         out, new_cache = L.attention_decode(params["self_attn"], cfg.attn, h,
                                             cache)
@@ -119,12 +132,13 @@ def _apply_dec_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor,
         out, new_cache = L.attention_forward(
             params["self_attn"], cfg.attn, h, q_offset=q_offset,
             kv_cache=cache, train=train, block_k=cfg.block_k)
-    x = x + out
-    h = _norm(cfg, params["norm_x"], x)
-    x = x + L.cross_attention_forward(params["cross"], cfg.cross, h, memory,
-                                      train=train, block_k=cfg.block_k)
-    h = _norm(cfg, params["norm2"], x)
-    return x + L.mlp_forward(params["mlp"], cfg.mlp, h), new_cache
+    x = cut(x + g(out))
+    h = f(_norm(cfg, params["norm_x"], x))
+    x = cut(x + g(L.cross_attention_forward(
+        params["cross"], cfg.cross, h, memory, train=train,
+        block_k=cfg.block_k)))
+    h = f(_norm(cfg, params["norm2"], x))
+    return x + g(L.mlp_forward(params["mlp"], cfg.mlp, h)), new_cache
 
 
 def _layer(stack: Params, i: int) -> Params:
@@ -153,17 +167,37 @@ def init_params(gen: Optional[torch.Generator], cfg: EncDecCfg,
     }
 
 
+def local_config(cfg: EncDecCfg, lay) -> EncDecCfg:
+    """The config one model rank computes (``parallel.sharding``'s
+    ``TPLayout``): its self- and cross-attention heads, its MLP columns
+    and its vocabulary block."""
+    c = cfg.cross
+    return dataclasses.replace(
+        cfg, vocab_size=lay.vocab,
+        attn=L.local_attention(cfg.attn, lay.heads, lay.kv_heads),
+        cross=L.local_attention(
+            c, c.num_heads // lay.model,
+            c.num_kv_heads if lay.kv_replicated
+            else c.num_kv_heads // lay.model),
+        mlp=dataclasses.replace(cfg.mlp, d_ff=lay.d_ff))
+
+
 def encode(params: Params, cfg: EncDecCfg, frame_embeds: torch.Tensor, *,
-           train: bool = False) -> torch.Tensor:
+           train: bool = False, tp: bool = False) -> torch.Tensor:
     """frame_embeds: (B, S_enc, D) from the stub frontend -> the memory
-    (B, S_enc, D) in the param dtype."""
+    (B, S_enc, D) in the param dtype.  ``tp``: the params are a model
+    rank's shard (``cfg`` its local config); the frames enter whole, and
+    the memory leaves through one *f*, whose staged backward sums every
+    decoder layer's and every rank's share of its gradient before the
+    encoder's segments run.  A layer over "model" is not checkpointed."""
     x = frame_embeds.to(cfg.param_dtype)
-    remat = R.active(cfg.remat, train)
+    remat = R.active(cfg.remat, train) and not tp
     for i in range(cfg.enc_layers):
         args = (_layer(params["encoder"], i), cfg, x)
         x = (R.checkpointed(_apply_enc_layer, *args, train=True) if remat
-             else _apply_enc_layer(*args, train=train))
-    return _norm(cfg, params["enc_norm"], x)
+             else _apply_enc_layer(*args, train=train, tp=tp))
+    cut, f, _ = T._tp_ops(tp)
+    return f(_norm(cfg, params["enc_norm"], cut(x)))
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -171,25 +205,37 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
-                 memory: torch.Tensor, *, train: bool = False
-                 ) -> torch.Tensor:
-    """Teacher-forced decoder pass -> logits (B, S_dec, V)."""
-    x = _embed(params, tokens)
-    remat = R.active(cfg.remat, train)
+                 memory: torch.Tensor, *, train: bool = False,
+                 tp_index: Optional[int] = None) -> torch.Tensor:
+    """Teacher-forced decoder pass -> logits (B, S_dec, V); with
+    ``tp_index`` (the rank's model coordinate, ``memory`` from
+    ``encode(tp=True)``) the rank's vocabulary columns of them, from the
+    vocab-parallel embedding and the rank's heads and MLP columns."""
+    tp = tp_index is not None
+    x = (S.vocab_parallel_embed(params["embed"], tokens, tp_index) if tp
+         else _embed(params, tokens))
+    remat = R.active(cfg.remat, train) and not tp
     for i in range(cfg.dec_layers):
         args = (_layer(params["decoder"], i), cfg, x, memory)
         x, _ = (R.checkpointed(_apply_dec_layer, *args, train=True) if remat
-                else _apply_dec_layer(*args, train=train))
-    return _norm(cfg, params["dec_norm"], x) @ params["lm_head"]
+                else _apply_dec_layer(*args, train=train, tp=tp))
+    cut, f, _ = T._tp_ops(tp)
+    return f(_norm(cfg, params["dec_norm"], cut(x))) @ params["lm_head"]
 
 
-def loss_fn(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor]
+def loss_fn(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor],
+            tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token NLL of ``labels`` given ``frame_embeds`` and the teacher-forced
-    ``tokens``: (loss, {"nll", "loss"}), differentiable in ``params``."""
-    memory = encode(params, cfg, batch["frame_embeds"], train=True)
-    logits = decode_train(params, cfg, batch["tokens"], memory, train=True)
-    loss = T.cross_entropy(logits, batch["labels"])
+    ``tokens``: (loss, {"nll", "loss"}), differentiable in ``params``.
+    With ``tp_index`` the params are the rank's shard and the NLL is the
+    vocab-parallel cross-entropy (the same value on every model rank)."""
+    tp = tp_index is not None
+    memory = encode(params, cfg, batch["frame_embeds"], train=True, tp=tp)
+    logits = decode_train(params, cfg, batch["tokens"], memory, train=True,
+                          tp_index=tp_index)
+    loss = (S.vocab_parallel_cross_entropy(logits, batch["labels"], tp_index)
+            if tp else T.cross_entropy(logits, batch["labels"]))
     return loss, {"nll": loss, "loss": loss}
 
 

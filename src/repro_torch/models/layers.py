@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.parallel import sharding as S
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,10 +77,19 @@ def init_rmsnorm(dim: int, dtype, device, lead: Tuple[int, ...] = ()):
     return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6,
+            shards: int = 1) -> torch.Tensor:
+    """With ``shards`` > 1, ``x`` is this model rank's 1/``shards`` of the
+    normed dim (a Mamba mixer's gated norm over a rank's heads): the mean
+    square's sum is summed over "model" as *f* of *g*, so that its
+    backward too sums every rank's share of its gradient (*g*'s identity
+    alone would hand each rank its own share only)."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if shards == 1:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = S.copy_to_model(S.reduce_from_model(torch.sum(
+            xf * xf, dim=-1, keepdim=True))) / (xf.shape[-1] * shards)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
 
@@ -339,6 +349,24 @@ class AttentionCfg:
     rope_theta: float = 1e4
     causal: bool = True
     mrope_sections: Optional[Tuple[int, ...]] = None   # Qwen2-VL M-RoPE
+    #: the port's: in a model rank's local config whose K/V heads every
+    #: rank holds whole (``num_kv_heads`` does not split over "model",
+    #: and is above 1), the model's query heads a KV head serves; the
+    #: rank's ``num_heads`` query heads, from ``model_index() *
+    #: num_heads`` on, each read theirs (``_rank_kv``).  0 otherwise.
+    kv_group: int = 0
+
+
+def local_attention(cfg: AttentionCfg, heads: int, kv_heads: int
+                    ) -> AttentionCfg:
+    """A model rank's attention config: its ``heads`` query heads and
+    ``kv_heads`` KV heads (all of them when they do not split, with
+    ``kv_group`` set where there are several)."""
+    replicated = kv_heads == cfg.num_kv_heads and heads < cfg.num_heads
+    return dataclasses.replace(
+        cfg, num_heads=heads, num_kv_heads=kv_heads,
+        kv_group=(cfg.num_heads // cfg.num_kv_heads
+                  if replicated and kv_heads > 1 else 0))
 
 
 def init_attention(gen, cfg: AttentionCfg, dtype, device,
@@ -375,6 +403,16 @@ def _project_qkv(params: Params, cfg: AttentionCfg, x: torch.Tensor):
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
     return q, k, v.reshape(b, sq, Hkv, Dh)
+
+
+def _rank_kv(cfg: AttentionCfg, k: torch.Tensor, v: torch.Tensor):
+    """K and V (B, S, Hkv, D) cut to one head a query head of this model
+    rank (``cfg.kv_group``): a rank's query heads need not start at a KV
+    group's first head, nor cover a group."""
+    lo = S.model_index() * cfg.num_heads
+    idx = torch.arange(lo, lo + cfg.num_heads,
+                       device=k.device) // cfg.kv_group
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _rope_for(cfg: AttentionCfg, positions: torch.Tensor
@@ -429,6 +467,8 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
         if valid_len is not None:
             new_len = torch.clamp(new_len, max=valid_len)
         new_cache = {"k": kc, "v": vc, "len": new_len}
+    if cfg.kv_group:
+        k, v = _rank_kv(cfg, k, v)
     if chunked:
         if new_cache is None:
             raise ValueError("chunked prefill needs a cache")
@@ -559,7 +599,9 @@ def cross_attention_forward(params: Params, cfg: AttentionCfg,
     over bf16 weights, at prefill) is projected in the wider of the two,
     as JAX promotes the reference's product.  ``train=True`` attends
     through ``train_attention`` (differentiable), otherwise through the
-    forward-only flash op."""
+    forward-only flash op.  Over a "model" axis ``cfg`` holds the rank's
+    heads and ``params`` its columns of ``wq``/``wk``/``wv`` and rows of
+    ``wo``; ``memory`` is whole."""
     b, sq, _ = x.shape
     skv = memory.shape[1]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -573,6 +615,8 @@ def cross_attention_forward(params: Params, cfg: AttentionCfg,
         q = q + params["bq"].reshape(H, Dh)
         k = k + params["bk"].reshape(Hkv, Dh)
         v = v + params["bv"].reshape(Hkv, Dh)
+    if cfg.kv_group:
+        k, v = _rank_kv(cfg, k, v)
     if train:
         out = train_attention(q, k, v, causal=False, block_k=block_k)
     else:

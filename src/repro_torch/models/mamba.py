@@ -17,6 +17,15 @@ which are written in place, a step returns both leaves anew.
 ``ssd_chunked`` takes only sequence lengths that are a multiple of
 ``chunk``: the reference asserts it (``ssd_chunked``'s ``nc * chunk ==
 s``), so the port raises a ``ValueError`` where it does.
+
+Over a "model" axis (training; ``MambaCfg.head_shards`` > 1, a rank's
+local config) a rank holds its heads: its columns of each section of
+``in_proj`` and the conv (``parallel.sharding.leaf_sections``), its
+``A_log``, ``D``, ``dt_bias``, gated-norm scale and ``out_proj`` rows.
+B and C are gathered whole on every rank, and the gated RMSNorm's mean
+square, which spans all of d_inner, is summed over "model" (each as *f*
+of *g*: every collective of the backward is a cut of the staged
+backward, none waits inside an autograd node).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as S
 
 Params = Dict[str, torch.Tensor]
 
@@ -42,22 +52,32 @@ class MambaCfg:
     ngroups: int = 1            # G (B/C projections shared per group)
     d_conv: int = 4
     chunk: int = 128            # SSD chunk length Q
+    #: the port's: the model ranks the heads split over (a model rank's
+    #: local config, ``parallel.sharding``): ``d_inner``, ``nheads`` and
+    #: the B/C width are then the rank's share, ``expand`` and
+    #: ``d_model`` stay the model's
+    head_shards: int = 1
 
     @property
     def d_inner(self) -> int:
-        return self.expand * self.d_model
+        return self.expand * self.d_model // self.head_shards
 
     @property
     def nheads(self) -> int:
         return self.d_inner // self.headdim
 
     @property
+    def d_bc(self) -> int:
+        """The B (and C) channels of the conv a rank holds."""
+        return self.ngroups * self.d_state // self.head_shards
+
+    @property
     def conv_channels(self) -> int:
-        return self.d_inner + 2 * self.ngroups * self.d_state
+        return self.d_inner + 2 * self.d_bc
 
     @property
     def proj_width(self) -> int:
-        return 2 * self.d_inner + 2 * self.ngroups * self.d_state + self.nheads
+        return 2 * self.d_inner + 2 * self.d_bc + self.nheads
 
 
 def init_mamba(gen, cfg: MambaCfg, dtype, device,
@@ -91,7 +111,7 @@ def init_mamba(gen, cfg: MambaCfg, dtype, device,
 
 
 def _split_proj(cfg: MambaCfg, zxbcdt: torch.Tensor):
-    di, gn = cfg.d_inner, cfg.ngroups * cfg.d_state
+    di, gn = cfg.d_inner, cfg.d_bc
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * gn]
     dt = zxbcdt[..., di + di + 2 * gn:]
@@ -191,10 +211,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _heads(cfg: MambaCfg, xbc: torch.Tensor):
-    """(x (.., H, P), B (.., G, N), C (.., G, N)) of the conv output."""
-    di, gn = cfg.d_inner, cfg.ngroups * cfg.d_state
+    """(x (.., H, P), B (.., G, N), C (.., G, N)) of the conv output.  Over
+    a rank's heads B and C are gathered whole (``_whole_bc``) and cut to
+    the groups of its heads (``_groups_of_heads``)."""
+    di, gn = cfg.d_inner, cfg.d_bc
     lead = xbc.shape[:-1]
-    return (xbc[..., :di].reshape(lead + (cfg.nheads, cfg.headdim)),
+    xs = xbc[..., :di].reshape(lead + (cfg.nheads, cfg.headdim))
+    if cfg.head_shards > 1:
+        return (xs,) + _groups_of_heads(cfg, *_whole_bc(cfg, xbc[..., di:]))
+    return (xs,
             xbc[..., di:di + gn].reshape(lead + (cfg.ngroups, cfg.d_state)),
             xbc[..., di + gn:].reshape(lead + (cfg.ngroups, cfg.d_state)))
 
@@ -202,12 +227,45 @@ def _heads(cfg: MambaCfg, xbc: torch.Tensor):
 def _gate_out(params: Params, cfg: MambaCfg, y: torch.Tensor,
               z: torch.Tensor, xs: torch.Tensor, x: torch.Tensor
               ) -> torch.Tensor:
-    """The skip term, the gated RMSNorm and the output projection."""
+    """The skip term, the gated RMSNorm and the output projection (over a
+    rank's heads: the norm over all of d_inner, and its partial of the
+    projection, summed over "model" by the layer's *g*)."""
     b, s = x.shape[:2]
     y = y + xs.float() * params["D"][:, None]
     y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
-    y = L.rmsnorm(params["norm"], y * F.silu(z))
+    y = L.rmsnorm(params["norm"], S.cut(y * F.silu(z)),
+                  shards=cfg.head_shards)
     return y @ params["out_proj"]
+
+
+def _whole_bc(cfg: MambaCfg, bc: torch.Tensor):
+    """B and C (.., G, N) whole on every model rank from each rank's block
+    of their channels (``bc``: the conv output's (.., 2 * ``d_bc``) B and
+    C block): the block placed in zeros of the whole width and summed
+    over "model" (*g*), entered through *f*, so the backward sums the
+    ranks' partial gradients (each rank's heads read all of B and C) and
+    hands each rank its block's."""
+    lead = bc.shape[:-1]
+    gn = cfg.d_bc
+    lo = S.model_index() * gn
+    bc = bc.reshape(lead + (2, gn))
+    whole = gn * cfg.head_shards
+    bc = S.copy_to_model(S.reduce_from_model(
+        F.pad(bc, (lo, whole - lo - gn))))
+    g = cfg.ngroups
+    return (bc[..., 0, :].reshape(lead + (g, cfg.d_state)),
+            bc[..., 1, :].reshape(lead + (g, cfg.d_state)))
+
+
+def _groups_of_heads(cfg: MambaCfg, Bm: torch.Tensor, Cm: torch.Tensor):
+    """The whole B and C (.., G, N) cut to the groups of this rank's heads,
+    one a head (.., H_rank, N), unless every head shares one group."""
+    if cfg.ngroups == 1:
+        return Bm, Cm
+    rep = cfg.nheads * cfg.head_shards // cfg.ngroups
+    lo = S.model_index() * cfg.nheads
+    idx = torch.arange(lo, lo + cfg.nheads, device=Bm.device) // rep
+    return Bm.index_select(-2, idx), Cm.index_select(-2, idx)
 
 
 def mamba_forward(params: Params, cfg: MambaCfg, x: torch.Tensor, *,
@@ -215,12 +273,22 @@ def mamba_forward(params: Params, cfg: MambaCfg, x: torch.Tensor, *,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence path (training, prefill).  x: (B, S, D).  With a
     cache the conv tail and the state chain from it, and the new cache
-    comes back: ``conv`` in the cache's dtype, ``ssm`` f32."""
-    zxbcdt = x @ params["in_proj"]
-    z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
+    comes back: ``conv`` in the cache's dtype, ``ssm`` f32.
+
+    A rank's local config (``cfg.head_shards`` > 1; ``params`` its shard,
+    ``x`` whole after the layer's *f*) runs its heads, without a cache:
+    serving over "model" is not ported.  Under its ``StagedBackward`` the
+    projection, the conv's output and the gated norm's input are cut
+    (``sharding.cut``, the identity without one): each is read on two
+    paths of which one crosses a cut (B and C's *f*, the mean square's
+    *f*), so each segment of the backward runs its nodes once."""
+    if cfg.head_shards > 1 and cache is not None:
+        raise ValueError("a Mamba mixer split over \"model\" has no "
+                         "cache: serving over a model axis is not ported")
+    z, xbc_raw, dt = _split_proj(cfg, S.cut(x @ params["in_proj"]))
     conv_tail = None if cache is None else cache["conv"]
-    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"],
-                       conv_tail)
+    xbc = S.cut(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"],
+                             conv_tail))
     xs, Bm, Cm = _heads(cfg, xbc)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])

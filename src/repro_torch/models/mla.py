@@ -21,6 +21,13 @@ Two forms of the same attention, as in the reference:
 Caches are written IN PLACE, as ``layers``' K/V caches are: a prefill or
 decode step writes its rows into the ``ckv``/``krope`` tensors it is
 handed and returns them with a new ``len``.
+
+Over a "model" axis (training only) ``cfg.num_heads`` is the rank's
+share (``transformer.local_config``) and ``params`` hold its columns of
+``w_uq`` / ``w_ukv`` and rows of ``w_o``: ``mla_forward`` runs the
+rank's heads over the latent ``ckv`` and ``k_rope``, which every rank
+computes whole from the low-rank leaves it holds whole
+(``parallel.sharding``).
 """
 
 from __future__ import annotations

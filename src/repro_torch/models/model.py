@@ -20,11 +20,13 @@ tensors.
 ``model_parallel > 1`` builds the model a rank of a mesh with a "model"
 axis of that size computes (``parallel.sharding``): ``init`` still gives
 the full params, ``shard`` a rank's block of them, and ``loss`` /
-``loss_and_grads`` run on that block inside the rank.  Serving with a
+``loss_and_grads`` run on that block inside the rank.  Every family
+the reference splits over "model" splits so: attention, MLA and Mamba
+heads, FFN columns and experts, the encoder-decoder's self- and
+cross-attention; a model without an embedding table takes its
+``inputs_embeds`` and ``positions`` whole on every rank.  Serving with a
 model axis is not ported: the reference's serving launcher runs
-``model_parallel=1`` only.  Neither is a model axis for the
-encoder-decoder or a model without an embedding table
-(``sharding.layout`` refuses both).
+``model_parallel=1`` only.
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ class Model:
     def __post_init__(self):
         self.layout = (S.layout(self.cfg, self.model_parallel)
                        if self.model_parallel > 1 else None)
+        local = ED.local_config if self.kind == "encdec" else T.local_config
         self.local_cfg = (self.cfg if self.layout is None
-                          else T.local_config(self.cfg, self.layout))
+                          else local(self.cfg, self.layout))
 
     @property
     def kind(self) -> str:
@@ -103,12 +106,11 @@ class Model:
         table; {"frame_embeds", "tokens", "labels"} for the enc-dec),
         differentiable in ``params`` (with a model axis: the calling
         rank's shard)."""
-        if self.kind == "encdec":
-            return ED.loss_fn(params, self.cfg, batch)
+        loss_fn = ED.loss_fn if self.kind == "encdec" else T.loss_fn
         if self.layout is None:
-            return T.loss_fn(params, self.cfg, batch)
-        return T.loss_fn(params, self.local_cfg, batch,
-                         tp_index=S.model_index())
+            return loss_fn(params, self.cfg, batch)
+        return loss_fn(params, self.local_cfg, batch,
+                       tp_index=S.model_index())
 
     def loss_and_grads(self, params: Params, batch: Dict[str, torch.Tensor]
                        ) -> Tuple[torch.Tensor, Params]:

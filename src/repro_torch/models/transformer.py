@@ -25,16 +25,21 @@ the reference's: the training forward checkpoints each stage's block
 stages and is not checkpointed, as in the reference.
 
 Tensor parallelism (``tp_index``, the rank's coordinate on "model"):
-``cfg`` is then the rank's local config (``local_config``: its heads,
-its FFN columns, its vocabulary block) and the params its shard
-(``parallel.sharding``, which refuses MLA, Mamba and a model without
-an embedding table; a MoE layer's
-experts split over "model", see ``models.moe.moe_forward_sharded``).
-The embedding is vocab-parallel, each pre-norm output enters its
+``cfg`` is then the rank's local config (``local_config``: its
+attention, MLA or Mamba heads, its FFN columns, its vocabulary block)
+and the params its shard (``parallel.sharding``; a MoE layer's experts
+split over "model", see ``models.moe.moe_forward_sharded``, a Mamba
+mixer's heads ``models.mamba``).  The embedding is vocab-parallel (a
+model without an embedding table takes its ``inputs_embeds`` and
+``positions`` whole on every rank), each pre-norm output enters its
 column-parallel product through *f* and each row-parallel product leaves
 through *g*, the residual stream is cut ahead of each norm for the
 staged backward, and the loss is the vocab-parallel cross-entropy over
-the rank's ``lm_head`` columns.
+the rank's ``lm_head`` columns.  MLA's latents are computed whole on
+every rank from the *f* of the normed input, so its low-rank leaves'
+gradients are partial sums.  The MTP head embeds the next tokens
+vocab-parallel, runs its block over the shard and reads the final
+normed hidden ahead of the head's *f* (``loss_fn``).
 """
 
 from __future__ import annotations
@@ -147,13 +152,18 @@ def init_layer(gen, cfg: TransformerCfg, spec: LayerSpec, device,
 
 
 def local_config(cfg: TransformerCfg, lay: S.TPLayout) -> TransformerCfg:
-    """The config one model rank computes: its query and KV heads, its
-    FFN columns or its experts, and its vocabulary block (the shapes of
-    its shard; routing still scores every expert)."""
+    """The config one model rank computes: its query and KV heads (MLA's
+    and Mamba's heads too), its FFN columns or its experts, and its
+    vocabulary block (the shapes of its shard; routing still scores
+    every expert)."""
     return dataclasses.replace(
         cfg, vocab_size=lay.vocab,
-        attn=dataclasses.replace(cfg.attn, num_heads=lay.heads,
-                                 num_kv_heads=lay.kv_heads),
+        attn=None if cfg.attn is None
+        else L.local_attention(cfg.attn, lay.heads, lay.kv_heads),
+        mla=None if cfg.mla is None
+        else dataclasses.replace(cfg.mla, num_heads=lay.mla_heads),
+        mamba=None if cfg.mamba is None
+        else dataclasses.replace(cfg.mamba, head_shards=lay.model),
         mlp=None if cfg.mlp is None
         else dataclasses.replace(cfg.mlp, d_ff=lay.d_ff),
         moe=None if cfg.moe is None
@@ -366,6 +376,22 @@ def forward(params: Params, cfg: TransformerCfg,
     ``layers.train_attention``); ``tp_index`` the rank's model coordinate
     when ``params`` is its shard (the hidden state then enters the
     unembedding through *f*)."""
+    h, new_caches, aux = _final_hidden(
+        params, cfg, batch, caches=caches, q_offset=q_offset, decode=decode,
+        chunked=chunked, valid_len=valid_len, train=train, tp_index=tp_index)
+    _, f, _ = _tp_ops(tp_index is not None)
+    return f(h), new_caches, aux
+
+
+def _final_hidden(params: Params, cfg: TransformerCfg,
+                  batch: Dict[str, torch.Tensor], *,
+                  caches: Optional[Params] = None, q_offset: int = 0,
+                  decode: bool = False, chunked: bool = False,
+                  valid_len: Optional[int] = None, train: bool = False,
+                  tp_index: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """``forward`` up to the final norm's output, ahead of the head's
+    *f* (whole on every model rank)."""
     tp = tp_index is not None
     if not cfg.embed_inputs:
         h = batch["inputs_embeds"].to(cfg.param_dtype)
@@ -387,9 +413,8 @@ def forward(params: Params, cfg: TransformerCfg,
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches[name] = nc
-    cut, f, _ = _tp_ops(tp)
-    return (f(_norm(cfg, params["final_norm"], cut(h))), new_caches,
-            aux_total)
+    cut, _, _ = _tp_ops(tp)
+    return _norm(cfg, params["final_norm"], cut(h)), new_caches, aux_total
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -405,6 +430,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
+def _lm_loss(params: Params, cfg: TransformerCfg, h: torch.Tensor,
+             labels: torch.Tensor, tp_index: Optional[int]) -> torch.Tensor:
+    """The cross-entropy of the head over the normed hidden ``h`` (whole
+    on every model rank): with ``tp_index`` ``h`` enters the rank's
+    vocabulary columns through *f* and the loss is the vocab-parallel
+    cross-entropy."""
+    if tp_index is None:
+        return cross_entropy(_unembed(params, cfg, h), labels)
+    return S.vocab_parallel_cross_entropy(
+        _unembed(params, cfg, S.copy_to_model(h)), labels, tp_index)
+
+
 def loss_fn(params: Params, cfg: TransformerCfg,
             batch: Dict[str, torch.Tensor], tp_index: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -415,21 +452,18 @@ def loss_fn(params: Params, cfg: TransformerCfg,
     "loss"}); "aux" is the main stack's, as the reference reports it.
     With ``tp_index`` the params are the rank's shard and the NLL is the
     vocab-parallel cross-entropy (the same value on every model rank, and
-    so is the aux loss)."""
-    h, _, aux = forward(params, cfg, batch, train=True, tp_index=tp_index)
-    logits = _unembed(params, cfg, h)
-    if tp_index is None:
-        nll = cross_entropy(logits, batch["labels"])
-    else:
-        nll = S.vocab_parallel_cross_entropy(logits, batch["labels"],
-                                             tp_index)
+    so is the aux loss).  The MTP term reads the normed hidden ahead of
+    the head's *f*: its gradient into it is whole on every rank already,
+    and through *f* it would be summed over "model" once more."""
+    h, _, aux = _final_hidden(params, cfg, batch, train=True,
+                              tp_index=tp_index)
+    if cfg.mtp and tp_index is not None:
+        h = S.cut(h)          # read by the head's *f* and the MTP block
+    nll = _lm_loss(params, cfg, h, batch["labels"], tp_index)
     metrics = {"nll": nll, "aux": aux}
     loss = nll
     if cfg.mtp and cfg.embed_inputs:
-        if tp_index is not None:
-            raise NotImplementedError("the MTP head over a \"model\" axis "
-                                      "is not ported")
-        mtp = _mtp_loss(params, cfg, batch, h)
+        mtp = _mtp_loss(params, cfg, batch, h, tp_index)
         aux = aux + mtp[1]
         loss = loss + cfg.mtp_loss_weight * mtp[0]
         metrics["mtp"] = mtp[0]
@@ -439,18 +473,29 @@ def loss_fn(params: Params, cfg: TransformerCfg,
 
 
 def _mtp_loss(params: Params, cfg: TransformerCfg,
-              batch: Dict[str, torch.Tensor], h: torch.Tensor
+              batch: Dict[str, torch.Tensor], h: torch.Tensor,
+              tp_index: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(MTP cross-entropy, the MTP block's aux loss): token t + 2 is
     predicted from the final hidden state at t joined with the embedding
-    of token t + 1, through one more layer and the shared unembedding."""
-    emb_next = params["embed"][batch["tokens"].long()][:, 1:]
+    of token t + 1, through one more layer and the shared unembedding.
+    With ``tp_index`` the next tokens' embedding is vocab-parallel, the
+    block runs over the rank's shard (``apply_layer(tp=True)``), and its
+    output enters the head as the main stack's does; the two norms and
+    the projection are whole on every rank."""
+    tokens = batch["tokens"]
+    if tp_index is None:
+        emb_next = params["embed"][tokens.long()][:, 1:]
+    else:
+        emb_next = S.vocab_parallel_embed(params["embed"], tokens,
+                                          tp_index)[:, 1:]
     h_in = torch.cat([_norm(cfg, params["mtp_norm1"], h[:, :-1]),
                       _norm(cfg, params["mtp_norm2"], emb_next)], dim=-1)
     h_mtp, _, aux = apply_layer(params["mtp_block"], cfg, _mtp_spec(cfg),
-                                h_in @ params["mtp_proj"], train=True)
-    return (cross_entropy(_unembed(params, cfg, h_mtp),
-                          batch["labels"][:, 1:]), aux)
+                                h_in @ params["mtp_proj"], train=True,
+                                tp=tp_index is not None)
+    return (_lm_loss(params, cfg, h_mtp, batch["labels"][:, 1:],
+                     tp_index), aux)
 
 
 def init_caches(cfg: TransformerCfg, batch: int, max_len: int, dtype,

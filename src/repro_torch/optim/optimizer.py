@@ -37,7 +37,12 @@ Adafactor's reductions over a split dim must span the whole leaf:
 ``i``'s reduction over its columns (``over="cols"``), rows
 (``"rows"``) or all of it (``"all"``) across the ranks holding the
 other blocks of that dim, and says how many blocks were summed (1 where
-nothing crosses).  AdamW has no such reduction and ignores it.
+nothing crosses); ``update(..., lead_blocks=fn)`` says into how many
+blocks ``fn(i, ndim)`` leaf ``i``'s leading dim is cut.  The clip groups
+of a leaf follow its whole leading dim, as the reference's
+``_map_leading`` sees it: an expert stack of 8 cut in two is still
+clipped one expert at a time, each rank its own experts.  AdamW has no
+such reduction and ignores both.
 """
 
 from __future__ import annotations
@@ -68,9 +73,20 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
+def sum_of_squares(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of ``x``; a leaf of more than
+    ``UPDATE_SLICE`` values is summed slice by slice, so no f32
+    temporary of the whole leaf is made (a 3.2 B-value expert stack's
+    would be 12.9 GB)."""
+    flat = x.reshape(-1)
+    if flat.numel() <= UPDATE_SLICE:
+        return torch.sum(torch.square(x.float()))
+    return sum(torch.sum(torch.square(flat[lo:lo + UPDATE_SLICE].float()))
+               for lo in range(0, flat.numel(), UPDATE_SLICE))
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    return torch.sqrt(sum(sum_of_squares(x) for x in leaves(tree)))
 
 
 def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
@@ -140,7 +156,8 @@ def make_adamw(cfg: AdamWCfg) -> Optimizer:
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params, global_norm_fn=None, split_sum=None):
+    def update(grads, state, params, global_norm_fn=None, split_sum=None,
+               lead_blocks=None):
         step = state["step"] + 1
         gnorm = (global_norm_fn or global_norm)(grads)
         if cfg.clip_norm:
@@ -188,10 +205,12 @@ def _factored(shape, min_dim: int = 128) -> bool:
     return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
 
 
-def _groups(shape) -> int:
-    """The leaf's clip groups: its leading slices where the reference's
-    ``_map_leading`` maps it, else 1 (the whole leaf)."""
-    return shape[0] if len(shape) >= 3 and shape[0] > MAP_LEADING else 1
+def clip_groups(shape, lead_blocks: int = 1) -> int:
+    """The leaf's clip groups on this rank: its leading slices where the
+    reference's ``_map_leading`` maps the whole leaf (whose leading dim
+    is ``lead_blocks`` of this block's), else 1 (the whole leaf)."""
+    mapped = len(shape) >= 3 and shape[0] * lead_blocks > MAP_LEADING
+    return shape[0] if mapped else 1
 
 
 def _spans(outer: int, inner: int, width: int):
@@ -214,11 +233,18 @@ def _local_sum(x, over):
 
 class _AdafactorLeaf:
     """One leaf's Adafactor update, in place, in the reference's
-    arithmetic; ``reduce(x, over)`` is the leaf's model-axis hook."""
+    arithmetic; ``reduce(x, over)`` is the leaf's model-axis hook, and
+    its leading dim is ``lead_blocks`` of this block's."""
 
-    def __init__(self, cfg, beta2, lr, clip, reduce):
+    def __init__(self, cfg, beta2, lr, clip, reduce, lead_blocks=1):
         self.cfg, self.beta2, self.lr, self.clip = cfg, beta2, lr, clip
-        self.reduce = reduce
+        self.reduce, self.lead_blocks = reduce, lead_blocks
+
+    def groups(self, shape) -> Tuple[int, bool]:
+        """(the leaf's clip groups here, whether each is this rank's own:
+        leading slices of a leading dim split over "model")."""
+        G = clip_groups(shape, self.lead_blocks)
+        return G, G > 1 and self.lead_blocks > 1
 
     def grad(self, g):
         """f32 gradient of a slice, clipped in its own dtype first, as
@@ -227,10 +253,11 @@ class _AdafactorLeaf:
             g = (g.float() * self.clip).to(g.dtype)
         return g.float()
 
-    def clip_div(self, sq, n):
+    def clip_div(self, sq, n, own=False):
         """Each group's ``max(1, rms / clip_threshold)`` from its sum of
-        squares ``sq`` over ``n`` values a model block."""
-        sq, k = self.reduce(sq, "all")
+        squares ``sq`` over ``n`` values a model block (the group's all,
+        where it is this rank's ``own``)."""
+        sq, k = (sq, 1) if own else self.reduce(sq, "all")
         rms = torch.sqrt(sq / (n * k) + 1e-30)
         return torch.clamp(rms / self.cfg.clip_threshold, min=1.0)
 
@@ -243,7 +270,7 @@ class _AdafactorLeaf:
         cfg, beta2, eps = self.cfg, self.beta2, self.cfg.eps
         R, C = p.shape[-2:]
         M = p.numel() // (R * C)            # the leaf's matrices
-        G = _groups(p.shape)
+        G, own = self.groups(p.shape)
         pm, gm = p.view(M, R, C), g.reshape(M, R, C)
         vrm, vcm = vr.view(M, R), vc.view(M, C)
         spans = _spans(M, R, C)
@@ -269,14 +296,14 @@ class _AdafactorLeaf:
         sq = torch.zeros(M, dtype=torch.float32, device=p.device)
         for ms, rs in spans:
             sq[ms] += upd(ms, rs).square().sum((-2, -1))
-        div = self.clip_div(sq.view(G, M // G).sum(1), p.numel() // G)
+        div = self.clip_div(sq.view(G, M // G).sum(1), p.numel() // G, own)
         div = div.repeat_interleave(M // G)
         for ms, rs in spans:
             self.apply(pm[ms, rs], upd(ms, rs) / div[ms, None, None])
 
     def unfactored(self, p, g, v):
         beta2, eps = self.beta2, self.cfg.eps
-        G = _groups(p.shape)
+        G, own = self.groups(p.shape)
         n = p.numel() // G
         pm, gm, vm = p.view(G, n), g.reshape(G, n), v.view(G, n)
         spans = _spans(G, n, 1)
@@ -287,7 +314,7 @@ class _AdafactorLeaf:
             vm[gs, es] = vf
             sq[gs] += (gf * torch.rsqrt(torch.clamp(vf, min=eps))
                        ).square().sum(-1)
-        div = self.clip_div(sq, n)
+        div = self.clip_div(sq, n, own)
         for gs, es in spans:
             u = self.grad(gm[gs, es]) * torch.rsqrt(
                 torch.clamp(vm[gs, es], min=eps))
@@ -307,7 +334,8 @@ def make_adafactor(cfg: AdafactorCfg) -> Optimizer:
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params, global_norm_fn=None, split_sum=None):
+    def update(grads, state, params, global_norm_fn=None, split_sum=None,
+               lead_blocks=None):
         step = state["step"] + 1
         gnorm = (global_norm_fn or global_norm)(grads)
         t = step.to(torch.float32)
@@ -323,7 +351,8 @@ def make_adafactor(cfg: AdafactorCfg) -> Optimizer:
                       (lambda x, over, i=i: split_sum(i, x, over)))
             leaf = _AdafactorLeaf(cfg, beta2.to(dev), lr.to(dev),
                                   None if clip is None else clip.to(dev),
-                                  reduce)
+                                  reduce, 1 if lead_blocks is None else
+                                  lead_blocks(i, p.ndim))
             if "vr" in s:
                 leaf.factored(p, g, s["vr"], s["vc"])
             else:

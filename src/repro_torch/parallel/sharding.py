@@ -11,7 +11,9 @@ partitioner, so it states the same Megatron-style split explicitly:
   split their output columns, ``wo``/``w_down`` their input rows,
   ``embed`` its vocabulary rows, norms (a LayerNorm's bias too) are
   replicated.  The two-matrix MLPs (GELU, squared ReLU) split ``w_up``
-  by columns and ``w_down`` by rows.  MLA is refused (``layout``).
+  by columns and ``w_down`` by rows.  An encoder-decoder splits its
+  encoder's and decoder's attention and MLP so, its cross-attention by
+  heads too.
 - A MoE layer splits its experts (``w_gate``/``w_up``/``w_down`` under
   ``moe``: dim -3 of the stacked ``(R, E, D, F)`` leaf), as the
   reference's ``moe_forward_shardmap`` does; its router and any shared
@@ -24,20 +26,39 @@ partitioner, so it states the same Megatron-style split explicitly:
   the same math: each rank computes the shared K/V itself, and their
   gradients are partial sums that the trainer adds over "model"
   (``partial_sum_leaves``).
+- MLA splits by heads: ``w_uq`` and ``w_ukv`` by columns, ``w_o`` by
+  rows.  Its low-rank leaves (``w_dq``, ``w_dkv``, ``w_kr`` and the two
+  latent norms) are whole on every rank, which computes the latents
+  itself: their gradients are partial sums, each rank's heads' share.
+- Mamba splits by heads: ``A_log``, ``D``, ``dt_bias``, the gated
+  norm's scale and ``out_proj``'s rows.  ``in_proj`` and the conv are
+  *sectioned* (``leaf_sections``): along the split dim they are the
+  concatenation of the (z, x, B, C, dt) or (x, B, C) sections, each
+  split evenly, and a rank's block is its block of each section, joined.
+  B and C are split too, so that every value has one owner, though
+  every rank needs all of them (``models.mamba``).  The reference
+  replicates the norm's scale; the port splits it with its channels.
 - ``shard_params`` / ``unshard_params`` give a rank's shard of a full
   parameter tree and gather the shards back; they take a whole train
   state too, whose AdamW moments and per-leaf EF residual mirror their
   parameter's split (a leaf's path ends in its parameter's path) and
   whose Adafactor statistics split as ``opt_leaf`` says.
-  ``leaf_block`` / ``leaf_box`` are one leaf's block and its global box:
-  the trainer's checkpoint layout (``train.trainer.gather_state``) is
-  built from them.
+  ``leaf_block`` / ``join_blocks`` / ``put_block`` / ``leaf_pieces``
+  are the one set of helpers that slice and join a split leaf, sections
+  included: the trainer's checkpoint layout (``train.trainer.gather_state``)
+  is built from them.
 - The two Megatron operators: *f* (``copy_to_model``: identity forward,
   all-reduce over "model" backward) and *g* (``reduce_from_model``:
   all-reduce forward, identity backward), as ``torch.autograd.Function``s.
   Their collectives go through ``comm.collectives``' default session,
   the monolithic one, as XLA inserts its own under GSPMD: the composed
   application session never sees them.
+
+Every value of a split leaf has exactly one owner, and a leaf every
+rank holds whole is either replicated with bit-equal gradients or a
+partial sum (``partial_sum_leaves``), never partly both: Adafactor's
+sums over a split dim (``train.trainer._ModelAxis.split_sum``), the
+checkpoints' global boxes and the EF residual's layout rely on it.
 
 **The staged backward.**  The ranks are threads of one process, and
 PyTorch's autograd engine runs every CUDA node of a process on one
@@ -50,6 +71,10 @@ backward under ``StagedBackward``: in the forward, each *f* (and each
 residual-stream boundary, ``cut``) detaches its input into a leaf; the
 backward then runs segment by segment in reverse, and all-reduces each
 *f* leaf's gradient over "model" on the rank thread between segments.
+Each segment's nodes run in one backward call only, so a tensor read
+both by a cut and by later work must be cut itself (a Mamba mixer's
+projection and conv output, the MTP head's normed hidden): a second
+call through its nodes would find their saved tensors freed.
 *g* and the vocab-parallel loss communicate only in the forward, which
 runs on the rank thread.  Without an active tape *f* is the plain
 autograd function, whose backward all-reduces inside the node: right on
@@ -80,6 +105,14 @@ _EXPERT = ("w_gate", "w_up", "w_down")
 #: qwen3's per-head q/k norms: each model rank's heads add to their
 #: gradients
 _HEAD_NORMS = ("q_norm", "k_norm")
+#: MLA's split leaves; the others (the low-rank projections and the two
+#: latent norms) are whole partial sums
+_MLA = {"w_uq": -1, "w_ukv": -1, "w_o": -2}
+_MLA_NORMS = ("q_norm", "kv_norm")
+#: a Mamba mixer's leaves, all split by head (the gated norm's scale
+#: under ``norm``, split at -1 too)
+_MAMBA = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "A_log": -1, "D": -1,
+          "dt_bias": -1, "out_proj": -2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,50 +126,72 @@ class TPLayout:
     d_ff: int               # FFN columns a rank holds (0: no dense FFN)
     vocab: int              # vocabulary rows a rank holds
     experts: int            # experts a rank holds (0: no MoE)
+    mla_heads: int = 0      # MLA heads a rank holds (0: no MLA)
+    #: the global widths of the sections along the split dim of a Mamba
+    #: mixer's sectioned leaves, by name: ``in_proj`` (z, x, B, C, dt),
+    #: ``conv_w`` and ``conv_b`` (x, B, C)
+    sections: Tuple[Tuple[str, Tuple[int, ...]], ...] = ()
+
+
+def _check_divides(name: str, model: int, sizes) -> None:
+    for what, n in sizes:
+        if n % model:
+            raise ValueError(f"{name}: {what}={n} does not split over "
+                             f"{model} model ranks")
 
 
 def layout(cfg, model: int) -> TPLayout:
-    """The split of ``cfg`` (a ``TransformerCfg``) over ``model`` ranks.
-    Raises where a whole-head, FFN, expert or vocabulary split does not
-    divide, and for MLA, Mamba, a model without an embedding table and
-    an encoder-decoder (an ``EncDecCfg``, which has no stages), whose
-    splits are not ported."""
+    """The split of ``cfg`` (a ``TransformerCfg``, or an ``EncDecCfg``,
+    which has no stages) over ``model`` ranks.  Raises a ``ValueError``
+    where a whole-head, FFN, expert, Mamba-head, B/C-state or vocabulary
+    split does not divide."""
     if not hasattr(cfg, "stages"):
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder-decoder over a \"model\" axis arrives "
-            "with a later slice of the port (encoder, decoder and "
-            "cross-attention heads split)")
-    if not cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: a model without an embedding table over a "
-            "\"model\" axis arrives with a later slice of the port (it has "
-            "no vocab-parallel embedding; its inputs_embeds enter whole)")
+        return _encdec_layout(cfg, model)
     mixers = {spec.mixer for st in cfg.stages for spec in st.layers}
-    if "mla" in mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA over a \"model\" axis arrives with a later "
-            "slice of the port (its latent cache stays whole, its heads "
-            "split)")
-    if "mamba" in mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba over a \"model\" axis arrives with a later "
-            "slice of the port (its heads, conv channels and state split)")
-    a = cfg.attn
+    a = cfg.attn if "attn" in mixers else None
     d_ff = 0 if cfg.mlp is None else cfg.mlp.d_ff
     experts = 0 if cfg.moe is None else cfg.moe.num_experts
-    for what, n in (("num_heads", a.num_heads), ("d_ff", d_ff),
-                    ("num_experts", experts),
-                    ("vocab_size", cfg.vocab_size)):
-        if n % model:
-            raise ValueError(f"{cfg.name}: {what}={n} does not split over "
-                             f"{model} model ranks")
+    mla = cfg.mla.num_heads if "mla" in mixers else 0
+    sizes = [("num_heads", 0 if a is None else a.num_heads),
+             ("d_ff", d_ff), ("num_experts", experts),
+             ("vocab_size", cfg.vocab_size), ("mla num_heads", mla)]
+    sections = ()
+    if "mamba" in mixers:
+        m = cfg.mamba
+        gn = m.ngroups * m.d_state
+        sizes += [("mamba nheads", m.nheads), ("mamba ngroups*d_state", gn)]
+        sections = (("in_proj", (m.d_inner, m.d_inner, gn, gn, m.nheads)),
+                    ("conv_w", (m.d_inner, gn, gn)),
+                    ("conv_b", (m.d_inner, gn, gn)))
+    _check_divides(cfg.name, model, sizes)
+    kv_rep = a is not None and a.num_kv_heads % model != 0
+    return TPLayout(
+        model=model, heads=0 if a is None else a.num_heads // model,
+        kv_heads=(0 if a is None else a.num_kv_heads if kv_rep
+                  else a.num_kv_heads // model),
+        kv_replicated=kv_rep, d_ff=d_ff // model,
+        vocab=cfg.vocab_size // model, experts=experts // model,
+        mla_heads=mla // model, sections=sections)
+
+
+def _encdec_layout(cfg, model: int) -> TPLayout:
+    """An encoder-decoder's split: its self-attention (encoder and
+    decoder) and its cross-attention by heads, the MLPs by columns, the
+    embedding and the head by vocabulary."""
+    a, c = cfg.attn, cfg.cross
+    _check_divides(cfg.name, model, [
+        ("num_heads", a.num_heads), ("cross num_heads", c.num_heads),
+        ("d_ff", cfg.mlp.d_ff), ("vocab_size", cfg.vocab_size)])
     kv_rep = a.num_kv_heads % model != 0
+    if kv_rep != (c.num_kv_heads % model != 0):
+        raise ValueError(f"{cfg.name}: the self- and cross-attention's KV "
+                         f"heads ({a.num_kv_heads}, {c.num_kv_heads}) must "
+                         f"both split over {model} model ranks or neither")
     return TPLayout(model=model, heads=a.num_heads // model,
-                    kv_heads=a.num_kv_heads if kv_rep
-                    else a.num_kv_heads // model,
-                    kv_replicated=kv_rep, d_ff=d_ff // model,
-                    vocab=cfg.vocab_size // model,
-                    experts=experts // model)
+                    kv_heads=(a.num_kv_heads if kv_rep
+                              else a.num_kv_heads // model),
+                    kv_replicated=kv_rep, d_ff=cfg.mlp.d_ff // model,
+                    vocab=cfg.vocab_size // model, experts=0)
 
 
 def leaf_split(path, lay: TPLayout) -> Optional[int]:
@@ -151,11 +206,31 @@ def leaf_split(path, lay: TPLayout) -> Optional[int]:
         return None
     if "moe" in path:         # the experts split; router, shared: whole
         return -3 if path[-2] == "moe" and name in _EXPERT else None
+    if len(path) > 1 and path[-2] == "mla":
+        return _MLA.get(name)
+    if len(path) > 1 and path[-2] == "mamba":
+        return _MAMBA.get(name)
+    if len(path) > 2 and path[-3:-1] == ("mamba", "norm"):
+        return -1
     if name in _COLUMN:
         return -1
     if name in _ROW:
         return -2
     return None
+
+
+def leaf_sections(path, lay: TPLayout) -> Optional[Tuple[int, ...]]:
+    """The global widths of the sections along the split dim of the leaf
+    at ``path``, each split evenly over the model ranks (None: one
+    section, the whole dim).  An Adafactor statistic or an optimizer
+    moment has its param's sections where it keeps the split dim."""
+    if leaf_split(path, lay) is None:
+        return None
+    if path[0] == "opt":
+        path = opt_leaf(path, lay)[0]
+    if len(path) < 2 or path[-2] != "mamba":
+        return None
+    return dict(lay.sections).get(path[-1])
 
 
 def opt_leaf(path, lay: Optional[TPLayout]
@@ -186,12 +261,21 @@ def opt_leaf(path, lay: Optional[TPLayout]
 
 def partial_sum_leaves(paths, lay: TPLayout) -> List[bool]:
     """Per leaf: is its gradient a partial sum over the model ranks?
-    (the K/V projections replicated under MQA, and the per-head q/k
-    norms: every rank's heads add to them).  Those are summed over
-    "model", without a mean."""
-    return [lay.model > 1 and ((lay.kv_replicated and p[-1] in _KV)
-                               or (len(p) > 1 and p[-2] in _HEAD_NORMS))
-            for p in paths]
+    (the K/V projections replicated under MQA, qwen3's per-head q/k
+    norms, and MLA's low-rank projections and latent norms: every rank's
+    heads add to them).  Those are summed over "model", without a
+    mean."""
+    def partial(p):
+        if lay.model == 1:
+            return False
+        if len(p) > 1 and p[-2] == "mla":
+            return p[-1] not in _MLA
+        if len(p) > 2 and p[-3] == "mla":
+            return p[-2] in _MLA_NORMS
+        return ((lay.kv_replicated and p[-1] in _KV)
+                or (len(p) > 2 and p[-2] in _HEAD_NORMS
+                    and p[-3] in ("attn", "self_attn", "cross")))
+    return [partial(p) for p in paths]
 
 
 def sharded_leaves(paths, lay: TPLayout) -> List[bool]:
@@ -199,28 +283,87 @@ def sharded_leaves(paths, lay: TPLayout) -> List[bool]:
     return [leaf_split(p, lay) is not None for p in paths]
 
 
+def _pieces(path, lay: TPLayout, width: int, index: int
+            ) -> List[Tuple[int, int, int]]:
+    """(global offset, offset in the block, length) along the split dim
+    of each piece of model rank ``index``'s block of the leaf at
+    ``path``, ``width`` wide there globally: one piece a section."""
+    secs = leaf_sections(path, lay) or (width,)
+    if sum(secs) != width:
+        raise ValueError(f"{'/'.join(map(str, path))}: sections {secs} "
+                         f"do not add up to its width {width}")
+    out, lo, at = [], 0, 0
+    for w in secs:
+        n = w // lay.model
+        out.append((lo + index * n, at, n))
+        lo, at = lo + w, at + n
+    return out
+
+
 def leaf_block(path, leaf: torch.Tensor, lay: TPLayout, index: int
                ) -> torch.Tensor:
-    """Model rank ``index``'s block of the global ``leaf`` at ``path``
-    (a view; the leaf itself when it is replicated)."""
+    """Model rank ``index``'s block of the global ``leaf`` at ``path``:
+    the leaf itself when it is replicated, a view of one section, a
+    copy joining the blocks of a sectioned leaf's sections."""
     d = leaf_split(path, lay)
-    return leaf if d is None else leaf.chunk(lay.model, dim=d)[index]
+    if d is None:
+        return leaf
+    pieces = _pieces(path, lay, leaf.shape[d], index)
+    if len(pieces) == 1:
+        return leaf.chunk(lay.model, dim=d)[index]
+    return torch.cat([leaf.narrow(d, g, n) for g, _, n in pieces], dim=d)
 
 
-def leaf_box(path, shape, lay: TPLayout, index: int
-             ) -> Tuple[Tuple[int, ...], List[List[int]]]:
-    """(global shape, ``[[lo, hi], ...]`` per dim) of model rank
-    ``index``'s block of the leaf at ``path``, ``shape`` being the
-    block's (local) shape: one ``[lo, hi]`` along the split dim, every
-    other dim whole."""
+def put_block(path, leaf: torch.Tensor, lay: TPLayout, index: int,
+              block: torch.Tensor) -> None:
+    """Write model rank ``index``'s ``block`` into the global ``leaf``
+    (in place): the inverse of ``leaf_block`` for a split leaf."""
+    d = leaf_split(path, lay)
+    for g, b, n in _pieces(path, lay, leaf.shape[d], index):
+        leaf.narrow(d, g, n).copy_(block.narrow(d, b, n))
+
+
+def join_blocks(path, blocks: List[torch.Tensor], lay: TPLayout
+                ) -> torch.Tensor:
+    """The global leaf from the model ranks' blocks (in model-rank
+    order): each section's blocks concatenated, the sections in order;
+    a replicated leaf is rank 0's."""
+    d = leaf_split(path, lay)
+    if d is None:
+        return blocks[0]
+    pieces = _pieces(path, lay, blocks[0].shape[d] * lay.model, 0)
+    return torch.cat([x.narrow(d, b, n) for _, b, n in pieces
+                      for x in blocks], dim=d)
+
+
+def leaf_pieces(path, block: torch.Tensor, lay: TPLayout, index: int
+                ) -> Tuple[Tuple[int, ...], List[Tuple[List[List[int]],
+                                                       torch.Tensor]]]:
+    """(global shape, ``[(box, piece), ...]``) of model rank ``index``'s
+    ``block`` of the leaf at ``path``: one piece (a view of the block)
+    for each section, its box ``[[lo, hi], ...]`` per dim in the global
+    leaf, the split dim's part of it and every other dim whole."""
+    shape = list(block.shape)
+    d = leaf_split(path, lay)
+    if d is None:
+        return tuple(shape), [([[0, n] for n in shape], block)]
+    shape[d] *= lay.model
+    out = []
+    for g, b, n in _pieces(path, lay, shape[d], index):
+        box = [[0, k] for k in shape]
+        box[d] = [g, g + n]
+        out.append((box, block.narrow(d, b, n)))
+    return tuple(shape), out
+
+
+def global_shape(path, shape, lay: TPLayout) -> Tuple[int, ...]:
+    """The global shape of the leaf at ``path`` whose model-rank block
+    has ``shape``."""
     shape = list(shape)
-    box = [[0, n] for n in shape]
     d = leaf_split(path, lay)
     if d is not None:
-        n = shape[d]
-        shape[d] = n * lay.model
-        box[d] = [index * n, (index + 1) * n]
-    return tuple(shape), box
+        shape[d] *= lay.model
+    return tuple(shape)
 
 
 def shard_params(full: Dict[str, Any], lay: TPLayout, index: int
@@ -237,16 +380,13 @@ def shard_params(full: Dict[str, Any], lay: TPLayout, index: int
 def unshard_params(shards: List[Dict[str, Any]], lay: TPLayout
                    ) -> Dict[str, Any]:
     """The full tree from the model ranks' shards (in model-rank order):
-    split leaves concatenated, replicated (and partial-sum) leaves from
-    rank 0."""
+    split leaves joined, replicated (and partial-sum) leaves from rank
+    0."""
     per = [flatten(s) for s in shards]
     paths = per[0][1]
-    out = []
-    for i, path in enumerate(paths):
-        d = leaf_split(path, lay)
-        out.append(per[0][0][i] if d is None else
-                   torch.cat([ls[i] for ls, _ in per], dim=d))
-    return unflatten(paths, out)
+    return unflatten(paths, [join_blocks(path, [ls[i] for ls, _ in per],
+                                         lay)
+                             for i, path in enumerate(paths)])
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.compression import bucket_ef_zeros
 from repro_torch.core.engine import check_bucket_ef, scale_by
+from repro_torch.optim.optimizer import sum_of_squares
 from repro_torch.parallel import sharding
 from repro_torch.runtime import substrate
 from repro_torch.tree import flatten, leaves, map_tree, unflatten
@@ -344,9 +345,7 @@ def _global_ef(model, cfg: TrainCfg, lay, efs) -> tuple:
     stands for the data ranks'."""
     paths, local, whole = _bucket_plans(model, cfg, lay)
     per = [_bucket_leaves(ef, local, len(paths)) for ef in efs]
-    leaves_ = [per[0][j] if sharding.leaf_split(path, lay) is None
-               else torch.cat([pm[j] for pm in per],
-                              dim=sharding.leaf_split(path, lay))
+    leaves_ = [sharding.join_blocks(path, [pm[j] for pm in per], lay)
                for j, path in enumerate(paths)]
     return tuple(torch.cat([leaves_[sl.index].reshape(-1)
                             for sl in b.slots]) for b in whole)
@@ -404,7 +403,8 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
     - a leaf every model rank holds whole is rank 0's tensor;
     - a leaf split over "model" is a ``ShardedTensor`` of the model
       ranks' blocks, each with its global box, so a sharded save writes
-      one file a block;
+      one file a block (a sectioned leaf, ``sharding.leaf_sections``:
+      one box a section a rank);
     - with ``cfg.zero`` an optimizer leaf of a whole param is a
       ``ShardedTensor`` of the data ranks' chunks of the flat padded
       leaf.  One of a split param is written dense, on the host: the
@@ -440,7 +440,7 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
         elif cfg.zero and _zero_opt_leaf(path):
             shape = shapes[sharding.opt_leaf(path, lay)[0]]
             n = math.prod(shape)
-            whole, _ = sharding.leaf_box(path, shape, lay, 0)
+            whole = sharding.global_shape(path, shape, lay)
             flat = torch.empty(_zero_pad_len(math.prod(whole), p),
                                dtype=l.dtype)
             flat[math.prod(whole):].zero_()
@@ -450,15 +450,14 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
             for m, g in enumerate(groups):
                 for k, r in enumerate(g):     # this model rank's chunks
                     own[k * c:(k + 1) * c].copy_(per_rank[r][i])
-                sharding.leaf_block(path, dense, lay, m).copy_(
-                    own[:n].view(shape))
+                sharding.put_block(path, dense, lay, m,
+                                   own[:n].view(shape))
             out.append(flat)
         elif d is not None:
-            boxes = [sharding.leaf_box(path, l.shape, lay, m)
-                     for m in range(len(groups))]
-            out.append(ShardedTensor(boxes[0][0], l.dtype, [
-                (box, per_rank[g[0]][i]) for (_, box), g in zip(boxes,
-                                                                groups)]))
+            pieces = [sharding.leaf_pieces(path, per_rank[g[0]][i], lay,
+                                           m) for m, g in enumerate(groups)]
+            out.append(ShardedTensor(pieces[0][0], l.dtype, [
+                piece for _, ps in pieces for piece in ps]))
         else:
             out.append(l)
     tree = unflatten(paths, out)
@@ -746,6 +745,7 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             "reference's, over the whole param's flat padded chunk) would "
             "clip other values; use zero=False or AdamW on this mesh")
     split_sum = None if tp is None else tp.split_sum
+    lead_blocks = None if tp is None else tp.lead_blocks
     if cfg.sync_mode == "auto":
         return _auto_train_step(model, optimizer, cfg, mesh, data_axes, tp)
     compress = cfg.sync_mode == "compressed"
@@ -831,7 +831,7 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         # all-reduce: the unsharded path's value up to summation order,
         # so bit-identical losses need clip_norm=0 (a metric only)
         if tp is None:
-            sq = sum(torch.sum(torch.square(ch.float())) for ch in chunks)
+            sq = sum(sum_of_squares(ch) for ch in chunks)
             gsq = zcomm.all_reduce(sq)
         else:
             # split leaves' squares add over "model" too
@@ -894,7 +894,7 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             new_params, new_opt, om = optimizer.update(
                 grads, st["opt"], st["params"],
                 global_norm_fn=None if tp is None else tp.global_norm,
-                split_sum=split_sum)
+                split_sum=split_sum, lead_blocks=lead_blocks)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": st["step"] + 1}
         if compress:
@@ -938,6 +938,12 @@ class _ModelAxis:
             return x, 1
         return sharding.psum(x), self.model
 
+    def lead_blocks(self, i: int, ndim: int) -> int:
+        """The optimizer's hook (``optimizer.update(..., lead_blocks=)``):
+        into how many blocks leaf ``i`` (of ``ndim`` dims) is cut along
+        its leading dim (an expert stack of one layer, split at -3)."""
+        return self.model if self.dims[i] == -ndim else 1
+
     def reduce_partials(self, grads):
         """Sum the partial-sum leaves over "model" (no mean)."""
         gl, paths = flatten(grads)
@@ -972,7 +978,7 @@ def _split_squares(gs, split):
     """(sum of squares of the split leaves, of the replicated ones), in
     f32 (tensors, ``gs[0]``'s device)."""
     zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
-    sq = [torch.sum(torch.square(g.float())) for g in gs]
+    sq = [sum_of_squares(g) for g in gs]
     return (sum((q for q, s in zip(sq, split) if s), zero),
             sum((q for q, s in zip(sq, split) if not s), zero))
 
@@ -1046,7 +1052,8 @@ def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
             new_params, new_opt, om = optimizer.update(
                 grads, st["opt"], st["params"],
                 global_norm_fn=None if tp is None else tp.global_norm,
-                split_sum=None if tp is None else tp.split_sum)
+                split_sum=None if tp is None else tp.split_sum,
+                lead_blocks=None if tp is None else tp.lead_blocks)
         return ({"params": new_params, "opt": new_opt,
                  "step": st["step"] + 1}, {"loss": loss, **om})
 

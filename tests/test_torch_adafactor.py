@@ -22,7 +22,9 @@
   of the state (``sharding.opt_leaf``'s split), updated through
   ``_ModelAxis.split_sum``: the blocks joined equal the whole tree's
   update within 1e-6, factored and unfactored, the stacked expert leaf
-  with 6 layers (a clip a layer, summed over "model").
+  with 6 layers (a clip a layer, summed over "model"); an expert stack
+  of one layer (8 or 12 experts) is clipped an expert at a time, each
+  rank its own experts (``_ModelAxis.lead_blocks``).
 - Reduced mistral-large-123b, ZeRO-1 on 4 data ranks (each rank's flat
   padded chunks unfactored, the RMS clip over the chunk) and composed
   on (data 2, model 2) with ``check_model_replicas``: 3 steps from the
@@ -247,17 +249,40 @@ SPLIT_SHAPES = {"lm_head": (40, 48), "embed": (48, 40),
 def test_split_leaves_update_as_the_whole_leaves(min_dim):
     """Columns (-1), rows (-2), experts (-3) and a replicated leaf on 2
     model ranks, each its block of params, gradients and state."""
+    _split_update_is_the_whole_update(SPLIT_SHAPES, [-2, -3, -1, None],
+                                      min_dim, experts=2)
+
+
+@pytest.mark.parametrize("min_dim", [16, 1000],
+                         ids=["factored", "unfactored"])
+@pytest.mark.parametrize("experts", [8, 12])
+def test_an_expert_stack_of_one_layer_clips_each_expert(experts, min_dim):
+    """An expert stack of one layer (deepseek's MTP block) split at -3
+    over 2 model ranks: the reference maps the whole leaf, so each
+    expert has its own RMS clip, and each rank clips its own experts
+    with no sum over "model" (``_ModelAxis.lead_blocks``), also where
+    the rank's 4 experts alone would not be mapped."""
+    _split_update_is_the_whole_update(
+        {"mtp": {"moe": {"w_up": (experts, 32, 48)}}}, [-3], min_dim,
+        experts=experts // 2)
+
+
+def _split_update_is_the_whole_update(split_shapes, dims, min_dim,
+                                      experts):
+    """Three Adafactor updates of the leaves ``split_shapes`` (split at
+    ``dims``) on 2 model ranks, each its block of params, gradients and
+    state, joined: within 1e-6 of the whole leaves' updates."""
     rng = np.random.RandomState(4)
-    paths, shapes = _shape_tree(SPLIT_SHAPES, lambda s: s)
+    paths, shapes = _shape_tree(split_shapes, lambda s: s)
     params = unflatten(paths, [torch.from_numpy(
         rng.randn(*s).astype(np.float32)) for s in shapes])
     grads = [unflatten(paths, [torch.from_numpy(
         (rng.randn(*s) * 3).astype(np.float32)) for s in shapes])
         for _ in range(3)]
     lay = sharding.TPLayout(model=2, heads=1, kv_heads=1,
-                            kv_replicated=False, d_ff=4, vocab=4, experts=2)
-    dims = [sharding.leaf_split(p, lay) for p in paths]
-    assert dims == [-2, -3, -1, None]
+                            kv_replicated=False, d_ff=4, vocab=4,
+                            experts=experts)
+    assert [sharding.leaf_split(p, lay) for p in paths] == dims
     opt = make_optimizer("adafactor", lr=1e-2, min_dim_factored=min_dim,
                          clip_threshold=0.5)
     whole_p = map_tree(lambda t: t.clone(), params)
@@ -278,7 +303,8 @@ def test_split_leaves_update_as_the_whole_leaves(min_dim):
         p, s = st["params"], st["opt"]
         for g in grads:
             gb = block({"params": g}, idx)["params"]
-            p, s, _ = opt.update(gb, s, p, split_sum=axis.split_sum)
+            p, s, _ = opt.update(gb, s, p, split_sum=axis.split_sum,
+                                 lead_blocks=axis.lead_blocks)
         return {"params": p, "opt": s}
 
     out = substrate.run_spmd(rank, [(0,), (1,)], substrate.make_mesh(

@@ -511,13 +511,16 @@ def _random_global(sess, mesh, seed):
 @pytest.mark.parametrize("src,dst", [((3, 2), (5, 1)), ((5, 2), (3, 2)),
                                      ((1, 2), (7, 2))])
 @pytest.mark.parametrize("zero", [False, True], ids=["leaf", "zero1"])
-@pytest.mark.parametrize("arch", ["granite-34b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["granite-34b", "qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
 def test_state_round_trip_over_every_split_kind(arch, zero, src, dst):
     """A random global state scattered onto ``src`` and gathered gives
     itself; re-meshed onto ``dst`` (another data width that divides no
     leaf, another model width) and gathered, the same logical state.
     granite-34b holds column (-1), row (-2) and replicated leaves (MQA's
-    K/V among them), qwen3-moe-30b-a3b expert (-3) ones too."""
+    K/V among them), qwen3-moe-30b-a3b expert (-3) ones too, and
+    jamba-1.5-large-398b sectioned ones (Mamba's ``in_proj`` and conv,
+    whose ZeRO chunks a gather writes back section by section)."""
     cfg = get_config(arch, reduced=True)
     sess = trainer.TrainSession(build_model(cfg, model_parallel=2),
                                 make_optimizer("adamw"),

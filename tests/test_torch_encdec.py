@@ -248,16 +248,23 @@ def test_training_path_never_calls_the_flash_op(arch, monkeypatch):
 
 
 def test_refusals():
+    """The depth cut refuses the enc-dec; both embeddings archs split over
+    "model" (the enc-dec's self- and cross-attention by heads, its
+    vocabulary in halves; qwen2-vl-7b's head alone, its inputs_embeds
+    entering whole)."""
     cfg = get_config(ARCH)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        S.layout(cfg, 2)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(cfg, model_parallel=2)
+    lay = S.layout(cfg, 2)
+    assert (lay.heads, lay.kv_heads, lay.d_ff, lay.vocab) == (8, 8, 4096,
+                                                              128103)
+    local = build_model(cfg, model_parallel=2).local_cfg
+    assert (local.attn.num_heads, local.cross.num_heads,
+            local.vocab_size) == (8, 8, 128103)
     with pytest.raises(ValueError, match="encoder-decoder"):
         with_num_layers(cfg, 4)
     vl = get_config("qwen2-vl-7b")
-    with pytest.raises(NotImplementedError, match="embedding table"):
-        S.layout(vl, 2)
+    lay = S.layout(vl, 2)
+    assert (lay.heads, lay.kv_heads, lay.vocab) == (14, 2, 76032)
+    assert "embed" not in build_model(vl, model_parallel=2).abstract_params()
     assert not build_model(cfg).supports_chunked_prefill
     assert build_model(vl).supports_chunked_prefill
     assert build_model(cfg).kind == "encdec"

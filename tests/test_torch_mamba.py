@@ -65,7 +65,9 @@ def block():
     jcfg = jget_config("mamba2-1.3b", reduced=True).mamba
     jp, _ = JM.init_mamba(jax.random.PRNGKey(3), jcfg)
     tcfg = get_config("mamba2-1.3b", reduced=True).mamba
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    fields = dataclasses.asdict(tcfg)
+    assert fields.pop("head_shards") == 1       # the port's: no model axis
+    assert fields == dataclasses.asdict(jcfg)
     tp = map_tree(lambda a: torch.from_numpy(np.array(a)),
                   jax.device_get(jp))
     return jcfg, jp, tcfg, tp
@@ -180,7 +182,7 @@ def test_both_packages_refuse_a_length_off_the_chunk(block):
         M.mamba_forward(tp, tcfg, torch.from_numpy(x))
 
 
-def test_chunked_calls_and_the_model_axis_are_refused():
+def test_chunked_calls_are_refused_and_the_model_axis_splits_heads():
     cfg = get_config("jamba-1.5-large-398b", reduced=True)
     spec = cfg.stages[0].layers[1]
     assert spec.mixer == "mamba"
@@ -198,8 +200,11 @@ def test_chunked_calls_and_the_model_axis_are_refused():
                        cache=JM.init_mamba_cache(1, jcfg.mamba, jnp.float32),
                        chunked=True, valid_len=8)
     for arch in SSM_ARCHS:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(get_config(arch, reduced=True), model_parallel=2)
+        model = build_model(get_config(arch, reduced=True), model_parallel=2)
+        m = model.local_cfg.mamba
+        assert (m.head_shards, m.nheads, m.d_inner, m.d_bc) == (2, 4, 64, 8)
+        assert dict(model.layout.sections)["in_proj"] == (128, 128, 16, 16,
+                                                          8)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

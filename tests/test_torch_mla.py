@@ -348,9 +348,16 @@ def test_data_x_model_training_follows_the_unsplit_model(arch):
         assert any(p[-1] == "bias" for p in paths)
 
 
-def test_mla_on_a_model_axis_is_refused():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(get_config(ARCH, reduced=True), model_parallel=2)
+def test_mla_on_a_model_axis_splits_by_heads():
+    model = build_model(get_config(ARCH, reduced=True), model_parallel=2)
+    assert model.layout.mla_heads == 2
+    assert model.local_cfg.mla.num_heads == 2
+    p = model.abstract_params()["stage0"]["layer0"]["mla"]
+    cfg = model.cfg.mla
+    assert p["w_uq"].shape[-1] == 2 * cfg.dh_qk
+    assert p["w_ukv"].shape[-1] == 2 * (cfg.dh_nope + cfg.dh_v)
+    assert p["w_o"].shape[-2] == 2 * cfg.dh_v
+    assert p["w_dkv"].shape[-1] == cfg.kv_lora        # the latent: whole
 
 
 def test_params_from_numpy_checks_the_mtp_leaves(weights):
