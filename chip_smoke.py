@@ -621,6 +621,7 @@ def phase_build(libraries):
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.load(), libraries))
+    faults = []
     for lib, b in zip(libraries, built):
         print(f"[build] {lib.name}: nvcc {b.seconds:.1f}s -> "
               f"{os.path.relpath(b.path, HERE)}")
@@ -630,7 +631,27 @@ def phase_build(libraries):
         for line in b.log.splitlines():
             if "warning" in line.lower() or "Performance Loss" in line:
                 print(f"[build]   {line.strip()}")
+        faults += _wgmma_faults(b.log)
     print(f"[build] all libraries in {time.perf_counter() - t0:.1f}s")
+    if faults:
+        raise AssertionError("the tensor-core flash kernel spills or has "
+                             "its wgmmas serialized: " + "; ".join(faults))
+
+
+def _wgmma_faults(log: str):
+    """What ptxas says against a ``flash_wgmma_kernel`` instantiation:
+    spill stores or loads, a stack frame (an array indexed at run time
+    sits in local memory), or a note that its wgmmas were serialized
+    (C7512-C7515: for lack of registers, or accumulators touched while a
+    wgmma group may be open).  The tensor-core kernel is designed to
+    have neither (PERF.md)."""
+    import re
+    faults = [f"{fn}: {spills}" for fn, _, spills in _ptxas_usage(log)
+              if "flash_wgmma_kernel" in fn
+              and re.search(r"[1-9]\d* bytes (spill|stack)", spills)]
+    faults += [line.strip() for line in log.splitlines()
+               if re.search(r"C751\d", line) and "flash_wgmma_kernel" in line]
+    return faults
 
 
 def _ptxas_usage(log: str):

@@ -24,8 +24,8 @@
 // 128).  Query head h reads KV head h / (H / Hkv).  Query row
 // i sits at absolute position q_offset + i and sees keys at positions <=
 // that (causal) and < Skv; with causal = 0 every row sees all Skv keys
-// (a cross-attention decode step is Sq = 1: one live row of the block's
-// 128).  The Pallas kernel's arithmetic for a bf16 cache:
+// (a cross-attention decode step is Sq = 1).  The Pallas kernel's
+// arithmetic for a bf16 cache:
 // S = Q.K^T as bf16 products with f32 accumulation, scaled and
 // soft-maxed online in f32, then P rounded to bf16 and O += P.V again in
 // f32; a row that sees no key writes 0.  An f32 cache is rounded to bf16
@@ -45,40 +45,61 @@
 // both.
 //
 // Design.
-// - Block: 3 warpgroups.  Warpgroups 0 and 1 are consumers, each owning
-//   64 query rows of one head (128 rows a block); warpgroup 2 is the
-//   producer.  Over an f32 cache `setmaxnreg` moves registers from the
-//   producer (56) to the consumers (224); over a bf16 cache every thread
-//   keeps 168.  At D 128 each was the faster choice on an H100 for its
-//   cache type.  ptxas compiles the whole kernel to 168 registers a
-//   thread whatever the split (56/224, 40/232 and 24/240 gave the same
-//   code on the card's toolkit), so at D 192, where a consumer holds Q
-//   (48 registers) and O (96) for the block's life beside S (32), it
-//   spills to local memory and ptxas serializes its wgmmas (C7512;
-//   chip_smoke.py [build] prints ptxas's counts and such warnings);
-//   PERF.md has what the D 192 kernel costs.  At (192, 128) a consumer
-//   would hold Q (48) and O (64) beside S (32): there `consume_mla`
-//   keeps Q in shared memory instead (48 KB a block, the A operand of an
-//   SS wgmma), beside the same rings, and compiles without spills.
-//   Grid (B * H, Sq / 128): consecutive blocks are the heads of one KV
-//   group, which read the same K/V through L2; query tiles run last-first
-//   so the longest causal rows start earliest.  At (192, 128) with a KV
-//   head a query head (MLA), a wave of blocks in that order is ~132
-//   heads at one query tile, whose K/V (640 KB a head at 1000 tokens, 82
-//   MB in all) outgrow the 50 MB L2, so each head's K/V prefix would come
-//   from HBM once a tile; there consecutive blocks are one head's query
-//   tiles instead, last-first, and its K/V is read about once.
+// - Block: consumer warpgroups, each owning 64 query rows of one head
+//   (`Plan::CONSUMERS`: 3 at D 64 and at (192, 192) over a bf16 cache, 2
+//   elsewhere), and one producer warpgroup.  A block holds 64 rows of a
+//   head a consumer; at (192, 192) over a bf16 cache, where a KV group's
+//   query heads divide among the consumers (`Plan::PACK_HEADS`), the
+//   consumers take one head each of one group at the same 64 rows, so a
+//   K/V tile serves three heads.  `setmaxnreg` moves registers from the
+//   producer to the consumers (`Plan::PRODUCER_REGS`): the producer keeps
+//   24 over a bf16 cache (one thread issues TMA), 56 over an f32 cache
+//   (it converts); the consumers share the rest of the SM's 64K (240 or
+//   224 a thread with 2 consumers, 160 or 152 with 3).  ptxas reports the
+//   launch's registers (168 or 128 a thread) whatever the split, and
+//   allocates each branch to its own count unless code there may trap
+//   (below).  Grid (B * H / heads a block, Sq / rows a block):
+//   consecutive blocks are the heads of one KV group, which read the
+//   same K/V through L2; query tiles run last-first so the longest
+//   causal rows start earliest.  At (192, 128) with a KV head a query
+//   head (MLA), a wave of blocks in that order is ~132 heads at one query
+//   tile, whose K/V (640 KB a head at 1000 tokens, 82 MB in all) outgrow
+//   the 50 MB L2, so each head's K/V prefix would come from HBM once a
+//   tile; there consecutive blocks are one head's query tiles instead,
+//   last-first, and its K/V is read about once.
 // - Products: `wgmma.mma_async` m64nNk16 bf16 -> f32, accumulators in
-//   registers.  Q lives in registers for the block's life, already in
-//   wgmma's A-fragment layout (DQK / 4 registers a thread), so S = Q.K^T
-//   (m64n64, DQK / 16 k-steps) reads only K from shared memory; at (192,
-//   128) each consumer writes its 64 Q rows once into shared memory in
-//   a K tile's swizzled layout, and S = Q.K^T reads both from there.  P is
-//   converted to bf16 in registers, and its S-accumulator fragment is
-//   exactly the A fragment of O += P.V (m64nDV, 4 k-steps over 64
-//   keys): P never goes through shared memory.  K is B in K-major form;
-//   V [keys][d] is B in MN-major form through the transpose bit that
-//   16-bit types allow.
+//   registers.  Q is either in registers for the block's life, already
+//   in wgmma's A-fragment layout (DQK / 4 registers a thread), so S =
+//   Q.K^T (m64n64, DQK / 16 k-steps) reads only K from shared memory; or,
+//   where registers would not hold it beside O (`Plan::Q_SMEM`: (192,
+//   128), and (192, 192) over a bf16 cache), each consumer writes its 64
+//   Q rows once into shared memory in a K tile's swizzled layout and S =
+//   Q.K^T reads both from there (an SS wgmma).  P is converted to bf16
+//   in registers, and its S-accumulator fragment is exactly the A
+//   fragment of O += P.V (m64nDV, 4 k-steps over 64 keys): P never goes
+//   through shared memory.  K is B in K-major form; V [keys][d] is B in
+//   MN-major form through the transpose bit that 16-bit types allow.
+// - Schedule over a bf16 cache (FA3's intra-warpgroup overlap,
+//   `Plan::OVERLAP`): a consumer issues S(j) = Q.K(j)^T and then O +=
+//   P(j-1).V(j-1) as two wgmma groups, waits for the first, and computes
+//   tile j's online softmax (exp2 on the multi-function unit) while the
+//   tensor cores run the second; then it waits for O, hands tile j-1's
+//   stage back, rescales O and converts P(j).  At D 64 a score's exp2
+//   costs about what its products do, so in series the tensor cores sat
+//   idle half of each tile.  Over an f32 cache the producer's conversion
+//   sets the pace, and a consumer runs each tile in series (S, softmax,
+//   P.V), which hands each stage back a tile sooner; so does each of the
+//   three at (192, 192), whose 160 registers do not hold S, P and O at
+//   once (three warps a scheduler hide the softmax instead).  Scores are
+//   scaled inside the exp2's argument (one FFMA), and exp2 is
+//   `ex2.approx.ftz`.
+// - Short queries (`Plan::SPLIT_KEYS`, D 64, Sq <= 64: a cross-attention
+//   decode step or prompt): the block's rows fit one warpgroup, so every
+//   consumer owns the same 64 rows and they take the key tiles in turn
+//   (consumer c tiles c, c + 3, ...); at the end the others write their
+//   (m, l, O) to shared memory and the first folds them in (a consumer
+//   that saw no key has m = -inf and weighs 0) and writes the output.
+//   The stages' empty barriers then count one consumer's arrivals.
 // - Shared layout: a K (V) tile is 64 keys x DQK (DV) d in bf16 as
 //   DQK / 64 (DV / 64) 64-column parts of 64 rows x 128 bytes, 128-byte
 //   swizzled (TMA's SWIZZLE_128B; 1024-byte aligned atoms of 8 rows).  K
@@ -89,40 +110,39 @@
 // - Loads: a ring of K/V stages in shared memory with full/empty
 //   mbarriers, so the producer fills the next tiles while the consumers
 //   compute.  A bf16 cache: one producer thread issues TMA loads straight
-//   into the swizzled ring ((DQK + DV) / 64 boxes of 64 x 64 a stage), 4
-//   stages (32 KB each at D 128, 48 KB at D 192).  An f32 cache: TMA
-//   cannot convert, so one thread TMA-loads f32 K and V tiles
-//   (unswizzled) into staging slots, as many tiles ahead as there are
-//   slots, and the whole producer warpgroup converts each tile to bf16
-//   into the swizzled ring (2 stages), one float4 a thread a step so that
-//   reads and 8-byte writes are free of bank conflicts.  The slots are
-//   chosen from the 227 KB budget (`Plan`): 2 slots of 64 KB at D 128;
-//   at D 192 a slot is 96 KB, so 2 ring stages and 1 slot (192 KB) are
-//   what fits, and the next tile's load waits for this one's
-//   conversion; at (192, 128) a slot is 80 KB, and 2 stages of 40 KB, 1
-//   slot and Q (48 KB) fit (209 KB; a bf16 cache: 4 stages and Q).  With
-//   DQK != DV, K's items and V's convert in two loops, each at its own
-//   compile-time width.  Staging through TMA keeps 64-128 KB of loads in
-//   flight an SM with 56 registers a producer thread; loading through
-//   the producer's registers instead (32 float4s a thread, 64 KB in
-//   flight) was measured slower.  What bounds this
-//   path is the staging's shared-memory traffic (f32 written and read
-//   again, on top of the bf16 writes and the wgmma reads): without the
-//   conversion it ran at the bf16 cache's speed.  Tensor maps are
-//   encoded on the host at every launch (the serve path's arena views
-//   move each step), with `cuTensorMapEncodeTiled` looked up in the
-//   libcuda the CUDA runtime has already loaded.
+//   into the swizzled ring ((DQK + DV) / 64 boxes of 64 x 64 a stage).
+//   An f32 cache: TMA cannot convert, so one thread TMA-loads f32 K and
+//   V tiles (unswizzled) into staging half-slots, K and V each a slot of
+//   its own, as many halves ahead as there are slots, and the whole
+//   producer warpgroup converts each half to bf16 into the swizzled ring,
+//   one float4 a thread a step so that reads and 8-byte writes are free
+//   of bank conflicts: one half's load overlaps the other's conversion.
+//   Staging through TMA keeps 64-128 KB of loads in flight an SM with
+//   few registers a producer thread; loading through the producer's
+//   registers instead (32 float4s a thread, 64 KB in flight) was measured
+//   slower at D 128.  What bounds the f32 path is the staging's
+//   shared-memory traffic (f32 written and read again, on top of the
+//   bf16 writes and the wgmma reads).  `Plan` sizes the ring, the
+//   half-slots, Q and the merge area within the 227 KB a block has (the
+//   arithmetic is there).  Tensor maps are encoded on the host at every
+//   launch (the serve path's arena views move each step), with
+//   `cuTensorMapEncodeTiled` looked up in the libcuda the CUDA runtime
+//   has already loaded.
 // - Masking: the tensor maps end at the launch's last visible key
 //   (min(Skv, q_offset + Sq) when causal), so TMA zero-fills every key
 //   past it: garbage in unwritten cache pages never meets a masked
 //   probability as 0 * NaN.  The consumers mask keys >= Skv and keys > a
 //   row's position only on the tiles that hold any (the last one or
 //   two), so the rest run unmasked.  KV tiles past the block's last
-//   query are never loaded (the causal skip); at (192, 128) the first
-//   consumer also hands back unread the last tile, which only the second
-//   one's rows see.
-// - A barrier wait that spins for ~2^24 polls traps, so a protocol fault
-//   ends the launch with an error instead of hanging the card.
+//   query are never loaded (the causal skip), and a consumer hands back
+//   unread the tiles past its own last row's keys (the block's last
+//   tile, for the first consumer).
+// - A barrier wait that spins for ~2^24 polls stores to address 0, so a
+//   protocol fault ends the launch with an error instead of hanging the
+//   card.  Not a `trap`: with one in the consumers' waits ptxas (CUDA
+//   12.9) holds their code to the launch's 168 registers whatever
+//   `setmaxnreg` gives them, and at D 128 and 192 spills and serializes
+//   every wgmma (C7512).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -133,42 +153,99 @@
 namespace fa_wgmma {
 
 constexpr int BM = 64;                          // query rows a consumer
-constexpr int CONSUMERS = 2;
-constexpr int BQ = BM * CONSUMERS;              // query rows a block
 constexpr int BK = 64;                          // keys a tile
-constexpr int NTHREADS = 128 * (CONSUMERS + 1);
 constexpr int HALF_BYTES = BK * 64 * 2;         // 64 keys x 64 d bf16: 8 KB
 constexpr int SMEM_BUDGET = 232448;             // a block's, on an H100
+constexpr int REGS_PER_SM = 65536;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The shared-memory plan of head dims (DQK, DV) over a bf16 or f32 cache.
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The plan of head dims (DQK, DV) over a bf16 or f32 cache: shared
+// memory, registers, and which consumer features the instantiation has.
+// Shared memory (KB of the 227 a block has; 1.1 fixed):
+//   (64, 64)    bf16: 8 stages x 16 + merge 2 x 18 = 164
+//               f32:  4 stages x 16 + 4 half-slots x 16 + merge 36 = 164
+//   (128, 128)  bf16: 4 stages x 32 = 128
+//               f32:  2 stages x 32 + 4 half-slots x 32 = 192
+//   (192, 192)  bf16: 3 stages x 48 + Q 3 x 24 = 216
+//               f32:  2 stages x 48 + 2 half-slots x 48 = 192 (Q in
+//                     registers: with Q here, 240)
+//   (192, 128)  bf16: 4 stages x 40 + Q 48 = 208
+//               f32:  2 stages x 40 + 2 half-slots x 48 + Q 48 = 224
 template <int DQK, int DV, bool F32KV>
 struct Plan {
   static_assert(DQK % 64 == 0 && DV % 64 == 0, "head dims of 64-col parts");
+  // Consumer warpgroups of 64 query rows each: three at D 64, where a
+  // score's exp2 costs about what its products do and a third warp on
+  // each scheduler hides more of the softmax's latency (the encoder 13%
+  // faster on an H100 than with two), and at (192, 192) over a bf16
+  // cache, whose blocks take a head each (PACK_HEADS); two elsewhere.
+  static constexpr int CONSUMERS =
+      DQK == 64 || (DQK == 192 && DV == 192 && !F32KV) ? 3 : 2;
+  // Where a KV group's query heads divide among the consumers, a block
+  // takes 64 rows of as many heads of one group, a consumer a head: each
+  // K/V tile it loads serves 192 rows, and nemotron-4-340b's 256-row
+  // chunks (96 heads) make 128 blocks, one wave, where 128-row blocks
+  // of one head made 192, two.
+  static constexpr bool PACK_HEADS = DQK == 192 && DV == 192 && !F32KV;
+  static constexpr int BQ = BM * CONSUMERS;           // query rows a block
+  static constexpr int NTHREADS = 128 * (CONSUMERS + 1);
   static constexpr int K_TILE = BK * DQK * 2;         // bf16 K tile
   static constexpr int V_TILE = BK * DV * 2;          // bf16 V tile
   static constexpr int STAGE_BYTES = K_TILE + V_TILE;
   static constexpr int F32_K = BK * DQK * 4;          // f32 K tile
-  static constexpr int F32_SLOT = BK * (DQK + DV) * 4;  // f32 K + V
+  static constexpr int F32_V = BK * DV * 4;           // f32 V tile
+  static constexpr int HALF_SLOT = cmax(F32_K, F32_V);
   static constexpr int FIXED = 1024 /* alignment slack */ + 128 /* bars */;
-  // MLA's materialized prefill, (192, 128): `consume_mla` (Q in shared
-  // memory), and one head's query tiles back to back when every query
-  // head has its own K/V.  The other instantiations keep `consume` (Q in
-  // registers) and the GQA order.
+  // MLA's materialized prefill, (192, 128): one head's query tiles back
+  // to back when every query head has its own K/V.
   static constexpr bool MLA = DQK == 192 && DV == 128;
-  static constexpr int Q_BYTES = MLA ? BQ * DQK * 2 : 0;  // bf16 Q tile
-  static constexpr int RING = F32KV ? 2 : 4;          // bf16 K/V stages
-  // f32 K/V slots: two where they fit beside the ring, else one
+  // Q in shared memory (an SS wgmma) where registers would not hold it
+  // beside O: (192, 128), and (192, 192) over a bf16 cache.  Over an f32
+  // cache (192, 192) needs the room for its staging, and Q stays in
+  // registers.
+  static constexpr bool Q_SMEM = DQK == 192 && (MLA || !F32KV);
+  static constexpr int Q_BYTES = Q_SMEM ? BQ * DQK * 2 : 0;  // bf16 Q tile
+  // Short queries split the keys between the consumers (D 64: the
+  // encoder-decoder's cross-attention); the merge area holds every
+  // consumer's O, m and l but the first's, a float a thread each.
+  static constexpr bool SPLIT_KEYS = DQK == 64;
+  static constexpr int MERGE_FLOATS = DV / 2 + 4;
+  static constexpr int MERGE_BYTES =
+      SPLIT_KEYS ? (CONSUMERS - 1) * 128 * MERGE_FLOATS * 4 : 0;
+  static constexpr int AVAIL = SMEM_BUDGET - FIXED - Q_BYTES - MERGE_BYTES;
+  // bf16 K/V stages: as many as fit, up to 8 at D 64 (its loads are
+  // what a cross-attention decode step waits on) and 4 elsewhere; 2 (4
+  // at D 64) beside an f32 cache's staging
+  static constexpr int RING = F32KV ? (DQK == 64 ? 4 : 2)
+      : cmin(DQK == 64 ? 8 : 4, AVAIL / STAGE_BYTES);
+  // f32 K and V half-slots: as many as fit, up to 4
   static constexpr int STAGING = !F32KV ? 0
-      : (FIXED + RING * STAGE_BYTES + 2 * F32_SLOT + Q_BYTES <= SMEM_BUDGET
-             ? 2 : 1);
+      : cmin(4, (AVAIL - RING * STAGE_BYTES) / HALF_SLOT);
   static constexpr int FULL_COUNT = F32KV ? 128 : 1;  // arrivals a fill
   static constexpr int SMEM = FIXED + RING * STAGE_BYTES
-      + STAGING * F32_SLOT + Q_BYTES;
-  // registers moved from the producer to the consumers (setmaxnreg)
-  static constexpr bool SPLIT_REGS = F32KV;
+      + STAGING * HALF_SLOT + Q_BYTES + MERGE_BYTES;
+  // Registers a thread after `setmaxnreg`: the producer keeps what it
+  // needs (one TMA thread; an f32 conversion, four float4s in flight a
+  // thread), the consumers take the rest of the SM's 64K.
+  static constexpr int PRODUCER_REGS = F32KV ? 56 : 24;
+  static constexpr int CONSUMER_REGS =
+      (REGS_PER_SM / 128 - PRODUCER_REGS) / CONSUMERS / 8 * 8;
+  // A tile's softmax overlapped with the last tile's P . V (S, P and O
+  // in registers at once) over a bf16 cache; over an f32 cache, where
+  // the producer's conversion sets the pace, in series, so that each
+  // stage is handed back a tile sooner (at D 128 the overlap was 10%
+  // slower there).
+  // (At (192, 192) three consumers' 160 registers do not hold S, P and
+  // O at once: in series there too.)
+  static constexpr bool OVERLAP = !F32KV && !PACK_HEADS;
   static_assert(SMEM <= SMEM_BUDGET, "shared-memory plan over budget");
+  static_assert(RING >= 2 && (!F32KV || STAGING >= 2), "too few stages");
   static_assert(2 * RING + STAGING <= 16, "barrier space");
+  static_assert(128 * (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS)
+                <= REGS_PER_SM, "register split over the SM's file");
 };
 
 // ---------------------------------------------------------------- PTX --
@@ -192,6 +269,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t n) {
                :: "r"(smem_u32(bar)), "r"(n) : "memory");
 }
 
+// End the launch with an error: a store to address 0 (not `trap`: the
+// design note says why).
+__device__ __forceinline__ void fault() {
+  asm volatile("st.global.u32 [%0], %1;\n" :: "l"(0ull), "r"(0u) : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
@@ -202,7 +285,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (done) return;
-    if (spins > (1u << 24)) __trap();
+    if (spins > (1u << 24)) fault();
   }
 }
 
@@ -244,8 +327,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N of this warpgroup's wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Keep the compiler from moving accumulator reads or writes across the
@@ -366,12 +451,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 2^x on the multi-function unit; 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1/x on the multi-function unit, where IEEE division would call a
+// slow-path subroutine from the consumers' code.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------------ kernel --
 
 struct Args {
   const __nv_bfloat16* q;
   __nv_bfloat16* o;
   int Sq, Skv, H, group, causal, q_offset;
+  int heads_per_block;         // 1, or the consumers' count (PACK_HEADS)
   int64_t q_sb, q_ss, q_sh, o_sb, o_ss, o_sh;
   float scale_log2;            // softmax scale * log2(e): exp2 domain
 };
@@ -408,265 +509,194 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_k,
   using P = Plan<DQK, DV, F32KV>;
   const int tid = threadIdx.x % 128;
   if constexpr (!F32KV) {
-    if (tid != 0) return;
-    for (int j = 0; j < n_tiles; ++j) {
-      const int r = j % P::RING;
-      mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
-      mbar_expect_tx(&full[r], P::STAGE_BYTES);
-      uint8_t* kdst = ring + r * P::STAGE_BYTES;
-      uint8_t* vdst = kdst + P::K_TILE;
-      // K's and V's parts interleaved: at D 128, all of K's parts before
-      // V's ran 8-10% slower over a bf16 cache on an H100.
-      for (int part = 0; part < (DQK > DV ? DQK : DV) / 64; ++part) {
-        if (part < DQK / 64) {
-          tma_load_4d(kdst + part * HALF_BYTES, tm_k, &full[r], 64 * part,
-                      hk, j * BK, b);
-        }
-        if (part < DV / 64) {
-          tma_load_4d(vdst + part * HALF_BYTES, tm_v, &full[r], 64 * part,
-                      hk, j * BK, b);
+    if (tid == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int r = j % P::RING;
+        mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
+        mbar_expect_tx(&full[r], P::STAGE_BYTES);
+        uint8_t* kdst = ring + r * P::STAGE_BYTES;
+        uint8_t* vdst = kdst + P::K_TILE;
+        // K's and V's parts interleaved: at D 128, all of K's parts before
+        // V's ran 8-10% slower over a bf16 cache on an H100.
+        for (int part = 0; part < (DQK > DV ? DQK : DV) / 64; ++part) {
+          if (part < DQK / 64) {
+            tma_load_4d(kdst + part * HALF_BYTES, tm_k, &full[r], 64 * part,
+                        hk, j * BK, b);
+          }
+          if (part < DV / 64) {
+            tma_load_4d(vdst + part * HALF_BYTES, tm_v, &full[r], 64 * part,
+                        hk, j * BK, b);
+          }
         }
       }
     }
   } else {
+    // Half u of the f32 stream is K (u even) or V (u odd) of tile u / 2,
+    // staged in half-slot u % NS, so that one half's load overlaps the
+    // conversion of the one before.
     constexpr int NS = P::STAGING;
-    auto stage = [&](int j) {       // f32 K and V tile j -> slot j % NS
-      uint8_t* dst = staging + (j % NS) * P::F32_SLOT;
-      mbar_expect_tx(&staged[j % NS], P::F32_SLOT);
-      tma_load_4d(dst, tm_k, &staged[j % NS], 0, hk, j * BK, b);
-      tma_load_4d(dst + P::F32_K, tm_v, &staged[j % NS], 0, hk, j * BK, b);
+    const int n_halves = 2 * n_tiles;
+    auto stage = [&](int u) {
+      uint8_t* dst = staging + (u % NS) * P::HALF_SLOT;
+      uint64_t* bar = &staged[u % NS];
+      mbar_expect_tx(bar, u % 2 ? P::F32_V : P::F32_K);
+      tma_load_4d(dst, u % 2 ? tm_v : tm_k, bar, 0, hk, u / 2 * BK, b);
     };
     if (tid == 0) {
-      for (int j = 0; j < NS && j < n_tiles; ++j) stage(j);
+      for (int u = 0; u < NS && u < n_halves; ++u) stage(u);
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int r = j % P::RING;
-      mbar_wait(&staged[j % NS], (j / NS) & 1);
-      mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
-      const uint8_t* src = staging + (j % NS) * P::F32_SLOT;
       uint8_t* dst = ring + r * P::STAGE_BYTES;
-      if constexpr (DQK == DV) {
-        // K's items, then V's, as `convert_tile` does, in one loop: the
-        // index arithmetic is one (K, V) pair's, which the compiler folds
-        // over the unrolled steps; a select between K's and V's row
-        // widths made the f32 path 34% slower at D 128.
-        constexpr int K_ITEMS = BK * DQK / 4;
-#pragma unroll 4
-        for (int i = 0; i < BK * 2 * DQK / 4 / 128; ++i) {
-          const int it = tid + 128 * i;
-          const bool is_v = it / K_ITEMS;
-          const int row = (it / (DQK / 4)) % BK;
-          const int f = it % (DQK / 4);
-          const float4 x = *reinterpret_cast<const float4*>(
-              src + (is_v ? P::F32_K : 0) + row * DQK * 4 + f * 16);
-          const int part = f / 16, chunk = (f % 16) / 2, sub = f % 2;
-          uint8_t* out = dst + (is_v ? P::K_TILE : 0) + part * HALF_BYTES
-                         + row * 128 + ((chunk ^ (row & 7)) << 4) + sub * 8;
-          *reinterpret_cast<uint2*>(out) =
-              make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int u = 2 * j + half;
+        mbar_wait(&staged[u % NS], (u / NS) & 1);
+        const uint8_t* src = staging + (u % NS) * P::HALF_SLOT;
+        if (half == 0) {
+          mbar_wait(&empty[r], ((j / P::RING) & 1) ^ 1);
+          convert_tile<DQK>(src, dst, tid);
+        } else {
+          convert_tile<DV>(src, dst + P::K_TILE, tid);
+          fence_proxy_async();   // the generic writes, before wgmma reads
+          mbar_arrive(&full[r]);
         }
-      } else {   // each with its own compile-time width
-        convert_tile<DQK>(src, dst, tid);
-        convert_tile<DV>(src + P::F32_K, dst + P::K_TILE, tid);
+        producer_bar_sync();     // every thread is done with the half-slot
+        if (tid == 0 && u + NS < n_halves) stage(u + NS);
       }
-      fence_proxy_async();       // the generic writes, before wgmma reads
-      mbar_arrive(&full[r]);
-      producer_bar_sync();       // every thread is done with the slot
-      if (tid == 0 && j + NS < n_tiles) stage(j + NS);
     }
   }
 }
 
-// Consumer warpgroup `wg`: query rows q0 + 64 wg .. + 63 of head h.
+// S = Q . K^T for the K tile at `kaddr`, Q from registers (`qf`) or
+// from shared memory at `qaddr`.  Element i of s: row (i >> 1) & 1 of
+// the thread's two, key 8 (i >> 2) + 2t + (i & 1) of the tile.
+template <int DQK, bool Q_SMEM, int NQ>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2],
+                                        const uint32_t (&qf)[NQ][4],
+                                        uint32_t qaddr, uint32_t kaddr) {
+#pragma unroll
+  for (int kk = 0; kk < DQK / 16; ++kk) {
+    const uint32_t step = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
+    if constexpr (Q_SMEM) {
+      wgmma_m64n64_ss(s, sw128_desc(qaddr + step, 16, 1024),
+                      sw128_desc(kaddr + step, 16, 1024), kk > 0);
+    } else {
+      wgmma_m64n64(s, qf[kk], sw128_desc(kaddr + step, 16, 1024), kk > 0);
+    }
+  }
+}
+
+// O += P . V for the V tile at `vaddr`.
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
+                                         const uint32_t (&pf)[BK / 16][4],
+                                         uint32_t vaddr) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    wgmma_pv(acc, pf[kk], sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES,
+                                     1024));
+  }
+}
+
+// Online softmax of one S tile in the exp2 domain: s becomes P in f32
+// (keys >= a row's limit masked where `masked`), alpha the factor that
+// brings O and l to the new running max m, and l takes this tile's row
+// sums (this thread's share).  A row's 64 scores sit on the 4 threads of
+// a quad.
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               float scale_log2, bool masked,
+                                               int k0, const int (&lim)[2],
+                                               int t) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (key >= lim[(i >> 1) & 1]) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  float mu[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+    const float m_new = fmaxf(m[e], mx[e] * scale_log2);
+    mu[e] = (m_new == -INFINITY) ? 0.f : m_new;
+    alpha[e] = exp2_approx(m[e] - mu[e]);   // 0 while the row saw nothing
+    m[e] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    // the scale folded into one FFMA; masked: exp2(-inf) = 0
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + rs[e];
+}
+
+// P in bf16: the S fragment of keys 16 kk .. + 15 is the A fragment.
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[BK / 16][4],
+                                       const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    }
+  }
+}
+
+// The threads of all N consumers (named barrier 4).
+template <int N>
+__device__ __forceinline__ void consumers_bar_sync() {
+  asm volatile("bar.sync 4, %0;\n" :: "n"(128 * N) : "memory");
+}
+
+// Consumer warpgroup `wg`: query rows q0 + 64 wg .. + 63 of head h over
+// every tile the block loads; with the keys split (short queries), rows
+// q0 .. + 63 over tiles wg, wg + CONSUMERS, ...
 template <int DQK, int DV, bool F32KV>
 __device__ __forceinline__ void consume(const Args& a, uint8_t* ring,
+                                        uint8_t* qsmem, float* merge,
                                         uint64_t* full, uint64_t* empty,
                                         int n_tiles, int wg, int b, int h,
                                         int q0) {
   using P = Plan<DQK, DV, F32KV>;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const bool split = P::SPLIT_KEYS && a.Sq <= BM;
+  const int first = split ? wg : 0, stride = split ? P::CONSUMERS : 1;
+  const int row0 = split || a.heads_per_block > 1 ? q0 : q0 + wg * BM;
   // This thread's two rows in every m64 fragment.
-  const int rr0 = q0 + wg * BM + warp * 16 + g;
-  const int rows[2] = {rr0, rr0 + 8};
+  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  const __nv_bfloat16* qb = a.q + b * a.q_sb + h * a.q_sh;
 
   // Q in the A-fragment layout: k-step kk holds columns 16 kk .. + 15;
-  // register e holds row rows[e & 1], columns 16 kk + 8 (e >> 1) + 2t, +1.
-  uint32_t qf[DQK / 16][4];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const bool ok = rows[e] < a.Sq;
-    const __nv_bfloat16* qrow =
-        a.q + b * a.q_sb + static_cast<int64_t>(ok ? rows[e] : 0) * a.q_ss
-        + h * a.q_sh;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        qf[kk][e + 2 * hi] =
-            ok ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 * hi
-                                                    + 2 * t)
-               : 0u;
-      }
-    }
-  }
-
-  // Keys a row sees: < lim[e]; every row of this warpgroup sees keys
-  // < mask_from, so tiles below it need no mask.
-  int lim[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    lim[e] = a.causal ? min(a.Skv, a.q_offset + rows[e] + 1) : a.Skv;
-  }
-  const int mask_from = a.causal
-      ? min(a.Skv, a.q_offset + q0 + wg * BM + 1) : a.Skv;
-
-  float acc[DV / 2];           // O: 64 rows x DV, m64nDV layout
-#pragma unroll
-  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};     // this thread's share of the row sums
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int r = j % P::RING;
-    mbar_wait(&full[r], (j / P::RING) & 1);
-    const uint32_t kaddr = smem_u32(ring + r * P::STAGE_BYTES);
-    const uint32_t vaddr = kaddr + P::K_TILE;
-
-    // S = Q . K^T.  Element i of s: row rows[(i >> 1) & 1], key
-    // 8 (i >> 2) + 2t + (i & 1) of the tile.
-    float s[BK / 2];
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      wgmma_m64n64(s, qf[kk],
-                   sw128_desc(kaddr + (kk / 4) * HALF_BYTES + (kk % 4) * 32,
-                              16, 1024),
-                   kk > 0);
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(s);
-
-    const int k0 = j * BK;
-    if (k0 + BK > mask_from) {
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        if (key >= lim[(i >> 1) & 1]) s[i] = -INFINITY;
-      }
-    }
-
-    // Online softmax in the exp2 domain; a row's 64 scores sit on the
-    // 4 threads of a quad.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      s[i] *= a.scale_log2;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
-    float alpha[2], mu[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
-      const float m_new = fmaxf(m[e], mx[e]);
-      mu[e] = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[e] = exp2f(m[e] - mu[e]);     // 0 while the row saw nothing
-      m[e] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      s[i] = exp2f(s[i] - mu[(i >> 1) & 1]);   // masked: exp2(-inf) = 0
-      rs[(i >> 1) & 1] += s[i];
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + rs[e];
-#pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-    // P in bf16: the S fragment of keys 16 kk .. + 15 is the A fragment.
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-      }
-    }
-
-    // O += P . V.
-    fence_regs(acc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_pv(acc, pf[kk],
-               sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES, 1024));
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(acc);
-    mbar_arrive(&empty[r]);
-  }
-
-  // Epilogue: O / l in bf16.  Element i of acc: row rows[(i >> 1) & 1],
-  // column 8 (i >> 2) + 2t + (i & 1).
-  float inv[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
-    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
-    inv[e] = 1.f / (l[e] == 0.f ? 1.f : l[e]);
-  }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    if (rows[e] >= a.Sq) continue;
-    __nv_bfloat16* orow = a.o + b * a.o_sb
-        + static_cast<int64_t>(rows[e]) * a.o_ss + h * a.o_sh;
-#pragma unroll
-    for (int c = 0; c < DV / 8; ++c) {
-      const int i = 4 * c + 2 * e;
-      *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t) =
-          pack_bf16(acc[i] * inv[e], acc[i + 1] * inv[e]);
-    }
-  }
-}
-
-// Consumer warpgroup `wg` at MLA's (192, 128): `consume`, line for line,
-// but for Q, which sits in shared memory as the A operand of an SS wgmma
-// for S = Q.K^T (in registers it would take 48 a thread beside O's 64
-// and S's 32), and for the tail: causal, the tiles past this
-// warpgroup's last row's keys (the block's last tile, for its first
-// warpgroup) hold no key it sees, and it hands them back unread.
-// (`consume` keeps its code, as measured, at the other head dims.)
-template <int DQK, int DV, bool F32KV>
-__device__ __forceinline__ void consume_mla(const Args& a, uint8_t* ring,
-                                            uint8_t* qsmem, uint64_t* full,
-                                            uint64_t* empty, int n_tiles,
-                                            int wg, int b, int h, int q0) {
-  using P = Plan<DQK, DV, F32KV>;
-  const int tid = threadIdx.x % 128;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int rr0 = q0 + wg * BM + warp * 16 + g;
-  const int rows[2] = {rr0, rr0 + 8};
-
-  // This warpgroup's 64 Q rows, laid out as a K tile (DQK / 64 parts of
-  // 64 rows x 128 bytes, 128-byte swizzled), rows past Sq zero.  Each
-  // thread issues all its 16-byte loads before its first store.
-  constexpr int PIECES = BM * DQK / 8 / 128;     // 16-byte pieces a thread
-  uint8_t* qs = qsmem + wg * (BM * DQK * 2);
-  const uint32_t qaddr = smem_u32(qs);
-  {
-    const __nv_bfloat16* qb = a.q + b * a.q_sb + h * a.q_sh;
+  // register e holds row rows[e & 1], columns 16 kk + 8 (e >> 1) + 2t,
+  // +1.  Or Q's 64 rows in shared memory, laid out as a K tile (DQK / 64
+  // parts of 64 rows x 128 bytes, 128-byte swizzled), each thread
+  // issuing all its 16-byte loads before its first store.  Rows past Sq
+  // are zero.
+  uint32_t qf[P::Q_SMEM ? 1 : DQK / 16][4];
+  uint32_t qaddr = 0;
+  if constexpr (P::Q_SMEM) {
+    constexpr int PIECES = BM * DQK / 8 / 128;   // 16-byte pieces a thread
+    uint8_t* qs = qsmem + wg * (BM * DQK * 2);
+    qaddr = smem_u32(qs);
     uint4 x[PIECES];
 #pragma unroll
     for (int n = 0; n < PIECES; ++n) {
       const int i = tid + 128 * n, r = i / (DQK / 8), c = i % (DQK / 8);
-      const int row = q0 + wg * BM + r;
+      const int row = row0 + r;
       x[n] = row < a.Sq ? *reinterpret_cast<const uint4*>(
                               qb + static_cast<int64_t>(row) * a.q_ss + 8 * c)
                         : make_uint4(0u, 0u, 0u, 0u);
@@ -679,116 +709,184 @@ __device__ __forceinline__ void consume_mla(const Args& a, uint8_t* ring,
     }
     fence_proxy_async();       // the generic writes, before wgmma reads
     consumer_bar_sync(wg);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = rows[e] < a.Sq;
+      const __nv_bfloat16* qrow =
+          qb + static_cast<int64_t>(ok ? rows[e] : 0) * a.q_ss;
+#pragma unroll
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          qf[kk][e + 2 * hi] =
+              ok ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 * hi
+                                                      + 2 * t)
+                 : 0u;
+        }
+      }
+    }
   }
 
+  // Keys a row sees: < lim[e]; every row of this warpgroup sees keys
+  // < mask_from, so tiles below it need no mask.  Causal, the block's
+  // last tiles may hold no key this warpgroup's rows see: it reads the
+  // first own_tiles and hands the rest back unread.
   int lim[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     lim[e] = a.causal ? min(a.Skv, a.q_offset + rows[e] + 1) : a.Skv;
   }
-  const int mask_from = a.causal
-      ? min(a.Skv, a.q_offset + q0 + wg * BM + 1) : a.Skv;
+  const int mask_from = a.causal ? min(a.Skv, a.q_offset + row0 + 1) : a.Skv;
   int own_tiles = n_tiles;
   if (a.causal) {
-    const int seen = min(a.Skv, a.q_offset + min(q0 + wg * BM + BM, a.Sq));
+    const int seen = min(a.Skv, a.q_offset + min(row0 + BM, a.Sq));
     own_tiles = min(n_tiles, (max(seen, 0) + BK - 1) / BK);
   }
+  if (row0 >= a.Sq) own_tiles = 0;     // every row past Sq: nothing to read
 
-  float acc[DV / 2];
+  float acc[DV / 2];           // O: 64 rows x DV, m64nDV layout
 #pragma unroll
   for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < own_tiles; ++j) {
-    const int r = j % P::RING;
-    mbar_wait(&full[r], (j / P::RING) & 1);
-    const uint32_t kaddr = smem_u32(ring + r * P::STAGE_BYTES);
-    const uint32_t vaddr = kaddr + P::K_TILE;
-
-    float s[BK / 2];
+  float l[2] = {0.f, 0.f};     // this thread's share of the row sums
+  float s[BK / 2];             // S, then P in f32; a first k-step ignores it
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      const uint32_t step = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
-      wgmma_m64n64_ss(s, sw128_desc(qaddr + step, 16, 1024),
-                      sw128_desc(kaddr + step, 16, 1024), kk > 0);
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  uint32_t pf[BK / 16][4];     // P in bf16
+  float alpha[2];
+
+  if constexpr (P::OVERLAP) {
+    // Tile j: S, softmax, P; its P . V is issued with the next tile's S.
+    int j = first;
+    if (j < own_tiles) {
+      mbar_wait(&full[j % P::RING], (j / P::RING) & 1);
+      fence_regs(s);
+      wg_fence();
+      issue_s<DQK, P::Q_SMEM>(
+          s, qf, qaddr, smem_u32(ring + (j % P::RING) * P::STAGE_BYTES));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      online_softmax(s, m, l, alpha, a.scale_log2, j * BK + BK > mask_from,
+                     j * BK, lim, t);
+      pack_p(pf, s);
     }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(s);
-
-    const int k0 = j * BK;
-    if (k0 + BK > mask_from) {
+    for (int jn = j + stride; jn < own_tiles; jn += stride) {
+      mbar_wait(&full[jn % P::RING], (jn / P::RING) & 1);
+      fence_regs(s);
+      fence_regs(acc);
+      wg_fence();
+      issue_s<DQK, P::Q_SMEM>(
+          s, qf, qaddr, smem_u32(ring + (jn % P::RING) * P::STAGE_BYTES));
+      wg_commit();
+      issue_pv<DV>(acc, pf, smem_u32(ring + (j % P::RING) * P::STAGE_BYTES)
+                                + P::K_TILE);
+      wg_commit();
+      wg_wait<1>();            // S(jn) is in; P(j) . V(j) runs on
+      fence_regs(s);
+      online_softmax(s, m, l, alpha, a.scale_log2,
+                     jn * BK + BK > mask_from, jn * BK, lim, t);
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(s);
+      mbar_arrive(&empty[j % P::RING]);
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        if (key >= lim[(i >> 1) & 1]) s[i] = -INFINITY;
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      pack_p(pf, s);
+      j = jn;
+    }
+    if (j < own_tiles) {
+      fence_regs(acc);
+      wg_fence();
+      issue_pv<DV>(acc, pf, smem_u32(ring + (j % P::RING) * P::STAGE_BYTES)
+                                + P::K_TILE);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[j % P::RING]);
+    }
+  } else {
+    // In series: S, softmax, P . V, each tile's products waited for.
+    for (int j = first; j < own_tiles; j += stride) {
+      mbar_wait(&full[j % P::RING], (j / P::RING) & 1);
+      const uint32_t kaddr = smem_u32(ring + (j % P::RING) * P::STAGE_BYTES);
+      fence_regs(s);
+      wg_fence();
+      issue_s<DQK, P::Q_SMEM>(s, qf, qaddr, kaddr);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      online_softmax(s, m, l, alpha, a.scale_log2, j * BK + BK > mask_from,
+                     j * BK, lim, t);
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      pack_p(pf, s);
+      fence_regs(acc);
+      wg_fence();
+      issue_pv<DV>(acc, pf, kaddr + P::K_TILE);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[j % P::RING]);
+    }
+  }
+  for (int jj = own_tiles; jj < n_tiles; ++jj) {   // never with the split
+    mbar_wait(&full[jj % P::RING], (jj / P::RING) & 1);
+    mbar_arrive(&empty[jj % P::RING]);
+  }
+
+  // With the keys split, every consumer but the first hands its (O, m,
+  // l) to the first through shared memory (a float a thread at
+  // merge[i * 128 + tid]: all hold the same rows and columns in the same
+  // registers), and the first folds them in one by one, each weighed by
+  // the running maximum.  A consumer that saw no key (m = -inf) weighs 0,
+  // never NaN.
+  if constexpr (P::SPLIT_KEYS) {
+    if (split) {
+      constexpr int MF = P::MERGE_FLOATS * 128;
+      if (wg > 0) {
+        float* mine = merge + (wg - 1) * MF;
+#pragma unroll
+        for (int i = 0; i < DV / 2; ++i) mine[i * 128 + tid] = acc[i];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mine[(DV / 2 + e) * 128 + tid] = m[e];
+          mine[(DV / 2 + 2 + e) * 128 + tid] = l[e];
+        }
+      }
+      consumers_bar_sync<P::CONSUMERS>();
+      if (wg > 0) return;
+#pragma unroll
+      for (int c = 1; c < P::CONSUMERS; ++c) {
+        const float* other = merge + (c - 1) * MF;
+        float w[2], wo[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float mo = other[(DV / 2 + e) * 128 + tid];
+          const float mt = fmaxf(m[e], mo);
+          w[e] = m[e] == -INFINITY ? 0.f : exp2_approx(m[e] - mt);
+          wo[e] = mo == -INFINITY ? 0.f : exp2_approx(mo - mt);
+          l[e] = l[e] * w[e] + other[(DV / 2 + 2 + e) * 128 + tid] * wo[e];
+          m[e] = mt;
+        }
+#pragma unroll
+        for (int i = 0; i < DV / 2; ++i) {
+          acc[i] = acc[i] * w[(i >> 1) & 1]
+                   + other[i * 128 + tid] * wo[(i >> 1) & 1];
+        }
       }
     }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      s[i] *= a.scale_log2;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
-    float alpha[2], mu[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
-      const float m_new = fmaxf(m[e], mx[e]);
-      mu[e] = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[e] = exp2f(m[e] - mu[e]);
-      m[e] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      s[i] = exp2f(s[i] - mu[(i >> 1) & 1]);
-      rs[(i >> 1) & 1] += s[i];
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + rs[e];
-#pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-      }
-    }
-
-    fence_regs(acc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_pv(acc, pf[kk],
-               sw128_desc(vaddr + kk * 16 * 128, HALF_BYTES, 1024));
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(acc);
-    mbar_arrive(&empty[r]);
-  }
-  for (int j = own_tiles; j < n_tiles; ++j) {
-    const int r = j % P::RING;
-    mbar_wait(&full[r], (j / P::RING) & 1);
-    mbar_arrive(&empty[r]);
   }
 
+  // Epilogue: O / l in bf16.  Element i of acc: row rows[(i >> 1) & 1],
+  // column 8 (i >> 2) + 2t + (i & 1).
   float inv[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
     l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
-    inv[e] = 1.f / (l[e] == 0.f ? 1.f : l[e]);
+    inv[e] = rcp_approx(l[e] == 0.f ? 1.f : l[e]);
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -805,7 +903,7 @@ __device__ __forceinline__ void consume_mla(const Args& a, uint8_t* ring,
 }
 
 template <int DQK, int DV, bool F32KV>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__((Plan<DQK, DV, F32KV>::NTHREADS), 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ Args a) {
@@ -814,8 +912,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* staging = ring + P::RING * P::STAGE_BYTES;
-  uint8_t* qsmem = staging + P::STAGING * P::F32_SLOT;
-  uint64_t* full = reinterpret_cast<uint64_t*>(qsmem + P::Q_BYTES);
+  uint8_t* qsmem = staging + P::STAGING * P::HALF_SLOT;
+  float* merge = reinterpret_cast<float*>(qsmem + P::Q_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(qsmem + P::Q_BYTES
+                                               + P::MERGE_BYTES);
   uint64_t* empty = full + P::RING;
   uint64_t* staged = empty + P::RING;
 
@@ -832,42 +932,44 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       tile = linear % gridDim.y;
     }
   }
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int q0 = (gridDim.y - 1 - tile) * BQ;
+  // With heads packed, the block's heads are h .. h + CONSUMERS - 1 at
+  // the same 64 rows.
+  const int hpb = a.heads_per_block;
+  const int rows = hpb > 1 ? BM : P::BQ;       // a head's rows a block
+  const int b = bh / (a.H / hpb);
+  const int h = bh % (a.H / hpb) * hpb;
+  const int q0 = (gridDim.y - 1 - tile) * rows;
   int kv_end = a.Skv;                  // keys the block's last row sees
   if (a.causal) {
-    kv_end = max(0, min(a.Skv, a.q_offset + min(q0 + BQ, a.Sq)));
+    kv_end = max(0, min(a.Skv, a.q_offset + min(q0 + rows, a.Sq)));
   }
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
+    // with the keys split, one consumer reads each stage
+    const int readers = P::SPLIT_KEYS && a.Sq <= BM ? 1 : P::CONSUMERS;
     for (int s = 0; s < P::RING; ++s) {
       mbar_init(&full[s], P::FULL_COUNT);
-      mbar_init(&empty[s], CONSUMERS * 128);
+      mbar_init(&empty[s], readers * 128);
     }
     for (int s = 0; s < P::STAGING; ++s) mbar_init(&staged[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == CONSUMERS) {
-    if constexpr (P::SPLIT_REGS) {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    }
+  // The warpgroup, warp-uniform as the compiler sees it, so that each
+  // branch below is allocated to its own `setmaxnreg` count.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == P::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(P::PRODUCER_REGS));
     produce<DQK, DV, F32KV>(&tm_k, &tm_v, ring, staging, full, empty,
                             staged, n_tiles, h / a.group, b);
   } else {
-    if constexpr (P::SPLIT_REGS) {
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-    }
-    if constexpr (P::MLA) {
-      consume_mla<DQK, DV, F32KV>(a, ring, qsmem, full, empty, n_tiles, wg,
-                                  b, h, q0);
-    } else {
-      consume<DQK, DV, F32KV>(a, ring, full, empty, n_tiles, wg, b, h, q0);
-    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(P::CONSUMER_REGS));
+    consume<DQK, DV, F32KV>(a, ring, qsmem, merge, full, empty, n_tiles,
+                            wg, b, hpb > 1 ? h + wg : h, q0);
   }
 }
 
@@ -932,9 +1034,14 @@ int launch(const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Args& a,
       flash_wgmma_kernel<DQK, DV, F32KV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(B * a.H, (a.Sq + BQ - 1) / BQ);
-  flash_wgmma_kernel<DQK, DV, F32KV><<<grid, NTHREADS, smem, stream>>>(
-      tm_k, tm_v, a);
+  using P = Plan<DQK, DV, F32KV>;
+  Args args = a;
+  args.heads_per_block =
+      P::PACK_HEADS && a.group % P::CONSUMERS == 0 ? P::CONSUMERS : 1;
+  const int rows = args.heads_per_block > 1 ? BM : P::BQ;
+  const dim3 grid(B * a.H / args.heads_per_block, (a.Sq + rows - 1) / rows);
+  flash_wgmma_kernel<DQK, DV, F32KV><<<grid, P::NTHREADS, smem, stream>>>(
+      tm_k, tm_v, args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -978,6 +1085,7 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.o = static_cast<__nv_bfloat16*>(o);
   a.Sq = Sq; a.Skv = Skv; a.H = H; a.group = H / Hkv;
+  a.heads_per_block = 1;
   a.causal = causal; a.q_offset = q_offset;
   a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
   a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;

@@ -18,6 +18,15 @@ path) runs on the tensor cores (``csrc/flash_attention_wgmma.cu``,
 variant ``"wgmma"``); any other query (f32, or the reduced configs' head
 dim 16) runs on the CUDA cores in f32 (``csrc/flash_attention.cu``,
 variant ``"simt"``).  ``launch`` returns the variant the C entry reports.
+The tensor-core kernel's plan is fixed per head dims and cache type when
+it is compiled (``Plan`` in the source): three consumer warpgroups of 64
+query rows at D 64, where a query of at most 64 rows (a cross-attention
+decode step or prompt) has them take the key tiles in turn and merge at
+the end, and at (192, 192) over a bf16 cache, where a block takes 64
+rows of three query heads of one KV group when the group divides by
+three; two elsewhere; Q in shared memory at (192, 128) and at D 192 over
+a bf16 cache; each tile's softmax overlapped with the last tile's
+products over a bf16 cache but at (192, 192).
 Both take ``causal=False`` (every query sees every key: the
 encoder-decoder's encoder and cross-attention).
 """

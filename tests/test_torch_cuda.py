@@ -252,6 +252,34 @@ def test_tensor_core_kernel_non_causal_at_ragged_shapes(cuda, d, kv_dtype,
     _assert_matches(got, ref.attention(q, k, v, causal=False))
 
 
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(16, 16), (8, 1)])
+@pytest.mark.parametrize("sq,skv,causal", [(1, 900, False), (4, 900, False),
+                                           (1, 1000, False), (4, 1000, False),
+                                           (4, 37, False), (4, 64, False),
+                                           (64, 900, False), (4, 900, True)])
+def test_short_queries_split_the_keys_at_d64(cuda, kv_dtype, h, hkv, sq, skv,
+                                             causal):
+    """D 64 with Sq <= 64 (a cross-attention decode step or prompt): the
+    three consumers take the key tiles of the same rows in turn and
+    merge at the end.  1000 keys are 16 tiles, so one consumer takes a
+    tile more (900: 15, 5 each); at 37 and 64 keys the others see none
+    and must weigh 0, never NaN; Sq 64 fills a consumer's rows; causal
+    at offset 896 masks the last tile.  One tensor-core launch a call,
+    against plain and against the split arithmetic in plain torch."""
+    off = skv - sq if causal else 0
+    q, k, v = _qkv(sq + skv + h, sq, skv, h, hkv, 64, torch.bfloat16,
+                   kv_dtype, cuda)
+    before = (ops.counter.value, ops.tc_counter.value)
+    got = ops.attention(q, k, v, causal=causal, q_offset=off)
+    assert (ops.counter.value, ops.tc_counter.value) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert torch.isfinite(got).all()
+    _assert_matches(got, ref.attention(q, k, v, causal=causal, q_offset=off))
+    _assert_matches(got, ref.attention_bf16_products(
+        q, k, v, causal=causal, q_offset=off, key_split=3))
+
+
 @pytest.mark.parametrize("d", [128, 192])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hkv", [(8, 1), (64, 8)])

@@ -16,7 +16,9 @@ D 64 without the causal mask (seamless-m4t-large-v2's encoder over its
 frames and its cross-attention of a prompt and of a decode step); and
 at MLA's head dims (192, 128) (deepseek-v3's materialized prefill, 16/16
 heads here), with v the strided tail of each head's 256-wide row, as
-``models/mla.py`` slices the up-projection.
+``models/mla.py`` slices the up-projection; and the short-query schedule
+at D 64, whose consumers split the key tiles and merge at the end
+(``key_split``).
 """
 
 import jax.numpy as jnp
@@ -112,6 +114,41 @@ def test_bf16_products_non_causal_d64_match_plain_and_flash_attention_jnp(
         jnp.asarray(v.float().numpy(), JDT[kv_dtype]), causal=False,
         block_k=128)
     _within(got, np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("split", [2, 3])
+@pytest.mark.parametrize("sq,skv,kv_dtype", [
+    (1, 900, torch.bfloat16), (4, 900, torch.bfloat16),
+    (4, 900, torch.float32)])
+def test_bf16_products_with_the_keys_split_match_unsplit_and_jnp(
+        sq, skv, kv_dtype, split):
+    """The kernel's short-query schedule at D 64: its consumers (three;
+    two as well) take the 64-key tiles in turn (900 keys are 15 tiles:
+    with two the first takes one more) and merge (m, l, O) at the end.
+    16 / 16 heads, non-causal, against the unsplit arithmetic and
+    ``flash_attention_jnp``."""
+    q, k, v = _inputs(sq + skv, sq, skv, 16, 16, kv_dtype, d=64)
+    got = ref.attention_bf16_products(q, k, v, causal=False,
+                                      key_split=split)
+    _within(got, ref.attention_bf16_products(q, k, v, causal=False
+                                             ).float().numpy())
+    want = JL.flash_attention_jnp(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16),
+        jnp.asarray(k.float().numpy(), JDT[kv_dtype]),
+        jnp.asarray(v.float().numpy(), JDT[kv_dtype]), causal=False,
+        block_k=128)
+    _within(got, np.asarray(want.astype(jnp.float32)))
+
+
+def test_bf16_products_split_where_a_consumer_sees_no_key():
+    """37 keys are one tile: the second and third consumers see none (m
+    = -inf, l = 0) and weigh 0 in the merge, so the split gives the
+    unsplit bits, and never NaN."""
+    q, k, v = _inputs(41, 4, 37, 16, 16, torch.bfloat16, d=64)
+    got = ref.attention_bf16_products(q, k, v, causal=False, key_split=3)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref.attention_bf16_products(q, k, v,
+                                                        causal=False))
 
 
 def test_bf16_products_are_exact_where_nothing_rounds():
