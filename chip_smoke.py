@@ -232,7 +232,11 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              kernel and plain runs bit-identical, launches as planned
              (the data sync's plus p-1 a model-axis all-reduce), and the
              composed losses and gradient norms within ``TP_LOSS_RTOL``
-             and ``TP_NORM_RTOL`` of [train]'s.
+             and ``TP_NORM_RTOL`` of [train]'s.  Each block is
+             checkpointed over "model" (remat on, its rerun on the rank's
+             thread, its *g*s counted in the plan); one more composed
+             kernel run with ``remat=False`` must give the same losses
+             and every model rank's parameters bit for bit.
              Prints step time, tokens/s and peak memory.
 8d. train_pod — granite-34b at its widths cut to 1 layer (4 full
              replicas of 2 layers do not fit in 80 GB) on (pod 2, data 2),
@@ -259,12 +263,14 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              2 of 88 layers, random bf16 weights from a seed, [train]'s
              data, Adafactor: data-parallel composed with the sync
              kernels and plain (bit-identical) and at lr 1e-5 (the loss
-             falls); ZeRO-1 (each rank's flat chunks unfactored); (data
-             2, model 2) with ``check_model_replicas``, losses and
-             gradient norms within ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL``
-             of the data-parallel run, Adafactor's model-axis sums
-             counted in the plan; compressed at 1 layer (2 reckon over
-             the card).
+             falls); ZeRO-1 (each rank's flat chunks unfactored); ZeRO-1
+             on (data 2, model 2) with ``check_model_replicas`` (each
+             rank a piece of its data rank's chunk of every whole param,
+             the reference's chunk), losses and gradient norms within
+             ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of ZeRO-1 on data 2,
+             Adafactor's model-axis sums counted in the plan, each rank's
+             optimizer-state bytes printed; compressed at 1 layer (2
+             reckon over the card).
 8g. train_deepseek — deepseek-v3-671b at its published widths cut to
              its 2 first (dense MLA) layers and the MTP block, Adafactor,
              bf16 gradient accumulation over 2 microbatches: kernels and
@@ -274,7 +280,7 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              time), AdamW: kernels and plain (bit-identical), lr 1e-5;
              and one kernel run cut to ``MAMBA2_REMAT_CUT`` layers, whose
              peak is printed beside the one it took without remat.
-8i. train_vl — qwen2-vl-7b at its published widths cut to 4 of 28
+8i. train_vl — qwen2-vl-7b at its published widths cut to 2 of 28
              layers, AdamW over 2 microbatches: ``SyntheticLMDataset``'s
              embeddings batches (``inputs_embeds`` 3584 wide, the text
              positions' taken from a fixed table by token, see
@@ -284,11 +290,19 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              positions at dim 1, over the ranks and the microbatches,
              runs on the card: kernels and plain (bit-identical), lr
              1e-5.
-8j. train_seamless — seamless-m4t-large-v2 at its published widths and
-             full depth (24 + 24 layers), AdamW, 1 microbatch: 2048
+8j. train_seamless — seamless-m4t-large-v2 at its published widths cut
+             to 12 + 12 of its 24 + 24 layers, AdamW, 1 microbatch: 2048
              frames x 1024 f32 a row from numpy seeded by (seed, step)
              (``_FrameBatches``) beside the dataset's tokens and labels;
-             kernels and plain (bit-identical), lr 1e-5.  Every
+             kernels and plain (bit-identical), lr 1e-5; then on (data 2,
+             model 2), each layer checkpointed over "model", its peak
+             printed.
+8k. train_jamba — jamba-1.5-large-398b's first 2 of 72 layers, Adafactor,
+             bf16 gradients, 4 rows a step: (data 1, model 1), then (data
+             1, model 2) with the sync kernels and plain (bit-identical),
+             the block checkpointed over "model", within
+             ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of (1, 1), each run's
+             peak printed and held below 95% of the card.  Every
              large-arch run: finite losses, identical replicas, every
              sync kernel's launches as planned, peak below 95% of the
              card; each phase prints the card, step time, tokens/s and
@@ -476,13 +490,16 @@ MAMBA2_ARCH = "mamba2-1.3b"             # [train_mamba2], at full depth
 # [train_mamba2] also trains this many layers once, to print its peak
 # with remat beside the 64.97 GiB that 12 layers took without (PERF.md)
 MAMBA2_REMAT_CUT = 12
-VL_TRAIN_LAYERS = 4                     # [train_vl]: 4 of qwen2-vl's 28
+# [train_vl]: 2 of qwen2-vl's 28 layers (4 before every model-axis block
+# was rematerialized: the (2, 2) twins' reruns lengthened the script, and
+# this cut pays for part of it; PERF.md)
+VL_TRAIN_LAYERS = 2
 VL_TRAIN_MICRO = 2                      # the reference's microbatches
-# [train_seamless]: 12 + 12 of the 24 + 24 layers.  Its (data 2, model 2)
-# run does not checkpoint a layer over "model" (the full depth took
-# 62.00 GiB with remat, PERF.md), and the data-parallel runs take the
-# same cut: with them at full depth beside the (2, 2) run the phase took
-# 108 s and the whole script 1089 s on an H100 (PERF.md)
+# [train_seamless]: 12 + 12 of the 24 + 24 layers, for time: with the
+# data-parallel runs at full depth beside the (2, 2) run the phase took
+# 108 s and the whole script 1089 s on an H100 (PERF.md).  Its (data 2,
+# model 2) run checkpoints each layer over "model" on the staged tape,
+# as the data-parallel runs do through ``torch.utils.checkpoint``.
 SEAMLESS_TRAIN_LAYERS = 12
 # [train_jamba]: the first 2 of jamba's 72 layers, attn+dense and
 # mamba+moe: the one cut with a Mamba and a MoE layer that one replica
@@ -492,12 +509,14 @@ JAMBA_TRAIN_LAYERS = 2
 # (``trainer._accumulate_grads``) holds the running sum, a microbatch's
 # gradients and their sum beside the params, ~95 GB
 JAMBA_TRAIN_MICRO = 1
-# and 2 rows a step where [train] takes 4: on (data 1, model 2) a layer
-# over "model" is not checkpointed, so both model ranks hold the whole
-# step's activations (~30 GB at 4 rows) beside the params and bf16
-# gradients (47.6 GB); at 4 rows the backward ran out of the card at
-# 67.84 GiB allocated (PERF.md)
-JAMBA_TRAIN_BATCH = 2
+# [train]'s 4 rows a step.  The cut is one block (both layers, the
+# reference's unit), checkpointed over "model" on the staged tape: the
+# forward keeps little (28 GiB after it), but the block's backward
+# rebuilds all of its activations beside the experts' gradients, and the
+# (data 1, model 2) run peaks there at 71.09 GiB on an H100, which fits
+# only with expandable allocator segments (``_expandable_segments``;
+# PERF.md)
+JAMBA_TRAIN_BATCH = 4
 NEMOTRON_ARCH = "nemotron-4-340b"   # [serve_nemotron]
 DEEPSEEK_ARCH = "deepseek-v3-671b"  # [serve_deepseek]
 # [serve_deepseek]'s one-shot prefill (MLA's materialized form, bf16 K/V
@@ -1961,23 +1980,25 @@ def tp_psums(model, microbatches: int = 1) -> int:
     layer's two: its input and its routing weights) and the head's.  The
     MTP head adds its embedding's *g*, its block's and its loss's, and
     the encoder-decoder its encoder's and decoder's layers (self- and
-    cross-attention, MLP) and the memory's *f*.  Once a step: the
-    partial-sum leaves (MQA's K/V, qwen3's q/k norms, MLA's low-rank
-    leaves) and the gradient norm.  ``tests/test_torch_tp_families.py``
-    holds the plan to a count of the sums one step of each reduced
-    family makes on the CPU."""
+    cross-attention, MLP) and the memory's *f*.  With remat the staged
+    backward reruns each checkpointed block's forward, its *g*s again
+    (the stages' layers, the enc-dec's layers; not the MTP block, the
+    embedding or the loss).  Once a step: the partial-sum leaves (MQA's
+    K/V, qwen3's q/k norms, MLA's low-rank leaves) and the gradient
+    norm.  ``tests/test_torch_tp_families.py`` and
+    ``tests/test_torch_remat_tp.py`` hold the plan to a count of the
+    sums one step of each reduced family makes on the CPU."""
     from repro_torch.models.encdec import EncDecCfg
     from repro_torch.parallel import sharding
     from repro_torch.tree import flatten
     cfg = model.cfg
     if isinstance(cfg, EncDecCfg):
-        fwd = 1 + 2 * cfg.enc_layers + 3 * cfg.dec_layers + 2
+        layers_g = 2 * cfg.enc_layers + 3 * cfg.dec_layers
+        fwd = 1 + layers_g + 2
         bwd = 2 * cfg.enc_layers + 3 * cfg.dec_layers + 2
     else:
         specs = [spec for st in cfg.stages for _ in range(st.repeat)
                  for spec in st.layers]
-        if cfg.mtp:
-            specs.append(cfg.stages[-1].layers[-1])
 
         def g(spec):
             return (1 + 2 * (spec.mixer == "mamba")
@@ -1987,13 +2008,17 @@ def tp_psums(model, microbatches: int = 1) -> int:
             return (1 + 2 * (spec.mixer == "mamba")
                     + {"dense": 1, "moe": 2, "none": 0}[spec.ffn])
 
+        layers_g = sum(g(s) for s in specs)
+        if cfg.mtp:
+            specs.append(cfg.stages[-1].layers[-1])
         heads = 1 + cfg.mtp
         fwd = (cfg.embed_inputs * heads + sum(g(s) for s in specs)
                + 2 * heads)
         bwd = sum(f(s) for s in specs) + heads
+    rerun = layers_g if cfg.remat else 0
     paths = flatten(model.abstract_params())[1]
     partial = sum(sharding.partial_sum_leaves(paths, model.layout))
-    return (fwd + bwd) * microbatches + partial + 1
+    return (fwd + bwd + rerun) * microbatches + partial + 1
 
 
 def planned_launches(engine, synced, scalars, p: int, compress: bool):
@@ -2756,6 +2781,9 @@ def phase_train_tp(train):
               f"bit-identical losses and parameters: {same}")
         if not same:
             raise AssertionError(f"{sync}: kernel and plain runs differ")
+        if sync == "composed":
+            numbers.update(_tp_remat_off_run(model, init, mesh, ds, l_on,
+                                             p_on, numbers))
         del results, p_on, p_off
     want = train["composed_losses"]
     got = numbers["composed_losses"]
@@ -2775,18 +2803,57 @@ def phase_train_tp(train):
     return out, numbers
 
 
+def _tp_remat_off_run(model, init, mesh, ds, losses, params, on):
+    """[train_tp]'s composed kernel run once more with ``remat=False``:
+    its step time, peak and model-axis all-reduces printed beside the
+    remat run's (``on``: its numbers), its losses and every model rank's
+    parameters held to the remat run's (``losses``, ``params``) bit for
+    bit, its ``sum_chunks`` launches to the plan without the reruns.
+    Returns its numbers."""
+    import dataclasses
+    import gc
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    off = build_model(dataclasses.replace(model.cfg, remat=False),
+                      model_parallel=TP_MODEL)
+    (l_off, step_s, _, peak, counts, session, step_fn, states,
+     metrics) = _mesh_run(off, init, mesh, ds, _adamw(TRAIN_LR), "composed")
+    _train_check("train_tp", "composed, kernels, remat off", off, mesh,
+                 session, states, metrics, counts, l_off, True,
+                 extra_psums=tp_psums(off))
+    same = l_off == losses and all(
+        _bits_equal(a, b) for st, ps in zip(states[:TP_MODEL], params)
+        for a, b in zip(leaves(st["params"]), ps))
+    print(f"[train_tp] composed, kernels, remat off: losses {l_off}; step "
+          f"{step_s * 1e3:.1f} ms, peak allocated {peak / 2**30:.2f} GiB, "
+          f"{tp_psums(off)} model-axis all-reduces a rank a step; remat "
+          f"on: step {on['composed_step_ms']:.1f} ms, peak "
+          f"{on['composed_peak_gib']:.2f} GiB, {tp_psums(model)}; losses "
+          f"and every model rank's parameters bit-identical: {same}")
+    if not same:
+        raise AssertionError("train_tp: remat on and off give other bits")
+    del states, step_fn, session, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"remat_off_step_ms": step_s * 1e3,
+            "remat_off_peak_gib": peak / 2**30,
+            "remat_off_sum_chunks": counts["sum_chunks"]}
+
+
 def _train_check(phase, tag, model, mesh, session, states, metrics, counts,
                  losses, kernels: bool, extra_psums=0, sync="composed",
-                 zero=False):
+                 zero=False, synced=None):
     """The checks every [train_moe] and large-arch run makes: finite
     losses, identical replicas (and model-replicated leaves), and each
     sync kernel's launches equal to the plan's count (the data sync's,
-    plus ``extra_psums`` model-axis all-reduces of p-1 combines each, a
-    rank a step; ZeRO's squared norm is a second all-reduced scalar; 0
-    for a run with the plain sync ops)."""
+    of ``synced`` if given, else of the params' leaves; plus
+    ``extra_psums`` model-axis all-reduces of p-1 combines each, a rank
+    a step; ZeRO's squared norm is a second all-reduced scalar; 0 for a
+    run with the plain sync ops)."""
     from repro_torch.tree import leaves
     same = _replicas_check(mesh, model, states)
-    plan, _ = planned_launches(session.engine, leaves(states[0]["params"]),
+    plan, _ = planned_launches(session.engine, synced or leaves(
+                                   states[0]["params"]),
                                [metrics["loss"]] * (2 if zero else 1),
                                dict(mesh.shape)["data"], sync == "compressed")
     per = plan["sum_chunks"][0] + extra_psums * (TP_MODEL - 1)
@@ -2814,13 +2881,20 @@ def _train_check(phase, tag, model, mesh, session, states, metrics, counts,
                                  f"times, plan {want_q}")
 
 
+def _opt_bytes(states):
+    """Each rank's optimizer-state bytes."""
+    from repro_torch.tree import leaves
+    return [sum(t.numel() * t.element_size() for t in leaves(st["opt"]))
+            for st in states]
+
+
 def _adafactor(lr: float, **kw):
     from repro_torch.optim import cosine_schedule, make_optimizer
     return make_optimizer("adafactor", lr=cosine_schedule(
         lr, warmup=max(TRAIN_STEPS // 20, 1), total=TRAIN_STEPS), **kw)
 
 
-def adafactor_psums(model, opt) -> int:
+def adafactor_psums(model, opt, zero: bool = False) -> int:
     """Model-axis all-reduces the Adafactor ``opt``'s update adds a rank
     a step (the trainer's ``split_sum`` hook, p-1 ``sum_chunks`` launches
     each), read off ``opt``'s own state of the global params and
@@ -2829,13 +2903,16 @@ def adafactor_psums(model, opt) -> int:
     slices and the split is of that dim: an expert stack of one layer,
     each rank clipping its own experts), one for each statistic left
     whole by a mean over the split dim, and the normaliser's mean over a
-    ``vr`` split at -1."""
+    ``vr`` split at -1.  With ``zero`` (ZeRO-1: each rank a piece of
+    every leaf's chunk, unfactored) one clip sum a leaf."""
     from repro_torch.models import build_model
     from repro_torch.optim.optimizer import clip_groups
     from repro_torch.parallel import sharding
     from repro_torch.tree import flatten
     lay = model.layout
     params = build_model(model.cfg).abstract_params()
+    if zero:
+        return len(flatten(params)[0])
     shapes = dict(zip(flatten(params)[1],
                       (tuple(t.shape) for t in flatten(params)[0])))
     state = opt.init(params)
@@ -2965,7 +3042,7 @@ def _large_workload(phase, arch, layers=None, data=_train_data, cut=None,
 
 
 def _large_run(phase, tag, model, init, mesh, ds, opt, sync="composed",
-               plain=False, extra_psums=0, **cfg):
+               plain=False, extra_psums=0, synced=None, **cfg):
     """One run through ``_mesh_run``, printed and checked as
     ``_train_check`` checks it, its peak held below 95% of the card.
     Returns (losses, grad norms, step ms, peak GiB, launches, rank 0's
@@ -2981,7 +3058,7 @@ def _large_run(phase, tag, model, init, mesh, ds, opt, sync="composed",
         raise AssertionError(f"{tag}: peak {peak} near the card")
     _train_check(phase, tag, model, mesh, session, states, metrics, counts,
                  losses, not plain, extra_psums, sync=sync,
-                 zero=cfg.get("zero", False))
+                 zero=cfg.get("zero", False), synced=synced)
     del session, step_fn
     return (losses, metrics["grad_norms"], step_s * 1e3, peak / 2**30,
             counts, states)
@@ -3198,11 +3275,14 @@ def phase_train_adafactor():
     [train]'s data, Adafactor (the reference's optimizer for it):
     data-parallel composed with the sync kernels and plain
     (bit-identical) and at LOW_LR (the loss falls); ZeRO-1 (each rank's
-    flat chunks unfactored); (data 2, model 2) with
-    ``check_model_replicas``, its losses and gradient norms within
-    ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of the data-parallel run's, its
-    model-axis all-reduces Adafactor's split sums besides [train_tp]'s;
-    and compressed at ADAFACTOR_COMPRESSED_LAYERS layers.  Returns
+    flat chunks unfactored); ZeRO-1 on (data 2, model 2) with
+    ``check_model_replicas`` (each rank a piece of its data rank's chunk
+    of every whole param, as the reference's chunks are), its losses
+    and gradient norms within ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of
+    ZeRO-1 on data 2, its model-axis all-reduces a clip sum a leaf
+    besides [train_tp]'s; and compressed at ADAFACTOR_COMPRESSED_LAYERS
+    layers.  Each ZeRO-1 run prints every rank's optimizer-state
+    bytes.  Returns
     ({kernel: launches}, numbers)."""
     import gc
     model, init, mesh, ds = _large_workload(
@@ -3216,42 +3296,61 @@ def phase_train_adafactor():
                      overlap=True)
     kinds = {k for k in out[5][0]["opt"]["f"]["lm_head"]}
     print(f"[train_adafactor]   ZeRO-1: lm_head's statistics a rank "
-          f"{sorted(kinds)} (flat chunks: unfactored)")
+          f"{sorted(kinds)} (flat chunks: unfactored); optimizer state a "
+          f"rank {_opt_bytes(out[5])}")
     if kinds != {"v"}:
         raise AssertionError(f"ZeRO-1 chunks factored: {kinds}")
     launches["sum_chunks"] += out[4]["sum_chunks"]
-    numbers["zero"] = dict(losses=out[0], step_ms=out[2], peak_gib=out[3])
+    numbers["zero"] = dict(losses=out[0], grad_norms=out[1], step_ms=out[2],
+                           peak_gib=out[3], opt_bytes=_opt_bytes(out[5]))
     del out
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ZeRO-1 on (data 2, model 2): each rank a piece of its data rank's
+    # chunk of every whole param, the reference's chunk, held to ZeRO-1
+    # on data 2
     from repro_torch.models import build_model
     from repro_torch.runtime import substrate
+    from repro_torch.train import trainer
+    from repro_torch.tree import leaves
     tp_model = build_model(model.cfg, model_parallel=TP_MODEL)
     tp_mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
                                        device="cuda")
-    n_ada = adafactor_psums(tp_model, _adafactor(TRAIN_LR))
+    n_ada = adafactor_psums(tp_model, _adafactor(TRAIN_LR), zero=True)
     extra = tp_psums(tp_model) + n_ada
-    print(f"[train_adafactor] on {dict(tp_mesh.shape)}: "
-          f"{n_ada} of Adafactor's model-axis sums a "
-          f"rank a step beside the model's {tp_psums(tp_model)}")
-    out = _large_run("train_adafactor", "(data 2, model 2), kernels",
-                     tp_model, init, tp_mesh, ds, _adafactor(TRAIN_LR),
-                     extra_psums=extra, check_model_replicas=True)
+    # what each rank's reduce-scatter over "data" sums: its pieces of
+    # every data rank's chunk
+    synced = [torch.empty((TRAIN_RANKS * trainer._piece(
+        w.numel(), TRAIN_RANKS, TP_MODEL)[1],), dtype=w.dtype,
+        device="meta") for w in leaves(model.abstract_params())]
+    print(f"[train_adafactor] ZeRO-1 on {dict(tp_mesh.shape)}: {n_ada} of "
+          f"Adafactor's model-axis sums a rank a step (a clip a leaf) "
+          f"beside the model's {tp_psums(tp_model)}")
+    out = _large_run("train_adafactor", "ZeRO-1 on (data 2, model 2), "
+                     "kernels", tp_model, init, tp_mesh, ds,
+                     _adafactor(TRAIN_LR), extra_psums=extra, synced=synced,
+                     check_model_replicas=True, zero=True, overlap=True)
     losses, norms = out[0], out[1]
     launches["sum_chunks"] += out[4]["sum_chunks"]
-    numbers["tp"] = dict(losses=losses, grad_norms=norms, step_ms=out[2],
-                         peak_gib=out[3])
+    numbers["zero_tp"] = dict(losses=losses, grad_norms=norms,
+                              step_ms=out[2], peak_gib=out[3],
+                              opt_bytes=_opt_bytes(out[5]))
+    print(f"[train_adafactor]   ZeRO-1 on (data 2, model 2): optimizer "
+          f"state a rank {numbers['zero_tp']['opt_bytes']} (data 2: "
+          f"{numbers['zero']['opt_bytes']})")
     del out
-    errs = [abs(a - b) / abs(b) for a, b in zip(losses, dp["losses"])]
-    print(f"[train_adafactor] (data 2, model 2) against data-parallel: "
-          f"{losses} vs {dp['losses']}; rel err "
+    want = numbers["zero"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+    print(f"[train_adafactor] ZeRO-1 on (data 2, model 2) against ZeRO-1 on "
+          f"data 2: {losses} vs {want['losses']}; rel err "
           f"{['%.3e' % e for e in errs]} (tol {TP_LOSS_RTOL})")
     if not max(errs) <= TP_LOSS_RTOL:
-        raise AssertionError(f"model-parallel losses {losses} vs "
-                             f"{dp['losses']}")
-    _norms_check("train_adafactor", "(data 2, model 2) against "
-                 "data-parallel", norms, dp["grad_norms"], TP_NORM_RTOL)
+        raise AssertionError(f"ZeRO-1 model-parallel losses {losses} vs "
+                             f"{want['losses']}")
+    _norms_check("train_adafactor", "ZeRO-1 on (data 2, model 2) against "
+                 "ZeRO-1 on data 2", norms, want["grad_norms"],
+                 TP_NORM_RTOL)
     del init, model, tp_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3311,19 +3410,44 @@ def phase_train_deepseek():
     return {"sum_chunks": counts["sum_chunks"] + tp_counts["sum_chunks"]}, dp
 
 
+@contextlib.contextmanager
+def _expandable_segments():
+    """The caching allocator's expandable segments inside: [train_jamba]'s
+    (data 1, model 2) run at 4 rows peaks at 71.09 GiB, and with fixed
+    segments the allocator held another 9.8 GiB reserved but unallocated
+    there and ran out.  Not for the whole script: mapping their memory
+    made the other training phases' first steps and set-ups slower, the
+    script 938.9 -> 1083.5 s on an H100 (PERF.md)."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
 def phase_train_jamba():
+    """[train_jamba] (``_train_jamba``) with expandable allocator
+    segments."""
+    with _expandable_segments():
+        return _train_jamba()
+
+
+def _train_jamba():
     """[train_jamba]: jamba-1.5-large-398b at its published widths cut to
     its first JAMBA_TRAIN_LAYERS of 72 layers (``attn+dense``,
     ``mamba+moe``), random bf16 weights from seed 0 made anew for each
     run (the card holds one replica and its gradients), [train]'s data at
     JAMBA_TRAIN_BATCH rows a step, Adafactor with bf16 gradients (the
     reference's settings) over JAMBA_TRAIN_MICRO microbatch, every run at
-    LOW_LR (each run's loss
-    falls).  Unsplit on (data 1, model 1), then on (data 1, model
-    TP_MODEL) with the experts, the Mamba heads and the attention heads
-    split and ``check_model_replicas``, with the sync kernels and plain
-    (the same bits), their losses and gradient norms within
-    ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL`` of the unsplit run's.  Returns
+    LOW_LR (each run's loss falls).  Unsplit on (data 1, model 1), then
+    on (data 1, model TP_MODEL) with the experts, the Mamba heads and the
+    attention heads split, the block checkpointed over "model", and
+    ``check_model_replicas``, with the sync kernels and plain (the same
+    bits), their losses and gradient norms within ``TP_LOSS_RTOL`` /
+    ``TP_NORM_RTOL`` of the unsplit run's; each run's peak printed.
+    Returns
     ({"sum_chunks": launches}, numbers)."""
     import gc
     from repro_torch.models import build_model
@@ -3365,6 +3489,13 @@ def phase_train_jamba():
         gc.collect()
         torch.cuda.empty_cache()
     del kept
+    limit = 0.95 * torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"[train_jamba] {JAMBA_TRAIN_BATCH} rows a step, the block "
+          f"checkpointed: peak allocated {numbers['whole']['peak_gib']:.2f} "
+          f"GiB on (data 1, model 1), {numbers['tp']['peak_gib']:.2f} GiB "
+          f"on {dict(tp_mesh.shape)} (95% of the card: {limit:.2f} GiB; "
+          f"4 rows without remat over \"model\" ran out at 67.84 GiB "
+          f"allocated, PERF.md)")
     print(f"[train_jamba] the kernel and plain runs on "
           f"{dict(tp_mesh.shape)} give bit-identical losses and every "
           f"rank's parameters: {same}")
@@ -3463,6 +3594,11 @@ def phase_train_seamless():
         "train_seamless", model, init, mesh, ds, _adamw)
     dp["tp"], tp_counts = _tp_twin("train_seamless", model.cfg, init, ds,
                                    _adamw, dp["low_lr"])
+    print(f"[train_seamless] (data {TRAIN_RANKS}, model {TP_MODEL}), each "
+          f"layer checkpointed over \"model\": peak allocated "
+          f"{dp['tp']['peak_gib']:.2f} GiB (69.52 GiB without remat over "
+          f"\"model\" on an H100, PERF.md); data-parallel "
+          f"{dp['peak_gib']:.2f} GiB")
     del init, model
     gc.collect()
     torch.cuda.empty_cache()

@@ -39,8 +39,9 @@ program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
 checkpoints (``--ckpt-dir``) in the reference's global layout, which
 restore onto another ``--data`` or ``--model-parallel`` width.
 ``--optimizer`` is ``adamw`` (the default) or ``adafactor``, as the
-reference's launcher takes it; ZeRO-1 with Adafactor refuses a
-``--model-parallel`` above 1.
+reference's launcher takes it; ZeRO-1 with Adafactor over
+``--model-parallel`` keeps the reference's chunks (each rank a piece of
+its data rank's chunk of every whole param).
 ``--elastic`` hands the loop to ``ElasticController``: injected faults
 (``--fault-plan``), SIGTERM as a preemption notice, and with
 ``--ctrl-peers`` the control plane's epoch-fenced vote; it re-meshes

@@ -18,7 +18,8 @@ The decoder's self-attention KV cache is written in place, as the
 decoder LM's is.  With ``remat`` (the reference's field and default) the
 training forward checkpoints each encoder and each decoder layer under
 policy "nothing", as the reference's ``encode`` / ``decode_train`` do
-(``models.remat``); prefill and decode never do.
+(``models.remat``), over a "model" axis too; prefill and decode never
+do.
 
 Over a "model" axis (training only: ``loss_fn(..., tp_index=)``, ``cfg``
 the rank's ``local_config``) every layer runs as the decoder LM's do
@@ -32,6 +33,7 @@ after ``enc_norm``; the embedding and the loss are vocab-parallel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -189,15 +191,34 @@ def encode(params: Params, cfg: EncDecCfg, frame_embeds: torch.Tensor, *,
     rank's shard (``cfg`` its local config); the frames enter whole, and
     the memory leaves through one *f*, whose staged backward sums every
     decoder layer's and every rank's share of its gradient before the
-    encoder's segments run.  A layer over "model" is not checkpointed."""
+    encoder's segments run.  With remat each layer is checkpointed
+    (``models.remat``: on the staged backward's tape over "model")."""
     x = frame_embeds.to(cfg.param_dtype)
-    remat = R.active(cfg.remat, train) and not tp
+    remat = R.active(cfg.remat, train)
     for i in range(cfg.enc_layers):
+        if remat and tp:
+            x = R.staged(functools.partial(_enc_block, params, cfg, i),
+                         x)[0]
+            continue
         args = (_layer(params["encoder"], i), cfg, x)
         x = (R.checkpointed(_apply_enc_layer, *args, train=True) if remat
              else _apply_enc_layer(*args, train=train, tp=tp))
     cut, f, _ = T._tp_ops(tp)
     return f(_norm(cfg, params["enc_norm"], cut(x)))
+
+
+def _enc_block(params: Params, cfg: EncDecCfg, i: int, x: torch.Tensor):
+    """Encoder layer ``i`` over "model" as a block of the staged tape."""
+    return _apply_enc_layer(_layer(params["encoder"], i), cfg, x,
+                            train=True, tp=True), ()
+
+
+def _dec_block(params: Params, cfg: EncDecCfg, i: int, memory: torch.Tensor,
+               x: torch.Tensor):
+    """Decoder layer ``i`` over "model" as a block of the staged tape (the
+    memory, a leaf of the tape, gathers its gradient in the rerun)."""
+    return _apply_dec_layer(_layer(params["decoder"], i), cfg, x, memory,
+                            train=True, tp=True)[0], ()
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -214,8 +235,12 @@ def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
     tp = tp_index is not None
     x = (S.vocab_parallel_embed(params["embed"], tokens, tp_index) if tp
          else _embed(params, tokens))
-    remat = R.active(cfg.remat, train) and not tp
+    remat = R.active(cfg.remat, train)
     for i in range(cfg.dec_layers):
+        if remat and tp:
+            x = R.staged(functools.partial(_dec_block, params, cfg, i,
+                                           memory), x)[0]
+            continue
         args = (_layer(params["decoder"], i), cfg, x, memory)
         x, _ = (R.checkpointed(_apply_dec_layer, *args, train=True) if remat
                 else _apply_dec_layer(*args, train=train, tp=tp))

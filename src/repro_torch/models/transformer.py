@@ -45,6 +45,7 @@ normed hidden ahead of the head's *f* (``loss_fn``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -271,26 +272,34 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
 
     With ``cfg.remat`` the training forward checkpoints each block (one
     repeat of all of ``stage.layers``, the reference's scanned ``block``)
-    under ``cfg.remat_policy`` (``models.remat``).  A layer over a
-    "model" axis (``tp``) is not checkpointed: its forward issues
-    collectives and cuts the residual for the staged backward, which a
-    recompute on autograd's thread would repeat there and deadlock."""
+    under ``cfg.remat_policy`` (``models.remat``): through
+    ``torch.utils.checkpoint`` without a model axis, and on the staged
+    backward's tape over one (``tp``), whose rerun runs on the rank's
+    thread and issues the block's collectives again in order."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    if caches is None and not tp and R.active(cfg.remat, train):
+    if caches is None and R.active(cfg.remat, train):
 
         def block(x, layer_params):
             auxes = []
             for i, spec in enumerate(stage.layers):
                 x, _, aux = apply_layer(layer_params[f"layer{i}"], cfg, spec,
                                         x, positions=positions,
-                                        q_offset=q_offset, train=True)
+                                        q_offset=q_offset, train=True, tp=tp)
                 auxes.append(aux)
             return (x, *auxes)
 
+        def repeat(x, r):
+            y, *auxes = block(x, map_tree(lambda t: t[r], params_stage))
+            return y, auxes
+
         for r in range(stage.repeat):
-            x, *auxes = R.checkpointed(
-                block, x, map_tree(lambda t: t[r], params_stage),
-                policy=cfg.remat_policy)
+            if tp:
+                x, auxes = R.staged(functools.partial(repeat, r=r), x,
+                                    policy=cfg.remat_policy)
+            else:
+                x, *auxes = R.checkpointed(
+                    block, x, map_tree(lambda t: t[r], params_stage),
+                    policy=cfg.remat_policy)
             for aux in auxes:            # in layer order, as without remat
                 aux_total = aux_total + aux
         return x, None, aux_total

@@ -33,11 +33,14 @@ moves a zero param by nothing.
 With a "model" axis each rank updates its block of a split leaf, and
 Adafactor's reductions over a split dim must span the whole leaf:
 ``update(..., split_sum=fn)`` takes the trainer's hook,
-``fn(i, x, over) -> (sum, blocks)``, which sums a partial ``x`` of leaf
-``i``'s reduction over its columns (``over="cols"``), rows
+``fn(i, x, over, n) -> (sum, count)``, which sums a partial ``x`` of
+leaf ``i``'s reduction over its columns (``over="cols"``), rows
 (``"rows"``) or all of it (``"all"``) across the ranks holding the
-other blocks of that dim, and says how many blocks were summed (1 where
-nothing crosses); ``update(..., lead_blocks=fn)`` says into how many
+other blocks of that dim, and gives the count of values the sum spans,
+``n`` of them this rank's (``n`` where nothing crosses); ZeRO-1 over
+"model" passes a hook of its own (``train.trainer.make_train_step``),
+whose "all" spans the reference's chunk, of which each model rank holds
+a piece; ``update(..., lead_blocks=fn)`` says into how many
 blocks ``fn(i, ndim)`` leaf ``i``'s leading dim is cut.  The clip groups
 of a leaf follow its whole leading dim, as the reference's
 ``_map_leading`` sees it: an expert stack of 8 cut in two is still
@@ -227,8 +230,8 @@ def _spans(outer: int, inner: int, width: int):
             for i in range(0, inner, step)]
 
 
-def _local_sum(x, over):
-    return x, 1
+def _local_sum(x, over, n):
+    return x, n
 
 
 class _AdafactorLeaf:
@@ -257,8 +260,8 @@ class _AdafactorLeaf:
         """Each group's ``max(1, rms / clip_threshold)`` from its sum of
         squares ``sq`` over ``n`` values a model block (the group's all,
         where it is this rank's ``own``)."""
-        sq, k = (sq, 1) if own else self.reduce(sq, "all")
-        rms = torch.sqrt(sq / (n * k) + 1e-30)
+        sq, count = (sq, n) if own else self.reduce(sq, "all", n)
+        rms = torch.sqrt(sq / count + 1e-30)
         return torch.clamp(rms / self.cfg.clip_threshold, min=1.0)
 
     def apply(self, p, u):
@@ -280,12 +283,12 @@ class _AdafactorLeaf:
             g2 = gf * gf + eps
             row[ms, rs] = g2.sum(-1)
             col[ms] += g2.sum(-2)
-        row, kc = self.reduce(row, "cols")
-        col, kr = self.reduce(col, "rows")
-        vrm.copy_(beta2 * vrm + (1 - beta2) * (row / (C * kc)))
-        vcm.copy_(beta2 * vcm + (1 - beta2) * (col / (R * kr)))
-        vsum, _ = self.reduce(vrm.sum(-1), "rows")
-        norm = torch.sqrt(torch.clamp(vsum / (R * kr), min=eps))
+        row, cols = self.reduce(row, "cols", C)
+        col, rows = self.reduce(col, "rows", R)
+        vrm.copy_(beta2 * vrm + (1 - beta2) * (row / cols))
+        vcm.copy_(beta2 * vcm + (1 - beta2) * (col / rows))
+        vsum, _ = self.reduce(vrm.sum(-1), "rows", R)
+        norm = torch.sqrt(torch.clamp(vsum / rows, min=eps))
         r_inv = torch.rsqrt(torch.clamp(vrm, min=eps))
         c_inv = torch.rsqrt(torch.clamp(vcm, min=eps))
 
@@ -348,7 +351,7 @@ def make_adafactor(cfg: AdafactorCfg) -> Optimizer:
             s = _subtree(state["f"], path)
             dev = p.device
             reduce = (_local_sum if split_sum is None else
-                      (lambda x, over, i=i: split_sum(i, x, over)))
+                      (lambda x, over, n, i=i: split_sum(i, x, over, n)))
             leaf = _AdafactorLeaf(cfg, beta2.to(dev), lr.to(dev),
                                   None if clip is None else clip.to(dev),
                                   reduce, 1 if lead_blocks is None else

@@ -79,13 +79,23 @@ call through its nodes would find their saved tensors freed.
 runs on the rank thread.  Without an active tape *f* is the plain
 autograd function, whose backward all-reduces inside the node: right on
 the CPU, where each thread runs its own backward, and refused on CUDA.
+
+A segment may also be a checkpointed block (``StagedBackward.block``,
+``models.remat.staged``: rematerialization over "model").  The forward
+runs the block without a graph and keeps its input; when the backward
+reaches it, the rank's thread reruns the block under a tape of its own
+(its cuts, *f*s and *g*s again, in the same order on every model rank),
+checks that the rerun gave the forward's bits, runs that tape's backward
+and hands the input's gradient on.  Nothing is recomputed on autograd's
+device thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -455,11 +465,12 @@ def cut(x: torch.Tensor) -> torch.Tensor:
 
 
 class StagedBackward:
-    """The cuts of one forward and the backward that runs them in
-    reverse.  ``with tape:`` makes it the calling thread's tape."""
+    """The segments of one forward and the backward that runs them in
+    reverse: the cuts, and the checkpointed blocks (``block``).  ``with
+    tape:`` makes it the calling thread's tape."""
 
     def __init__(self) -> None:
-        self._cuts: List[Tuple[torch.Tensor, torch.Tensor, bool]] = []
+        self._segments: List[Any] = []
 
     def __enter__(self) -> "StagedBackward":
         if getattr(_local, "tape", None) is not None:
@@ -474,21 +485,112 @@ class StagedBackward:
         if not x.requires_grad:
             return x
         leaf = x.detach().requires_grad_(True)
-        self._cuts.append((x, leaf, reduce))
+        self._segments.append(_Cut(x, leaf, reduce))
         return leaf
+
+    def block(self, fn: Callable, x: torch.Tensor, keep=None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """``fn(x) -> (y, auxes)`` checkpointed on the tape: run without
+        a graph (its *g*s all-reduce as ever; its cuts and *f*s, with
+        nothing to differentiate, record nothing), keeping ``x`` and
+        whatever ``keep`` keeps (``models.remat``'s "dots": a recorder
+        with ``recording()`` / ``replaying()`` contexts), and record a
+        segment whose outputs are leaves.  The backward reruns ``fn``
+        there, on the rank's thread (``_Block``)."""
+        with torch.no_grad(), _context(keep, "recording"):
+            y, auxes = fn(x.detach())
+        outs = tuple(t.requires_grad_(True) for t in (y,) + tuple(auxes))
+        self._segments.append(_Block(fn, x, outs, keep))
+        return outs[0], outs[1:]
 
     def backward(self, loss: torch.Tensor) -> None:
         """Gradients of ``loss`` into the ``.grad`` of every leaf it
-        depends on: the last segment from the loss, then each cut's
-        segment in reverse order, its leaf's gradient complete (and, for
-        an *f* cut, all-reduced over "model") before its segment runs."""
+        depends on: the last segment from the loss, then each segment in
+        reverse order, its leaves' gradients complete (and, for an *f*
+        cut, all-reduced over "model") before it runs."""
         loss.backward()
-        while self._cuts:
-            x, leaf, reduce = self._cuts.pop()
-            g = leaf.grad
-            if g is None:
-                continue
-            x.backward(psum(g) if reduce else g)
+        self._unwind()
+
+    def _unwind(self) -> None:
+        while self._segments:
+            self._segments.pop().run()
+
+
+def _context(keep, name: str):
+    return contextlib.nullcontext() if keep is None else getattr(keep, name)()
+
+
+@dataclasses.dataclass
+class _Cut:
+    """A cut: ``x``'s graph ends at ``leaf``."""
+
+    x: torch.Tensor
+    leaf: torch.Tensor
+    reduce: bool
+
+    def run(self) -> None:
+        g = self.leaf.grad
+        if g is not None:
+            self.x.backward(psum(g) if self.reduce else g)
+
+
+@dataclasses.dataclass
+class _Block:
+    """A checkpointed block: ``fn`` of the input ``x`` gave ``outs``
+    (leaves: the residual stream, then the aux losses)."""
+
+    fn: Callable
+    x: torch.Tensor
+    outs: Tuple[torch.Tensor, ...]
+    keep: Any
+
+    def run(self) -> None:
+        """Rerun ``fn`` with a graph under a tape of its own, so that its
+        cuts, *f*s and *g*s run in the forward's order on every model
+        rank; check that it gave the forward's bits; run that tape's
+        backward from the outputs' gradients; hand the input's gradient
+        on to ``x``."""
+        grads = [o.grad for o in self.outs]
+        if all(g is None for g in grads):
+            return
+        xin = self.x.detach().requires_grad_(self.x.requires_grad)
+        tape = StagedBackward()
+        with tape, torch.enable_grad(), _context(self.keep, "replaying"):
+            y, auxes = self.fn(xin)
+        again = (y,) + tuple(auxes)
+        if not all(bits_equal(a, b) for a, b in zip(again, self.outs)):
+            raise RuntimeError(
+                "a checkpointed block's recompute gave other bits than its "
+                "forward (a nondeterministic op in the block)")
+        pairs = [(a, g) for a, g in zip(again, grads)
+                 if g is not None and a.requires_grad]
+        if pairs:
+            torch.autograd.backward([a for a, _ in pairs],
+                                    [g for _, g in pairs])
+        tape._unwind()
+        if xin.grad is not None:
+            self.x.backward(xin.grad)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` hold the same bits (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(a.detach().contiguous().reshape(-1).view(torch.uint8),
+                       b.detach().contiguous().reshape(-1).view(torch.uint8))
+
+
+def checkpoint_block(fn: Callable, x: torch.Tensor, keep=None
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``fn(x) -> (y, auxes)`` checkpointed on the calling thread's
+    ``StagedBackward`` (``StagedBackward.block``); run plainly without
+    one."""
+    tape = getattr(_local, "tape", None)
+    if tape is None:
+        return fn(x)
+    return tape.block(fn, x, keep)
 
 
 def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,

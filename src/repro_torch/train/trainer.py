@@ -43,9 +43,18 @@ and the reference's ways of running that sync:
                power-of-two width the losses are bit-identical to the
                per-leaf path.  Adafactor runs on the 1-D chunks as the
                reference's does: unfactored, its RMS clip over the
-               rank's chunk (padding included), not across ranks; with
-               a "model" axis that clip would span each model rank's
-               block, not the reference's chunk, so that is refused.
+               rank's chunk (padding included), not across ranks.  With
+               a "model" axis the reference's chunk is still data rank
+               d's slice of the WHOLE param's flat padded vector (its
+               shard_map is manual over the data axis only), so
+               Adafactor's state is laid out so too (``_piece``): rank
+               (d, j) owns the j-th of ``model`` pieces of chunk d, the
+               gradient is gathered over "model" one leaf at a time and
+               reduce-scattered over "data" in those pieces, the clip's
+               sum of squares is summed over "model", and the new
+               pieces are all-gathered over "data" and "model" back into
+               each rank's block.  AdamW, elementwise, keeps the chunks
+               of each model rank's block.
 
 ``TrainSession`` bundles what survives a re-mesh (model, optimizer,
 ``TrainCfg``) for the elastic controller.
@@ -204,13 +213,51 @@ def _zero_chunk(x: torch.Tensor, p: int, idx: int) -> torch.Tensor:
     """Rank ``idx``'s chunk of ``x`` flattened and zero-padded to a
     multiple of ``p``: the pad-and-split layout of the RS protocols, so
     param chunks line up with the reduced gradient chunks.  A copy."""
+    return _piece_of(x, p, 1, idx, 0)
+
+
+def _whole_chunks(opt) -> bool:
+    """Whether ZeRO-1 over a "model" axis lays out the optimizer state
+    ``opt`` (a state tree) in pieces of each whole param's chunk, the
+    reference's layout (``_piece``), rather than in chunks of each model
+    rank's block: so for Adafactor's (``{"f": ...}``), whose unfactored
+    statistic and update-RMS clip span the reference's chunk.  AdamW's
+    update is elementwise, so its chunks stay its block's: fewer
+    collectives, and the same bits."""
+    return "f" in opt
+
+
+def _piece(n: int, p: int, m: int) -> Tuple[int, int]:
+    """(c, k): the reference's ZeRO chunk length of a leaf of ``n``
+    values over ``p`` data ranks, and the length of the piece of it each
+    of ``m`` model ranks owns.  Rank (data d, model j) owns values
+    [d*c + j*k, d*c + min((j+1)*k, c)) of the flat leaf padded to p*c,
+    zero-padded to k."""
+    c = _zero_pad_len(n, p) // p
+    return c, -(-c // m)
+
+
+def _piece_of(x: torch.Tensor, p: int, m: int, d: int, j: int
+              ) -> torch.Tensor:
+    """Rank (data ``d``, model ``j``)'s piece of ``x`` flattened (a
+    copy)."""
     flat = x.reshape(-1)
-    c = _zero_pad_len(flat.numel(), p) // p
-    out = flat.new_zeros(c)
-    lo, hi = idx * c, min((idx + 1) * c, flat.numel())
+    c, k = _piece(flat.numel(), p, m)
+    out = flat.new_zeros(k)
+    lo = d * c + j * k
+    hi = min(d * c + min((j + 1) * k, c), flat.numel())
     if hi > lo:
         out[:hi - lo] = flat[lo:hi]
     return out
+
+
+def _from_pieces(ys: torch.Tensor, n: int, p: int) -> torch.Tensor:
+    """The flat leaf of ``n`` values from every rank's piece of it,
+    ``ys`` (model, data * k) as the two all-gathers give them."""
+    m = ys.shape[0]
+    c, k = _piece(n, p, m)
+    return ys.view(m, p, k).transpose(0, 1).reshape(p, m * k)[:, :c] \
+        .reshape(-1)[:n]
 
 
 def make_train_state(model, optimizer, params: Params,
@@ -227,9 +274,16 @@ def make_train_state(model, optimizer, params: Params,
     device = leaves(params)[0].device
     if cfg.zero:
         p = zero_layout(cfg, mesh)[1]
-        opt = optimizer.init(map_tree(lambda l: torch.empty(
-            (_zero_pad_len(l.numel(), p) // p,), dtype=l.dtype,
-            device=device), params))
+        lay = model.layout
+        ls, paths = flatten(params)
+        if lay is not None and _whole_chunks(optimizer.init({})):
+            sizes = [_piece(w.numel(), p, lay.model)[1] for w in leaves(
+                with_model_parallel(model, 1).abstract_params())]
+        else:
+            sizes = [_zero_pad_len(l.numel(), p) // p for l in ls]
+        opt = optimizer.init(unflatten(paths, [
+            torch.empty((k,), dtype=l.dtype, device=device)
+            for k, l in zip(sizes, ls)]))
     elif model.layout is not None:
         whole = optimizer.init(
             with_model_parallel(model, 1).abstract_params())
@@ -405,9 +459,12 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
       ranks' blocks, each with its global box, so a sharded save writes
       one file a block (a sectioned leaf, ``sharding.leaf_sections``:
       one box a section a rank);
-    - with ``cfg.zero`` an optimizer leaf of a whole param is a
-      ``ShardedTensor`` of the data ranks' chunks of the flat padded
-      leaf.  One of a split param is written dense, on the host: the
+    - with ``cfg.zero`` an optimizer leaf is a ``ShardedTensor`` of the
+      data ranks' chunks of the flat padded leaf where the ranks hold
+      those chunks: of a whole param, and (Adafactor's over "model",
+      ``_whole_chunks``) of every param, each chunk in its model ranks'
+      pieces.  AdamW's leaf of a split param is written dense, on the
+      host: the
       chunks are of each model rank's flat block, which a column split
       strides through the global flat order, so each model rank's chunks
       are joined, cut to its block, the blocks joined over "model", and
@@ -428,11 +485,23 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
     first = per_rank[groups[0][0]]
     shapes = {path[1:]: tuple(l.shape) for path, l in zip(paths, first)
               if path[0] == "params"}
+    by_piece = (cfg.zero and lay is not None
+                and _whole_chunks(states[0]["opt"]))
     out = []
     for i, path in enumerate(paths):
         l = first[i]
         d = None if lay is None else sharding.leaf_split(path, lay)
-        if cfg.zero and _zero_opt_leaf(path) and d is None:
+        if by_piece and _zero_opt_leaf(path):
+            pp = sharding.opt_leaf(path, lay)[0]
+            c, k = _piece(math.prod(sharding.global_shape(pp, shapes[pp],
+                                                          lay)), p,
+                          lay.model)
+            out.append(ShardedTensor((c * p,), l.dtype, [
+                ([[q * c + j * k, q * c + min((j + 1) * k, c)]],
+                 per_rank[r][i][:min(k, c - j * k)])
+                for j, g in enumerate(groups) for q, r in enumerate(g)
+                if j * k < c]))
+        elif cfg.zero and _zero_opt_leaf(path) and d is None:
             c = l.shape[0]
             out.append(ShardedTensor((c * p,), l.dtype, [
                 ([[k * c, (k + 1) * c]], per_rank[r][i])
@@ -473,7 +542,9 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
     model width): rank r takes its model coordinate's block of every
     split leaf (``model`` on a mesh with a model axis) and, with
     ``cfg.zero``, its data coordinate's chunk of the flat padded block of
-    every optimizer leaf; every other leaf is copied whole.  Tensors go to
+    every optimizer leaf (Adafactor's over a model axis: its piece of
+    the whole param's chunk, ``_piece``); every other leaf is copied
+    whole.  Tensors go to
     the mesh's device, the step counters to the host, where
     ``make_train_state`` puts them."""
     lay = _layout_on(model, mesh)
@@ -485,6 +556,8 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
     ls, paths = flatten(tree)
     shapes = {path[1:]: tuple(l.shape) for path, l in zip(paths, ls)
               if path[0] == "params"}
+    by_piece = (cfg.zero and lay is not None
+                and _whole_chunks(tree["opt"]))
     blocks: Dict[Tuple[int, int], torch.Tensor] = {}
 
     def block(i, path, l, m):
@@ -512,8 +585,12 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
         m, k = c.get(sharding.MODEL_AXIS, 0), c.get(zaxis, 0)
         out = []
         for i, (path, l) in enumerate(zip(paths, ls)):
-            x = block(i, path, l, m if lay is not None else 0)
-            if cfg.zero and _zero_opt_leaf(path):
+            if by_piece and _zero_opt_leaf(path):
+                n = math.prod(shapes[sharding.opt_leaf(path, lay)[0]])
+                x = _piece_of(l[:n], p, lay.model, k, m)
+            else:
+                x = block(i, path, l, m if lay is not None else 0)
+            if cfg.zero and _zero_opt_leaf(path) and not by_piece:
                 cs = x.shape[0] // p
                 x = x[k * cs:(k + 1) * cs]
             y = x.to("cpu" if path[-1] == "step" else mesh.device,
@@ -673,7 +750,10 @@ def _bucket_sync(dcomm, axis_comms, handles, buckets, grads, compress, ef,
 def _leaf_sync(dcomm, axis_comms, grads, compress, ef_tree, sched):
     """One collective per gradient leaf (the reference's ``_leaf_sync``):
     one two-phase sync per leaf, in the order of the program
-    ``sched``."""
+    ``sched``.  Each leaf of ``grads`` (the step's own tree, which
+    nothing reads after) is dropped from it once its sync is done, so
+    that a rank holds its gradients once, not twice, by the end of the
+    sync."""
     gl, paths = flatten(grads)
     out = [None] * len(gl)
     ef_leaves = flatten(ef_tree)[0] if compress else None
@@ -698,10 +778,19 @@ def _leaf_sync(dcomm, axis_comms, grads, compress, ef_tree, sched):
                 y = acomm.all_reduce(y, mean=True)
             ef_leaves[i].copy_(res)
         out[i] = y
+        gl[i] = None
+        _drop(grads, paths[i])
         return None
 
     schedule_mod.execute(sched, start=start, wait=wait, progress=progress)
     return unflatten(paths, out), ef_tree
+
+
+def _drop(tree, path) -> None:
+    """Set the leaf at ``path`` of the nested dict ``tree`` to None."""
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = None
 
 
 def _rank_rows(name: str, x, lo: int, hi: int, device) -> torch.Tensor:
@@ -726,7 +815,14 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     ``batch_dim``), split over the data axes.  ``metrics`` are rank 0's
     (every rank holds the same all-reduced loss).  ``train_step.schedule``
     is the executed sync program (ZeRO: its RS half; the AG half is
-    ``train_step.ag_schedule``, None without ZeRO)."""
+    ``train_step.ag_schedule``, None without ZeRO).
+
+    Every sync flavour runs on a mesh with a "model" axis too, ZeRO-1
+    with either optimizer: Adafactor's ZeRO state is then each rank's
+    piece of the reference's chunk of every whole param (``_piece``),
+    AdamW's the chunks of the rank's block.  The model's remat applies
+    over "model" as without it: each block is checkpointed on the
+    staged backward's tape (``models.remat``)."""
     mesh = comm.mesh
     if mesh is None:
         raise ValueError("the communicator's session has no mesh")
@@ -737,13 +833,6 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             f"of cfg.data_axes={cfg.data_axes} exist in the mesh axes "
             f"{mesh.axis_names}")
     tp = _model_axis(model, mesh)
-    if cfg.zero and tp is not None and optimizer.name == "adafactor":
-        raise ValueError(
-            "ZeRO-1 with Adafactor on a mesh with a \"model\" axis is not "
-            "ported: a rank's ZeRO chunks are of its model block of each "
-            "param, so Adafactor's update-RMS clip over a chunk (the "
-            "reference's, over the whole param's flat padded chunk) would "
-            "clip other values; use zero=False or AdamW on this mesh")
     split_sum = None if tp is None else tp.split_sum
     lead_blocks = None if tp is None else tp.lead_blocks
     if cfg.sync_mode == "auto":
@@ -781,21 +870,36 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
     # optimizer update sits between the programs.
     rs_handles = ag_handles = ()
     rs_sched = ag_sched = None
+    # Adafactor over "model" (``by_piece``): rank (d, j)'s pieces of the
+    # whole params' chunks; its reduce-scatter sums its pieces of every
+    # data rank's chunk
+    by_piece = (cfg.zero and tp is not None
+                and _whole_chunks(optimizer.init({})))
     if cfg.zero:
         _, zp = zero_layout(cfg, mesh)
         zcomm = axis_comms[0]
         pleaves_abs = leaves(params_abs)
-        chunk_sizes = [_zero_pad_len(g.numel(), zp) // zp for g in gstructs]
+        if by_piece:
+            wshapes = [tuple(w.shape) for w in leaves(
+                with_model_parallel(model, 1).abstract_params())]
+            pieces = [_piece(math.prod(sh), zp, tp.model) for sh in wshapes]
+            chunk_sizes = [k for _, k in pieces]
+            rs_shapes = [(zp * k,) for k in chunk_sizes]
+        else:
+            chunk_sizes = [_zero_pad_len(g.numel(), zp) // zp
+                           for g in gstructs]
+            rs_shapes = [g.shape for g in gstructs]
         rs_handles = tuple(
-            zcomm.persistent("reduce_scatter", g.shape, g.dtype,
+            zcomm.persistent("reduce_scatter", shape, g.dtype,
                              mean=True, sync_stats=True, zero=True)
-            for g in gstructs)
+            for shape, g in zip(rs_shapes, gstructs))
         ag_handles = tuple(
             zcomm.persistent("all_gather", (csz,), l.dtype, zero=True)
             for csz, l in zip(chunk_sizes, pleaves_abs))
         rs_sched = _sync_program(zcomm.zero_sync_schedule(
-            [(f"leaf{i}", math.prod(g.shape), g.dtype)
-             for i, g in enumerate(gstructs)], kind="rs"), overlap, depth)
+            [(f"leaf{i}", math.prod(shape), g.dtype)
+             for i, (shape, g) in enumerate(zip(rs_shapes, gstructs))],
+            kind="rs"), overlap, depth)
         # the AG's compute op models the NEXT step's forward, which the
         # passes place the AG starts ahead of
         ag_sched = _sync_program(zcomm.zero_sync_schedule(
@@ -809,9 +913,17 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         chunk, AG-program the new param chunks back into the params (in
         place)."""
         chunks = [None] * len(gl)
+        if by_piece:
+            j = sharding.model_index()
 
         def rs_start(u):
-            return rs_handles[u.index].start(gl[u.index])
+            i = u.index
+            if by_piece:    # the whole gradient, one leaf at a time
+                g = tp.gather(i, gl[i])
+                gl[i] = None
+                return rs_handles[i].start(torch.cat([
+                    _piece_of(g, zp, tp.model, d, j) for d in range(zp)]))
+            return rs_handles[i].start(gl[i])
 
         def rs_progress(u, tok, stages):
             rs_handles[u.index].progress(tok, stages)
@@ -830,9 +942,10 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         # the global grad norm from chunk-local sums and one scalar
         # all-reduce: the unsharded path's value up to summation order,
         # so bit-identical losses need clip_norm=0 (a metric only)
-        if tp is None:
-            sq = sum(sum_of_squares(ch) for ch in chunks)
-            gsq = zcomm.all_reduce(sq)
+        if tp is None or by_piece:
+            gsq = zcomm.all_reduce(sum(sum_of_squares(ch) for ch in chunks))
+            if by_piece:    # each value in one rank's piece
+                gsq = sharding.psum(gsq)
         else:
             # split leaves' squares add over "model" too
             sq_split, sq_rep = _split_squares(chunks, tp.split)
@@ -840,11 +953,18 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
                 zcomm.all_reduce(sq_rep)
         idx = zcomm.axis_index()
         pleaves = leaves(st["params"])
-        pchunks = [_zero_chunk(l, zp, idx) for l in pleaves]
+        if by_piece:
+            pchunks = [_piece_of(tp.gather(i, l), zp, tp.model, idx, j)
+                       for i, l in enumerate(pleaves)]
+            hooks = dict(split_sum=lambda i, x, over, n: (
+                sharding.psum(x), pieces[i][0]))
+        else:
+            pchunks = [_zero_chunk(l, zp, idx) for l in pleaves]
+            hooks = {}
         new_pc, new_opt, om = optimizer.update(
             unflatten(gpaths, chunks), st["opt"],
             unflatten(gpaths, pchunks),
-            global_norm_fn=lambda _tree: torch.sqrt(gsq))
+            global_norm_fn=lambda _tree: torch.sqrt(gsq), **hooks)
         npc = leaves(new_pc)
 
         def ag_start(u):
@@ -855,9 +975,15 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
             return tok
 
         def ag_wait(u, tok):
-            y = ag_handles[u.index].wait(tok)
-            ref = pleaves[u.index]
-            ref.copy_(y[:ref.numel()].view(ref.shape))
+            i = u.index
+            y = ag_handles[i].wait(tok)
+            ref = pleaves[i]
+            if by_piece:    # every model rank's pieces, then its block
+                ys = collectives.all_gather(y[None], sharding.MODEL_AXIS,
+                                            dim=0)
+                y = tp.block(i, _from_pieces(
+                    ys, math.prod(wshapes[i]), zp).view(wshapes[i]))
+            ref.copy_(y.reshape(-1)[:ref.numel()].view(ref.shape))
             return None
 
         schedule_mod.execute(ag_sched, start=ag_start, wait=ag_wait,
@@ -912,31 +1038,50 @@ class _ModelAxis:
     """What the step does across a model axis, static in the param
     layout: ``partial`` marks the gradient leaves that are partial sums
     over the model ranks, ``dims`` the dim each leaf is split at (None:
-    every model rank holds it whole), ``model`` the axis size."""
+    every model rank holds it whole), ``model`` the axis size, ``paths``
+    the leaves' paths and ``layout`` the split (what ``gather`` and
+    ``block`` join and cut by)."""
 
     partial: Tuple[bool, ...]
     dims: Tuple[Optional[int], ...]
     model: int
+    paths: Tuple[Tuple[str, ...], ...] = ()
+    layout: Optional[sharding.TPLayout] = None
 
     @property
     def split(self) -> Tuple[bool, ...]:
         """Per leaf: is it a block of a split leaf?"""
         return tuple(d is not None for d in self.dims)
 
-    def split_sum(self, i: int, x: torch.Tensor, over: str
+    def split_sum(self, i: int, x: torch.Tensor, over: str, n: int
                   ) -> Tuple[torch.Tensor, int]:
         """The optimizer's hook (``optimizer.update(..., split_sum=)``):
         ``x``, a partial of a reduction of leaf ``i`` over its columns
-        (``over="cols"``), rows (``"rows"``) or all of it (``"all"``),
-        summed over "model" when that reduction crosses the leaf's split
-        dim, with the number of blocks summed.  A replicated or
-        partial-sum leaf is whole on every rank, and an expert stack's
+        (``over="cols"``), rows (``"rows"``) or all of it (``"all"``) of
+        ``n`` values, summed over "model" when that reduction crosses the
+        leaf's split dim, with the count of values summed.  A replicated
+        or partial-sum leaf is whole on every rank, and an expert stack's
         (split at -3) rows and columns are each rank's own."""
         d = self.dims[i]
         if d is None or (over == "cols" and d != -1) or (
                 over == "rows" and d != -2):
-            return x, 1
-        return sharding.psum(x), self.model
+            return x, n
+        return sharding.psum(x), n * self.model
+
+    def gather(self, i: int, block: torch.Tensor) -> torch.Tensor:
+        """The whole leaf ``i`` from every model rank's ``block`` of it
+        (all-gathered over "model"; the block itself where every model
+        rank holds the leaf whole)."""
+        if self.dims[i] is None:
+            return block
+        seen = collectives.all_gather(block[None], sharding.MODEL_AXIS,
+                                      dim=0)
+        return sharding.join_blocks(self.paths[i], list(seen), self.layout)
+
+    def block(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This model rank's block of the whole leaf ``i``."""
+        return sharding.leaf_block(self.paths[i], whole, self.layout,
+                                   sharding.model_index())
 
     def lead_blocks(self, i: int, ndim: int) -> int:
         """The optimizer's hook (``optimizer.update(..., lead_blocks=)``):
@@ -997,7 +1142,7 @@ def _model_axis(model, mesh) -> Optional[_ModelAxis]:
     return _ModelAxis(
         partial=tuple(sharding.partial_sum_leaves(paths, model.layout)),
         dims=tuple(sharding.leaf_split(p, model.layout) for p in paths),
-        model=m)
+        model=m, paths=tuple(paths), layout=model.layout)
 
 
 def _spmd_step(rank_step, mesh, data_axes) -> Callable:

@@ -31,7 +31,11 @@
   reference's weights, losses within 1e-4 and gradient norms within
   1e-5 relative of the reference's ZeRO-1 and (2, 2) runs (tighter than
   the card's ``TP_LOSS_RTOL`` / ``TP_NORM_RTOL``).  ZeRO-1 with
-  Adafactor on a mesh with a "model" axis is refused.
+  Adafactor on (data 2, model 2), each rank its piece of the whole
+  param's chunk of its data rank (``trainer._piece``), is held to the
+  reference's ZeRO-1 run on a (2, 2) host mesh the same way, and, with
+  the update-RMS clip engaged, to the port's own ZeRO-1 on (2, 1) in
+  f32 within 5e-6; its step's sums over "model" are the card plan's.
 
 The reference's runs come from one child interpreter with 4 host
 devices (``test_torch_train_large.run_reference``).
@@ -327,7 +331,8 @@ ARCH = "mistral-large-123b"
 
 @pytest.fixture(scope="module")
 def reference_run(tmp_path_factory):
-    return run_reference(tmp_path_factory, [(ARCH, "zero"), (ARCH, "2x2")])
+    return run_reference(tmp_path_factory, [(ARCH, "zero"), (ARCH, "2x2"),
+                                            (ARCH, "zero2x2")])
 
 
 def test_zero_training_matches_reference_zero(reference_run):
@@ -367,14 +372,109 @@ def test_data_x_model_training_matches_reference(reference_run):
     assert losses[-1] < losses[0]
 
 
-def test_zero_with_a_model_axis_is_refused():
+def test_zero_with_a_model_axis_is_refused(reference_run):
+    """Nothing refuses ZeRO-1 with Adafactor on (data 2, model 2): each
+    rank holds 1/2 of its data rank's chunk of every whole param (flat,
+    unfactored), the data replicas of a model coordinate the same
+    params, and the run is the reference's ZeRO-1 run on its (2, 2) host
+    mesh within ``LOSS_RTOL`` / ``NORM_RTOL``."""
+    ref, trees, _ = reference_run
+    mesh = substrate.make_host_mesh(2, model_parallel=2, device="cpu")
+    lengths = []
+
+    def check(states, step):
+        for r, st in enumerate(states):
+            twin = states[mesh.coords(r)["model"]]
+            for a, b in zip(leaves(twin["params"]), leaves(st["params"])):
+                assert torch.equal(a, b), (r, step)
+        lengths.append([{k: tuple(v.shape) for k, v in
+                         s["opt"]["f"]["lm_head"].items()} for s in states])
+
+    losses, norms = train(ARCH, trees[ARCH], mesh, check, zero=True,
+                          overlap=True)
+    cfg = get_config(ARCH, reduced=True)
+    c = -(-cfg.d_model * cfg.vocab_size // 2)       # a data rank's chunk
+    assert lengths[0] == [{"v": (-(-c // 2),)}] * 4
+    want = ref[f"{ARCH}/zero2x2"]
+    assert rel_err(losses, want["loss"]) <= LOSS_RTOL, (losses, want)
+    assert rel_err(norms, want["grad_norm"]) <= NORM_RTOL, (norms, want)
+    assert losses[-1] < losses[0]
+
+
+def test_zero_over_a_model_axis_sums_as_the_smoke_plans():
+    """One ZeRO-1 + Adafactor step of reduced mistral-large-123b on (data
+    2, model 2): each rank sums over "model" (``sharding.psum``) as often
+    as ``chip_smoke.py`` plans it for [train_adafactor]: ``tp_psums``
+    plus ``adafactor_psums(zero=True)``, one clip sum a leaf."""
+    from test_torch_tp_families import _smoke
     cfg = get_config(ARCH, reduced=True)
     model = build_model(cfg, model_parallel=2)
     opt = adafactor()
-    tcfg = trainer.TrainCfg(zero=True, data_axes=("data",))
+    tcfg = trainer.TrainCfg(zero=True)
     mesh = substrate.make_host_mesh(2, model_parallel=2, device="cpu")
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=16,
                             global_batch=4)
-    with pytest.raises(ValueError, match="ZeRO-1 with Adafactor"):
-        trainer.make_train_step(model, opt, tcfg, comm=build_session(
-            mesh, model, opt, ds, tcfg).world)
+    step = trainer.make_train_step(model, opt, tcfg, comm=build_session(
+        mesh, model, opt, ds, tcfg).world)
+    states = trainer.init_states(
+        model, opt, build_model(cfg).init(torch.Generator().manual_seed(0)),
+        tcfg, mesh)
+    calls = [0]
+    psum = sharding.psum
+
+    def counted(x):
+        calls[0] += 1
+        return psum(x)
+
+    sharding.psum = counted
+    try:
+        step(states, ds.host_batch(0))
+    finally:
+        sharding.psum = psum
+    smoke = _smoke()
+    want = smoke.tp_psums(model) + smoke.adafactor_psums(model, opt,
+                                                         zero=True)
+    assert want > smoke.tp_psums(model)
+    assert calls[0] == 4 * want
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_zero_over_a_model_axis_clips_the_references_chunk(m):
+    """ZeRO-1 + Adafactor with its update-RMS clip engaged (threshold
+    0.1): reduced mistral-large-123b on (data 2, model ``m``), each rank
+    a piece of its data rank's chunk, follows (data 2, model 1), whose
+    ranks hold the reference's chunks whole, over 3 steps: losses and
+    gradient norms within 5e-6 relative (f32, the sums in another
+    order; largest readings 7.8e-8 and 1.2e-7), and the gathered states
+    within 1e-5 of each leaf's largest value (1.6e-6).  A clip over each
+    rank's piece alone, not summed over "model", fails it."""
+    cfg = get_config(ARCH, reduced=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(3))
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=16,
+                            global_batch=4, seed=2)
+    runs = {}
+    for model_parallel in (1, m):
+        sess = trainer.TrainSession(
+            build_model(cfg, model_parallel=model_parallel),
+            adafactor(clip_threshold=0.1), trainer.TrainCfg(zero=True))
+        mesh = substrate.make_host_mesh(2, model_parallel=model_parallel,
+                                        device="cpu")
+        states = trainer.init_states(sess.model, sess.optimizer,
+                                     map_tree(torch.clone, params),
+                                     sess.cfg, mesh)
+        step = sess.step_fn(build_session(mesh, sess.model, sess.optimizer,
+                                          ds, sess.cfg).world)
+        losses, norms = [], []
+        for i in range(3):
+            states, metrics = step(states, ds.host_batch(i))
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+        runs[model_parallel] = (losses, norms, trainer.logical_state(
+            sess.gather(states, mesh)))
+    (l1, n1, s1), (lm, nm, sm) = runs[1], runs[m]
+    assert rel_err(lm, l1) <= 5e-6, (lm, l1)
+    assert rel_err(nm, n1) <= 5e-6, (nm, n1)
+    gl, paths = flatten(sm)
+    for path, a, b in zip(paths, gl, leaves(s1)):
+        if a.is_floating_point():
+            assert rel_err(a.numpy(), b.numpy()) <= 1e-5, path

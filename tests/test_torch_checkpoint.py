@@ -26,6 +26,10 @@ two packages.
   ZeRO-1 saved per shard at data 4 restores at data 3; a
   reference-written state restores through the port and a port-written
   (2, 2) checkpoint through the reference, bit-equal (in this process).
+  ZeRO-1 with Adafactor on (2, 2) crosses with the reference's (2, 2)
+  ZeRO-1 checkpoint both ways, bit-equal (the child's side, as for
+  AdamW), restores onto (3, 2), (2, 1) and (1, 2), and a random state
+  in its layout round-trips over the expert and sectioned leaves.
 """
 
 import dataclasses
@@ -294,13 +298,18 @@ port = manager.restore_checkpoint(
 np.savez({port_npz!r}, **{{str(i): np.asarray(l) for i, l in
                            enumerate(jax.tree_util.tree_leaves(port))}})
 
-# a (data 2, model 2) run's state, ZeRO-1 and compressed with bucketed EF
+# a (data 2, model 2) run's state: ZeRO-1 and compressed with bucketed EF,
+# and ZeRO-1 with Adafactor of the reduced mistral-large-123b
 mesh = substrate.make_mesh((2, 2), ("data", "model"))
-for kind, tcfg in (("zero", trainer.TrainCfg(
-        sync_mode="composed", data_axes=("data",), zero=True)),
-                   ("ef", trainer.TrainCfg(
-        sync_mode="compressed", data_axes=("data",), bucket_grads=True,
-        bucket_bytes={bucket_bytes}))):
+zero = trainer.TrainCfg(sync_mode="composed", data_axes=("data",), zero=True)
+af = (build_model(get_config("mistral-large-123b", reduced=True)),
+      make_optimizer("adafactor", lr=1e-3, min_dim_factored=32))
+for kind, tcfg, (model, opt) in (
+        ("zero", zero, (model, opt)),
+        ("ef", trainer.TrainCfg(
+            sync_mode="compressed", data_axes=("data",), bucket_grads=True,
+            bucket_bytes={bucket_bytes}), (model, opt)),
+        ("af_zero", zero, af)):
     state = trainer.make_train_state(model, opt, jax.random.PRNGKey(0),
                                      cfg=tcfg, mesh=mesh)
     state = jax.tree_util.tree_map(
@@ -326,16 +335,23 @@ print("CHILD OK")
 
 TP_TCFGS = {"zero": {"zero": True},
             "ef": {"sync_mode": "compressed", "bucket_grads": True,
-                   "bucket_bytes": 1 << 14}}
+                   "bucket_bytes": 1 << 14},
+            "af_zero": {"zero": True}}
 
 
 def _tp_run(kind, shape=(2, 2), steps=1):
-    """A (data, model) run of the reduced granite-34b, ``kind`` one of
-    ``TP_TCFGS``: (session, mesh, states after ``steps`` steps)."""
-    cfg = get_config("granite-34b", reduced=True)
+    """A (data, model) run of the reduced granite-34b with AdamW (of the
+    reduced mistral-large-123b with Adafactor for "af_zero"), ``kind``
+    one of ``TP_TCFGS``: (session, mesh, states after ``steps``
+    steps)."""
+    if kind == "af_zero":
+        cfg = get_config(AF_ARCH, reduced=True)
+        opt = make_optimizer("adafactor", lr=1e-3, min_dim_factored=32)
+    else:
+        cfg = get_config("granite-34b", reduced=True)
+        opt = make_optimizer("adamw", lr=1e-3, clip_norm=0.0)
     sess = trainer.TrainSession(
-        build_model(cfg, model_parallel=2),
-        make_optimizer("adamw", lr=1e-3, clip_norm=0.0),
+        build_model(cfg, model_parallel=2), opt,
         trainer.TrainCfg(data_axes=("data",), **TP_TCFGS[kind]))
     ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=16,
                             global_batch=12)
@@ -489,6 +505,26 @@ def test_zero_tp_checkpoint_restores_onto_another_mesh(zero_tp_saved,
                         want)
 
 
+@pytest.mark.parametrize("shape", [(3, 2), (2, 1), (1, 2)])
+def test_adafactor_zero_tp_checkpoint_restores_onto_another_width(
+        crossed, shape):
+    """The port's ZeRO-1 + Adafactor (2, 2) checkpoint (each rank's piece
+    of its data rank's chunk of every whole param, saved per shard)
+    restores onto another data and model width: the logical state
+    bit-equal, and it trains."""
+    _, _, _, _, tp, tp_runs = crossed
+    sess, _, saved = tp_runs["af_zero"]
+    want = trainer.logical_state(saved)
+    mesh = S.make_mesh(shape, ("data", "model"), device="cpu")
+    tree = restore_checkpoint(tp["af_zero"]["port_dir"],
+                              sess.abstract_state(mesh=mesh),
+                              allow_resize_1d=True)
+    states = sess.scatter(tree, mesh)
+    _assert_trees_equal(trainer.logical_state(sess.gather(states, mesh)),
+                        want)
+    _adafactor_run(sess, mesh, states=states)
+
+
 def _random_global(sess, mesh, seed):
     """A random tree in the checkpoint layout for ``mesh`` (ZeRO's
     padding zero, as the layout has it)."""
@@ -501,7 +537,8 @@ def _random_global(sess, mesh, seed):
     for p, l in zip(ps, ls):
         x = torch.from_numpy(np.asarray(rng.randn(*l.shape) * 8,
                                         np.float32)).to(l.dtype)
-        n = sizes.get(p[2:]) if p[0] == "opt" and sess.cfg.zero else None
+        n = (sizes.get(sharding.opt_leaf(p, None)[0])
+             if p[0] == "opt" and sess.cfg.zero else None)
         if n is not None:
             x[n:] = 0
         out.append(x)
@@ -542,6 +579,32 @@ def test_state_round_trip_over_every_split_kind(arch, zero, src, dst):
                        mesh=mesh, model=sess.model)
         _assert_trees_equal(trainer.logical_state(sess.gather(moved, new)),
                             trainer.logical_state(tree))
+
+
+@pytest.mark.parametrize("src,dst", [((3, 2), (5, 1)), ((1, 2), (7, 2))])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_adafactor_zero_state_round_trip_over_every_split_kind(arch, src,
+                                                              dst):
+    """ZeRO-1 with Adafactor over "model": a random global state
+    scattered onto ``src`` (each rank's pieces of the whole params'
+    chunks) and gathered gives itself; re-meshed onto ``dst`` and
+    gathered, the same logical state (expert and sectioned leaves
+    included)."""
+    cfg = get_config(arch, reduced=True)
+    sess = trainer.TrainSession(build_model(cfg, model_parallel=2),
+                                make_optimizer("adafactor"),
+                                trainer.TrainCfg(zero=True))
+    mesh = S.make_mesh(src, ("data", "model"), device="cpu")
+    tree = _random_global(sess, mesh, 0)
+    states = sess.scatter(tree, mesh)
+    back = sess.gather(states, mesh)
+    _assert_trees_equal(unflatten(flatten(back)[1], _dense(back)), tree)
+    new = S.make_mesh(dst, ("data", "model"), device="cpu")
+    moved = remesh(states, sess.cfg, sess.abstract_state(mesh=new), new,
+                   mesh=mesh, model=sess.model)
+    _assert_trees_equal(trainer.logical_state(sess.gather(moved, new)),
+                        trainer.logical_state(tree))
 
 
 def test_bucket_layout_hint_names_global_buckets_on_a_model_axis(tmp_path):

@@ -12,7 +12,9 @@
 - Policy "nothing" keeps only the blocks' inputs: the tensors saved for
   the backward outside the checkpoints do not grow with depth.
 - Prefill, decode and a forward under ``no_grad`` never enter a
-  checkpoint, and neither does a layer over a "model" axis.
+  checkpoint; a layer over a "model" axis never enters
+  ``torch.utils.checkpoint``: its blocks are checkpointed on the staged
+  backward's tape (``tests/test_torch_remat_tp.py``).
 - The remat fields have the reference's names and defaults.
 """
 
@@ -245,8 +247,12 @@ def test_serving_never_checkpoints(arch, monkeypatch):
 
 
 def test_tp_layers_are_not_checkpointed(monkeypatch):
-    """A training step on (data 1, model 2): the layers run with ``tp``
-    and never enter a checkpoint, remat on as by default."""
+    """A training step on (data 1, model 2), remat on as by default: no
+    layer over "model" enters ``torch.utils.checkpoint`` (whose recompute
+    would run on autograd's device thread), and every block is
+    checkpointed on the staged backward's tape instead: each rank reruns
+    each of them once."""
+    from repro_torch.parallel import sharding
     cfg = get_config("granite-34b", reduced=True)
     assert cfg.remat
     model = build_model(cfg, model_parallel=2)
@@ -261,8 +267,13 @@ def test_tp_layers_are_not_checkpointed(monkeypatch):
         model, opt, model.init(torch.Generator().manual_seed(0)), tcfg,
         mesh)
     calls = _Counting(monkeypatch)
+    reruns = []
+    run = sharding._Block.run
+    monkeypatch.setattr(sharding._Block, "run",
+                        lambda block: (reruns.append(1), run(block))[1])
     _, metrics = step_fn(states, ds.host_batch(0))
     assert calls.calls == 0 and np.isfinite(metrics["loss"].item())
+    assert len(reruns) == mesh.size * _blocks(model)
 
 
 def test_remat_fields_are_the_references():

@@ -78,8 +78,8 @@ out = {{}}
 for arch, shape in {runs}:
     cfg = get_config(arch, reduced=True)
     model = build_model(cfg)
-    zero = shape == "zero"
-    mesh = (make_host_mesh(model_parallel=2) if shape == "2x2" else
+    zero = shape in ("zero", "zero2x2")
+    mesh = (make_host_mesh(model_parallel=2) if shape.endswith("2x2") else
             substrate.make_mesh(({ranks},), ("data",)) if zero else
             make_host_mesh(model_parallel=1))
     opt = make_optimizer("adafactor", lr=cosine_schedule(
@@ -124,7 +124,9 @@ print("RUNS", json.dumps(out))
 def run_reference(tmp_path_factory, runs):
     """The reference's Adafactor runs ``runs`` ((arch, shape) with shape
     "dp": composed on 4 data ranks, "zero": ZeRO-1 on 4 data ranks,
-    "2x2": composed on (data 2, model 2)), STEPS steps each from its
+    "2x2": composed on (data 2, model 2), "zero2x2": ZeRO-1 on (data 2,
+    model 2), its shard_map manual over "data" only), STEPS steps each
+    from its
     initial weights: ({"arch/shape": {"loss", "grad_norm"}}, {arch:
     initial weights as a numpy tree}, the path prefix of the "dp" runs'
     states before each step and after the last,
