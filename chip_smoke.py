@@ -307,6 +307,18 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              sync kernel's launches as planned, peak below 95% of the
              card; each phase prints the card, step time, tokens/s and
              peak memory.
+8l. dryrun — the launch layer's dry-run (``launch.dryrun``: one rank's
+             step traced on ``meta`` tensors under the recording
+             transport) of [train]'s configuration and of [train_tp]'s
+             (data 2, model 2) one, each held against one real step on the
+             card whose rank 0 is counted inside its thread
+             (``launch.stepanalysis.measure_rank``): flops and rank 0's
+             wire bytes must be equal.  For those two and [train_jamba]'s
+             (data 1, model 2) run it prints the traced peak a rank times
+             the ranks on the card beside the peak that phase measured
+             and the analytic model's figure (readings, not gates), the
+             card's total memory (``dryrun.HBM_PER_CHIP``), and its own
+             seconds and the script's so far.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -3504,6 +3516,127 @@ def _train_jamba():
     return {"sum_chunks": launches}, numbers
 
 
+def _dryrun_cell(cfg, ds, mesh_shape, opt, settings=None, **kw):
+    """The dry-run of [train]-like training of ``cfg`` on an abstract
+    mesh of ``mesh_shape`` ((data,) or (data, model)) over ``ds``'s
+    batch (``meta`` tensors of its shapes), composed, with the optimizer
+    ``opt``, ``settings`` (``dryrun.train_settings``' keys) and the
+    ``TrainCfg`` fields ``kw``: (the cell, its ``ModuleCost``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime import substrate
+    batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                            device="meta")
+             for k, v in ds.host_batch(0).items()}
+    mesh = substrate.abstract_mesh(mesh_shape,
+                                   ("data", "model")[:len(mesh_shape)])
+    cell = dryrun.train_cell(cfg, batch, mesh, settings=settings,
+                             variant={"sync": "composed"}, optimizer=opt,
+                             **kw)
+    return cell, dryrun.trace_cell(cell)
+
+
+def phase_dryrun(train, train_tp, jamba, t_start):
+    """[dryrun]: the launch layer's dry-run (``launch.dryrun.train_cell``,
+    one rank traced on ``meta`` tensors) held against one real step on
+    the card, counted inside rank 0's thread
+    (``stepanalysis.measure_rank``): for [train]'s configuration and
+    [train_tp]'s (data 2, model 2), flops and rank 0's wire bytes must be
+    equal.  For those two and [train_jamba]'s (data 1, model 2) run, the
+    traced peak a rank times the ranks on the card is printed beside the
+    peak that phase measured and the analytic model's figure: readings,
+    not gates.  Returns its numbers."""
+    import gc
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.launch import dryrun, stepanalysis
+    from repro_torch.launch.train import build_session
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.train import trainer
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] {card()}: total_memory {total:,d} bytes "
+          f"(launch.dryrun.HBM_PER_CHIP {dryrun.HBM_PER_CHIP:,d})")
+    cfg = with_num_layers(get_config("granite-34b"), TRAIN_LAYERS)
+    ds = _train_data(cfg)
+    numbers = {"hbm_per_chip": total}
+    for tag, mp, measured in (
+            ("train", 1, train["composed_peak_gib"]),
+            ("train_tp", TP_MODEL, train_tp["composed_peak_gib"])):
+        shape = (TRAIN_RANKS, mp) if mp > 1 else (TRAIN_RANKS,)
+        _, dry = _dryrun_cell(cfg, ds, shape, _adamw(TRAIN_LR))
+        model = build_model(cfg, model_parallel=mp)
+        mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=mp,
+                                        device="cuda")
+        opt = _adamw(TRAIN_LR)
+        tcfg = trainer.TrainCfg(sync_mode="composed")
+        session = build_session(mesh, model, opt, ds, tcfg)
+        states = trainer.init_states(
+            model, opt, model.init(torch.Generator(device="cuda")
+                                   .manual_seed(0)), tcfg, mesh)
+        step_fn = trainer.make_train_step(model, opt, tcfg,
+                                          comm=session.world)
+        (states, metrics), real = stepanalysis.measure_rank(
+            step_fn, states, ds.host_batch(0))
+        torch.cuda.synchronize()
+        loss = metrics["loss"].item()
+        an = dryrun.analytic_train(cfg, TRAIN_SEQ, TRAIN_BATCH, mesh,
+                                   {"optimizer": "adamw"})
+        ranks = mesh.size
+        print(f"[dryrun] {tag} {dict(mesh.shape)}: flops a rank traced "
+              f"{dry.flops:.6e}, real {real.flops:.6e}; wire bytes of rank "
+              f"0 traced {dry.wire_bytes:,.0f}, real {real.wire_bytes:,.0f}"
+              f"; loss {loss:.4f}")
+        print(f"[dryrun] {tag}: peak traced {dry.peak_bytes / 2**30:.2f} "
+              f"GiB a rank x {ranks} ranks = "
+              f"{dry.peak_bytes * ranks / 2**30:.2f} GiB ({_split(dry)}); "
+              f"rank 0 of the real step {real.peak_bytes / 2**30:.2f} GiB; "
+              f"[{tag}] measured {measured:.2f} GiB over its {TRAIN_STEPS} "
+              f"steps; analytic model {an['total'] * ranks / 2**30:.2f} GiB "
+              f"({an['total'] / 2**30:.2f} a rank)")
+        if not (dry.flops == real.flops and dry.wire_bytes == real.wire_bytes
+                and dry.flops > 0):
+            raise AssertionError(f"[dryrun] {tag}: traced flops / wire "
+                                 f"bytes {dry.flops} / {dry.wire_bytes} vs "
+                                 f"real {real.flops} / {real.wire_bytes}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"[dryrun] {tag}: loss {loss}")
+        numbers[tag] = dict(flops=dry.flops, wire_bytes=dry.wire_bytes,
+                            traced_peak_gib=dry.peak_bytes / 2**30,
+                            real_rank0_peak_gib=real.peak_bytes / 2**30,
+                            measured_peak_gib=measured, ranks=ranks,
+                            analytic_gib=an["total"] / 2**30)
+        del states, step_fn, session, metrics, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    jcfg = with_num_layers(get_config(JAMBA_ARCH), JAMBA_TRAIN_LAYERS)
+    jds = _train_data(jcfg, batch=JAMBA_TRAIN_BATCH)
+    settings = dict(optimizer="adafactor", microbatches=JAMBA_TRAIN_MICRO,
+                    grad_dtype=torch.bfloat16)
+    _, dry = _dryrun_cell(jcfg, jds, (1, TP_MODEL), _adafactor(LOW_LR),
+                          settings, check_model_replicas=True)
+    an = dryrun.analytic_train(jcfg, TRAIN_SEQ, JAMBA_TRAIN_BATCH,
+                               substrate.abstract_mesh((1, TP_MODEL),
+                                                       ("data", "model")),
+                               settings)
+    measured = jamba["tp"]["peak_gib"]
+    print(f"[dryrun] train_jamba (1, {TP_MODEL}): peak traced "
+          f"{dry.peak_bytes / 2**30:.2f} GiB a rank x {TP_MODEL} ranks = "
+          f"{dry.peak_bytes * TP_MODEL / 2**30:.2f} GiB ({_split(dry)}); "
+          f"[train_jamba] measured {measured:.2f} GiB; analytic model "
+          f"{an['total'] * TP_MODEL / 2**30:.2f} GiB; flops a rank "
+          f"{dry.flops:.6e}, wire bytes a rank {dry.wire_bytes:,.0f}")
+    numbers["train_jamba"] = dict(
+        traced_peak_gib=dry.peak_bytes / 2**30, ranks=TP_MODEL,
+        measured_peak_gib=measured, analytic_gib=an["total"] / 2**30)
+    print(f"[dryrun] {time.perf_counter() - t0:.1f}s; the script so far "
+          f"{time.perf_counter() - t_start:.1f}s")
+    return numbers
+
+
+def _split(cost) -> str:
+    return ", ".join(f"{k} {v / 2**30:.2f}" for k, v in cost.peak.items())
+
+
 def phase_train_mamba2():
     """[train_mamba2]: mamba2-1.3b at its published widths and full depth
     (48 layers), random bf16 weights from seed 0, [train]'s data (seq
@@ -4807,14 +4940,16 @@ def main() -> int:
     train = timed("train", phase_train)
     by_path, _ = timed("train (sync)", phase_train_sync)
     by_path["train_auto"], _ = timed("train_auto", phase_train_auto, train)
-    by_path["train_tp"], _ = timed("train_tp", phase_train_tp, train)
+    by_path["train_tp"], tp_numbers = timed("train_tp", phase_train_tp,
+                                            train)
     by_path["train_pod"], _ = timed("train_pod", phase_train_pod)
     by_path["train_moe"], _ = timed("train_moe", phase_train_moe)
     by_path["train_adafactor"], _ = timed("train_adafactor",
                                           phase_train_adafactor)
     by_path["train_deepseek"], _ = timed("train_deepseek",
                                          phase_train_deepseek)
-    by_path["train_jamba"], _ = timed("train_jamba", phase_train_jamba)
+    by_path["train_jamba"], jamba = timed("train_jamba", phase_train_jamba)
+    timed("dryrun", phase_dryrun, train, tp_numbers, jamba, t_start)
     by_path["train_mamba2"], _ = timed("train_mamba2", phase_train_mamba2)
     by_path["train_vl"], _ = timed("train_vl", phase_train_vl)
     by_path["train_seamless"], _ = timed("train_seamless",

@@ -142,6 +142,10 @@ class PersistentHandle:
     # -- the hot path --------------------------------------------------
 
     def __call__(self, x):
+        with substrate.collective(self.fn, x):
+            return self._call(x)
+
+    def _call(self, x):
         target = self._target
         if target is None:
             raise HandleRevokedError(
@@ -163,7 +167,8 @@ class PersistentHandle:
                 f"persistent {self.fn} handle is revoked "
                 f"({self._stale_reason}); cannot start")
         epoch = self.epoch
-        inner = self.binding.start(x)
+        with substrate.collective(self.fn, x):
+            inner = self.binding.start(x)
         with self._lock:
             self._pending += 1
         return HandleInFlight(handle=self, epoch=epoch, inner=inner)
@@ -187,7 +192,8 @@ class PersistentHandle:
         stages without completing it; the token stays waitable.  Returns
         the stages retired (0 for seamless protocols)."""
         self._check_token(token, "progressed")
-        return self.binding.progress(token.inner, stages)
+        with substrate.collective(self.fn):
+            return self.binding.progress(token.inner, stages)
 
     def wait(self, token: HandleInFlight):
         """Run the remaining stages and finalize (unpad + mean scale).  A
@@ -195,7 +201,8 @@ class PersistentHandle:
         self._check_token(token, "waited")
         with self._lock:
             self._pending -= 1
-        return self.binding.wait(token.inner)
+        with substrate.collective(self.fn):
+            return self.binding.wait(token.inner)
 
     @property
     def inflight(self) -> int:
@@ -238,6 +245,12 @@ def _compute_ops(compute) -> list:
 
 def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
+
+
+def _sync_fn(compress: bool) -> str:
+    """The collective a gradient sync runs."""
+    return (registry.COMPRESSED_ALL_REDUCE if compress
+            else registry.ALL_REDUCE)
 
 
 class Communicator:
@@ -284,87 +297,107 @@ class Communicator:
         return Communicator(self.session, axes)
 
     def all_reduce(self, x, *, mean: bool = False):
-        y = self._engine.all_reduce(x, self._axis_arg)
+        with substrate.collective(registry.ALL_REDUCE, x):
+            y = self._engine.all_reduce(x, self._axis_arg)
         if mean:
             y = scale_by(y, self.mean_scale())
         return y
 
     def all_reduce_start(self, x, *, mean: bool = False):
-        return self._engine.all_reduce_start(x, self._axis_arg, mean=mean)
+        with substrate.collective(registry.ALL_REDUCE, x):
+            return self._engine.all_reduce_start(x, self._axis_arg,
+                                                 mean=mean)
 
     def all_reduce_wait(self, token):
-        return self._engine.all_reduce_wait(token)
+        with substrate.collective(registry.ALL_REDUCE):
+            return self._engine.all_reduce_wait(token)
 
     def all_reduce_progress(self, token, stages: int = 1) -> int:
-        return self._engine.all_reduce_progress(token, stages)
+        with substrate.collective(registry.ALL_REDUCE):
+            return self._engine.all_reduce_progress(token, stages)
 
     def sync_gradient_start(self, g, *, mean: bool = True,
                             compress: bool = False, ef_residual=None):
         """Two-phase arm of one gradient tensor's sync (a fused bucket or
         a leaf); wire bytes are recorded as the blocking paths do."""
-        return self._engine.sync_gradient_start(
-            g, self._axis_arg, mean=mean, compress=compress,
-            ef_residual=ef_residual)
+        with substrate.collective(_sync_fn(compress), g):
+            return self._engine.sync_gradient_start(
+                g, self._axis_arg, mean=mean, compress=compress,
+                ef_residual=ef_residual)
 
     def sync_gradient_progress(self, token, stages: int = 1) -> int:
-        return self._engine.sync_gradient_progress(token, stages)
+        with substrate.collective(_sync_fn(token.compress)):
+            return self._engine.sync_gradient_progress(token, stages)
 
     def sync_gradient_wait(self, token):
         """Finalize one in-flight gradient sync.  Returns (synced,
         new_ef_residual | None)."""
-        return self._engine.sync_gradient_wait(token)
+        with substrate.collective(_sync_fn(token.compress)):
+            return self._engine.sync_gradient_wait(token)
 
     # -- the ZeRO-1 seam: RS-only grad sync + param all-gather ---------
 
     def zero_reduce_scatter_start(self, g, *, mean: bool = True):
         """Only the reduce-scatter half of the PLANNED all-reduce; the
         wait arm yields this rank's reduced padded-flat chunk."""
-        return self._engine.zero_reduce_scatter_start(
-            g, self._single_axis("zero_reduce_scatter"), mean=mean)
+        with substrate.collective(registry.REDUCE_SCATTER, g):
+            return self._engine.zero_reduce_scatter_start(
+                g, self._single_axis("zero_reduce_scatter"), mean=mean)
 
     def zero_reduce_scatter_wait(self, token):
-        return self._engine.zero_reduce_scatter_wait(token)
+        with substrate.collective(registry.REDUCE_SCATTER):
+            return self._engine.zero_reduce_scatter_wait(token)
 
     def zero_all_gather_start(self, shard):
         """Start the updated-param all-gather of a ZeRO step; the wait
         arm yields the full padded-flat vector (callers unpad)."""
-        return self._engine.zero_all_gather_start(
-            shard, self._single_axis("zero_all_gather"))
+        with substrate.collective(registry.ALL_GATHER, shard):
+            return self._engine.zero_all_gather_start(
+                shard, self._single_axis("zero_all_gather"))
 
     def zero_all_gather_wait(self, token):
-        return self._engine.zero_all_gather_wait(token)
+        with substrate.collective(registry.ALL_GATHER):
+            return self._engine.zero_all_gather_wait(token)
 
     def reduce_scatter(self, x, dim: int = 0):
-        return self._engine.reduce_scatter(
-            x, self._single_axis("reduce_scatter"), dim=dim)
+        with substrate.collective(registry.REDUCE_SCATTER, x):
+            return self._engine.reduce_scatter(
+                x, self._single_axis("reduce_scatter"), dim=dim)
 
     def all_gather(self, x, dim: int = 0):
-        return self._engine.all_gather(
-            x, self._single_axis("all_gather"), dim=dim)
+        with substrate.collective(registry.ALL_GATHER, x):
+            return self._engine.all_gather(
+                x, self._single_axis("all_gather"), dim=dim)
 
     def all_to_all(self, x, split_dim: int = 0, concat_dim: int = 0):
-        return self._engine.all_to_all(
-            x, self._single_axis("all_to_all"),
-            split_dim=split_dim, concat_dim=concat_dim)
+        with substrate.collective(registry.ALL_TO_ALL, x):
+            return self._engine.all_to_all(
+                x, self._single_axis("all_to_all"),
+                split_dim=split_dim, concat_dim=concat_dim)
 
     def broadcast(self, x, root: int = 0):
-        return self._engine.broadcast(
-            x, self._single_axis("broadcast"), root=root)
+        with substrate.collective(registry.BROADCAST, x):
+            return self._engine.broadcast(
+                x, self._single_axis("broadcast"), root=root)
 
     def permute(self, x, shift: int = 1):
-        return self._engine.permute(
-            x, self._single_axis("permute"), shift=shift)
+        with substrate.collective(registry.PERMUTE, x):
+            return self._engine.permute(
+                x, self._single_axis("permute"), shift=shift)
 
     def send_recv(self, x, pairs):
-        return self._engine.send_recv(
-            x, self._single_axis("send_recv"), pairs)
+        with substrate.collective(registry.SEND_RECV, x):
+            return self._engine.send_recv(
+                x, self._single_axis("send_recv"), pairs)
 
     def compressed_all_reduce(self, x, state=None):
-        return self._engine.compressed_all_reduce(
-            x, self._single_axis("compressed_all_reduce"), state)
+        with substrate.collective(registry.COMPRESSED_ALL_REDUCE, x):
+            return self._engine.compressed_all_reduce(
+                x, self._single_axis("compressed_all_reduce"), state)
 
     def barrier(self, token=None):
-        return self._engine.barrier(self._axis_arg, token)
+        with substrate.collective(registry.BARRIER):
+            return self._engine.barrier(self._axis_arg, token)
 
     def checkpoint_fence(self, tree):
         return self._engine.checkpoint_fence(tree)

@@ -13,13 +13,19 @@ assignment (paper §3), and, through ``TraceReport.to_schedule``, the
 step's program order as a comm schedule.  The recording transport sees
 hops, not the compute between them, so the port's scanned schedule has
 no compute barriers.
+
+``region`` names a stretch of a step for the dry-run's accounting (the
+training attention's score tiles), ``label`` a tree of tensors (the
+gradients) for its live-bytes meter.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from collections import defaultdict
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import registry
 from repro_torch.core import schedule as schedule_mod
@@ -129,3 +135,43 @@ def scan_step(fn: Callable, *args, **kwargs) -> TraceReport:
     sites = [CallSite(function=s.function, primitive=s.function, count=1,
                       nbytes=s.nbytes, axes=(s.axis,)) for s in rec.sites]
     return TraceReport(sites=sites)
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def region(name: str):
+    """Name the ops the calling thread runs in the block (innermost name
+    wins): ``region_name()`` reads it."""
+    prev = getattr(_local, "name", None)
+    _local.name = name
+    try:
+        yield
+    finally:
+        _local.name = prev
+
+
+def region_name() -> Optional[str]:
+    """The calling thread's innermost ``region``, or None."""
+    return getattr(_local, "name", None)
+
+
+@contextlib.contextmanager
+def labelling(fn: Callable[[Any, str], None]):
+    """While the block runs, ``label(tree, kind)`` on this thread calls
+    ``fn(tree, kind)`` (the dry-run's live-bytes meter)."""
+    prev = getattr(_local, "labeller", None)
+    _local.labeller = fn
+    try:
+        yield
+    finally:
+        _local.labeller = prev
+
+
+def label(tree: Any, kind: str) -> None:
+    """Name the tensors of ``tree`` ``kind`` ("grads", ...) for the
+    meter of ``labelling``; nothing without one."""
+    fn = getattr(_local, "labeller", None)
+    if fn is not None:
+        fn(tree, kind)

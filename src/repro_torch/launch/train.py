@@ -51,6 +51,9 @@ over "data" and "model" alike.  Runs on
 existing invocations keep their meaning.  qwen2-vl-7b and
 seamless-m4t-large-v2 are refused (``missing_batch_keys``): their losses
 need embeddings that the launcher's token batches do not carry.
+``--production-mesh`` is refused with a pointer to the dry-run
+(``launch.dryrun``), which is where the port runs the reference's
+production meshes.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from repro_torch.configs import ARCH_IDS, get_config, with_num_layers
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.plan import DEFAULT_BUCKET_BYTES
 from repro_torch.data import SyntheticLMDataset
+from repro_torch.data.pipeline import batch_dim
 from repro_torch.models import build_model
 from repro_torch.models.encdec import EncDecCfg
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -83,14 +87,17 @@ PROBE_SHAPE = (4,)     # the reference probes its (data=4, model=2) mesh
 
 
 def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
-                  config: EngineConfig | None = None) -> Session:
+                  config: EngineConfig | None = None,
+                  batch=None) -> Session:
     """Paper §2.2 through the facade: run a probe step of the *actual*
     sync mode over ``Session.probe``'s abstract data axis, on ``meta``
     tensors, to find the collective set 𝓕; then
     ``Session.from_application`` composes the thin library and
     initializes the session for ``mesh`` with ``config``.  The sync's
     kernels need no switch: its ops take the CUDA kernels on the card and
-    their plain versions on the CPU."""
+    their plain versions on the CPU.  The probe's batch takes its keys,
+    dtypes and shapes from ``ds.host_batch(0)``, or from ``batch`` (a
+    batch of tensors, ``meta`` ones too) when it is given."""
     probe = Session.probe(PROBE_SHAPE, ("data",))
     # The probe steps the unsplit model: a model axis's collectives go
     # through the monolithic default session, never the composed one,
@@ -107,12 +114,12 @@ def build_session(mesh, model, opt, ds, tcfg: trainer.TrainCfg,
     # 2), still probes): the collective set does not depend on the rows
     m = tcfg.microbatches
     abatch = {}
-    for k, v in ds.host_batch(0).items():
-        shape, d = list(v.shape), trainer.batch_dim(k, v)
+    for k, v in (ds.host_batch(0) if batch is None else batch).items():
+        shape, d = list(v.shape), batch_dim(k, v)
         per = -(-shape[d] // PROBE_SHAPE[0])
         shape[d] = -(-per // m) * m * PROBE_SHAPE[0]
-        abatch[k] = torch.empty(shape, dtype=torch.from_numpy(v).dtype,
-                                device="meta")
+        dtype = v.dtype if torch.is_tensor(v) else torch.from_numpy(v).dtype
+        abatch[k] = torch.empty(shape, dtype=dtype, device="meta")
     return Session.from_application(
         probe_step, [abstate] * probe.mesh.size, abatch, mesh=mesh,
         probe=probe, config=config)
@@ -193,8 +200,17 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) mesh: refused here, "
+                         "run it as the dry-run does")
     add_elastic_args(ap, what="training")
     args = ap.parse_args(argv)
+    if args.production_mesh:
+        ap.error("--production-mesh: 256 thread ranks on one card are no "
+                 "deployment; the production meshes run one rank traced "
+                 "on meta tensors in the dry-run: python -m "
+                 "repro_torch.launch.dryrun --arch ARCH --shape train_4k "
+                 "--mesh both")
     if args.zero and args.sync != "composed":
         ap.error("--zero needs --sync composed (the RS/AG seam only "
                  "exists on the composed planned-collective path)")

@@ -61,6 +61,9 @@ class EncDecCfg:
     param_dtype: Any = torch.float32
     remat: bool = True
     block_k: int = 512                   # training attention kv block
+    #: the port's: the parts a model rank's local config holds whole
+    #: (``sharding.TPLayout.whole``: "vocab")
+    tp_whole: Tuple[str, ...] = ()
 
     @property
     def num_layers(self) -> int:
@@ -175,7 +178,7 @@ def local_config(cfg: EncDecCfg, lay) -> EncDecCfg:
     and its vocabulary block."""
     c = cfg.cross
     return dataclasses.replace(
-        cfg, vocab_size=lay.vocab,
+        cfg, vocab_size=lay.vocab, tp_whole=lay.whole,
         attn=L.local_attention(cfg.attn, lay.heads, lay.kv_heads),
         cross=L.local_attention(
             c, c.num_heads // lay.model,
@@ -233,8 +236,9 @@ def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
     ``encode(tp=True)``) the rank's vocabulary columns of them, from the
     vocab-parallel embedding and the rank's heads and MLP columns."""
     tp = tp_index is not None
-    x = (S.vocab_parallel_embed(params["embed"], tokens, tp_index) if tp
-         else _embed(params, tokens))
+    vocab_tp = tp and "vocab" not in cfg.tp_whole
+    x = (S.vocab_parallel_embed(params["embed"], tokens, tp_index)
+         if vocab_tp else _embed(params, tokens))
     remat = R.active(cfg.remat, train)
     for i in range(cfg.dec_layers):
         if remat and tp:
@@ -245,7 +249,8 @@ def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
         x, _ = (R.checkpointed(_apply_dec_layer, *args, train=True) if remat
                 else _apply_dec_layer(*args, train=train, tp=tp))
     cut, f, _ = T._tp_ops(tp)
-    return f(_norm(cfg, params["dec_norm"], cut(x))) @ params["lm_head"]
+    h = _norm(cfg, params["dec_norm"], cut(x))
+    return (f(h) if vocab_tp else h) @ params["lm_head"]
 
 
 def loss_fn(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor],
@@ -260,7 +265,8 @@ def loss_fn(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor],
     logits = decode_train(params, cfg, batch["tokens"], memory, train=True,
                           tp_index=tp_index)
     loss = (S.vocab_parallel_cross_entropy(logits, batch["labels"], tp_index)
-            if tp else T.cross_entropy(logits, batch["labels"]))
+            if tp and "vocab" not in cfg.tp_whole
+            else T.cross_entropy(logits, batch["labels"]))
     return loss, {"nll": loss, "loss": loss}
 
 

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.parallel import sharding as S
 
@@ -216,6 +217,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+#: the ``trace.region`` of the training attention's blockwise loops: the
+#: score and probability tiles that a fused kernel keeps on chip
+ATTN_TILES = "attn_tiles"
+
+
 def _kv_blocks(k, v, block_k: int):
     """K/V zero-padded to a multiple of ``block_k`` keys."""
     pad = (-k.shape[1]) % block_k
@@ -278,8 +284,9 @@ class _TrainAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, q_offset, block_k, scale):
         skv = k.shape[1]
         kp, vp = _kv_blocks(k, v, block_k)
-        out, lse = _flash_blocks(q, kp, vp, skv, causal, q_offset, block_k,
-                                 scale)
+        with trace.region(ATTN_TILES):
+            out, lse = _flash_blocks(q, kp, vp, skv, causal, q_offset,
+                                     block_k, scale)
         b, sq, hkv, group, dv = out.shape
         o = out.reshape(b, sq, hkv * group, dv).to(q.dtype)
         ctx.save_for_backward(q, kp, vp, o, lse)
@@ -300,20 +307,23 @@ class _TrainAttention(torch.autograd.Function):
         qf = qg.float()
         dq = torch.zeros((b, sq, hkv, group, d), device=q.device)
         dks, dvs = [], []
-        for j in range(k.shape[1] // block_k):
-            kblk = k[:, j * block_k:(j + 1) * block_k]
-            vblk = v[:, j * block_k:(j + 1) * block_k].float()
-            s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kblk.float()) * scale
-            mask = _block_mask(j, block_k, skv, sq, q_offset, causal,
-                               q.device)
-            p = torch.where(mask, torch.exp(s - lse), 0.0)   # recompute
-            dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vblk)
-            ds = p * (dp - delta) * scale
-            dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dog))
-            dks.append(torch.einsum("bqhgk,bqhgd->bkhd",
-                                    ds.to(qg.dtype).float(), qf))
-            dq = dq + torch.einsum("bqhgk,bkhd->bqhgd",
-                                   ds.to(kblk.dtype).float(), kblk.float())
+        with trace.region(ATTN_TILES):
+            for j in range(k.shape[1] // block_k):
+                kblk = k[:, j * block_k:(j + 1) * block_k]
+                vblk = v[:, j * block_k:(j + 1) * block_k].float()
+                s = torch.einsum("bqhgd,bkhd->bqhgk", qf,
+                                 kblk.float()) * scale
+                mask = _block_mask(j, block_k, skv, sq, q_offset, causal,
+                                   q.device)
+                p = torch.where(mask, torch.exp(s - lse), 0.0)  # recompute
+                dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vblk)
+                ds = p * (dp - delta) * scale
+                dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dog))
+                dks.append(torch.einsum("bqhgk,bqhgd->bkhd",
+                                        ds.to(qg.dtype).float(), qf))
+                dq = dq + torch.einsum("bqhgk,bkhd->bqhgd",
+                                       ds.to(kblk.dtype).float(),
+                                       kblk.float())
         dk = torch.cat(dks, dim=1)[:, :skv]
         dv_ = torch.cat(dvs, dim=1)[:, :skv]
         return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),

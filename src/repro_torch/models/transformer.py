@@ -93,6 +93,9 @@ class TransformerCfg:
     remat: bool = True
     remat_policy: str = "nothing"  # nothing | dots
     block_k: int = 512             # training attention kv block
+    #: the port's: the parts a model rank's local config holds whole
+    #: (``sharding.TPLayout.whole``: "attn", "vocab")
+    tp_whole: Tuple[str, ...] = ()
 
     @property
     def num_layers(self) -> int:
@@ -158,7 +161,7 @@ def local_config(cfg: TransformerCfg, lay: S.TPLayout) -> TransformerCfg:
     vocabulary block (the shapes of its shard; routing still scores
     every expert)."""
     return dataclasses.replace(
-        cfg, vocab_size=lay.vocab,
+        cfg, vocab_size=lay.vocab, tp_whole=lay.whole,
         attn=None if cfg.attn is None
         else L.local_attention(cfg.attn, lay.heads, lay.kv_heads),
         mla=None if cfg.mla is None
@@ -197,7 +200,10 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
     _check_spec(spec)
     cut, f, g = _tp_ops(tp)
     x = cut(x)
-    h = f(_norm(cfg, params["norm_mixer"], x))
+    # an attention every model rank holds whole runs without f and g
+    fm, gm = ((_identity, _identity)
+              if spec.mixer == "attn" and "attn" in cfg.tp_whole else (f, g))
+    h = fm(_norm(cfg, params["norm_mixer"], x))
     if spec.mixer == "mamba":
         if chunked:
             raise ValueError(
@@ -227,7 +233,7 @@ def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
             q_offset=q_offset, kv_cache=cache,
             chunked=chunked, valid_len=valid_len, train=train,
             block_k=cfg.block_k)
-    x = x + g(out)
+    x = x + gm(out)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "dense":
         x = cut(x)
@@ -404,7 +410,7 @@ def _final_hidden(params: Params, cfg: TransformerCfg,
     tp = tp_index is not None
     if not cfg.embed_inputs:
         h = batch["inputs_embeds"].to(cfg.param_dtype)
-    elif tp:
+    elif tp and "vocab" not in cfg.tp_whole:
         h = S.vocab_parallel_embed(params["embed"], batch["tokens"],
                                    tp_index)
     else:
@@ -445,7 +451,7 @@ def _lm_loss(params: Params, cfg: TransformerCfg, h: torch.Tensor,
     on every model rank): with ``tp_index`` ``h`` enters the rank's
     vocabulary columns through *f* and the loss is the vocab-parallel
     cross-entropy."""
-    if tp_index is None:
+    if tp_index is None or "vocab" in cfg.tp_whole:
         return cross_entropy(_unembed(params, cfg, h), labels)
     return S.vocab_parallel_cross_entropy(
         _unembed(params, cfg, S.copy_to_model(h)), labels, tp_index)
@@ -493,7 +499,7 @@ def _mtp_loss(params: Params, cfg: TransformerCfg,
     output enters the head as the main stack's does; the two norms and
     the projection are whole on every rank."""
     tokens = batch["tokens"]
-    if tp_index is None:
+    if tp_index is None or "vocab" in cfg.tp_whole:
         emb_next = params["embed"][tokens.long()][:, 1:]
     else:
         emb_next = S.vocab_parallel_embed(params["embed"], tokens,

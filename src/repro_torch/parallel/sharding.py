@@ -18,9 +18,8 @@ partitioner, so it states the same Megatron-style split explicitly:
   ``moe``: dim -3 of the stacked ``(R, E, D, F)`` leaf), as the
   reference's ``moe_forward_shardmap`` does; its router and any shared
   expert are replicated (``models.moe.moe_forward_sharded``).
-- Attention splits by whole heads.  The reference's
-  ``fitted_shardings`` drops a spec entry whose dim does not divide; the
-  port instead requires ``num_heads % model == 0`` and replicates
+- Attention splits by whole heads (all of them on every rank where
+  ``num_heads % model != 0``, below) and replicates
   ``wk``/``wv``/``bk``/``bv`` when ``num_kv_heads % model != 0``
   (granite-34b's MQA: one KV head).  That is a storage difference with
   the same math: each rank computes the shared K/V itself, and their
@@ -38,6 +37,16 @@ partitioner, so it states the same Megatron-style split explicitly:
   B and C are split too, so that every value has one owner, though
   every rank needs all of them (``models.mamba``).  The reference
   replicates the norm's scale; the port splits it with its channels.
+- A split that does not divide is not made (``TPLayout.whole``).  Where
+  the vocabulary does not split over the model ranks (mamba2-1.3b's
+  50280, seamless-m4t-large-v2's 256206 over 16) the embedding and the
+  head are whole on every rank, as the reference's ``fit_spec`` drops a
+  spec entry whose dim does not divide.  Where a decoder's query heads
+  do not (qwen2-vl-7b's 28 over 16) its attention is whole on every
+  rank: a departure, since the reference's ``wq`` (3584, 3584) divides
+  and stays split, its columns cut across heads.  Each rank computes a
+  whole part on the same input, without *f* or *g* around it: its
+  gradients are the same on every rank (replicated, not partial sums).
 - ``shard_params`` / ``unshard_params`` give a rank's shard of a full
   parameter tree and gather the shards back; they take a whole train
   state too, whose AdamW moments and per-leaf EF residual mirror their
@@ -141,6 +150,10 @@ class TPLayout:
     #: mixer's sectioned leaves, by name: ``in_proj`` (z, x, B, C, dt),
     #: ``conv_w`` and ``conv_b`` (x, B, C)
     sections: Tuple[Tuple[str, Tuple[int, ...]], ...] = ()
+    #: the parts every model rank holds whole because their split does
+    #: not divide: "attn" (a decoder's attention), "vocab" (the
+    #: embedding and the head)
+    whole: Tuple[str, ...] = ()
 
 
 def _check_divides(name: str, model: int, sizes) -> None:
@@ -152,9 +165,11 @@ def _check_divides(name: str, model: int, sizes) -> None:
 
 def layout(cfg, model: int) -> TPLayout:
     """The split of ``cfg`` (a ``TransformerCfg``, or an ``EncDecCfg``,
-    which has no stages) over ``model`` ranks.  Raises a ``ValueError``
-    where a whole-head, FFN, expert, Mamba-head, B/C-state or vocabulary
-    split does not divide."""
+    which has no stages) over ``model`` ranks.  A decoder's attention
+    heads or the vocabulary that do not divide are held whole
+    (``TPLayout.whole``); raises a ``ValueError`` where an FFN, expert,
+    MLA-head, Mamba-head or B/C-state split, or an encoder-decoder's
+    head split, does not divide."""
     if not hasattr(cfg, "stages"):
         return _encdec_layout(cfg, model)
     mixers = {spec.mixer for st in cfg.stages for spec in st.layers}
@@ -162,9 +177,10 @@ def layout(cfg, model: int) -> TPLayout:
     d_ff = 0 if cfg.mlp is None else cfg.mlp.d_ff
     experts = 0 if cfg.moe is None else cfg.moe.num_experts
     mla = cfg.mla.num_heads if "mla" in mixers else 0
-    sizes = [("num_heads", 0 if a is None else a.num_heads),
-             ("d_ff", d_ff), ("num_experts", experts),
-             ("vocab_size", cfg.vocab_size), ("mla num_heads", mla)]
+    whole = _whole(a is not None and a.num_heads % model != 0,
+                   cfg.vocab_size % model != 0)
+    sizes = [("d_ff", d_ff), ("num_experts", experts),
+             ("mla num_heads", mla)]
     sections = ()
     if "mamba" in mixers:
         m = cfg.mamba
@@ -174,14 +190,21 @@ def layout(cfg, model: int) -> TPLayout:
                     ("conv_w", (m.d_inner, gn, gn)),
                     ("conv_b", (m.d_inner, gn, gn)))
     _check_divides(cfg.name, model, sizes)
-    kv_rep = a is not None and a.num_kv_heads % model != 0
+    heads = 1 if "attn" in whole else model
+    kv_rep = (a is not None and "attn" not in whole
+              and a.num_kv_heads % model != 0)
     return TPLayout(
-        model=model, heads=0 if a is None else a.num_heads // model,
+        model=model, heads=0 if a is None else a.num_heads // heads,
         kv_heads=(0 if a is None else a.num_kv_heads if kv_rep
-                  else a.num_kv_heads // model),
+                  else a.num_kv_heads // heads),
         kv_replicated=kv_rep, d_ff=d_ff // model,
-        vocab=cfg.vocab_size // model, experts=experts // model,
-        mla_heads=mla // model, sections=sections)
+        vocab=cfg.vocab_size // (1 if "vocab" in whole else model),
+        experts=experts // model, mla_heads=mla // model,
+        sections=sections, whole=whole)
+
+
+def _whole(attn: bool, vocab: bool) -> Tuple[str, ...]:
+    return (("attn",) if attn else ()) + (("vocab",) if vocab else ())
 
 
 def _encdec_layout(cfg, model: int) -> TPLayout:
@@ -191,7 +214,8 @@ def _encdec_layout(cfg, model: int) -> TPLayout:
     a, c = cfg.attn, cfg.cross
     _check_divides(cfg.name, model, [
         ("num_heads", a.num_heads), ("cross num_heads", c.num_heads),
-        ("d_ff", cfg.mlp.d_ff), ("vocab_size", cfg.vocab_size)])
+        ("d_ff", cfg.mlp.d_ff)])
+    whole = _whole(False, cfg.vocab_size % model != 0)
     kv_rep = a.num_kv_heads % model != 0
     if kv_rep != (c.num_kv_heads % model != 0):
         raise ValueError(f"{cfg.name}: the self- and cross-attention's KV "
@@ -201,7 +225,8 @@ def _encdec_layout(cfg, model: int) -> TPLayout:
                     kv_heads=(a.num_kv_heads if kv_rep
                               else a.num_kv_heads // model),
                     kv_replicated=kv_rep, d_ff=cfg.mlp.d_ff // model,
-                    vocab=cfg.vocab_size // model, experts=0)
+                    vocab=cfg.vocab_size // (1 if whole else model),
+                    experts=0, whole=whole)
 
 
 def leaf_split(path, lay: TPLayout) -> Optional[int]:
@@ -213,6 +238,9 @@ def leaf_split(path, lay: TPLayout) -> Optional[int]:
         return opt_leaf(path, lay)[1]
     name = path[-1]
     if lay.model == 1 or (name in _KV and lay.kv_replicated):
+        return None
+    if ("vocab" in lay.whole and name in ("embed", "lm_head")) or (
+            "attn" in lay.whole and "attn" in path):
         return None
     if "moe" in path:         # the experts split; router, shared: whole
         return -3 if path[-2] == "moe" and name in _EXPERT else None
@@ -282,6 +310,8 @@ def partial_sum_leaves(paths, lay: TPLayout) -> List[bool]:
             return p[-1] not in _MLA
         if len(p) > 2 and p[-3] == "mla":
             return p[-2] in _MLA_NORMS
+        if "attn" in lay.whole and "attn" in p:
+            return False
         return ((lay.kv_replicated and p[-1] in _KV)
                 or (len(p) > 2 and p[-2] in _HEAD_NORMS
                     and p[-3] in ("attn", "self_attn", "cross")))
@@ -558,7 +588,9 @@ class _Block:
         with tape, torch.enable_grad(), _context(self.keep, "replaying"):
             y, auxes = self.fn(xin)
         again = (y,) + tuple(auxes)
-        if not all(bits_equal(a, b) for a, b in zip(again, self.outs)):
+        # ``meta`` tensors (the dry-run's) hold no bits to compare
+        if not all(a.is_meta or bits_equal(a, b)
+                   for a, b in zip(again, self.outs)):
             raise RuntimeError(
                 "a checkpointed block's recompute gave other bits than its "
                 "forward (a nondeterministic op in the block)")

@@ -23,6 +23,12 @@ A transport for several cards replaces ``ThreadTransport`` alone.
 ``recording()`` is the §2.2 application scan's transport: under it,
 ``run_spmd`` runs rank 0 alone, on ``meta`` tensors, and every hop and
 rank query is recorded instead of executed (``repro_torch.core.trace``).
+``instrument(rank, factory)`` runs one rank of every ``run_spmd`` of a
+block inside a context of the caller's making, on that rank's thread
+(dispatch modes are thread-local): the dry-run's meters
+(``repro_torch.launch.stepanalysis``) read one rank of a real step so,
+as they read rank 0 of a recorded one.  ``collective(fn, x)`` labels the
+hops of a block as a call of the collective ``fn``.
 """
 
 from __future__ import annotations
@@ -261,11 +267,19 @@ class ThreadTransport:
     every rank has, and copies its peer's.  Mailboxes alternate between
     two generations: a rank can only write generation g again after the
     barrier of hop g + 1, which every rank passes only once it has read
-    generation g."""
+    generation g.  With ``settle`` (an ``instrument``ed run) a hop also
+    waits until every rank has its copy and then empties the rank's own
+    mailbox: a mailbox then holds a tensor only while its rank is inside
+    the hop, so the bytes a rank holds live at any point of its program
+    do not depend on how the threads interleave (the dry-run's peak is
+    held against a real rank's to the byte).  That costs a second
+    barrier a hop, which a run that is not metered does not pay."""
 
-    def __init__(self, mesh: Mesh, timeout: float = DEFAULT_TIMEOUT) -> None:
+    def __init__(self, mesh: Mesh, timeout: float = DEFAULT_TIMEOUT,
+                 settle: bool = False) -> None:
         self.mesh = mesh
         self.timeout = timeout
+        self.settle = settle
         self.barrier = threading.Barrier(mesh.size, timeout=timeout)
         self._boxes: List[List[Optional[torch.Tensor]]] = [
             [None] * mesh.size, [None] * mesh.size]
@@ -273,6 +287,9 @@ class ThreadTransport:
         self.sent = [0] * mesh.size      # wire bytes a rank has sent
 
     def note(self, fn: str, nbytes: int, axis: str) -> None:
+        pass
+
+    def call(self, fn: str, nbytes: int) -> None:
         pass
 
     def wait(self) -> None:
@@ -293,8 +310,7 @@ class ThreadTransport:
         boxes = self._boxes[gen]
         boxes[ctx.rank] = x
         me = ctx.coords[axis]
-        if any(s == me and d != me for s, d in perm):
-            self.sent[ctx.rank] += x.numel() * x.element_size()
+        self.sent[ctx.rank] += _wire_bytes(x, perm, me)
         self.wait()
         src = _source(perm, me)
         if src is None:
@@ -303,9 +319,20 @@ class ThreadTransport:
             peer = self.mesh.rank_of(dict(ctx.coords, **{axis: src}))
             out = boxes[peer].clone(memory_format=torch.contiguous_format)
             boxes[peer] = None           # this rank is its one receiver
-        if not any(s == me for s, _ in perm):
+        if self.settle:
+            self.wait()                  # every rank has its copy
+            boxes[ctx.rank] = None
+        elif not any(s == me for s, _ in perm):
             boxes[ctx.rank] = None       # nobody reads this rank's tensor
         return out
+
+
+def _wire_bytes(x: torch.Tensor, perm, me: int) -> int:
+    """The bytes a hop moves out of the rank at ``me``: ``x``'s, when
+    ``perm`` sends it to another rank (a hop to itself moves nothing)."""
+    if any(s == me and d != me for s, d in perm):
+        return x.numel() * x.element_size()
+    return 0
 
 
 @dataclasses.dataclass
@@ -315,6 +342,17 @@ class Site:
     function: str          # registry name: "permute" | "axis_index"
     nbytes: int
     axis: str
+    sent: int = 0          # wire bytes rank 0 sent (as ``sent_bytes``)
+    call: str = ""         # the collective that issued it (``collective``)
+
+
+@dataclasses.dataclass
+class Call:
+    """One recorded call of a collective (``collective``): its function
+    and the bytes of the tensor it was given."""
+
+    function: str
+    nbytes: int
 
 
 class RecordingTransport:
@@ -323,14 +361,70 @@ class RecordingTransport:
 
     def __init__(self) -> None:
         self.sites: List[Site] = []
+        self.calls: List[Call] = []
 
     def note(self, fn: str, nbytes: int, axis: str) -> None:
-        self.sites.append(Site(fn, nbytes, axis))
+        self.sites.append(Site(fn, nbytes, axis, call=_call_label()))
+
+    def call(self, fn: str, nbytes: int) -> None:
+        self.calls.append(Call(fn, nbytes))
+
+    @property
+    def sent(self) -> List[int]:
+        """Rank 0's wire bytes so far (``sent_bytes``)."""
+        return [sum(s.sent for s in self.sites)]
 
     def ppermute(self, ctx: _Rank, x: torch.Tensor, axis: str,
                  perm) -> torch.Tensor:
-        self.note("permute", x.numel() * x.element_size(), axis)
+        nbytes = x.numel() * x.element_size()
+        self.sites.append(Site("permute", nbytes, axis,
+                               _wire_bytes(x, perm, ctx.coords[axis]),
+                               _call_label()))
         return torch.empty_like(x, device="meta")
+
+
+def _call_label() -> str:
+    labels = getattr(_local, "labels", None)
+    return labels[0] if labels else ""
+
+
+@contextlib.contextmanager
+def collective(fn: str, x: Optional[torch.Tensor] = None):
+    """Label the hops of the block as made by a call of the collective
+    ``fn`` (the outermost label wins: a collective built of others is
+    one call).  ``x`` is the tensor a call starts on; without it (a wait
+    or progress arm) the block continues a call already counted."""
+    labels = getattr(_local, "labels", None)
+    if labels is None:
+        labels = _local.labels = []
+    ctx = getattr(_local, "rank", None)
+    if ctx is not None and not labels and x is not None:
+        ctx.transport.call(fn, x.numel() * x.element_size())
+    labels.append(fn)
+    try:
+        yield
+    finally:
+        labels.pop()
+
+
+@contextlib.contextmanager
+def instrument(rank: int, factory: Callable[[Sequence[Any]], Any]):
+    """Within the block, every ``run_spmd`` called from this thread runs
+    rank ``rank``'s function inside ``factory(args)`` (a context manager;
+    ``args``: the rank's arguments), on that rank's own thread (under
+    ``recording()``, rank 0's run).  Yields nothing."""
+    prev = getattr(_local, "instrument", None)
+    _local.instrument = (rank, factory)
+    try:
+        yield
+    finally:
+        _local.instrument = prev
+
+
+def _instrumented(hook, rank: int, args: Sequence[Any]):
+    if hook is None or hook[0] != rank:
+        return contextlib.nullcontext()
+    return hook[1](args)
 
 
 @contextlib.contextmanager
@@ -357,13 +451,15 @@ def run_spmd(fn: Callable, per_rank_args: Sequence[Sequence[Any]],
         raise ValueError(f"{len(per_rank_args)} argument sets for "
                          f"{mesh.size} ranks")
     rec = getattr(_local, "recorder", None)
+    hook = getattr(_local, "instrument", None)
     if rec is not None:
-        with _as_rank(rec, 0, mesh):
+        with _as_rank(rec, 0, mesh), \
+                _instrumented(hook, 0, per_rank_args[0]):
             out = fn(*per_rank_args[0])
         return [out] * mesh.size
     if mesh.abstract:
         raise ValueError("an abstract mesh runs only under recording()")
-    transport = ThreadTransport(mesh, timeout)
+    transport = ThreadTransport(mesh, timeout, settle=hook is not None)
     results: List[Any] = [None] * mesh.size
     errors: List[Optional[BaseException]] = [None] * mesh.size
 
@@ -371,7 +467,8 @@ def run_spmd(fn: Callable, per_rank_args: Sequence[Sequence[Any]],
         try:
             if mesh.device.type == "cuda":
                 torch.cuda.set_device(mesh.device)
-            with _as_rank(transport, rank, mesh):
+            with _as_rank(transport, rank, mesh), \
+                    _instrumented(hook, rank, per_rank_args[rank]):
                 results[rank] = fn(*per_rank_args[rank])
         except BaseException as e:        # re-raised by the caller below
             errors[rank] = e

@@ -77,16 +77,22 @@ def resolve_page_tokens(max_len: int, page_tokens: Optional[int]) -> int:
 # ---------------------------------------------------------------------------
 
 
-def contiguous_caches(model, batch: int, max_len: int, *, dtype, device):
+def contiguous_caches(model, batch: int, max_len: int, *, dtype, device,
+                      enc_len: int = 0):
     """A plain contiguous cache (the pre-paging layout) for the simple
-    ``generate`` path and the one-shot prefill fallback."""
+    ``generate`` path and the one-shot prefill fallback; an
+    encoder-decoder's holds ``enc_len`` frames of memory."""
+    if enc_len:
+        return model.init_caches(batch, max_len, enc_len=enc_len,
+                                 dtype=dtype, device=device)
     return model.init_caches(batch, max_len, dtype=dtype, device=device)
 
 
-def abstract_caches(model, batch: int, max_len: int, *, dtype):
+def abstract_caches(model, batch: int, max_len: int, *, dtype,
+                    enc_len: int = 0):
     """A contiguous cache on the ``meta`` device (no memory)."""
     return contiguous_caches(model, batch, max_len, dtype=dtype,
-                             device=torch.device("meta"))
+                             device=torch.device("meta"), enc_len=enc_len)
 
 
 # ---------------------------------------------------------------------------

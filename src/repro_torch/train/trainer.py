@@ -101,15 +101,16 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.checkpoint import ShardedTensor
 from repro_torch.comm import Communicator, collectives
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import schedule as schedule_mod
+from repro_torch.core import trace
 from repro_torch.core.compression import bucket_ef_zeros
 from repro_torch.core.engine import check_bucket_ef, scale_by
+from repro_torch.data.pipeline import batch_dim, batch_rows, shard_batch
 from repro_torch.optim.optimizer import sum_of_squares
 from repro_torch.parallel import sharding
 from repro_torch.runtime import substrate
@@ -626,19 +627,6 @@ def logical_state(tree) -> Any:
 # Grad accumulation over microbatches
 # ---------------------------------------------------------------------------
 
-def batch_dim(name: str, x) -> int:
-    """The dim of batch key ``name`` that holds its rows: 1 for M-RoPE
-    ``positions`` (3, B, S), 0 for every other key (the reference's
-    ``batch_specs`` and ``_split_micro`` key on the name)."""
-    return 1 if name == "positions" and x.ndim == 3 else 0
-
-
-def batch_rows(name: str, x, lo: int, hi: int):
-    """Rows [lo, hi) of batch key ``name`` (numpy or a tensor), cut at
-    its ``batch_dim``."""
-    return x[:, lo:hi] if batch_dim(name, x) == 1 else x[lo:hi]
-
-
 def _split_micro(batch: Dict[str, torch.Tensor], n: int):
     """``n`` microbatches of equal rows, in order; a microbatch's
     ``positions`` is ``positions[:, i*b:(i+1)*b]``."""
@@ -793,15 +781,6 @@ def _drop(tree, path) -> None:
     tree[path[-1]] = None
 
 
-def _rank_rows(name: str, x, lo: int, hi: int, device) -> torch.Tensor:
-    """A rank's rows [lo, hi) of the global batch's key ``name`` on
-    ``device``."""
-    x = batch_rows(name, x, lo, hi)
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device)
-
-
 # ---------------------------------------------------------------------------
 # Step builder
 # ---------------------------------------------------------------------------
@@ -812,8 +791,9 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
 
     ``states``: one state per rank of the communicator's mesh;
     ``batch``: the global batch (numpy arrays or tensors, rows at
-    ``batch_dim``), split over the data axes.  ``metrics`` are rank 0's
-    (every rank holds the same all-reduced loss).  ``train_step.schedule``
+    ``batch_dim``), split over the data axes (``data.shard_batch``).
+    ``metrics`` are rank 0's (every rank holds the same all-reduced
+    loss).  ``train_step.schedule``
     is the executed sync program (ZeRO: its RS half; the AG half is
     ``train_step.ag_schedule``, None without ZeRO).
 
@@ -991,12 +971,10 @@ def make_train_step(model, optimizer, cfg: TrainCfg = TrainCfg(), *,
         return ({"params": st["params"], "opt": new_opt,
                  "step": st["step"] + 1}, {"loss": loss, **om})
 
-    def rank_step(st, host_batch, lo, hi):
-        dev = leaves(st["params"])[0].device
-        batch = {k: _rank_rows(k, v, lo, hi, dev)
-                 for k, v in host_batch.items()}
+    def rank_step(st, batch):
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)
+        trace.label(grads, "grads")
         with torch.no_grad():
             if tp is not None:
                 grads = tp.reduce_partials(grads)
@@ -1104,6 +1082,8 @@ class _ModelAxis:
         flat = torch.cat([g.reshape(-1).float() for _, g in rep])
         seen = collectives.all_gather(flat[None], sharding.MODEL_AXIS,
                                       dim=0)
+        if seen.is_meta:         # the dry-run's: no bits to compare
+            return
         blocks = seen.split([g.numel() for _, g in rep], dim=1)
         bad = ["/".join(p) for (p, _), b in zip(rep, blocks)
                if not all(torch.equal(b[0], r) for r in b[1:])]
@@ -1146,27 +1126,16 @@ def _model_axis(model, mesh) -> Optional[_ModelAxis]:
 
 
 def _spmd_step(rank_step, mesh, data_axes) -> Callable:
-    """``train_step(states, batch)``: ``rank_step(state, batch, lo, hi)``
-    on every rank of ``mesh``, rank r given its rows [lo, hi) of the
-    global batch (split over ``data_axes``).  Returns the new states and
-    rank 0's metrics."""
-    n_data = math.prod(mesh.shape[a] for a in data_axes)
+    """``train_step(states, batch)``: ``rank_step(state, rows)`` on every
+    rank of ``mesh``, rank r given its rows of the global batch, split
+    over ``data_axes`` by ``data.shard_batch``.  Returns the new states
+    and rank 0's metrics."""
 
     def train_step(states, batch):
-        k, v = next(iter(batch.items()))
-        rows = v.shape[batch_dim(k, v)]
-        if rows % n_data:
-            raise ValueError(f"global batch {rows} does not split over "
-                             f"{n_data} data ranks")
-        per = rows // n_data
-        args = []
-        for r in range(mesh.size):
-            coords = mesh.coords(r)
-            d = 0
-            for a in data_axes:
-                d = d * mesh.shape[a] + coords[a]
-            args.append((states[r], batch, d * per, (d + 1) * per))
-        out = substrate.run_spmd(rank_step, args, mesh)
+        rows = shard_batch(batch, mesh, data_axes)
+        out = substrate.run_spmd(
+            rank_step, [(states[r], rows[r]) for r in range(mesh.size)],
+            mesh)
         return [o[0] for o in out], out[0][1]
 
     return train_step
@@ -1180,12 +1149,10 @@ def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
     the optimizer update, as the reference's step with the compiler's
     inserted sync."""
 
-    def rank_step(st, host_batch, lo, hi):
-        dev = leaves(st["params"])[0].device
-        batch = {k: _rank_rows(k, v, lo, hi, dev)
-                 for k, v in host_batch.items()}
+    def rank_step(st, batch):
         loss, grads = _accumulate_grads(model, st["params"], batch,
                                         cfg.microbatches, cfg.grad_dtype)
+        trace.label(grads, "grads")
         with torch.no_grad():
             if tp is not None:
                 grads = tp.reduce_partials(grads)

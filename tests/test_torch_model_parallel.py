@@ -124,9 +124,14 @@ def test_shard_unshard_round_trip(arch):
 
 
 def test_layout_refuses_a_split_that_does_not_divide():
-    cfg = get_config("granite-34b", reduced=True)      # 4 heads
-    with pytest.raises(ValueError, match="num_heads"):
+    # a decoder's heads that do not divide are held whole (TPLayout.whole);
+    # its FFN columns, and an encoder-decoder's heads, are refused
+    cfg = get_config("granite-34b", reduced=True)      # 4 heads, ff 128
+    with pytest.raises(ValueError, match="d_ff"):
         sharding.layout(cfg, 3)
+    with pytest.raises(ValueError, match="num_heads"):
+        sharding.layout(get_config("seamless-m4t-large-v2", reduced=True),
+                        3)
 
 
 def test_vocab_parallel_cross_entropy_matches_cross_entropy():
@@ -352,20 +357,30 @@ def test_data_x_model_training_matches_reference(reference_run, arch, sync):
 
 
 def _rank_rows(step_fn, states, batch):
-    """The rows each rank's step takes from ``batch``."""
-    seen = {}
-    real = trainer._rank_rows
+    """The rows each rank's step takes from ``batch`` (its split by
+    ``data.shard_batch``, found back in the batch's tokens)."""
+    seen = []
+    real = trainer.shard_batch
 
-    def spy(name, x, lo, hi, device):
-        seen[substrate.current_rank()] = (lo, hi)
-        return real(name, x, lo, hi, device)
+    def spy(host, mesh, axes):
+        seen.append(real(host, mesh, axes))
+        return seen[-1]
 
-    trainer._rank_rows = spy
+    trainer.shard_batch = spy
     try:
         step_fn(states, batch)
     finally:
-        trainer._rank_rows = real
-    return [seen[r] for r in sorted(seen)]
+        trainer.shard_batch = real
+    (ranks,) = seen
+    tokens = torch.as_tensor(batch["tokens"])
+    rows = []
+    for got in ranks:
+        t = got["tokens"]
+        lo = next(i for i in range(len(tokens)) if torch.equal(tokens[i],
+                                                               t[0]))
+        assert torch.equal(tokens[lo:lo + len(t)], t)
+        rows.append((lo, lo + len(t)))
+    return rows
 
 
 def test_pod_axis_syncs_across_pods(reference_run):

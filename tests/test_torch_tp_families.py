@@ -282,8 +282,9 @@ def test_the_embeddings_model_and_the_encdec_split():
     assert not any(s for _, s in where.values())
     cfg = get_config("seamless-m4t-large-v2")
     assert sharding.layout(cfg, 2).vocab == 128103
-    with pytest.raises(ValueError, match="vocab_size=256206"):
-        sharding.layout(cfg, 4)
+    # a vocabulary that does not split is held whole (TPLayout.whole)
+    lay = sharding.layout(cfg, 4)
+    assert (lay.whole, lay.vocab) == (("vocab",), 256206)
 
 
 @pytest.mark.parametrize("m", [2, 4])
