@@ -213,15 +213,22 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              peak memory, and each sync kernel's launches must equal the
              plan's count.
 8b. train_auto — the same workload as ``sync="auto"``, the conventional
-             stack: each gradient leaf and the loss averaged by
-             ``collectives.pmean`` through the monolithic default session,
-             3 steps from [train]'s weights and batches.  Checks finite
-             losses, identical replicas, the losses within 1e-4 relative
-             of [train]'s composed run (the tolerance the port holds
-             composed training to the reference), the default session's
-             average layer number 2.0 (printed beside the composed
-             session's) and ``sum_chunks`` launches as the generic ring
-             counts them.  Prints step time and peak memory.
+             stack, in the reference's layout over "data": each rank its
+             data block of every leaf the reference's specs split over
+             "data" (params, gradient accumulator, AdamW moments), the
+             blocks all-gathered as each layer runs and their gradients
+             reduce-scattered in the staged backward, the other leaves
+             and the loss averaged by ``collectives.pmean``, all through
+             the monolithic default session; 3 steps from [train]'s
+             weights and batches.  Checks finite losses within 1e-4
+             relative of [train]'s composed run (the tolerance the port
+             holds composed training to the reference), the ranks'
+             blocks joined into a finite global tree, each rank's state
+             bytes as ``trainer.abstract_state`` plans them (half the
+             whole layout's), the default session's average layer number
+             2.0 and ``sum_chunks`` launches as ``split_collectives``
+             counts the ring's combines.  Prints step time and peak
+             memory beside [train]'s composed run's.
 8c. train_tp — the train workload (granite-34b, 2 of 88 layers, [train]'s
              weights and batches) on a (data 2, model 2) mesh: each rank
              holds its shard (whole heads; granite-34b's one KV head
@@ -271,6 +278,15 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              Adafactor's model-axis sums counted in the plan, each rank's
              optimizer-state bytes printed; compressed at 1 layer (2
              reckon over the card).
+8f'. train_fsdp_tp — the same mistral-large-123b cut as ``auto`` on
+             (data 2, model 2) in the reference's layout (each rank its
+             data block of its model block), ``check_model_replicas`` on,
+             at lr 1e-5 against [train_adafactor]'s data-parallel run at
+             lr 1e-5 (losses within 1e-4, gradient norms within
+             ``TP_NORM_RTOL``; ZeRO-1's Adafactor is unfactored, other
+             arithmetic); its blocks joined finite, each rank's state
+             bytes as planned, its peak printed beside ZeRO-1's on
+             (2, 2).
 8g. train_deepseek — deepseek-v3-671b at its published widths cut to
              its 2 first (dense MLA) layers and the MTP block, Adafactor,
              bf16 gradient accumulation over 2 microbatches: kernels and
@@ -309,11 +325,12 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              peak memory.
 8l. dryrun — the launch layer's dry-run (``launch.dryrun``: one rank's
              step traced on ``meta`` tensors under the recording
-             transport) of [train]'s configuration and of [train_tp]'s
-             (data 2, model 2) one, each held against one real step on the
+             transport) of [train]'s configuration, of [train_tp]'s
+             (data 2, model 2) one and of [train_auto]'s step split over
+             "data", each held against one real step on the
              card whose rank 0 is counted inside its thread
              (``launch.stepanalysis.measure_rank``): flops and rank 0's
-             wire bytes must be equal.  For those two and [train_jamba]'s
+             wire bytes must be equal.  For those three and [train_jamba]'s
              (data 1, model 2) run it prints the traced peak a rank times
              the ranks on the card beside the peak that phase measured
              and the analytic model's figure (readings, not gates), the
@@ -2365,8 +2382,10 @@ def train_workload():
 
 def train_run(model, init, mesh, ds, opt, sync: str, **cfg):
     """A fresh session (the §2.2 scan through ``build_session``), fresh
-    replicas of ``init`` and the step function for one run; ``cfg``: the
-    other ``TrainCfg`` fields (buckets, overlap, ZeRO)."""
+    per-rank states of ``init`` (``trainer.init_states``: replicas, or
+    for ``auto`` each rank's data block of the leaves it splits) and the
+    step function for one run; ``cfg``: the other ``TrainCfg`` fields
+    (buckets, overlap, ZeRO)."""
     from repro_torch.launch.train import build_session
     from repro_torch.train import trainer
     from repro_torch.tree import map_tree
@@ -2375,9 +2394,9 @@ def train_run(model, init, mesh, ds, opt, sync: str, **cfg):
     # auto: the conventional stack, as the launcher builds it
     session = (Session(mesh=mesh, mode="monolithic") if sync == "auto"
                else build_session(mesh, model, opt, ds, tcfg))
-    states = trainer.replicate(trainer.make_train_state(
-        model, opt, map_tree(lambda t: t.clone(), init), tcfg, mesh=mesh),
-        mesh.size)
+    states = trainer.init_states(model, opt,
+                                 map_tree(lambda t: t.clone(), init), tcfg,
+                                 mesh)
     return session, states, trainer.make_train_step(model, opt, tcfg,
                                                     comm=session.world)
 
@@ -2591,18 +2610,56 @@ def _remat_off_run(model, init, mesh, ds, opt, losses, params, on):
             "remat_off_peak_gib": peak / 2**30}
 
 
+def split_collectives(model, tcfg, mesh) -> tuple:
+    """(the reduce-scatters over "data" of a microbatch of the ``auto``
+    step split over "data", the leaves it averages whole): one for each
+    layer of a split stacked leaf, its gathered weight's gradient in the
+    staged backward; one for each use of the embedding, the head and the
+    MTP projection; the leaves whole over "data" are all-reduced once a
+    step (``trainer._auto_train_step``)."""
+    from repro_torch.train import trainer
+    from repro_torch.tree import flatten
+    ps, paths = flatten(model.abstract_params())
+    dims = trainer._data_axis(model, tcfg, mesh, None).dims
+    cfg = model.cfg
+    mtp = int(bool(getattr(cfg, "mtp", False))
+              and getattr(cfg, "embed_inputs", True))
+    uses = {"embed": 1 + int(bool(getattr(cfg, "tie_embeddings", False)))
+            + mtp, "lm_head": 1 + mtp, "mtp_proj": 1}
+    n = whole = 0
+    for path, leaf, d in zip(paths, ps, dims):
+        if d is None:
+            whole += 1
+        elif len(path) == 1:
+            n += uses[path[0]]
+        else:           # a stack's layer at a time; the MTP block once
+            n += 1 if path[0] == "mtp_block" else leaf.shape[0]
+    return n, whole
+
+
 def phase_train_auto(train):
-    """The train workload as ``sync="auto"``: each gradient leaf (and the
-    loss) averaged by ``collectives.pmean`` through the monolithic
-    default session, TRAIN_STEPS steps from the same weights and batches
-    as [train]'s composed run (``train``: its numbers).  Returns
-    ({"sum_chunks": launches}, numbers)."""
+    """The train workload as ``sync="auto"`` in the reference's layout
+    over "data" (its FSDP): each rank holds its data block of every leaf
+    the reference's specs split over "data" (params, gradient
+    accumulator, AdamW moments), gathers a layer's whole weights over
+    "data" as it runs (forward and remat rerun) and reduce-scatters
+    their gradients into its accumulator in the staged backward; the
+    other leaves (and the loss) averaged by ``collectives.pmean``, all
+    through the monolithic default session.  TRAIN_STEPS steps from the
+    same weights and batches as [train]'s composed run (``train``: its
+    numbers), losses within AUTO_LOSS_RTOL of them; the ranks' blocks
+    join into a finite global tree, each rank holds the bytes of its
+    blocks as ``trainer.abstract_state`` plans them, and ``sum_chunks``
+    launches as ``split_collectives`` counts.  Returns ({"sum_chunks":
+    launches}, numbers)."""
     import gc
     from repro_torch.comm import collectives
     from repro_torch.kernels import counter
+    from repro_torch.train import trainer
     from repro_torch.tree import leaves
     model, init, mesh, ds, opt = train_workload()
     p = mesh.size
+    tcfg = trainer.TrainCfg(sync_mode="auto")
     session, states, step_fn = train_run(model, init, mesh, ds, opt, "auto")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2610,20 +2667,31 @@ def phase_train_auto(train):
     states, losses, times, _ = _train_steps(step_fn, states, ds)
     counts = counter.counts()
     peak = torch.cuda.max_memory_allocated()
-    same = all(_bits_equal(a, b) for st in states[1:] for a, b in
-               zip(leaves(states[0]["params"]), leaves(st["params"])))
+    plan_bytes = _nbytes(leaves(trainer.abstract_state(model, opt, tcfg,
+                                                       mesh)))
+    whole_bytes = _nbytes(leaves(trainer.make_train_state(
+        model, opt, model.abstract_params(), tcfg)))
+    held = [_nbytes(leaves(st)) for st in states]
+    tree = trainer.logical_state(trainer.gather_state(states, tcfg, mesh,
+                                                      model))
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves(tree)
+                 if t.is_floating_point())
     step_s = float(np.mean(times[1:]))
     want = train["composed_losses"]
     err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
     default = collectives.session()
     mono_avg = default.average_layer_number()
-    n_leaves = len(leaves(model.abstract_params()))
-    plan = (n_leaves + 1) * (p - 1) * p * TRAIN_STEPS
+    n_rs, n_whole = split_collectives(model, tcfg, mesh)
+    per = (n_rs * tcfg.microbatches + n_whole + 2) * (p - 1)
+    plan = per * p * TRAIN_STEPS
     print(f"[train_auto] auto (monolithic default session, "
-          f"{'composed' if default.engine.composed else 'monolithic'}): "
-          f"losses {losses}; composed {want}; max rel err {err:.3e} (tol "
-          f"{AUTO_LOSS_RTOL}); bit-identical {losses == want}; replicas "
-          f"identical: {same}")
+          f"{'composed' if default.engine.composed else 'monolithic'}), "
+          f"split over \"data\": losses {losses}; composed {want}; max rel "
+          f"err {err:.3e} (tol {AUTO_LOSS_RTOL}); bit-identical "
+          f"{losses == want}")
+    print(f"[train_auto] state a rank {held} bytes (plan {plan_bytes:,d}; "
+          f"whole over \"data\" {whole_bytes:,d}); the ranks' blocks join "
+          f"into a global tree of finite leaves: {finite}")
     print(f"[train_auto] step {step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; "
           f"first {times[0] * 1e3:.1f} ms) = "
           f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, peak allocated "
@@ -2632,10 +2700,14 @@ def phase_train_auto(train):
     print(f"[train_auto] average layer number: monolithic {mono_avg:.3f}, "
           f"composed {train['composed_avg_layer']:.6f}")
     print(f"[train_auto]   sum_chunks: {counts['sum_chunks']} launches; "
-          f"generic schedule {plan} = ({n_leaves} leaves + the loss) x "
-          f"(p-1) ring combines x {p} ranks x {TRAIN_STEPS} steps")
-    if not all(np.isfinite(losses)) or not same:
-        raise AssertionError(f"auto: losses {losses}, replicas {same}")
+          f"plan {plan} = ({n_rs} reduce-scatters x "
+          f"{tcfg.microbatches} microbatch + {n_whole} whole leaves + the "
+          f"loss + the norm) x (p-1) ring combines x {p} ranks x "
+          f"{TRAIN_STEPS} steps")
+    if not all(np.isfinite(losses)) or not finite or any(
+            h != plan_bytes for h in held) or not plan_bytes < whole_bytes:
+        raise AssertionError(f"auto: losses {losses}, finite {finite}, "
+                             f"held {held} vs {plan_bytes}")
     if not err <= AUTO_LOSS_RTOL:
         raise AssertionError(f"auto losses {losses} vs composed {want}")
     if default.engine.composed or mono_avg != 2.0:
@@ -2644,8 +2716,9 @@ def phase_train_auto(train):
             counts[k] for k in ("quantize", "dequantize", "dequant_add")):
         raise AssertionError(f"auto launches {counts}, plan {plan}")
     numbers = dict(step_ms=step_s * 1e3, peak_gib=peak / 2**30,
-                   losses=losses, mono_avg=mono_avg)
-    del states, step_fn, session, init
+                   losses=losses, mono_avg=mono_avg, state_bytes=held[0],
+                   whole_bytes=whole_bytes)
+    del states, step_fn, session, init, tree
     gc.collect()
     torch.cuda.empty_cache()
     return {"sum_chunks": counts["sum_chunks"]}, numbers
@@ -2682,12 +2755,15 @@ def _mesh_run(model, init, mesh, ds, opt, sync, plain=False, **cfg):
     states hold them).  Returns (losses, step seconds, first step
     seconds, peak bytes, launches, session, step function, states,
     metrics)."""
+    from repro_torch.comm import Session
     from repro_torch.kernels import counter
     from repro_torch.launch.train import build_session
     from repro_torch.train import trainer
     from repro_torch.tree import map_tree
     tcfg = trainer.TrainCfg(sync_mode=sync, **cfg)
-    session = build_session(mesh, model, opt, ds, tcfg)
+    # auto: the conventional stack, as the launcher builds it
+    session = (Session(mesh=mesh, mode="monolithic") if sync == "auto"
+               else build_session(mesh, model, opt, ds, tcfg))
     # without a model axis rank 0's state holds the tensors it is given,
     # which the optimizer updates in place
     params = init() if callable(init) else (
@@ -3382,6 +3458,85 @@ def phase_train_adafactor():
     return launches, numbers
 
 
+def phase_train_fsdp_tp(adafactor):
+    """[train_fsdp_tp]: [train_adafactor]'s mistral-large-123b cut
+    (TRAIN_LAYERS of 88 layers, random bf16 weights from seed 0,
+    [train]'s data, Adafactor) as ``auto`` on (data TRAIN_RANKS, model
+    TP_MODEL) in the reference's layout: each rank its data block of its
+    model block of every leaf the reference's specs split over "data",
+    gathered over "data" as each layer runs, its gradients reduce-
+    scattered into the rank's accumulator, Adafactor's factored sums and
+    the clip's norm spanning the blocks; ``check_model_replicas`` on.
+    At LOW_LR, as the model-axis twins compare (``_tp_run``), held to
+    [train_adafactor]'s data-parallel run at LOW_LR from the same
+    weights and batches (``adafactor``: that phase's numbers): losses
+    within AUTO_LOSS_RTOL, gradient norms within TP_NORM_RTOL.  Not to
+    its ZeRO-1 run on (2, 2): ZeRO-1 runs Adafactor unfactored on flat
+    chunks, as the reference's ZeRO-1 does, which is other arithmetic
+    (on an H100 at LOW_LR its second loss rose where the factored runs'
+    fell, PERF.md §6).  The ranks' blocks join into a finite global
+    tree, each rank holds its state's bytes as ``trainer.abstract_state``
+    plans them, and the peak is printed beside ZeRO-1's.  Returns
+    ({"sum_chunks": launches}, numbers)."""
+    import gc
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    from repro_torch.train import trainer
+    from repro_torch.tree import leaves
+    model, init, _, ds = _large_workload(
+        "train_fsdp_tp", ADAFACTOR_ARCH, TRAIN_LAYERS, lazy=True)
+    tp_model = build_model(model.cfg, model_parallel=TP_MODEL)
+    mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=TP_MODEL,
+                                    device="cuda")
+    opt = _adafactor(LOW_LR)
+    tcfg = trainer.TrainCfg(sync_mode="auto", check_model_replicas=True)
+    (losses, step_s, first_s, peak, counts, session, step_fn, states,
+     metrics) = _mesh_run(tp_model, init, mesh, ds, opt, "auto",
+                          check_model_replicas=True)
+    plan_bytes = _nbytes(leaves(trainer.abstract_state(tp_model, opt, tcfg,
+                                                       mesh)))
+    held = [_nbytes(leaves(st)) for st in states]
+    tree = trainer.logical_state(trainer.gather_state(states, tcfg, mesh,
+                                                      tp_model))
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves(tree)
+                 if t.is_floating_point())
+    del tree, states, step_fn, session
+    want = adafactor["dp"]["low_lr"]
+    zero_peak = adafactor["zero_tp"]["peak_gib"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+    print(f"[train_fsdp_tp] auto on {dict(mesh.shape)}, split over \"data\""
+          f" and \"model\", lr {LOW_LR}: losses {losses}; step "
+          f"{step_s * 1e3:.1f} ms (steps 2-{TRAIN_STEPS}; first "
+          f"{first_s * 1e3:.1f} ms) = {_tokens(ds) / step_s:.0f} tokens/s; "
+          f"peak allocated {peak / 2**30:.2f} GiB; sum_chunks "
+          f"{counts['sum_chunks']} launches")
+    print(f"[train_fsdp_tp] against [train_adafactor]'s data-parallel run "
+          f"at lr {LOW_LR}: {losses} vs {want['losses']}; rel err "
+          f"{['%.3e' % e for e in errs]} (tol {AUTO_LOSS_RTOL})")
+    _norms_check("train_fsdp_tp", "auto on (data 2, model 2) against the "
+                 "data-parallel run", metrics["grad_norms"],
+                 want["grad_norms"], TP_NORM_RTOL)
+    print(f"[train_fsdp_tp] state a rank {held} bytes (plan "
+          f"{plan_bytes:,d}); blocks joined finite: {finite}; peak "
+          f"{peak / 2**30:.2f} GiB against ZeRO-1 on (2, 2)'s "
+          f"{zero_peak:.2f} GiB in [train_adafactor]")
+    if not all(np.isfinite(losses)) or not finite or any(
+            h != plan_bytes for h in held):
+        raise AssertionError(f"fsdp_tp: losses {losses}, finite {finite}, "
+                             f"held {held} vs {plan_bytes}")
+    if not max(errs) <= AUTO_LOSS_RTOL:
+        raise AssertionError(f"fsdp_tp: auto losses {losses} vs "
+                             f"{want['losses']}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fsdp_tp: losses {losses} do not fall")
+    numbers = dict(losses=losses, step_ms=step_s * 1e3, peak_gib=peak / 2**30,
+                   zero_peak_gib=zero_peak, state_bytes=held[0])
+    del init, model, tp_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sum_chunks": counts["sum_chunks"]}, numbers
+
+
 def phase_train_deepseek():
     """[train_deepseek]: deepseek-v3-671b at its published widths cut to
     its first TRAIN_LAYERS layers (dense MLA) and the MTP block (MLA and
@@ -3516,12 +3671,14 @@ def _train_jamba():
     return {"sum_chunks": launches}, numbers
 
 
-def _dryrun_cell(cfg, ds, mesh_shape, opt, settings=None, **kw):
+def _dryrun_cell(cfg, ds, mesh_shape, opt, settings=None, sync="composed",
+                 **kw):
     """The dry-run of [train]-like training of ``cfg`` on an abstract
     mesh of ``mesh_shape`` ((data,) or (data, model)) over ``ds``'s
-    batch (``meta`` tensors of its shapes), composed, with the optimizer
-    ``opt``, ``settings`` (``dryrun.train_settings``' keys) and the
-    ``TrainCfg`` fields ``kw``: (the cell, its ``ModuleCost``)."""
+    batch (``meta`` tensors of its shapes), ``sync`` (composed, or auto:
+    split over "data"), with the optimizer ``opt``, ``settings``
+    (``dryrun.train_settings``' keys) and the ``TrainCfg`` fields
+    ``kw``: (the cell, its ``ModuleCost``)."""
     from repro_torch.launch import dryrun
     from repro_torch.runtime import substrate
     batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
@@ -3530,22 +3687,23 @@ def _dryrun_cell(cfg, ds, mesh_shape, opt, settings=None, **kw):
     mesh = substrate.abstract_mesh(mesh_shape,
                                    ("data", "model")[:len(mesh_shape)])
     cell = dryrun.train_cell(cfg, batch, mesh, settings=settings,
-                             variant={"sync": "composed"}, optimizer=opt,
-                             **kw)
+                             variant={"sync": sync}, optimizer=opt, **kw)
     return cell, dryrun.trace_cell(cell)
 
 
-def phase_dryrun(train, train_tp, jamba, t_start):
+def phase_dryrun(train, train_tp, auto, jamba, t_start):
     """[dryrun]: the launch layer's dry-run (``launch.dryrun.train_cell``,
     one rank traced on ``meta`` tensors) held against one real step on
     the card, counted inside rank 0's thread
-    (``stepanalysis.measure_rank``): for [train]'s configuration and
-    [train_tp]'s (data 2, model 2), flops and rank 0's wire bytes must be
-    equal.  For those two and [train_jamba]'s (data 1, model 2) run, the
+    (``stepanalysis.measure_rank``): for [train]'s configuration,
+    [train_tp]'s (data 2, model 2) and [train_auto]'s step split over
+    "data" (``auto``: that phase's numbers), flops and rank 0's wire
+    bytes must be equal.  For those two and [train_jamba]'s (data 1, model 2) run, the
     traced peak a rank times the ranks on the card is printed beside the
     peak that phase measured and the analytic model's figure: readings,
     not gates.  Returns its numbers."""
     import gc
+    from repro_torch.comm import Session
     from repro_torch.configs import get_config, with_num_layers
     from repro_torch.launch import dryrun, stepanalysis
     from repro_torch.launch.train import build_session
@@ -3559,17 +3717,20 @@ def phase_dryrun(train, train_tp, jamba, t_start):
     cfg = with_num_layers(get_config("granite-34b"), TRAIN_LAYERS)
     ds = _train_data(cfg)
     numbers = {"hbm_per_chip": total}
-    for tag, mp, measured in (
-            ("train", 1, train["composed_peak_gib"]),
-            ("train_tp", TP_MODEL, train_tp["composed_peak_gib"])):
+    for tag, mp, sync, measured in (
+            ("train", 1, "composed", train["composed_peak_gib"]),
+            ("train_tp", TP_MODEL, "composed",
+             train_tp["composed_peak_gib"]),
+            ("train_auto", 1, "auto", auto["peak_gib"])):
         shape = (TRAIN_RANKS, mp) if mp > 1 else (TRAIN_RANKS,)
-        _, dry = _dryrun_cell(cfg, ds, shape, _adamw(TRAIN_LR))
+        _, dry = _dryrun_cell(cfg, ds, shape, _adamw(TRAIN_LR), sync=sync)
         model = build_model(cfg, model_parallel=mp)
         mesh = substrate.make_host_mesh(TRAIN_RANKS, model_parallel=mp,
                                         device="cuda")
         opt = _adamw(TRAIN_LR)
-        tcfg = trainer.TrainCfg(sync_mode="composed")
-        session = build_session(mesh, model, opt, ds, tcfg)
+        tcfg = trainer.TrainCfg(sync_mode=sync)
+        session = (Session(mesh=mesh, mode="monolithic") if sync == "auto"
+                   else build_session(mesh, model, opt, ds, tcfg))
         states = trainer.init_states(
             model, opt, model.init(torch.Generator(device="cuda")
                                    .manual_seed(0)), tcfg, mesh)
@@ -3666,14 +3827,18 @@ def phase_train_mamba2():
     return {"sum_chunks": counts["sum_chunks"]}, dp
 
 
+def vl_workload_data(cfg):
+    """[train_vl]'s batches for ``cfg`` (``_VLBatches``)."""
+    return _VLBatches(_train_data(cfg, embed_dim=cfg.d_model,
+                                  with_embeds=True, mrope=True),
+                      cfg.d_model)
+
+
 def vl_workload(phase):
     """[train_vl]'s workload: qwen2-vl-7b cut to VL_TRAIN_LAYERS layers on
     ``_VLBatches`` (``_large_workload``'s tuple)."""
-    return _large_workload(
-        phase, VL_ARCH, VL_TRAIN_LAYERS,
-        data=lambda cfg: _VLBatches(_train_data(
-            cfg, embed_dim=cfg.d_model, with_embeds=True, mrope=True),
-            cfg.d_model))
+    return _large_workload(phase, VL_ARCH, VL_TRAIN_LAYERS,
+                           data=vl_workload_data)
 
 
 def seamless_workload(phase):
@@ -4939,17 +5104,20 @@ def main() -> int:
     timed("train_small", phase_train_small)
     train = timed("train", phase_train)
     by_path, _ = timed("train (sync)", phase_train_sync)
-    by_path["train_auto"], _ = timed("train_auto", phase_train_auto, train)
+    by_path["train_auto"], auto = timed("train_auto", phase_train_auto,
+                                        train)
     by_path["train_tp"], tp_numbers = timed("train_tp", phase_train_tp,
                                             train)
     by_path["train_pod"], _ = timed("train_pod", phase_train_pod)
     by_path["train_moe"], _ = timed("train_moe", phase_train_moe)
-    by_path["train_adafactor"], _ = timed("train_adafactor",
-                                          phase_train_adafactor)
+    by_path["train_adafactor"], adafactor = timed("train_adafactor",
+                                                  phase_train_adafactor)
+    by_path["train_fsdp_tp"], _ = timed("train_fsdp_tp",
+                                        phase_train_fsdp_tp, adafactor)
     by_path["train_deepseek"], _ = timed("train_deepseek",
                                          phase_train_deepseek)
     by_path["train_jamba"], jamba = timed("train_jamba", phase_train_jamba)
-    timed("dryrun", phase_dryrun, train, tp_numbers, jamba, t_start)
+    timed("dryrun", phase_dryrun, train, tp_numbers, auto, jamba, t_start)
     by_path["train_mamba2"], _ = timed("train_mamba2", phase_train_mamba2)
     by_path["train_vl"], _ = timed("train_vl", phase_train_vl)
     by_path["train_seamless"], _ = timed("train_seamless",

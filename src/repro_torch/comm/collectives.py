@@ -76,6 +76,15 @@ def all_gather(x, axis: str, dim: int = 0):
     return _comm(axis).all_gather(x, dim=dim)
 
 
+def psum_scatter(x, axis: str, dim: int = 0):
+    """Tiled reduce-scatter over a mesh axis (``lax.psum_scatter(
+    tiled=True)``): rank i gets block i along ``dim`` of the sum.  The
+    reference has no such call of its own (GSPMD inserts it where a
+    gradient leaves an all-gathered weight); the port's data-split
+    ``auto`` step makes it (``parallel.sharding``)."""
+    return _comm(axis).reduce_scatter(x, dim=dim)
+
+
 def all_to_all(x, axis: str, split_dim: int = 0, concat_dim: int = 0):
     return _comm(axis).all_to_all(x, split_dim=split_dim,
                                   concat_dim=concat_dim)

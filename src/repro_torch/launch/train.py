@@ -32,8 +32,12 @@ and composed session (``build_session``) -> ``--data`` x
 ``--model-parallel`` ranks (a ``("data", "model")`` mesh, the model split
 over "model" by ``parallel.sharding``) running the train step through
 the session's communicator, or with ``--sync auto``
-the conventional stack (a monolithic session; each gradient leaf
-averaged through ``comm.collectives``), per leaf or in fused
+the conventional stack (a monolithic session; gradients through
+``comm.collectives``: on ``--data`` > 1 the state in the reference's
+``auto`` layout, each rank its data block of every leaf the reference's
+specs split over "data", the blocks gathered as each layer runs and
+their gradients reduce-scattered; the other leaves averaged, as every
+leaf is on ``--data 1``), per leaf or in fused
 buckets (``--bucket-grads``), blocking or as an overlapped schedule-IR
 program (``--overlap``), or as ZeRO-1 (``--zero``), with atomic async
 checkpoints (``--ckpt-dir``) in the reference's global layout, which
@@ -153,8 +157,10 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--sync", choices=["auto", "composed", "compressed"],
                     default="composed",
-                    help="auto: the monolithic stack (each gradient leaf "
-                         "averaged through the generic path); composed: "
+                    help="auto: the monolithic stack (the reference's "
+                         "layout over \"data\": params, gradients and "
+                         "optimizer state split as its specs say, "
+                         "through the generic path); composed: "
                          "the planned collectives; compressed: the int8 "
                          "error-feedback sync")
     ap.add_argument("--bucket-grads", action="store_true",

@@ -42,7 +42,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import remat as R
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as S
-from repro_torch.tree import map_tree
 
 Params = Dict[str, Any]
 
@@ -147,7 +146,7 @@ def _apply_dec_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor,
 
 
 def _layer(stack: Params, i: int) -> Params:
-    return map_tree(lambda t: t[i], stack)
+    return S.gathered(stack, i)
 
 
 # ---------------------------------------------------------------------------
@@ -198,34 +197,40 @@ def encode(params: Params, cfg: EncDecCfg, frame_embeds: torch.Tensor, *,
     (``models.remat``: on the staged backward's tape over "model")."""
     x = frame_embeds.to(cfg.param_dtype)
     remat = R.active(cfg.remat, train)
+    staged = tp or S.on_tape()
     for i in range(cfg.enc_layers):
-        if remat and tp:
-            x = R.staged(functools.partial(_enc_block, params, cfg, i),
-                         x)[0]
+        if remat and staged:
+            x = R.staged(functools.partial(_enc_block, params, cfg, i,
+                                           tp=tp), x)[0]
             continue
         args = (_layer(params["encoder"], i), cfg, x)
         x = (R.checkpointed(_apply_enc_layer, *args, train=True) if remat
              else _apply_enc_layer(*args, train=train, tp=tp))
     cut, f, _ = T._tp_ops(tp)
-    return f(_norm(cfg, params["enc_norm"], cut(x)))
+    memory = f(_norm(cfg, params["enc_norm"], cut(x)))
+    # every decoder block's rerun reads the memory: on a tape without
+    # *f* it is cut all the same, so that its graph runs once
+    return memory if tp else S.cut(memory)
 
 
-def _enc_block(params: Params, cfg: EncDecCfg, i: int, x: torch.Tensor):
-    """Encoder layer ``i`` over "model" as a block of the staged tape."""
+def _enc_block(params: Params, cfg: EncDecCfg, i: int, x: torch.Tensor,
+               tp: bool = True):
+    """Encoder layer ``i`` as a block of the staged tape (over "model",
+    or over a data split only: ``tp=False``)."""
     return _apply_enc_layer(_layer(params["encoder"], i), cfg, x,
-                            train=True, tp=True), ()
+                            train=True, tp=tp), ()
 
 
 def _dec_block(params: Params, cfg: EncDecCfg, i: int, memory: torch.Tensor,
-               x: torch.Tensor):
-    """Decoder layer ``i`` over "model" as a block of the staged tape (the
-    memory, a leaf of the tape, gathers its gradient in the rerun)."""
+               x: torch.Tensor, tp: bool = True):
+    """Decoder layer ``i`` as a block of the staged tape (the memory, a
+    leaf of the tape, gathers its gradient in the rerun)."""
     return _apply_dec_layer(_layer(params["decoder"], i), cfg, x, memory,
-                            train=True, tp=True)[0], ()
+                            train=True, tp=tp)[0], ()
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    return S.gathered(params["embed"])[tokens.long()]
 
 
 def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
@@ -237,20 +242,22 @@ def decode_train(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
     vocab-parallel embedding and the rank's heads and MLP columns."""
     tp = tp_index is not None
     vocab_tp = tp and "vocab" not in cfg.tp_whole
-    x = (S.vocab_parallel_embed(params["embed"], tokens, tp_index)
+    x = (S.vocab_parallel_embed(S.gathered(params["embed"]), tokens,
+                                tp_index)
          if vocab_tp else _embed(params, tokens))
     remat = R.active(cfg.remat, train)
+    staged = tp or S.on_tape()
     for i in range(cfg.dec_layers):
-        if remat and tp:
+        if remat and staged:
             x = R.staged(functools.partial(_dec_block, params, cfg, i,
-                                           memory), x)[0]
+                                           memory, tp=tp), x)[0]
             continue
         args = (_layer(params["decoder"], i), cfg, x, memory)
         x, _ = (R.checkpointed(_apply_dec_layer, *args, train=True) if remat
                 else _apply_dec_layer(*args, train=train, tp=tp))
     cut, f, _ = T._tp_ops(tp)
     h = _norm(cfg, params["dec_norm"], cut(x))
-    return (f(h) if vocab_tp else h) @ params["lm_head"]
+    return (f(h) if vocab_tp else h) @ S.gathered(params["lm_head"])
 
 
 def loss_fn(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor],

@@ -116,18 +116,28 @@ class Model:
                        ) -> Tuple[torch.Tensor, Params]:
         """(detached loss, gradient of every leaf of ``params``).  With a
         model axis the backward is staged (``sharding.StagedBackward``):
-        its all-reduces run on the rank's own thread."""
+        its all-reduces run on the rank's own thread.  Inside a step that
+        splits params over "data" (``sharding.DataSplit``, the calling
+        thread's) the backward is staged too, the model reads each split
+        leaf as a ``sharding.DataBlock``, and that leaf's gradient is
+        reduce-scattered into the split's accumulator instead: its entry
+        here is None."""
         ps, paths = flatten(params)
-        xs = [p.detach().requires_grad_(True) for p in ps]
-        if self.layout is None:
+        split = S.active_data_split()
+        xs = [S.DataBlock(split, i, p, split.dims[i])
+              if split is not None and split.dims[i] is not None
+              else p.detach().requires_grad_(True)
+              for i, p in enumerate(ps)]
+        if self.layout is None and split is None:
             loss, _ = self.loss(unflatten(paths, xs), batch)
             grads = list(torch.autograd.grad(loss, xs))
         else:
             with S.StagedBackward() as tape:
                 loss, _ = self.loss(unflatten(paths, xs), batch)
             tape.backward(loss)
-            grads = [x.grad if x.grad is not None else torch.zeros_like(x)
-                     for x in xs]
+            grads = [None if isinstance(x, S.DataBlock)
+                     else x.grad if x.grad is not None
+                     else torch.zeros_like(x) for x in xs]
         return loss.detach(), unflatten(paths, grads)
 
     def logits(self, params: Params, batch: Dict[str, torch.Tensor]

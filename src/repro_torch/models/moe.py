@@ -177,12 +177,16 @@ def _combine(out_buf, rows, masks, weights):
 def moe_forward(params: Params, cfg: MoECfg, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux loss): every expert on this rank's
-    tokens."""
+    tokens.  Under a ``StagedBackward`` (a step split over "data") the
+    input and the logits are cut, as ``moe_forward_sharded`` cuts them:
+    the aux loss reaches the loss apart from the layer's output."""
     _check(cfg)
     b, s, d = x.shape
+    x = S.cut(x)
     x2d = x.reshape(-1, d)
     C = capacity_of(x2d.shape[0], cfg)
-    top_idx, top_vals, pos, keep, aux = route(x2d, params["router"], cfg, C)
+    logits = S.cut(router_logits(x2d, params["router"]))
+    top_idx, top_vals, pos, keep, aux = route_logits(logits, cfg, C)
     rows = top_idx * C + pos.clamp(0, C - 1)          # (T, k)
     rows = [rows[:, j] for j in range(cfg.top_k)]
     masks = [keep[:, j] for j in range(cfg.top_k)]

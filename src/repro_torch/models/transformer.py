@@ -179,11 +179,13 @@ def _identity(x):
 
 
 def _tp_ops(tp: bool):
-    """(cut, f, g): the staged-backward cut and the two Megatron
-    operators with a model axis, identities without."""
+    """(cut, f, g): the staged-backward cut (the identity without a tape;
+    a step that splits over "data" has one without a model axis too)
+    and the two Megatron operators with a model axis, identities
+    without."""
     if tp:
         return S.cut, S.copy_to_model, S.reduce_from_model
-    return _identity, _identity, _identity
+    return S.cut, _identity, _identity
 
 
 def apply_layer(params: Params, cfg: TransformerCfg, spec: LayerSpec,
@@ -295,11 +297,11 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
             return (x, *auxes)
 
         def repeat(x, r):
-            y, *auxes = block(x, map_tree(lambda t: t[r], params_stage))
+            y, *auxes = block(x, S.gathered(params_stage, r))
             return y, auxes
 
         for r in range(stage.repeat):
-            if tp:
+            if tp or S.on_tape():
                 x, auxes = R.staged(functools.partial(repeat, r=r), x,
                                     policy=cfg.remat_policy)
             else:
@@ -317,7 +319,7 @@ def apply_stage(params_stage: Params, cfg: TransformerCfg, stage: StageSpec,
             cache_r = None if caches is None else \
                 map_tree(lambda t: t[r], caches[name])
             x, nc, aux = apply_layer(
-                map_tree(lambda t: t[r], params_stage[name]), cfg, spec, x,
+                S.gathered(params_stage[name], r), cfg, spec, x,
                 positions=positions, q_offset=q_offset, cache=cache_r,
                 decode=decode, chunked=chunked, valid_len=valid_len,
                 train=train, tp=tp)
@@ -373,8 +375,8 @@ def _mtp_spec(cfg: TransformerCfg) -> LayerSpec:
 def _unembed(params: Params, cfg: TransformerCfg, h: torch.Tensor
              ) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+        return h @ S.gathered(params["embed"]).T
+    return h @ S.gathered(params["lm_head"])
 
 
 def forward(params: Params, cfg: TransformerCfg,
@@ -411,10 +413,10 @@ def _final_hidden(params: Params, cfg: TransformerCfg,
     if not cfg.embed_inputs:
         h = batch["inputs_embeds"].to(cfg.param_dtype)
     elif tp and "vocab" not in cfg.tp_whole:
-        h = S.vocab_parallel_embed(params["embed"], batch["tokens"],
-                                   tp_index)
+        h = S.vocab_parallel_embed(S.gathered(params["embed"]),
+                                   batch["tokens"], tp_index)
     else:
-        h = params["embed"][batch["tokens"].long()]
+        h = S.gathered(params["embed"])[batch["tokens"].long()]
     positions = batch.get("positions")
     new_caches = {} if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -472,8 +474,8 @@ def loss_fn(params: Params, cfg: TransformerCfg,
     and through *f* it would be summed over "model" once more."""
     h, _, aux = _final_hidden(params, cfg, batch, train=True,
                               tp_index=tp_index)
-    if cfg.mtp and tp_index is not None:
-        h = S.cut(h)          # read by the head's *f* and the MTP block
+    if cfg.mtp:
+        h = S.cut(h)          # read by the head and the MTP block
     nll = _lm_loss(params, cfg, h, batch["labels"], tp_index)
     metrics = {"nll": nll, "aux": aux}
     loss = nll
@@ -499,16 +501,17 @@ def _mtp_loss(params: Params, cfg: TransformerCfg,
     output enters the head as the main stack's does; the two norms and
     the projection are whole on every rank."""
     tokens = batch["tokens"]
+    embed = S.gathered(params["embed"])
     if tp_index is None or "vocab" in cfg.tp_whole:
-        emb_next = params["embed"][tokens.long()][:, 1:]
+        emb_next = embed[tokens.long()][:, 1:]
     else:
-        emb_next = S.vocab_parallel_embed(params["embed"], tokens,
-                                          tp_index)[:, 1:]
+        emb_next = S.vocab_parallel_embed(embed, tokens, tp_index)[:, 1:]
     h_in = torch.cat([_norm(cfg, params["mtp_norm1"], h[:, :-1]),
                       _norm(cfg, params["mtp_norm2"], emb_next)], dim=-1)
-    h_mtp, _, aux = apply_layer(params["mtp_block"], cfg, _mtp_spec(cfg),
-                                h_in @ params["mtp_proj"], train=True,
-                                tp=tp_index is not None)
+    h_mtp, _, aux = apply_layer(S.gathered(params["mtp_block"]), cfg,
+                                _mtp_spec(cfg),
+                                h_in @ S.gathered(params["mtp_proj"]),
+                                train=True, tp=tp_index is not None)
     return (_lm_loss(params, cfg, h_mtp, batch["labels"][:, 1:],
                      tp_index), aux)
 

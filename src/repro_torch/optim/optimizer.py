@@ -37,8 +37,11 @@ Adafactor's reductions over a split dim must span the whole leaf:
 leaf ``i``'s reduction over its columns (``over="cols"``), rows
 (``"rows"``) or all of it (``"all"``) across the ranks holding the
 other blocks of that dim, and gives the count of values the sum spans,
-``n`` of them this rank's (``n`` where nothing crosses); ZeRO-1 over
-"model" passes a hook of its own (``train.trainer.make_train_step``),
+``n`` of them this rank's (``n`` where nothing crosses), or over a clip
+group of leading slices this model rank owns (``"own"``: a sum over the
+axes other than "model" that split the leaf, the ``auto`` step's "data");
+ZeRO-1 over "model" passes a hook of its own
+(``train.trainer.make_train_step``),
 whose "all" spans the reference's chunk, of which each model rank holds
 a piece; ``update(..., lead_blocks=fn)`` says into how many
 blocks ``fn(i, ndim)`` leaf ``i``'s leading dim is cut.  The clip groups
@@ -258,9 +261,11 @@ class _AdafactorLeaf:
 
     def clip_div(self, sq, n, own=False):
         """Each group's ``max(1, rms / clip_threshold)`` from its sum of
-        squares ``sq`` over ``n`` values a model block (the group's all,
-        where it is this rank's ``own``)."""
-        sq, count = (sq, n) if own else self.reduce(sq, "all", n)
+        squares ``sq`` over ``n`` values a block, summed over the ranks
+        holding the group's other blocks (``"own"``: the group is this
+        model rank's own, its leading slices; other axes may still split
+        it)."""
+        sq, count = self.reduce(sq, "own" if own else "all", n)
         rms = torch.sqrt(sq / count + 1e-30)
         return torch.clamp(rms / self.cfg.clip_threshold, min=1.0)
 

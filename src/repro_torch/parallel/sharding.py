@@ -97,6 +97,27 @@ reaches it, the rank's thread reruns the block under a tape of its own
 checks that the rerun gave the forward's bits, runs that tape's backward
 and hands the input's gradient on.  Nothing is recomputed on autograd's
 device thread.
+
+**The split over "data".**  The reference's specs also give each weight
+the dim its "model" split leaves over to "data" (the input rows of a
+column-parallel product, the output columns of a row-parallel one, the
+embedding's width, a router's and MLA's low-rank inputs): its ``auto``
+layout, FSDP, in which GSPMD gathers each block's weights as it runs
+and reduce-scatters their gradients.  ``data_split`` /
+``opt_data_leaf`` name that dim on the port's (stacked) leaves, whole
+where it does not divide (``fit_spec``), and ``data_block`` /
+``join_data`` / ``data_pieces`` cut and join it, on a model rank's block
+as on a whole leaf.  In the trainer's ``auto`` step
+(``train.trainer``) the rank's ``DataSplit`` hands the model a
+``DataBlock`` for each split param: a block (the model code's
+``gathered``) all-gathers its whole weights over "data" on entry, in the
+forward and again in its rerun, and on the tape the gathered weights are
+leaves (``_Gather``) whose gradient is reduce-scattered over "data" and
+added into the rank's accumulator block once the later segments have
+run, the whole weights then let go.  Those collectives wait for peers,
+so the split step always runs under a tape, model axis or not: its
+cuts then cut the residual stream of every layer (and a MoE layer's
+input and logits), as they do over "model".
 """
 
 from __future__ import annotations
@@ -109,7 +130,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.comm import collectives
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, map_tree, unflatten
 
 MODEL_AXIS = "model"
 
@@ -430,6 +451,107 @@ def unshard_params(shards: List[Dict[str, Any]], lay: TPLayout
 
 
 # ---------------------------------------------------------------------------
+# The reference's split over "data" (its FSDP: the ``auto`` step's state)
+# ---------------------------------------------------------------------------
+
+#: the dim (negative, from the end) each leaf's reference spec gives
+#: "data": the input rows of a column-parallel product, the output
+#: columns of a row-parallel one (``repro/models/layers.py``,
+#: ``transformer.py``, ``encdec.py``, ``mla.py``, ``mamba.py``,
+#: ``moe.py``)
+_DATA = {"wq": -2, "wk": -2, "wv": -2, "wo": -1, "w_gate": -2, "w_up": -2,
+         "w_down": -1, "embed": -1, "lm_head": -2, "mtp_proj": -1,
+         "in_proj": -2, "out_proj": -1, "w_dq": -2, "w_dkv": -2,
+         "w_kr": -2, "w_o": -1, "router": -2}
+#: the leaves whose names above mean something else under a parent
+#: (the Mamba norm's ``scale`` and the like carry no "data")
+_DATA_PARENTS = {"in_proj": ("mamba",), "out_proj": ("mamba",),
+                 "w_dq": ("mla",), "w_dkv": ("mla",), "w_kr": ("mla",),
+                 "w_o": ("mla",), "router": ("moe",)}
+
+
+def data_split(path, lay: Optional[TPLayout], data: int, shape
+               ) -> Optional[int]:
+    """The dim (negative) of the param at ``path`` (in a params tree, or
+    ``("params", ...)`` in a train state; ``shape`` its shape, global or
+    a model rank's block: the data dim is never the model split's) that
+    the reference's ``auto`` layout splits over a "data" axis of
+    ``data`` ranks, or None where the leaf is whole over "data": its
+    spec names no "data" (norms, biases, a Mamba mixer's conv,
+    ``A_log``, ``D``, ``dt_bias``), or its dim does not divide by
+    ``data``, as the reference's ``fit_spec`` drops the entry.  ``lay``
+    (the model split, or None) is ``leaf_split``'s; the data split does
+    not depend on it.  An optimizer leaf's: ``opt_data_leaf``."""
+    name = path[-1]
+    d = _DATA.get(name)
+    if data <= 1 or d is None or len(shape) < 2:
+        return None
+    parents = _DATA_PARENTS.get(name)
+    if parents is not None and (len(path) < 2 or path[-2] not in parents):
+        return None
+    return d if shape[d] % data == 0 else None
+
+
+def opt_data_leaf(path, lay: Optional[TPLayout], data: int, param_shape
+                  ) -> Tuple[Tuple[Any, ...], Optional[int]]:
+    """``opt_leaf``'s counterpart over "data": the optimizer-state leaf
+    at ``path``'s param path and the dim (negative) of the leaf split
+    over "data", as the reference's ``optimizer.state_specs`` derives it
+    from the param's spec (``param_shape``: the param's shape).  An
+    AdamW moment and Adafactor's ``v`` split as their param; ``vr`` (the
+    param without its last dim) keeps a split of the param's rows at -1
+    and drops one of its columns, ``vc`` (without its second-to-last)
+    the other way round."""
+    pp = opt_leaf(path, None)[0]
+    d = data_split(pp, lay, data, param_shape)
+    if path[1] != "f" or path[-1] == "v":
+        return pp, d
+    return pp, {("vr", -2): -1, ("vc", -1): -1}.get((path[-1], d))
+
+
+def data_block(leaf: torch.Tensor, dim: Optional[int], data: int,
+               index: int) -> torch.Tensor:
+    """Data rank ``index``'s block (a view) of ``leaf`` split at ``dim``
+    over ``data`` ranks; the leaf itself where ``dim`` is None."""
+    if dim is None:
+        return leaf
+    return leaf.chunk(data, dim=dim)[index]
+
+
+def join_data(blocks: List[torch.Tensor], dim: Optional[int]
+              ) -> torch.Tensor:
+    """The leaf from the data ranks' blocks (in data-rank order); data
+    rank 0's where the leaf is whole over "data"."""
+    if dim is None:
+        return blocks[0]
+    return torch.cat(blocks, dim=dim)
+
+
+def data_pieces(path, block: torch.Tensor, lay: Optional[TPLayout],
+                model_index: int, dim: Optional[int], data: int,
+                index: int):
+    """``leaf_pieces`` of rank (data ``index``, model ``model_index``)'s
+    ``block``, a data block of its model block: each piece's box cut to
+    the data block along ``dim``."""
+    if lay is None:
+        shape = list(block.shape)
+        pieces = [([[0, n] for n in shape], block)]
+    else:
+        shape, pieces = leaf_pieces(path, block, lay, model_index)
+        shape = list(shape)
+    if dim is None:
+        return tuple(shape), pieces
+    w = block.shape[dim]
+    shape[dim] *= data
+    out = []
+    for box, piece in pieces:
+        box = [list(b) for b in box]
+        box[dim] = [index * w, (index + 1) * w]
+        out.append((box, piece))
+    return tuple(shape), out
+
+
+# ---------------------------------------------------------------------------
 # The Megatron operators and the staged backward
 # ---------------------------------------------------------------------------
 
@@ -623,6 +745,117 @@ def checkpoint_block(fn: Callable, x: torch.Tensor, keep=None
     if tape is None:
         return fn(x)
     return tape.block(fn, x, keep)
+
+
+def on_tape() -> bool:
+    """Whether the calling thread records a ``StagedBackward``."""
+    return getattr(_local, "tape", None) is not None
+
+
+# ---------------------------------------------------------------------------
+# The data split in the step: gather on entry, reduce-scatter backward
+# ---------------------------------------------------------------------------
+
+DATA_AXIS = "data"
+
+
+class DataSplit:
+    """One rank's data split for one step: ``dims`` (per param leaf, the
+    dim split over "data", or None) and ``acc``, the gradient
+    accumulator (per leaf; the rank's data block of each split one).
+    ``with split:`` makes it the calling thread's, so that
+    ``Model.loss_and_grads`` hands the model a ``DataBlock`` for each
+    split leaf."""
+
+    def __init__(self, dims, acc: List[Optional[torch.Tensor]]) -> None:
+        self.dims, self.acc = tuple(dims), acc
+
+    def __enter__(self) -> "DataSplit":
+        if getattr(_local, "data", None) is not None:
+            raise RuntimeError("a DataSplit is already active")
+        _local.data = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _local.data = None
+
+    def add(self, part: "DataBlock", grad: torch.Tensor) -> None:
+        """Add the reduced ``grad`` of ``part`` into its accumulator
+        block, in place, in the accumulator's dtype."""
+        acc = self.acc[part.index]
+        if part.r is not None:
+            acc = acc[part.r]
+        acc.add_(grad.to(acc.dtype))
+
+
+def active_data_split() -> Optional[DataSplit]:
+    """The calling thread's ``DataSplit`` (None outside a split step)."""
+    return getattr(_local, "data", None)
+
+
+@dataclasses.dataclass(eq=False)
+class DataBlock:
+    """A param the rank holds its "data" block of, as the model's
+    forward reads it: ``[r]`` is layer ``r`` of a stacked leaf, and
+    ``gathered`` turns it into the whole weights (over "data"; the
+    rank's block of them over "model")."""
+
+    split: DataSplit
+    index: int
+    block: torch.Tensor
+    dim: int
+    r: Optional[int] = None
+
+    def __getitem__(self, r: int) -> "DataBlock":
+        if self.r is not None:
+            raise IndexError("a DataBlock selects one layer only")
+        return dataclasses.replace(self, r=r)
+
+    def gather(self) -> torch.Tensor:
+        """The whole weights, all-gathered over "data" on the rank's
+        thread.  While a graph is recorded on a tape they are a leaf of
+        it, whose gradient the tape reduce-scatters over "data" into the
+        accumulator (``_Gather``); else (a checkpointed block's forward)
+        a plain tensor, freed with the block's forward."""
+        x = self.block if self.r is None else self.block[self.r]
+        whole = collectives.all_gather(x, DATA_AXIS, dim=self.dim)
+        tape = getattr(_local, "tape", None)
+        if tape is None or not torch.is_grad_enabled():
+            return whole
+        leaf = whole.detach().requires_grad_(True)
+        tape._segments.append(_Gather(leaf, self))
+        return leaf
+
+
+@dataclasses.dataclass(eq=False)
+class _Gather:
+    """A gathered weight ``leaf`` of ``part``: its gradient is complete
+    once every later segment has run; it is summed over "data", this
+    rank's block of it added into the accumulator, and the whole weight
+    and its gradient let go."""
+
+    leaf: Optional[torch.Tensor]
+    part: DataBlock
+
+    def run(self) -> None:
+        leaf, self.leaf = self.leaf, None
+        g = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+        del leaf
+        self.part.split.add(self.part, collectives.psum_scatter(
+            g, DATA_AXIS, dim=self.part.dim))
+
+
+def gathered(tree: Any, r: Optional[int] = None) -> Any:
+    """``tree`` (a layer's params; ``r``: layer ``r`` of a stacked one)
+    with each ``DataBlock`` gathered to its whole weights: where the
+    step splits params over "data", every block calls it on entry (in
+    its forward and its rerun), and so do the embedding, the head and
+    the MTP head where they are used."""
+    def one(t):
+        if r is not None:
+            t = t[r]
+        return t.gather() if isinstance(t, DataBlock) else t
+    return map_tree(one, tree)
 
 
 def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,

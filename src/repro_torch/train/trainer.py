@@ -9,7 +9,13 @@ Counterpart of ``repro.train.trainer`` for its three sync modes:
                ``comm.collectives.pmean`` through the monolithic default
                session (the generic path, what XLA's inserted ``psum`` is
                to the reference).  One collective per leaf, blocking; no
-               buckets, overlap or ZeRO.
+               buckets, overlap or ZeRO.  On a "data" axis of more than
+               one rank the state is the reference's ``auto`` layout
+               (its FSDP, ``data_width``): each rank holds its data
+               block of every leaf the reference's specs split over
+               "data" (params, gradient accumulator, optimizer state),
+               gathers a block's weights as it runs and reduce-scatters
+               their gradients (``_auto_train_step``).
   composed   — every rank computes the loss and gradients of its rows of
                the batch, and gradients are synced through a
                ``repro_torch.comm`` communicator whose per-function
@@ -61,10 +67,11 @@ and the reference's ways of running that sync:
 
 The checkpoint layout is the reference's global tree on any mesh
 (``gather_state`` / ``scatter_state``): every leaf whole (a split
-leaf's blocks carry their global boxes), ZeRO's optimizer leaves flat
-over the whole param and padded to the data width, the bucketed EF
-residual in the global params' buckets.  A tree gathered on one
-``(data, model)`` mesh scatters onto any other.
+leaf's blocks, over "model" and over "data", carry their global boxes),
+ZeRO's optimizer leaves flat over the whole param and padded to the
+data width, the bucketed EF residual in the global params' buckets.  A
+tree gathered on one ``(data, model)`` mesh, in any sync mode, scatters
+onto any other.
 
 A mesh with a "model" axis trains a model built for it
 (``build_model(cfg, model_parallel=...)``): each rank holds its shard
@@ -97,6 +104,7 @@ built once per ``make_train_step``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -262,8 +270,8 @@ def _from_pieces(ys: torch.Tensor, n: int, p: int) -> torch.Tensor:
 
 
 def make_train_state(model, optimizer, params: Params,
-                     cfg: TrainCfg = TrainCfg(), mesh=None
-                     ) -> Dict[str, Any]:
+                     cfg: TrainCfg = TrainCfg(), mesh=None,
+                     data_index: Optional[int] = None) -> Dict[str, Any]:
     """One rank's {"params", "opt", "step"[, "ef"]}.  Optimizer moments
     and the EF residual start at zero, as in the reference.  With
     ``cfg.zero`` the optimizer state covers this rank's flat padded chunk
@@ -271,7 +279,10 @@ def make_train_state(model, optimizer, params: Params,
     every rank, so one state replicates to all.  With a model axis
     (``params`` a model rank's shard) the state is the block of the
     global params' state: Adafactor factors a leaf by its global shape,
-    as the reference's does under GSPMD."""
+    as the reference's does under GSPMD.  With ``data_index`` (an
+    ``auto`` step whose "data" axis on ``mesh`` splits the state,
+    ``data_width``) every leaf the reference's specs split over "data"
+    is data rank ``data_index``'s block of it, and every leaf a copy."""
     device = leaves(params)[0].device
     if cfg.zero:
         p = zero_layout(cfg, mesh)[1]
@@ -298,6 +309,14 @@ def make_train_state(model, optimizer, params: Params,
         opt = optimizer.init(params)
     state = {"params": params, "opt": opt,
              "step": torch.zeros((), dtype=torch.int32)}
+    if data_index is not None:
+        data = data_width(cfg, mesh)
+        dims = _state_data_dims(model, data, state)
+        ls, paths = flatten(state)
+        # copies, whole leaves too: each data rank updates its own
+        state = unflatten(paths, [
+            sharding.data_block(l, d, data, data_index).contiguous().clone()
+            for l, d in zip(ls, dims)])
     if cfg.sync_mode == "compressed":
         if cfg.bucket_grads:
             state["ef"] = bucket_ef_zeros(
@@ -310,10 +329,44 @@ def make_train_state(model, optimizer, params: Params,
 
 def abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg(),
                    mesh=None):
-    """One rank's state as ``meta`` tensors (shapes and dtypes, no
-    memory)."""
+    """Rank 0's state as ``meta`` tensors (shapes and dtypes, no
+    memory): its data block of each leaf the ``auto`` step splits over
+    "data"."""
     return make_train_state(model, optimizer, model.abstract_params(), cfg,
-                            mesh=mesh)
+                            mesh=mesh,
+                            data_index=0 if data_width(cfg, mesh) > 1
+                            else None)
+
+
+def data_width(cfg: TrainCfg, mesh) -> int:
+    """The width of the "data" axis the step splits its state over, the
+    reference's ``auto`` layout: ``mesh``'s "data" axis for an ``auto``
+    step that syncs over it, else 1 (the state whole over "data")."""
+    if (mesh is None or cfg.sync_mode != "auto"
+            or sharding.DATA_AXIS not in cfg.data_axes):
+        return 1
+    return int(dict(mesh.shape).get(sharding.DATA_AXIS, 1))
+
+
+def _state_data_dims(model, data: int, state) -> List[Optional[int]]:
+    """Per leaf of ``state`` (a rank's, or the global tree: the paths
+    are what count), the dim split over ``data`` ranks
+    (``sharding.data_split``), from the shapes of ``model``'s params
+    (a model rank's block: the data dim is never the model split's)."""
+    ps, pp = flatten(model.abstract_params())
+    shapes = {p: tuple(l.shape) for p, l in zip(pp, ps)}
+    out = []
+    for path in flatten(state)[1]:
+        if path[0] == "params":
+            out.append(sharding.data_split(path, model.layout, data,
+                                           shapes[tuple(path[1:])]))
+        elif path[0] == "opt" and path[1] != "step":
+            param = shapes[sharding.opt_leaf(path, None)[0]]
+            out.append(sharding.opt_data_leaf(path, model.layout, data,
+                                              param)[1])
+        else:
+            out.append(None)
+    return out
 
 
 def replicate(state: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
@@ -329,19 +382,24 @@ def _model_size(mesh) -> int:
 def init_states(model, optimizer, params: Params, cfg: TrainCfg, mesh
                 ) -> List[Dict[str, Any]]:
     """One fresh state per rank of ``mesh`` from the full ``params``:
-    replicas of one state without a model axis, else rank r's state over
-    its model coordinate's shard (the data ranks of one model coordinate
-    hold copies)."""
-    if _model_axis(model, mesh) is None:
+    replicas of one state without a model axis or a data split, else
+    rank r's state over its model coordinate's shard, and its data
+    coordinate's block of it where the ``auto`` step splits over "data"
+    (the ranks of one (data, model) coordinate hold copies)."""
+    split = data_width(cfg, mesh) > 1
+    if _model_axis(model, mesh) is None and not split:
         return replicate(make_train_state(model, optimizer, params, cfg,
                                           mesh=mesh), mesh.size)
-    firsts: Dict[int, Dict[str, Any]] = {}
+    firsts: Dict[Tuple[int, Optional[int]], Dict[str, Any]] = {}
     states = []
     for r in range(mesh.size):
-        idx = mesh.coords(r)[sharding.MODEL_AXIS]
+        c = mesh.coords(r)
+        idx = (c.get(sharding.MODEL_AXIS, 0),
+               c[sharding.DATA_AXIS] if split else None)
         if idx not in firsts:
             firsts[idx] = make_train_state(
-                model, optimizer, model.shard(params, idx), cfg, mesh=mesh)
+                model, optimizer, model.shard(params, idx[0]), cfg,
+                mesh=mesh, data_index=idx[1])
             states.append(firsts[idx])
         else:
             states.append(map_tree(lambda t: t.clone(), firsts[idx]))
@@ -366,10 +424,15 @@ def with_model_parallel(model, m: int):
     return dataclasses.replace(model, model_parallel=m)
 
 
+def _model_on(model, mesh):
+    """``model`` built for ``mesh``'s "model" axis."""
+    return with_model_parallel(model, _model_size(mesh))
+
+
 def _layout_on(model, mesh) -> Optional[sharding.TPLayout]:
     """The split of ``model``'s config over ``mesh``'s "model" axis (None
     without a model axis)."""
-    return with_model_parallel(model, _model_size(mesh)).layout
+    return _model_on(model, mesh).layout
 
 
 def _bucket_leaves(flats, buckets, n: int) -> List[torch.Tensor]:
@@ -421,7 +484,9 @@ def global_abstract_state(model, optimizer, cfg: TrainCfg = TrainCfg(),
     tree, built from the whole config (every leaf whole, whatever the
     model axis); with ``cfg.zero`` each optimizer leaf is the whole
     param's flat length padded to a multiple of the data width."""
-    st = abstract_state(with_model_parallel(model, 1), optimizer, cfg, mesh)
+    whole = with_model_parallel(model, 1)
+    st = make_train_state(whole, optimizer, whole.abstract_params(), cfg,
+                          mesh=mesh)
     if not cfg.zero:
         return st
     p = zero_layout(cfg, mesh)[1]
@@ -471,9 +536,16 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
       are joined, cut to its block, the blocks joined over "model", and
       the whole leaf flattened and padded to the data width;
     - a bucketed EF residual over "model" is the global params' buckets,
-      each leaf's values moved from its model ranks' buckets."""
+      each leaf's values moved from its model ranks' buckets;
+    - a leaf the ``auto`` step splits over "data" (``data_width``) is a
+      ``ShardedTensor`` of every (data, model) rank's block, each box cut
+      to the rank's rows or columns."""
     lay = _layout_on(model, mesh)
     zaxis, p = zero_layout(cfg, mesh) if cfg.zero else (None, 1)
+    data = data_width(cfg, mesh)
+    if data > 1:
+        zaxis = sharding.DATA_AXIS
+        ddims = _state_data_dims(_model_on(model, mesh), data, states[0])
     groups = _model_groups(mesh, zaxis)
     ef = None
     if lay is not None and isinstance(states[0].get("ef"), tuple):
@@ -492,7 +564,14 @@ def gather_state(states: List[Dict[str, Any]], cfg: TrainCfg, mesh,
     for i, path in enumerate(paths):
         l = first[i]
         d = None if lay is None else sharding.leaf_split(path, lay)
-        if by_piece and _zero_opt_leaf(path):
+        if data > 1 and ddims[i] is not None:
+            pieces = [sharding.data_pieces(path, per_rank[r][i], lay, m,
+                                           ddims[i], data, k)
+                      for m, g in enumerate(groups)
+                      for k, r in enumerate(g)]
+            out.append(ShardedTensor(pieces[0][0], l.dtype, [
+                piece for _, ps in pieces for piece in ps]))
+        elif by_piece and _zero_opt_leaf(path):
             pp = sharding.opt_leaf(path, lay)[0]
             c, k = _piece(math.prod(sharding.global_shape(pp, shapes[pp],
                                                           lay)), p,
@@ -544,8 +623,10 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
     split leaf (``model`` on a mesh with a model axis) and, with
     ``cfg.zero``, its data coordinate's chunk of the flat padded block of
     every optimizer leaf (Adafactor's over a model axis: its piece of
-    the whole param's chunk, ``_piece``); every other leaf is copied
-    whole.  Tensors go to
+    the whole param's chunk, ``_piece``), and, where the ``auto`` step
+    splits over "data" (``data_width``; a dim that does not divide held
+    whole), its data coordinate's block of every split leaf; every
+    other leaf is copied whole.  Tensors go to
     the mesh's device, the step counters to the host, where
     ``make_train_state`` puts them."""
     lay = _layout_on(model, mesh)
@@ -555,6 +636,9 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
         ef = tree["ef"]
         tree = {k: v for k, v in tree.items() if k != "ef"}
     ls, paths = flatten(tree)
+    data = data_width(cfg, mesh)
+    ddims = (_state_data_dims(_model_on(model, mesh), data, tree)
+             if data > 1 else [None] * len(ls))
     shapes = {path[1:]: tuple(l.shape) for path, l in zip(paths, ls)
               if path[0] == "params"}
     by_piece = (cfg.zero and lay is not None
@@ -594,6 +678,9 @@ def scatter_state(tree: Any, cfg: TrainCfg, mesh, model
             if cfg.zero and _zero_opt_leaf(path) and not by_piece:
                 cs = x.shape[0] // p
                 x = x[k * cs:(k + 1) * cs]
+            if ddims[i] is not None:
+                x = sharding.data_block(x, ddims[i], data,
+                                        c[sharding.DATA_AXIS])
             y = x.to("cpu" if path[-1] == "step" else mesh.device,
                      copy=True)
             out.append(y if y.is_contiguous() else y.contiguous())
@@ -641,33 +728,52 @@ def _split_micro(batch: Dict[str, torch.Tensor], n: int):
 
 
 def _accumulate_grads(model, params: Params, batch, n_micro: int,
-                      grad_dtype) -> Tuple[torch.Tensor, Params]:
+                      grad_dtype, data_dims=None
+                      ) -> Tuple[torch.Tensor, Params]:
     """Loss and gradients of ``batch``, averaged over ``n_micro``
     microbatches accumulated in ``grad_dtype`` (one microbatch keeps each
-    param's own dtype, as the reference's ``value_and_grad`` does)."""
+    param's own dtype, as the reference's ``value_and_grad`` does).
+
+    Each microbatch's gradients are added into the accumulator in place,
+    leaf by leaf, each let go once added, and the sum is scaled in place:
+    the accumulator and one microbatch's gradients are all that is live
+    at once.  ``data_dims`` (per leaf, the dim the ``auto`` step splits
+    over "data", or None) makes the step's ``sharding.DataSplit``: a
+    split leaf's accumulator is the rank's data block, into which the
+    staged backward reduce-scatters each microbatch's gradient (the sum
+    over "data", not yet its mean)."""
     ps, paths = flatten(params)
-
-    def one(mb):
-        loss, grads = model.loss_and_grads(params, mb)
-        return loss, leaves(grads)
-
-    if n_micro == 1:
-        loss, grads = one(batch)
-        return loss, unflatten(paths, grads)
-    acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
-           for p in ps]
+    dims = [None] * len(ps) if data_dims is None else list(data_dims)
+    acc = [torch.zeros(p.shape, dtype=grad_dtype if n_micro > 1
+                       else p.dtype, device=p.device)
+           if n_micro > 1 or d is not None else None
+           for p, d in zip(ps, dims)]
+    trace.label(acc, "grads")
+    split = (contextlib.nullcontext() if data_dims is None
+             else sharding.DataSplit(dims, acc))
     loss_sum = None
-
-    def add(mb):
-        nonlocal acc, loss_sum
-        loss, grads = one(mb)
-        acc = [a + g.to(grad_dtype) for a, g in zip(acc, grads)]
-        loss_sum = loss if loss_sum is None else loss_sum + loss
-
-    for mb in _split_micro(batch, n_micro):
-        add(mb)
+    with split:
+        for mb in (_split_micro(batch, n_micro) if n_micro > 1
+                   else [batch]):
+            loss, grads = model.loss_and_grads(params, mb)
+            gl = leaves(grads)
+            del grads
+            for i, g in enumerate(gl):
+                gl[i] = None
+                if g is None:            # reduce-scattered into acc[i]
+                    continue
+                if acc[i] is None:       # one microbatch: its gradient
+                    acc[i] = g
+                else:
+                    acc[i].add_(g.to(acc[i].dtype))
+                del g
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+    if n_micro == 1:
+        return loss_sum, unflatten(paths, acc)
     inv = 1.0 / n_micro
-    return loss_sum * inv, unflatten(paths, [g * inv for g in acc])
+    for a in acc:
+        a.mul_(inv)
+    return loss_sum * inv, unflatten(paths, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -1039,9 +1145,10 @@ class _ModelAxis:
         ``n`` values, summed over "model" when that reduction crosses the
         leaf's split dim, with the count of values summed.  A replicated
         or partial-sum leaf is whole on every rank, and an expert stack's
-        (split at -3) rows and columns are each rank's own."""
+        (split at -3) rows and columns are each rank's own, as is a clip
+        group of its own experts (``over="own"``)."""
         d = self.dims[i]
-        if d is None or (over == "cols" and d != -1) or (
+        if d is None or over == "own" or (over == "cols" and d != -1) or (
                 over == "rows" and d != -2):
             return x, n
         return sharding.psum(x), n * self.model
@@ -1099,6 +1206,83 @@ class _ModelAxis:
         return torch.sqrt(sharding.psum(sq_split) + sq_rep)
 
 
+@dataclasses.dataclass(frozen=True)
+class _DataAxis:
+    """What the ``auto`` step does across the "data" axis it splits the
+    state over (``data_width``), static in the param layout: ``dims``
+    the dim of each param leaf split over ``data`` ranks (None: whole on
+    every data rank), ``model`` the step's ``_ModelAxis`` (None without
+    a model axis), whose hooks it extends."""
+
+    dims: Tuple[Optional[int], ...]
+    data: int
+    model: Optional[_ModelAxis] = None
+
+    def mean(self, grads, data_axes):
+        """The mean over the data axes (in their order): a split leaf's
+        block, already summed over "data" by its reduce-scatters, scaled
+        by 1 / data in place, and averaged over the other axes ("pod"
+        replicates the blocks); a whole leaf averaged over every axis
+        (``collectives.pmean``)."""
+        gl, paths = flatten(grads)
+        for a in data_axes:
+            for i, g in enumerate(gl):
+                if self.dims[i] is not None and a == sharding.DATA_AXIS:
+                    g.div_(self.data)
+                else:
+                    gl[i] = collectives.pmean(g, a)
+        return unflatten(paths, gl)
+
+    def split_sum(self, i: int, x: torch.Tensor, over: str, n: int
+                  ) -> Tuple[torch.Tensor, int]:
+        """The optimizer's hook: the model axis's (``_ModelAxis.
+        split_sum``), then a sum over "data" where the reduction crosses
+        the leaf's data split (a clip group, ``"all"`` or ``"own"``,
+        always spans the data blocks: "data" never splits a leaf's
+        leading dim)."""
+        if self.model is not None:
+            x, n = self.model.split_sum(i, x, over, n)
+        d = self.dims[i]
+        if d is None or (over == "cols" and d != -1) or (
+                over == "rows" and d != -2):
+            return x, n
+        return collectives.psum(x, sharding.DATA_AXIS), n * self.data
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The whole model's gradient norm: a leaf's squares summed over
+        each axis that splits it, once on every rank that holds it
+        whole (one all-reduce over "model", one over "data")."""
+        gs = leaves(grads)
+        split_m = ((False,) * len(gs) if self.model is None
+                   else self.model.split)
+        zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+        sq = {}
+        for g, m, d in zip(gs, split_m, self.dims):
+            key = (m, d is not None)
+            sq[key] = sq.get(key, zero) + sum_of_squares(g)
+        part = [sq.get((True, True), zero), sq.get((True, False), zero)]
+        if self.model is not None:
+            part = list(sharding.psum(torch.stack(part)))
+        over_data = collectives.psum(part[0] + sq.get((False, True), zero),
+                                     sharding.DATA_AXIS)
+        return torch.sqrt(over_data + part[1] + sq.get((False, False),
+                                                       zero))
+
+
+def _data_axis(model, cfg: TrainCfg, mesh, tp: Optional[_ModelAxis]
+               ) -> Optional[_DataAxis]:
+    """The step's data split (None where ``data_width`` is 1)."""
+    data = data_width(cfg, mesh)
+    if data == 1:
+        return None
+    ps, paths = flatten(model.abstract_params())
+    return _DataAxis(
+        dims=tuple(sharding.data_split(("params",) + p, model.layout, data,
+                                       l.shape)
+                   for p, l in zip(paths, ps)),
+        data=data, model=tp)
+
+
 def _split_squares(gs, split):
     """(sum of squares of the split leaves, of the replicated ones), in
     f32 (tensors, ``gs[0]``'s device)."""
@@ -1147,24 +1331,54 @@ def _auto_train_step(model, optimizer, cfg: TrainCfg, mesh,
     (and the loss) averaged over the data axes by
     ``collectives.pmean`` through the monolithic default session, then
     the optimizer update, as the reference's step with the compiler's
-    inserted sync."""
+    inserted sync.
+
+    On a "data" axis of more than one rank (``data_width``) the state is
+    the reference's ``auto`` layout, its FSDP: each rank holds its data
+    block of every leaf the reference's specs split over "data"
+    (``sharding.data_split``), params, gradient accumulator and
+    optimizer state alike.  Each block's whole weights are all-gathered
+    over "data" as it runs, in its forward and its rerun, and their
+    gradients reduce-scattered into the accumulator in the staged
+    backward (``sharding.DataBlock``), so those leaves need no
+    all-reduce; the optimizer updates the blocks, its sums and the clip's
+    norm spanning the data blocks (``_DataAxis``)."""
+    da = _data_axis(model, cfg, mesh, tp)
+    if da is None:
+        norm_fn = None if tp is None else tp.global_norm
+        split_sum = None if tp is None else tp.split_sum
+    else:
+        norm_fn, split_sum = da.global_norm, da.split_sum
+        blocks = [tuple(sharding.data_block(l, d, da.data, 0).shape)
+                  for l, d in zip(leaves(model.abstract_params()), da.dims)]
 
     def rank_step(st, batch):
-        loss, grads = _accumulate_grads(model, st["params"], batch,
-                                        cfg.microbatches, cfg.grad_dtype)
+        if da is not None and [tuple(l.shape) for l in
+                               leaves(st["params"])] != blocks:
+            raise ValueError(
+                f"the auto step on a \"data\" axis of {da.data} ranks "
+                f"takes each rank's data block of the params "
+                f"(trainer.init_states, TrainSession.init_state / "
+                f"scatter), not whole params")
+        loss, grads = _accumulate_grads(
+            model, st["params"], batch, cfg.microbatches, cfg.grad_dtype,
+            None if da is None else da.dims)
         trace.label(grads, "grads")
         with torch.no_grad():
             if tp is not None:
                 grads = tp.reduce_partials(grads)
                 if cfg.check_model_replicas:
                     tp.check_replicated(grads)
+            if da is not None:
+                grads = da.mean(grads, data_axes)
             for a in data_axes:
-                grads = map_tree(lambda g: collectives.pmean(g, a), grads)
+                if da is None:
+                    grads = map_tree(lambda g: collectives.pmean(g, a),
+                                     grads)
                 loss = collectives.pmean(loss, a)
             new_params, new_opt, om = optimizer.update(
-                grads, st["opt"], st["params"],
-                global_norm_fn=None if tp is None else tp.global_norm,
-                split_sum=None if tp is None else tp.split_sum,
+                grads, st["opt"], st["params"], global_norm_fn=norm_fn,
+                split_sum=split_sum,
                 lead_blocks=None if tp is None else tp.lead_blocks)
         return ({"params": new_params, "opt": new_opt,
                  "step": st["step"] + 1}, {"loss": loss, **om})

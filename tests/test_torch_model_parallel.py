@@ -19,8 +19,10 @@
   can round a code the other way), and each step's global gradient norm
   (which engages the clip) within ``NORM_RTOL`` of the reference's
   (1e-5; 1e-3 compressed; readings 1e-7 and 3.3e-4).  After every step
-  the data replicas are identical, and so is every leaf the model ranks
-  all hold (norms, MQA's K/V); ``check_model_replicas`` asserts in the
+  the data replicas are identical (``auto``: but for the blocks of the
+  leaves it splits over "data", each data rank's own), and so is every
+  leaf the model ranks all hold (norms, MQA's K/V; of a data
+  coordinate); ``check_model_replicas`` asserts in the
   step that their gradients agree across model ranks without a sum, and
   names a leaf whose gradient one rank changed.
 - The pod axis: ``TrainCfg.data_axes`` defaults to ``("pod", "data")``.
@@ -297,22 +299,39 @@ def _setup(arch, mesh, tree, sync="composed", **cfg_kw):
                                                       comm=sess.world)
 
 
-def _check_replicas(mesh, model, states, step):
+def _check_replicas(mesh, model, states, step, data=1):
     """Data replicas (one model coordinate) hold the same state, and the
     leaves every model rank holds whole (norms, MQA's K/V) are the same
-    on every rank: their gradients agree across the model ranks."""
+    on every rank of a data coordinate: their gradients agree across the
+    model ranks.  ``data``: the width ``auto`` splits its state over
+    (``trainer.data_width``), whose data ranks hold other blocks of the
+    leaves it splits."""
     paths = flatten(states[0]["params"])[1]
+    whole = [d is None for d in trainer._state_data_dims(
+        model, data, {"params": states[0]["params"]})]
+    state_whole = [d is None for d in trainer._state_data_dims(
+        model, data, {"params": states[0]["params"],
+                      "opt": states[0]["opt"]})]
     for r, st in enumerate(states):
-        m = mesh.coords(r)["model"]
+        c = mesh.coords(r)
         first = states[next(q for q in range(mesh.size)
-                            if mesh.coords(q)["model"] == m)]
-        for a, b in zip(leaves([first["params"], first["opt"]]),
-                        leaves([st["params"], st["opt"]])):
-            assert torch.equal(a, b), f"data replicas differ at {step}"
-        for path, a, b in zip(paths, leaves(states[0]["params"]),
+                            if mesh.coords(q)["model"] == c["model"])]
+        for a, b, w in zip(leaves({"params": first["params"],
+                                   "opt": first["opt"]}),
+                           leaves({"params": st["params"],
+                                   "opt": st["opt"]}), state_whole):
+            assert torch.equal(a, b) or not w, (
+                f"data replicas differ at {step}")
+        same = states[next(q for q in range(mesh.size)
+                           if mesh.coords(q)["data"] == c["data"])]
+        for path, a, b in zip(paths, leaves(same["params"]),
                               leaves(st["params"])):
             if sharding.leaf_split(path, model.layout) is None:
                 assert torch.equal(a, b), (path, step)
+        for path, a, b, w in zip(paths, leaves(first["params"]),
+                                 leaves(st["params"]), whole):
+            # a block of the leaf: this data rank's own
+            assert w or first is st or not torch.equal(a, b), (path, step)
 
 
 def _train(arch, mesh, tree, sync="composed", **cfg_kw):
@@ -346,7 +365,8 @@ def test_data_x_model_training_matches_reference(reference_run, arch, sync):
         states, metrics = step_fn(states, ds.host_batch(step))
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
-        _check_replicas(mesh, model, states, step)
+        _check_replicas(mesh, model, states, step,
+                        data=2 if sync == "auto" else 1)
     key = f"{arch}/2x2/{'composed' if sync == 'auto' else sync}"
     want, want_norms = ref[key], ref[f"{key}/grad_norm"]
     assert _rel_err(losses, want) <= LOSS_RTOL[sync], (losses, want)

@@ -18,9 +18,12 @@
   relative; the int8 ring can round a code the other way after a 1e-7
   difference in a gradient.  ``auto`` is the reference's
   compiler-inserted sync (GSPMD over the global batch) against the
-  port's per-leaf ``pmean`` through the monolithic default session: the
-  same mean, summed in another order.
-  Replicas are bit-identical across ranks after every step.
+  port's: each rank's data block of every leaf the reference's specs
+  split over "data", its gradient reduce-scattered into the block, the
+  other leaves averaged by ``pmean`` through the monolithic default
+  session: the same mean, summed in another order.
+  Replicas (auto: of the leaves every rank holds whole) are
+  bit-identical across ranks after every step.
   The reference's losses come from one child interpreter with 4 host
   devices that runs both modes from the same weights.
 """
@@ -265,19 +268,25 @@ def test_data_parallel_training_matches_reference(reference_run, sync):
     tcfg = trainer.TrainCfg(sync_mode=sync)
     sess = (Session(mesh=mesh, mode="monolithic") if sync == "auto"
             else build_session(mesh, model, opt, ds, tcfg))
-    states = trainer.replicate(trainer.make_train_state(
-        model, opt, params_from_numpy(tree, cfg, device="cpu"), tcfg),
-        RANKS)
+    states = trainer.init_states(
+        model, opt, params_from_numpy(tree, cfg, device="cpu"), tcfg, mesh)
     step_fn = trainer.make_train_step(model, opt, tcfg, comm=sess.world)
+    # auto splits each leaf the reference's specs split over "data": the
+    # ranks hold its blocks, and the other leaves whole
+    first = {"params": states[0]["params"], "opt": states[0]["opt"]}
+    whole = [d is None for d in trainer._state_data_dims(
+        model, trainer.data_width(tcfg, mesh), first)]
+    assert all(whole) == (sync != "auto")
     losses = []
     for step in range(STEPS):
         states, metrics = step_fn(states, ds.host_batch(step))
         losses.append(metrics["loss"].item())
+        first = {"params": states[0]["params"], "opt": states[0]["opt"]}
         for st in states[1:]:     # the EF residual is each rank's own
             mine = {"params": st["params"], "opt": st["opt"]}
-            first = {"params": states[0]["params"], "opt": states[0]["opt"]}
-            for a, b in zip(leaves(first), leaves(mine)):
-                assert torch.equal(a, b), f"replicas differ at {step}"
+            for a, b, w in zip(leaves(first), leaves(mine), whole):
+                assert torch.equal(a, b) or not w, (
+                    f"replicas differ at {step}")
     assert _rel_err(losses, ref_losses[sync]) <= LOSS_RTOL[sync], (
         losses, ref_losses[sync])
     assert losses[-1] < losses[0]
