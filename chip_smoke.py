@@ -142,6 +142,27 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              decode ms a step, tokens/s, peak memory and what a step
              spends recomputing the memory's cross K and V.  Each serve
              phase frees its weights before the next.
+4i. serve_tp — serving over "data" and "model" as the reference's dry-run
+             cells place it (``Model.rank_params``, ``Model.init_caches``
+             inside each thread rank, ``sharding.cache_split``): bf16
+             weights, an f32 cache, ``Model.prefill`` and then 8
+             teacher-forced ``Model.decode_step``s at batch 8, each split
+             run held at every step to the same cut run unsplit on the
+             card within 2**-6 of max |unsplit logits| (the ranks' row and
+             vocabulary blocks joined; each rank's ``Model.argmax`` equal
+             to its rows' argmax of the joined logits):
+             granite-34b (2 of 88 layers) on (data 1, model 2), its one
+             K/V head's cache of 4096 positions split by sequence over
+             "model", the 2046-token prompt's decode steps crossing the
+             block boundary at 2048 (the partial softmaxes combined);
+             qwen2-72b (4 of 80 layers) on (2, 2), heads over "model",
+             rows and weight blocks over "data"; mamba2-1.3b at full
+             depth on (1, 2), its conv and ssm state over "model", in f32
+             weights (``SERVE_TP_RUNS``: at bf16 its logits move by more
+             than the gate under any reordering of its sums).  Every
+             prefill's flash launch runs on the tensor cores; prints the
+             flash and ``sum_chunks`` launches, each run's prefill and
+             decode ms and peak GiB.
 5. collectives — the gradient-sync kernels (``sum_chunks``, ``quantize``,
              ``dequantize``, ``dequant_add``) against their plain versions,
              bit for bit, at the sizes granite-34b's sync gives them: the
@@ -335,7 +356,11 @@ Phases (any failure exits non-zero; the last stdout line is the result):
              the ranks on the card beside the peak that phase measured
              and the analytic model's figure (readings, not gates), the
              card's total memory (``dryrun.HBM_PER_CHIP``), and its own
-             seconds and the script's so far.
+             seconds and the script's so far.  Then one decode step of
+             [serve_tp]'s granite-34b run (``dryrun.serve_cell``, its
+             cache's sequence over "model"): traced flops and rank 0's
+             wire bytes must equal the real step's, and its traced peak
+             (params / caches / rest) is printed beside rank 0's.
 9. ckpt    — the reduced granite-34b as ZeRO-1 over 4 thread ranks for 2
              steps, an async sharded save of its CUDA tensors, a restore
              onto 2 ranks (``allow_resize_1d``) whose gathered logical
@@ -466,6 +491,19 @@ F32_OPS_PER_VALUE = {"sum_chunks": 2, "quantize": 6, "dequantize": 1,
 SERVE_LAYERS = 4
 SERVE_REQUESTS = 16
 SERVE_MAX_NEW = 32
+#: [serve_tp]: (arch, layers (None: all), (data, model), cache
+#: positions, prompt, weights' dtype); batch SERVE_TP_BATCH,
+#: SERVE_TP_STEPS decode steps.  mamba2-1.3b runs in f32: at bf16 its 48
+#: layers' logits move by more than SERVE_TP_TOL under any other order
+#: of their sums (split against unsplit 6.2e-2 of max; [serve_mamba2]'s
+#: one-shot against decoded forms 3.8e-2 to 4.7e-2), so only f32 weights
+#: hold its split to its twin within the gate; it launches no flash.
+SERVE_TP_RUNS = (("granite-34b", 2, (1, 2), 4096, 2046, torch.bfloat16),
+                 ("qwen2-72b", 4, (2, 2), 4096, 2046, torch.bfloat16),
+                 ("mamba2-1.3b", None, (1, 2), 4096, 2048, torch.float32))
+SERVE_TP_BATCH = 8
+SERVE_TP_STEPS = 8
+SERVE_TP_TOL = 2.0 ** -6                 # of max |unsplit logits|
 ELASTIC_TRAIN_RANKS = 4                 # 1 row a rank of the global 4
 ELASTIC_TRAIN_STEPS = 5
 ELASTIC_TRAIN_FAULTS = "lose@3:2"
@@ -1900,6 +1938,150 @@ def phase_serve_seamless(ref):
             "tokens_per_s": b * steps / decode_s, "peak_gib": peak,
             "cross_kv_ms": kv_ms, "forms_diff": max(diffs),
             "ops_a_step": ops}
+
+
+def _serve_tp_run(arch, layers, shape, max_len, n, dtype):
+    """One [serve_tp] run: the cut, its weights in ``dtype``, served
+    unsplit, then split on a thread mesh of ``shape`` (data, model);
+    returns its numbers."""
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import counter
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import substrate
+    b, steps = SERVE_TP_BATCH, SERVE_TP_STEPS
+    cfg = get_config(arch, param_dtype=dtype)
+    cfg = cfg if layers is None else with_num_layers(cfg, layers)
+    tag = f"serve_tp] [{arch}"
+    whole = build_model(cfg)
+    params = whole.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (b, n + steps),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda",
+                           dtype=torch.int32)
+    batches = [{"tokens": tokens[:, :n]}] + [
+        {"tokens": tokens[:, n + j:n + j + 1]} for j in range(steps)]
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    caches = whole.init_caches(b, max_len, dtype=torch.float32)
+    (lg, caches), pre_s = timed_run(lambda: whole.prefill(
+        params, batches[0], caches))
+    want = [lg]
+
+    def decode_whole(caches):
+        for bt in batches[1:]:
+            lg, caches = whole.decode_step(params, bt, caches)
+            want.append(lg)
+    _, dec_s = timed_run(lambda: decode_whole(caches))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del caches
+    data, mp = shape
+    mesh = substrate.make_host_mesh(data, model_parallel=mp, device="cuda")
+    model = build_model(cfg, model_parallel=mp)
+    rank_params = [model.rank_params(params, mesh, r)
+                   for r in range(mesh.size)]
+    del params
+    _free()
+    axes = sharding.row_axes(mesh.shape, b)
+    rows = [shard_batch(bt, mesh, axes) for bt in batches]
+
+    def prefill_rank(p, bt):
+        caches = model.init_caches(b, max_len, dtype=torch.float32)
+        lg, caches = model.prefill(p, bt, caches)
+        return [(lg, model.argmax(lg))], caches
+
+    def decode_rank(p, caches, got, *bts):
+        for bt in bts:
+            lg, caches = model.decode_step(p, bt, caches)
+            got.append((lg, model.argmax(lg)))
+        return got
+
+    counter.reset_all()
+    pre, split_pre_s = timed_run(lambda: substrate.run_spmd(
+        prefill_rank, [(rank_params[r], rows[0][r])
+                       for r in range(mesh.size)], mesh))
+    prefill_counts = counter.counts()
+    got, split_dec_s = timed_run(lambda: substrate.run_spmd(
+        decode_rank, [(rank_params[r], pre[r][1], pre[r][0],
+                       *[x[r] for x in rows[1:]])
+                      for r in range(mesh.size)], mesh))
+    split_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = counter.counts()
+    split = pre[0][1].split
+    specs = {"/".join(p): sp for p, sp in zip(split.paths, split.specs)
+             if p[:2] in (("stage0", "layer0"),)}
+    n_rows = b // math.prod(mesh.shape[a] for a in axes)
+    diffs, agree = [], True
+    for step, w in enumerate(want):
+        joined = torch.empty_like(w)
+        for r in range(mesh.size):
+            c = mesh.coords(r)
+            d = sharding.block_index(axes, mesh.shape, c)[0]
+            lg, top = got[r][step]
+            v = lg.shape[-1]
+            joined[d * n_rows:(d + 1) * n_rows,
+                   c["model"] * v:(c["model"] + 1) * v] = lg
+        diffs.append(_rel(joined, w))
+        top = joined.float().argmax(-1)
+        for r in range(mesh.size):
+            d = sharding.block_index(axes, mesh.shape, mesh.coords(r))[0]
+            same = top[d * n_rows:(d + 1) * n_rows]
+            agree &= bool(torch.equal(got[r][step][1], same))
+    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers, "
+          f"{str(dtype).split('.')[-1]} weights, on {dict(mesh.shape)}, "
+          f"batch {b}, prompt {n}, cache {max_len} positions f32; layer "
+          f"0's cache split {specs}")
+    print(f"[{tag}] unsplit: prefill {pre_s * 1e3:.1f} ms, decode "
+          f"{dec_s / steps * 1e3:.2f} ms a step, peak {peak:.2f} GiB; "
+          f"split ({mesh.size} thread ranks on one card): prefill "
+          f"{split_pre_s * 1e3:.1f} ms, decode "
+          f"{split_dec_s / steps * 1e3:.2f} ms a step, peak "
+          f"{split_peak:.2f} GiB ({card()})")
+    print(f"[{tag}] split against unsplit over prefill + {steps} decode "
+          f"steps: worst {max(diffs):.3e} of max|unsplit| (tol "
+          f"{SERVE_TP_TOL:.3g}); each rank's argmax equal to the joined "
+          f"rows': {agree}; launches: flash {counts['flash_attention']} "
+          f"({counts['flash_attention_tc']} tensor-core, all in the "
+          f"prefill: {prefill_counts['flash_attention']}), sum_chunks "
+          f"{counts['sum_chunks']}")
+    if not all(math.isfinite(d) and d <= SERVE_TP_TOL for d in diffs):
+        raise AssertionError(f"[{tag}]: split vs unsplit {diffs}")
+    if not agree:
+        raise AssertionError(f"[{tag}]: Model.argmax differs from the "
+                             "joined logits' argmax")
+    attn = _attn_layers(cfg)
+    if (counts["flash_attention"] != attn * mesh.size
+            or counts["flash_attention_tc"] != counts["flash_attention"]
+            or prefill_counts["flash_attention"]
+            != counts["flash_attention"]):
+        raise AssertionError(f"[{tag}]: flash launches {counts}, want "
+                             f"{attn} layers x {mesh.size} ranks on the "
+                             "tensor cores, in the prefill")
+    if counts["sum_chunks"] <= 0:
+        raise AssertionError(f"[{tag}]: no sum_chunks launch")
+    del rank_params, pre, got, whole, model
+    _free()
+    return {"launches": counts["flash_attention"],
+            "sum_chunks": counts["sum_chunks"], "worst": max(diffs),
+            "prefill_ms": split_pre_s * 1e3,
+            "decode_ms": split_dec_s / steps * 1e3,
+            "unsplit_prefill_ms": pre_s * 1e3,
+            "unsplit_decode_ms": dec_s / steps * 1e3,
+            "peak_gib": split_peak, "unsplit_peak_gib": peak}
+
+
+def phase_serve_tp():
+    """[serve_tp]: serving over "data" and "model" (see the module doc).
+    Returns {arch: numbers}."""
+    return {run[0]: _serve_tp_run(*run) for run in SERVE_TP_RUNS}
 
 
 def _bits_equal(a, b) -> bool:
@@ -3789,9 +3971,60 @@ def phase_dryrun(train, train_tp, auto, jamba, t_start):
     numbers["train_jamba"] = dict(
         traced_peak_gib=dry.peak_bytes / 2**30, ranks=TP_MODEL,
         measured_peak_gib=measured, analytic_gib=an["total"] / 2**30)
+    numbers["serve_tp"] = _dryrun_serve_tp()
     print(f"[dryrun] {time.perf_counter() - t0:.1f}s; the script so far "
           f"{time.perf_counter() - t_start:.1f}s")
     return numbers
+
+
+def _dryrun_serve_tp():
+    """One decode step of [serve_tp]'s granite-34b run, traced on ``meta``
+    (``dryrun.serve_cell``) and run on the card: flops and rank 0's wire
+    bytes must be equal."""
+    from repro_torch.configs import get_config, with_num_layers
+    from repro_torch.launch import dryrun, stepanalysis
+    from repro_torch.models import build_model
+    from repro_torch.runtime import substrate
+    arch, layers, shape, max_len, _, _ = SERVE_TP_RUNS[0]
+    cfg = with_num_layers(get_config(arch), layers)
+    seq = max_len - 512              # a decode cell's cache: seq + 512
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_TP_BATCH, 1),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2), device="cuda",
+                           dtype=torch.int32)
+    dry = dryrun.trace_cell(dryrun.serve_cell(
+        cfg, "decode", {"tokens": torch.empty(tokens.shape,
+                                              dtype=tokens.dtype,
+                                              device="meta")},
+        substrate.abstract_mesh(shape, ("data", "model")), seq_len=seq))
+    mesh = substrate.make_host_mesh(shape[0], model_parallel=shape[1],
+                                    device="cuda")
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    cell = dryrun.serve_cell(cfg, "decode", {"tokens": tokens}, mesh,
+                             seq_len=seq, params=params)
+    del params
+    out, real = stepanalysis.measure_rank(cell.fn, *cell.args)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out[0][0]).all())
+    print(f"[dryrun] serve_tp {arch} decode {dict(mesh.shape)} (cache "
+          f"{max_len} positions, batch {SERVE_TP_BATCH}): flops a rank "
+          f"traced {dry.flops:.6e}, real {real.flops:.6e}; wire bytes of "
+          f"rank 0 traced {dry.wire_bytes:,.0f}, real "
+          f"{real.wire_bytes:,.0f}; peak traced {dry.peak_bytes / 2**30:.3f}"
+          f" GiB ({_split(dry)}), rank 0 of the real step "
+          f"{real.peak_bytes / 2**30:.3f} GiB ({_split(real)})")
+    if not (dry.flops == real.flops and dry.wire_bytes == real.wire_bytes
+            and dry.flops > 0 and finite):
+        raise AssertionError(f"[dryrun] serve_tp: traced flops / wire "
+                             f"bytes {dry.flops} / {dry.wire_bytes} vs "
+                             f"real {real.flops} / {real.wire_bytes}, "
+                             f"finite logits {finite}")
+    del cell, out
+    _free()
+    return dict(flops=dry.flops, wire_bytes=dry.wire_bytes,
+                traced_peak_gib=dry.peak_bytes / 2**30,
+                real_rank0_peak_gib=real.peak_bytes / 2**30)
 
 
 def _split(cost) -> str:
@@ -5099,6 +5332,7 @@ def main() -> int:
     serve_mamba2 = timed("serve_mamba2", phase_serve_mamba2, ref)
     serve_vl = timed("serve_vl", phase_serve_vl, ref)
     serve_seamless = timed("serve_seamless", phase_serve_seamless, ref)
+    serve_tp = timed("serve_tp", phase_serve_tp)
     sync_rows = timed("collectives", phase_collectives)
     lib_launches, _ = timed("collectives_lib", phase_collectives_lib)
     timed("train_small", phase_train_small)
@@ -5118,6 +5352,8 @@ def main() -> int:
                                          phase_train_deepseek)
     by_path["train_jamba"], jamba = timed("train_jamba", phase_train_jamba)
     timed("dryrun", phase_dryrun, train, tp_numbers, auto, jamba, t_start)
+    by_path["serve_tp"] = {"sum_chunks": sum(r["sum_chunks"] for r in
+                                              serve_tp.values())}
     by_path["train_mamba2"], _ = timed("train_mamba2", phase_train_mamba2)
     by_path["train_vl"], _ = timed("train_vl", phase_train_vl)
     by_path["train_seamless"], _ = timed("train_seamless",
@@ -5135,7 +5371,9 @@ def main() -> int:
                      "serve_jamba": serve_jamba["launches"],
                      "serve_mamba2": serve_mamba2["launches"],
                      "serve_vl": serve_vl["launches"],
-                     "serve_seamless": serve_seamless["launches"]}
+                     "serve_seamless": serve_seamless["launches"],
+                     "serve_tp": sum(r["launches"]
+                                     for r in serve_tp.values())}
     flash_by_path["elastic_serve"] = timed(
         "elastic_serve", phase_elastic_serve)[0]["flash_attention"]
     print(f"[done] all phases in {time.perf_counter() - t0:.1f}s; the "

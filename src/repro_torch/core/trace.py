@@ -169,6 +169,17 @@ def labelling(fn: Callable[[Any, str], None]):
         _local.labeller = prev
 
 
+#: the kind ``add_flops`` labels its count with
+FLOPS = "flops"
+
+
+def add_flops(n: int) -> None:
+    """Count ``n`` flops for the meter of ``labelling`` (an op that runs
+    none of its products on ``meta``: the flash op); nothing without
+    one."""
+    label(n, FLOPS)
+
+
 def label(tree: Any, kind: str) -> None:
     """Name the tensors of ``tree`` ``kind`` ("grads", ...) for the
     meter of ``labelling``; nothing without one."""

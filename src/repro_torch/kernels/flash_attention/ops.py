@@ -3,7 +3,9 @@
 ``attention`` is what the model layers call.  It dispatches on the
 tensors' device: a CUDA tensor goes to the hand-written kernel
 (``kernel.flash_attention``) or raises; a CPU tensor goes to the plain
-version (``ref.attention``).  There is no fallback from one to the other.
+version (``ref.attention``); a ``meta`` one (the dry-run's) gets its
+output's shape and counts the products' flops.  There is no fallback
+from one to the other.
 
 ``counter`` counts kernel launches made through this op (and nothing
 else), so a run can show its prefill went through the kernel;
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels.counter import LaunchCounter
 from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -45,4 +48,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset)
+    if q.device.type == "meta":
+        # the dry-run's step: the kernel's output and the flops of its
+        # two products over every (query, key) pair, as the plain
+        # version counts them, without its score tiles
+        b, sq, h, d = q.shape
+        trace.add_flops(2 * b * h * sq * k.shape[1] * (d + v.shape[-1]))
+        return q.new_empty((b, sq, h, v.shape[-1]))
     raise ValueError(f"flash attention has no path for device {q.device}")

@@ -11,12 +11,17 @@ trainer's step over a session on the abstract mesh, all under the
 substrate's recording transport (``launch.stepanalysis``).  Nothing
 computes and nothing is allocated; the readings are the step's own.
 
+A prefill, decode or ``long_500k`` cell runs one rank of the port's
+split serving step (``serve_cell``): params, caches and rows placed as
+the reference's ``build_prefill_cell`` / ``build_decode_cell`` place
+them (``Model.rank_params``, ``sharding.cache_split``), the prefill's
+caches made inside the step, the decode's given to it.  On ``meta``
+the flash op allocates its output only and counts its two products'
+flops (the kernel keeps its tiles on chip).
+
 The fit verdict (``fits_hbm``, the reference's ``fits_16gb``) comes from
 the analytic model, as in the reference; the traced peak stands beside
-it where the reference puts its CPU-measured upper bound.  The port
-does not serve over "model" (``Model.init_caches`` refuses), so a
-prefill, decode or ``long_500k`` cell records the analytic model and
-``"traced": null`` with the reason.
+it where the reference puts its CPU-measured upper bound.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b \\
           --shape train_4k --mesh both
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -45,13 +51,15 @@ import torch
 from repro_torch.comm import Session
 from repro_torch.configs import (ARCH_IDS, cells, get_arch, get_config,
                                  get_shape)
-from repro_torch.data.pipeline import batch_rows
+from repro_torch.data.pipeline import batch_rows, shard_batch
 from repro_torch.launch import stepanalysis
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.models.encdec import EncDecCfg
 from repro_torch.models.transformer import TransformerCfg
 from repro_torch.optim import make_optimizer
+from repro_torch.parallel import sharding
+from repro_torch.runtime import substrate
 from repro_torch.serve import paging
 from repro_torch.train import trainer
 from repro_torch.tree import flatten
@@ -192,137 +200,26 @@ def input_specs(arch_id: str, shape_name: str) -> Dict[str, torch.Tensor]:
 # one entry a dim, each None, an axis name or a tuple of axis names
 # ---------------------------------------------------------------------------
 
-Spec = Tuple[Any, ...]
+Spec = sharding.Spec
 
 
 def _sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.axis_sizes))
 
 
-def filter_spec(spec: Spec, axis_names: Sequence[str]) -> Spec:
-    """Drop mesh-axis names not present in ``axis_names`` from a spec (an
-    entry left with one name is that name, as a ``PartitionSpec`` reads
-    a 1-tuple)."""
-    names = set(axis_names)
-    out = []
-    for entry in spec:
-        if entry is None:
-            out.append(None)
-        elif isinstance(entry, (tuple, list)):
-            kept = tuple(a for a in entry if a in names)
-            out.append(kept[0] if len(kept) == 1 else (kept or None))
-        else:
-            out.append(entry if entry in names else None)
-    return tuple(out)
-
-
-def _axes_size(mesh, entry) -> int:
-    names = entry if isinstance(entry, tuple) else (entry,)
-    return math.prod(_sizes(mesh).get(a, 1) for a in names)
-
-
 def fit_spec(spec: Spec, shape: Tuple[int, ...], mesh) -> Spec:
     """Filter to mesh axes and drop entries that cannot shard their dim
     (dim % shards != 0)."""
-    fs = filter_spec(spec, mesh.axis_names)
-    out = []
-    for i, entry in enumerate(fs):
-        if entry is None or i >= len(shape):
-            out.append(None if i >= len(shape) else entry)
-            continue
-        out.append(None if shape[i] % _axes_size(mesh, entry) else entry)
-    return tuple(out)
-
-
-def _spec_leaves(tree) -> list:
-    """A spec tree's leaves in ``tree.flatten``'s order (sorted keys): a
-    spec tuple is a leaf, not a node."""
-    if isinstance(tree, dict):
-        return [s for k in sorted(tree) for s in _spec_leaves(tree[k])]
-    return [tree]
-
-
-_BATCH = ("pod", "data")
-
-
-def _kv_cache_specs() -> Dict[str, Spec]:
-    return {"k": (_BATCH, None, "model", None),
-            "v": (_BATCH, None, "model", None), "len": (_BATCH,)}
-
-
-def _mixer_cache_specs(mixer: str) -> Dict[str, Spec]:
-    if mixer == "attn":
-        return _kv_cache_specs()
-    if mixer == "mla":
-        # the latent cache is shared by all heads: replicated over "model"
-        return {"ckv": (_BATCH, None, None), "krope": (_BATCH, None, None),
-                "len": (_BATCH,)}
-    return {"conv": (_BATCH, None, "model"),
-            "ssm": (_BATCH, "model", None, None)}
-
-
-def _stacked(specs: Dict[str, Spec]) -> Dict[str, Spec]:
-    return {k: (None,) + v for k, v in specs.items()}
-
-
-def cache_specs(model) -> Dict[str, Any]:
-    """The reference's ``Model.cache_specs``: each cache leaf's spec, the
-    batch over ("pod", "data") and heads over "model", stacked layers a
-    leading None."""
-    cfg = model.cfg
-    if model.kind == "encdec":
-        return {"self": _stacked(_kv_cache_specs()),
-                "memory": (_BATCH, None, None)}
-    return {f"stage{i}": {f"layer{j}": _stacked(_mixer_cache_specs(
-        spec.mixer)) for j, spec in enumerate(st.layers)}
-        for i, st in enumerate(cfg.stages)}
+    return sharding.fit_spec(spec, shape, _sizes(mesh))
 
 
 def serve_cache_shardings(model, mesh, batch: int, max_len: int,
                           enc_len: int = 0):
     """(fitted spec of every cache leaf, the abstract caches) for a
-    decode/prefill cell: the template puts the batch over ("pod",
-    "data") and heads over "model"; where those do not divide (batch 1,
-    kv_heads < model) the sequence dim is sharded instead
-    (context-parallel cache), the reference's arithmetic."""
-    specs = _spec_leaves(cache_specs(model))
-    abstract = paging.abstract_caches(
-        model, batch, max_len, dtype=torch.bfloat16,
-        enc_len=enc_len if model.kind == "encdec" else 0)
-    leaves, paths = flatten(abstract)
-    if len(specs) != len(leaves):
-        raise ValueError(f"{len(specs)} cache specs for {len(leaves)} "
-                         f"cache leaves")
-    sizes = _sizes(mesh)
-
-    def one(spec, leaf):
-        fitted = list(fit_spec(spec, tuple(leaf.shape), mesh))
-        while len(fitted) < leaf.ndim:
-            fitted.append(None)
-        used = set()
-        for e in fitted:
-            for a in (e if isinstance(e, tuple) else (e,)):
-                if a:
-                    used.add(a)
-        # shard the longest unsharded dim (the sequence) over free axes
-        free = [a for a in ("model", "data", "pod") if a in sizes
-                and a not in used]
-        if free and leaf.ndim >= 2:
-            dims = [(d, i) for i, d in enumerate(leaf.shape)
-                    if fitted[i] is None]
-            if dims:
-                dmax, imax = max(dims)
-                axes = []
-                for a in free:
-                    n = sizes[a]
-                    cur = math.prod(sizes[x] for x in axes)
-                    if dmax % (cur * n) == 0 and dmax >= 2 * cur * n:
-                        axes.append(a)
-                if axes and dmax >= 1024:   # only worth it for seq dims
-                    fitted[imax] = tuple(axes) if len(axes) > 1 else axes[0]
-        return tuple(fitted)
-
-    return [one(s, l) for s, l in zip(specs, leaves)], abstract
+    decode/prefill cell: ``sharding.cache_split``, the reference's
+    arithmetic, on ``mesh``."""
+    return sharding.cache_split(model, _sizes(mesh), batch, max_len,
+                                enc_len)
 
 
 def sharded_tree_bytes(tree, specs: Sequence[Spec], mesh) -> float:
@@ -541,11 +438,61 @@ def trace_cell(cell: Cell) -> stepanalysis.ModuleCost:
                                      trip_counts=cell.trip_counts)
 
 
-#: why a serving cell is not traced
-SERVE_REASON = ("the port does not serve over a \"model\" axis "
-                "(Model.init_caches refuses a model-split model), so a "
-                "prefill or decode step at the production mesh has no "
-                "rank to trace; the record holds the analytic model")
+def serve_cell(cfg, kind: str, batch: Dict[str, torch.Tensor], mesh, *,
+               seq_len: int, params=None) -> Cell:
+    """One rank's prefill or decode step (``kind``) of ``cfg`` over
+    ``mesh`` (abstract or not, as ``train_cell``'s) on the global
+    ``batch``, as the reference's ``build_prefill_cell`` /
+    ``build_decode_cell`` place it: each rank its "data" block of its
+    "model" block of the params (``Model.rank_params`` of ``params``,
+    the full params, by default on ``meta``), its rows
+    (``sharding.row_axes``), its blocks of the caches
+    (``Model.init_caches``; an enc-dec's memory of ``seq_len`` frames)
+    of ``seq_len`` positions for a prefill, made inside the step, and of
+    ``seq_len`` + 512 for a decode, given to it.  Returns the cell,
+    whose ``fn(states, batch)`` returns each rank's (logits, caches)."""
+    model = build_model(cfg, model_parallel=_sizes(mesh).get("model", 1))
+    rows = batch[next(k for k in batch if k != "positions")].shape[0]
+    device = torch.device("meta") if mesh.abstract else mesh.device
+    if params is None:
+        params = build_model(cfg).abstract_params()
+    cache_len = seq_len + 512 if kind == "decode" else seq_len
+    enc_len = seq_len if model.kind == "encdec" else 0
+    caches = functools.partial(paging.contiguous_caches, model, rows,
+                               cache_len, dtype=torch.bfloat16,
+                               enc_len=enc_len)
+    # the split's shapes, probed once here, outside the metered step
+    caches(device="meta", mesh=mesh, rank=0)
+    states = []
+    for r in range(1 if mesh.abstract else mesh.size):
+        st = {"params": model.rank_params(params, mesh, r)}
+        if kind == "decode":
+            st["caches"] = caches(device=device, mesh=mesh, rank=r)
+        states.append(st)
+    if mesh.abstract:        # only rank 0 runs, under recording()
+        states = states * mesh.size
+    axes = sharding.row_axes(_sizes(mesh), rows)
+
+    def rank(state, b):
+        if kind == "decode":
+            return model.decode_step(state["params"], b, state["caches"])
+        return model.prefill(state["params"], b, caches(device=device))
+
+    def step(states, batch):
+        return substrate.run_spmd(
+            rank, list(zip(states, shard_batch(batch, mesh, axes))), mesh)
+
+    return Cell(fn=step, args=(states, batch),
+                meta={"kind": kind, "cache_len": cache_len,
+                      "rows": list(axes)},
+                trip_counts=_trip_counts(cfg), model=model)
+
+
+def build_serve_cell(arch_id: str, shape_name: str, mesh) -> Cell:
+    shape = get_shape(shape_name)
+    return serve_cell(get_config(arch_id), shape.kind,
+                      input_specs(arch_id, shape_name), mesh,
+                      seq_len=shape.seq_len)
 
 
 # ---------------------------------------------------------------------------
@@ -574,25 +521,22 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
                                   "fits_hbm": analytic["fits_hbm"]},
                        "model_flops_global": model_flops(arch_id,
                                                          shape_name)})
-        if kind != "train":
-            record.update({"ok": True, "traced": None,
-                           "reason": SERVE_REASON, "meta": {"kind": kind}})
-        else:
-            why = variant_refusal(variant_name)
-            if why:
-                raise ValueError(why)
-            cell = build_train_cell(arch_id, shape_name, mesh,
-                                    VARIANTS[variant_name])
-            t_build = time.time() - t0
-            cost = trace_cell(cell)
-            record["memory"].update({
-                "peak_per_device_traced": cost.peak_bytes,
-                "peak_split_traced": cost.peak})
-            record.update({"ok": True, "traced": True, "meta": cell.meta,
-                           "seconds_build": round(t_build, 2),
-                           "seconds_trace": round(time.time() - t0
-                                                  - t_build, 2),
-                           "analysis": cost.as_dict()})
+        why = variant_refusal(variant_name)
+        if why:
+            raise ValueError(why)
+        cell = (build_train_cell(arch_id, shape_name, mesh,
+                                 VARIANTS[variant_name]) if kind == "train"
+                else build_serve_cell(arch_id, shape_name, mesh))
+        t_build = time.time() - t0
+        cost = trace_cell(cell)
+        record["memory"].update({
+            "peak_per_device_traced": cost.peak_bytes,
+            "peak_split_traced": cost.peak})
+        record.update({"ok": True, "traced": True, "meta": cell.meta,
+                       "seconds_build": round(t_build, 2),
+                       "seconds_trace": round(time.time() - t0
+                                              - t_build, 2),
+                       "analysis": cost.as_dict()})
     except Exception as e:  # recorded: the caller, or --all, reports it
         record["error"] = f"{type(e).__name__}: {e}"[:2000]
     record["seconds_total"] = round(time.time() - t0, 2)

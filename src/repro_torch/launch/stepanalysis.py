@@ -11,7 +11,8 @@ dispatch mode on rank 0's thread (``LiveBytes``), and reads per rank:
   flops        ``torch.utils.flop_counter``'s formulas (the registry
                ``FlopCounterMode`` counts by): 2·M·N·K for every product
                the rank runs, backward and rematerialized forwards
-               included.
+               included; on ``meta`` the flash op counts its two
+               products itself (``trace.add_flops``).
   hbm_bytes    operand + output bytes of the reference's
                materialization-class ops only (its ``_CHARGE_BYTES_OPS``
                in aten terms, ``CHARGED``): contractions, gathers,
@@ -171,8 +172,9 @@ class ModuleCost:
 # Live bytes of one rank
 # ---------------------------------------------------------------------------
 
-#: the categories of ``ModuleCost.peak``
-KINDS = ("params", "grads", "opt_state", "other")
+#: the categories of ``ModuleCost.peak`` (a serving step's caches,
+#: labelled by ``Model.init_caches``, as "caches")
+KINDS = ("params", "grads", "opt_state", "caches", "other")
 
 
 class LiveBytes(TorchDispatchMode):
@@ -310,8 +312,12 @@ class StepMeter:
             self.live.hold(state["params"], "params")
             self.live.hold({k: v for k, v in state.items()
                             if k in ("opt", "ef")}, "opt_state")
+            self.live.hold(state.get("caches", {}), "caches")
 
     def _label(self, tree: Any, kind: str) -> None:
+        if kind == trace.FLOPS:
+            self.live.flops += tree
+            return
         self.live.hold(tree, kind)
 
     def cost(self, rec: Optional[substrate.RecordingTransport] = None,

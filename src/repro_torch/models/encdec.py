@@ -21,9 +21,10 @@ policy "nothing", as the reference's ``encode`` / ``decode_train`` do
 (``models.remat``), over a "model" axis too; prefill and decode never
 do.
 
-Over a "model" axis (training only: ``loss_fn(..., tp_index=)``, ``cfg``
-the rank's ``local_config``) every layer runs as the decoder LM's do
-(``transformer.apply_layer``): the residual cut ahead of each norm, each
+Over a "model" axis (``loss_fn(..., tp_index=)``, and serving a rank of
+a ``sharding.ServeSplit``: ``prefill`` / ``decode_step(...,
+tp_index=)``; ``cfg`` the rank's ``local_config``) every layer runs as
+the decoder LM's do (``transformer.apply_layer``): the residual cut ahead of each norm, each
 normed input entering the rank's heads or MLP columns through *f*, each
 output leaving through *g*; the cross-attention splits by heads over
 the whole memory, which enters every decoder layer through one *f*
@@ -124,8 +125,11 @@ def _init_dec_layers(gen, cfg: EncDecCfg, device) -> Params:
 def _apply_dec_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor,
                      memory: torch.Tensor, *, q_offset: int = 0,
                      cache: Optional[Params] = None, decode: bool = False,
-                     train: bool = False, tp: bool = False
+                     train: bool = False, tp: bool = False,
+                     memory_axes: Tuple[str, ...] = ()
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``memory_axes``: the axes the rank's ``memory`` block splits its
+    frames over (serving from a split cache; ``()``: whole)."""
     cut, f, g = T._tp_ops(tp)
     x = cut(x)
     h = f(_norm(cfg, params["norm1"], x))
@@ -140,7 +144,7 @@ def _apply_dec_layer(params: Params, cfg: EncDecCfg, x: torch.Tensor,
     h = f(_norm(cfg, params["norm_x"], x))
     x = cut(x + g(L.cross_attention_forward(
         params["cross"], cfg.cross, h, memory, train=train,
-        block_k=cfg.block_k)))
+        block_k=cfg.block_k, memory_axes=memory_axes)))
     h = f(_norm(cfg, params["norm2"], x))
     return x + g(L.mlp_forward(params["mlp"], cfg.mlp, h)), new_cache
 
@@ -294,38 +298,72 @@ def init_caches(cfg: EncDecCfg, batch: int, max_len: int, enc_len: int,
 
 def _decoder_pass(params: Params, cfg: EncDecCfg, x: torch.Tensor,
                   memory: torch.Tensor, caches: Params, *,
-                  q_offset: int = 0, decode: bool
+                  q_offset: int = 0, decode: bool,
+                  tp_index: Optional[int] = None,
+                  memory_axes: Tuple[str, ...] = ()
                   ) -> Tuple[torch.Tensor, Params]:
     """Logits (B, S, V) and the stacked self-attention caches (K/V rows
-    written in place, ``len`` anew)."""
+    written in place, ``len`` anew).  ``tp_index``: the params are a
+    model rank's shard, the logits its vocabulary columns."""
+    tp = tp_index is not None
     lens = []
     for i in range(cfg.dec_layers):
         x, nc = _apply_dec_layer(_layer(params["decoder"], i), cfg, x,
                                  memory, q_offset=q_offset,
-                                 cache=_layer(caches, i), decode=decode)
+                                 cache=_layer(caches, i), decode=decode,
+                                 tp=tp, memory_axes=memory_axes)
         lens.append(nc["len"])
     x = _norm(cfg, params["dec_norm"], x)
-    return x @ params["lm_head"], {**caches, "len": torch.stack(lens)}
+    if tp and "vocab" not in cfg.tp_whole:
+        x = S.copy_to_model(x)
+    return (x @ S.gathered(params["lm_head"]),
+            {**caches, "len": torch.stack(lens)})
+
+
+def _serve_embed(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
+                 tp_index: Optional[int]) -> torch.Tensor:
+    if tp_index is not None and "vocab" not in cfg.tp_whole:
+        return S.vocab_parallel_embed(S.gathered(params["embed"]), tokens,
+                                      tp_index)
+    return _embed(params, tokens)
 
 
 def prefill(params: Params, cfg: EncDecCfg, batch: Dict[str, torch.Tensor],
-            caches: Params) -> Tuple[torch.Tensor, Params]:
+            caches: Params, tp_index: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Params]:
     """Encode ``frame_embeds``, store the memory in the cache's dtype, and
     run the decoder over the prompt ``tokens``; returns (last-position
-    logits (B, V), caches)."""
-    memory = encode(params, cfg, batch["frame_embeds"])
+    logits (B, V), caches).  With ``tp_index`` (serving a rank of a
+    ``sharding.ServeSplit``) the rank's heads run over the whole memory
+    of its rows, and the cache keeps its block of the memory's frames."""
+    memory = encode(params, cfg, batch["frame_embeds"],
+                    tp=tp_index is not None)
     memory = memory.to(caches["memory"].dtype)
-    logits, new_self = _decoder_pass(params, cfg,
-                                     _embed(params, batch["tokens"]), memory,
-                                     caches["self"], decode=False)
+    logits, new_self = _decoder_pass(
+        params, cfg, _serve_embed(params, cfg, batch["tokens"], tp_index),
+        memory, caches["self"], decode=False, tp_index=tp_index)
+    sp = S.serve_split()
+    if sp is not None:
+        if memory.shape[1] != sp.enc_len:
+            raise ValueError(f"{memory.shape[1]} frames for a split cache "
+                             f"of {sp.enc_len}")
+        w = caches["memory"].shape[1]
+        i = sp.index("memory", -2)[1]
+        memory = memory[:, i * w:(i + 1) * w]
     return logits[:, -1], {"self": new_self, "memory": memory}
 
 
 def decode_step(params: Params, cfg: EncDecCfg, tokens: torch.Tensor,
-                caches: Params) -> Tuple[torch.Tensor, Params]:
+                caches: Params, tp_index: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Params]:
     """tokens: (B, 1) -> (logits (B, V), caches); the stored memory is
-    cast back to the param dtype for cross-attention."""
+    cast back to the param dtype for cross-attention.  Serving a rank of
+    a ``sharding.ServeSplit``, the cross-attention attends over the
+    rank's block of the memory's frames and combines the blocks."""
+    sp = S.serve_split()
+    axes = () if sp is None else sp.axes("memory", -2)
     logits, new_self = _decoder_pass(
-        params, cfg, _embed(params, tokens),
-        caches["memory"].to(cfg.param_dtype), caches["self"], decode=True)
+        params, cfg, _serve_embed(params, cfg, tokens, tp_index),
+        caches["memory"].to(cfg.param_dtype), caches["self"], decode=True,
+        tp_index=tp_index, memory_axes=axes)
     return logits[:, 0], {"self": new_self, "memory": caches["memory"]}

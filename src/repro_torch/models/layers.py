@@ -28,6 +28,11 @@ Conventions
   a prefill or decode step mutates the ``k``/``v`` tensors it is handed
   and returns them with a new ``len``.  This keeps one arena, not two, on
   the card.
+- Serving a rank of a ``sharding.ServeSplit``, a cache may be the rank's
+  block of the positions: prefill writes the positions that fall in it
+  (``put_positions``), decode writes its token where the block holds it
+  and attends over the block, the ranks' partial softmaxes combined
+  (``partial_attention``, ``split_attention``).
 """
 
 from __future__ import annotations
@@ -217,6 +222,56 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None,
+                      sm_scale: float | None = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention of ``q`` (B, Sq, H, D) over one block of the keys, ``k``
+    (B, Sk, Hkv, D) and ``v`` (B, Sk, Hkv, Dv), left unnormalized, in
+    float32: (o (B, Sq, H, Dv), the row max m (B, Sq, H), the row sum l
+    of exp(s - m)), ``sharding.combine_partials``' operands.  ``valid``
+    (B, Sk) says which keys each row sees (None: all); a row that sees
+    none gives m = -inf, l = 0 and o = 0."""
+    b, sq, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    group = h // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, group, d).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    if valid is not None:
+        s = s.masked_fill(~valid[:, None, None, None, :], -math.inf)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return (o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv),
+            m.permute(0, 3, 1, 2).reshape(b, sq, h),
+            l.permute(0, 3, 1, 2).reshape(b, sq, h))
+
+
+def split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    axes: Tuple[str, ...], head_shards: int,
+                    valid: Optional[torch.Tensor] = None,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """Attention of a rank's query heads ``q`` (B, Sq, H, D) over keys
+    split over ``axes``, of which ``k`` / ``v`` are the rank's block (a
+    serving cache split by its sequence, or a memory by its frames).
+    Where the keys split over "model" and the query heads do too
+    (``head_shards`` > 1), the block holds every K/V head: the rank
+    gathers every query head over "model" (a few KB a row), attends
+    them all over its block and keeps its own heads' share of the
+    combined output.  -> (B, Sq, H, Dv) float32."""
+    gather = "model" in axes and head_shards > 1
+    if gather:
+        q = S.gather_axes(q, (S.MODEL_AXIS,), dim=2)
+    out = S.combine_partials(*partial_attention(q, k, v, valid, sm_scale),
+                             axes)
+    if gather:
+        h = q.shape[2] // head_shards
+        out = out[:, :, S.model_index() * h:(S.model_index() + 1) * h]
+    return out
+
+
 #: the ``trace.region`` of the training attention's blockwise loops: the
 #: score and probability tiles that a fused kernel keeps on chip
 ATTN_TILES = "attn_tiles"
@@ -365,6 +420,10 @@ class AttentionCfg:
     #: rank's ``num_heads`` query heads, from ``model_index() *
     #: num_heads`` on, each read theirs (``_rank_kv``).  0 otherwise.
     kv_group: int = 0
+    #: the port's: the model ranks a local config's query heads and its
+    #: K/V heads split over (1: whole on every rank)
+    head_shards: int = 1
+    kv_shards: int = 1
 
 
 def local_attention(cfg: AttentionCfg, heads: int, kv_heads: int
@@ -376,7 +435,9 @@ def local_attention(cfg: AttentionCfg, heads: int, kv_heads: int
     return dataclasses.replace(
         cfg, num_heads=heads, num_kv_heads=kv_heads,
         kv_group=(cfg.num_heads // cfg.num_kv_heads
-                  if replicated and kv_heads > 1 else 0))
+                  if replicated and kv_heads > 1 else 0),
+        head_shards=cfg.num_heads // heads,
+        kv_shards=cfg.num_kv_heads // kv_heads)
 
 
 def init_attention(gen, cfg: AttentionCfg, dtype, device,
@@ -468,11 +529,9 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
     new_cache = None
     if kv_cache is not None:
         kc, vc = kv_cache["k"], kv_cache["v"]
-        if q_offset + sq > kc.shape[1]:
-            raise ValueError(f"positions {q_offset}..{q_offset + sq} past "
-                             f"the cache's {kc.shape[1]}")
-        kc[:, q_offset:q_offset + sq] = k.to(kc.dtype)
-        vc[:, q_offset:q_offset + sq] = v.to(vc.dtype)
+        start = seq_block_start("k", kc, q_offset + sq, chunked)
+        put_positions(kc, k, q_offset - start)
+        put_positions(vc, v, q_offset - start)
         new_len = kv_cache["len"] + sq
         if valid_len is not None:
             new_len = torch.clamp(new_len, max=valid_len)
@@ -492,6 +551,37 @@ def attention_forward(params: Params, cfg: AttentionCfg, x: torch.Tensor, *,
     return out @ params["wo"], new_cache
 
 
+def seq_block_start(name: str, cache: torch.Tensor, end: int,
+                    chunked: bool = False) -> int:
+    """The position of the first row of ``cache`` (B, S_block, ...; the
+    leaves called ``name``): 0, or under a ``sharding.ServeSplit`` the
+    rank's block's start along its sequence (dim 1).  Raises where the
+    positions up to ``end`` do not fit the whole cache, and for a
+    chunked prefill over a split (the serving scheduler's path, which
+    serves over "data" only)."""
+    sp = S.serve_split()
+    whole = cache.shape[1]
+    start = 0
+    if sp is not None:
+        if chunked:
+            raise NotImplementedError("chunked prefill over a split "
+                                      "serving layout")
+        whole = sp.max_len
+        start = sp.index(name, 1 - cache.dim())[1] * cache.shape[1]
+    if end > whole:
+        raise ValueError(f"positions up to {end} past the cache's {whole}")
+    return start
+
+
+def put_positions(cache: torch.Tensor, x: torch.Tensor, at: int) -> None:
+    """Write ``x`` (B, S, ...) into ``cache`` (B, S_block, ...) from row
+    ``at`` on, in place: the rows that fall inside the block (all of
+    them where the cache is whole)."""
+    lo, hi = max(at, 0), min(at + x.shape[1], cache.shape[1])
+    if lo < hi:
+        cache[:, lo:hi] = x[:, lo - at:hi - at].to(cache.dtype)
+
+
 def attention_decode(params: Params, cfg: AttentionCfg, x: torch.Tensor,
                      kv_cache: Dict[str, torch.Tensor], *,
                      positions: Optional[torch.Tensor] = None
@@ -506,11 +596,27 @@ def attention_decode(params: Params, cfg: AttentionCfg, x: torch.Tensor,
                          else positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    # Scatter the new kv at each sequence's own length (ragged batch).
-    kc = _scatter_token(kv_cache["k"], k, idx)
-    vc = _scatter_token(kv_cache["v"], v, idx)
+    # Scatter the new kv at each sequence's own length (ragged batch);
+    # over a split cache at its position in the rank's block, which
+    # writes nothing where the block does not hold it.
+    sp = S.serve_split()
+    axes, start = (), 0
+    if sp is not None:
+        axes, blk = sp.index("k", -3)
+        start = blk * kv_cache["k"].shape[1]
+    kc = _scatter_token(kv_cache["k"], k, idx - start)
+    vc = _scatter_token(kv_cache["v"], v, idx - start)
     new_len = idx + 1
-    out = decode_attention(q, kc, vc, new_len)
+    if sp is None:
+        out = decode_attention(q, kc, vc, new_len)
+    else:
+        gather = "model" in axes and cfg.head_shards > 1
+        kr, vr = ((kc, vc) if gather or not cfg.kv_group
+                  else _rank_kv(cfg, kc, vc))
+        valid = (torch.arange(kc.shape[1], device=x.device)[None, :]
+                 < (new_len - start)[:, None])
+        out = split_attention(q, kr, vr, axes, cfg.head_shards,
+                              valid).to(q.dtype)
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"], {"k": kc, "v": vc, "len": new_len}
 
@@ -600,7 +706,8 @@ def init_cross_attention(gen, cfg: AttentionCfg, dtype, device,
 
 def cross_attention_forward(params: Params, cfg: AttentionCfg,
                             x: torch.Tensor, memory: torch.Tensor, *,
-                            train: bool = False, block_k: int = 512
+                            train: bool = False, block_k: int = 512,
+                            memory_axes: Tuple[str, ...] = ()
                             ) -> torch.Tensor:
     """x: (B, Sq, D) queries; memory: (B, Skv, D) encoder states.  No
     RoPE; every query sees every memory position.  The memory's K and V
@@ -611,11 +718,22 @@ def cross_attention_forward(params: Params, cfg: AttentionCfg,
     through ``train_attention`` (differentiable), otherwise through the
     forward-only flash op.  Over a "model" axis ``cfg`` holds the rank's
     heads and ``params`` its columns of ``wq``/``wk``/``wv`` and rows of
-    ``wo``; ``memory`` is whole."""
+    ``wo``; ``memory`` is whole, or (serving) the rank's block of its
+    frames split over ``memory_axes``: the rank then attends over its
+    frames (``split_attention``), with the K/V projections of every
+    head gathered over "model" where the frames split over it too."""
     b, sq, _ = x.shape
     skv = memory.shape[1]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wk, wv = params["wk"], params["wv"]
+    bk, bv = params.get("bk"), params.get("bv")
+    gather = "model" in memory_axes and cfg.head_shards > 1
+    if gather and cfg.kv_shards > 1:     # every head's K/V of the frames
+        wk, wv = (S.gather_axes(w, (S.MODEL_AXIS,), -1) for w in (wk, wv))
+        if cfg.qkv_bias:
+            bk, bv = (S.gather_axes(t, (S.MODEL_AXIS,), -1)
+                      for t in (bk, bv))
+        Hkv = Hkv * cfg.kv_shards
     dt = torch.promote_types(memory.dtype, wk.dtype)
     memory = memory.to(dt)
     q = (x @ params["wq"]).reshape(b, sq, H, Dh)
@@ -623,10 +741,14 @@ def cross_attention_forward(params: Params, cfg: AttentionCfg,
     v = (memory @ wv.to(dt)).reshape(b, skv, Hkv, Dh)
     if cfg.qkv_bias:
         q = q + params["bq"].reshape(H, Dh)
-        k = k + params["bk"].reshape(Hkv, Dh)
-        v = v + params["bv"].reshape(Hkv, Dh)
-    if cfg.kv_group:
+        k = k + bk.reshape(Hkv, Dh)
+        v = v + bv.reshape(Hkv, Dh)
+    if cfg.kv_group and not gather:
         k, v = _rank_kv(cfg, k, v)
+    if memory_axes:
+        out = split_attention(q, k, v, memory_axes,
+                              cfg.head_shards).to(q.dtype)
+        return out.reshape(b, sq, H * Dh) @ params["wo"]
     if train:
         out = train_attention(q, k, v, causal=False, block_k=block_k)
     else:

@@ -276,17 +276,15 @@ def mamba_forward(params: Params, cfg: MambaCfg, x: torch.Tensor, *,
     comes back: ``conv`` in the cache's dtype, ``ssm`` f32.
 
     A rank's local config (``cfg.head_shards`` > 1; ``params`` its shard,
-    ``x`` whole after the layer's *f*) runs its heads, without a cache:
-    serving over "model" is not ported.  Under its ``StagedBackward`` the
+    ``x`` whole after the layer's *f*) runs its heads; its cache, if any,
+    is its block under a ``sharding.ServeSplit`` (``_conv_tail``,
+    ``_conv_block``).  Under its ``StagedBackward`` the
     projection, the conv's output and the gated norm's input are cut
     (``sharding.cut``, the identity without one): each is read on two
     paths of which one crosses a cut (B and C's *f*, the mean square's
     *f*), so each segment of the backward runs its nodes once."""
-    if cfg.head_shards > 1 and cache is not None:
-        raise ValueError("a Mamba mixer split over \"model\" has no "
-                         "cache: serving over a model axis is not ported")
     z, xbc_raw, dt = _split_proj(cfg, S.cut(x @ params["in_proj"]))
-    conv_tail = None if cache is None else cache["conv"]
+    conv_tail = None if cache is None else _conv_tail(cfg, cache["conv"])
     xbc = S.cut(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"],
                              conv_tail))
     xs, Bm, Cm = _heads(cfg, xbc)
@@ -298,9 +296,78 @@ def mamba_forward(params: Params, cfg: MambaCfg, x: torch.Tensor, *,
 
     new_cache = None
     if cache is not None:
-        tail = _join(cache["conv"], xbc_raw)[:, -(cfg.d_conv - 1):]
+        k = cfg.d_conv - 1
+        if cfg.head_shards > 1:
+            tail = _join(_conv_whole(cfg, cache["conv"]),
+                         _sections_whole(cfg, xbc_raw[:, -k:]))[:, -k:]
+            tail = _conv_block(cfg, tail)
+        else:
+            tail = _join(cache["conv"], xbc_raw)[:, -k:]
         new_cache = {"conv": tail.to(cache["conv"].dtype), "ssm": h_final}
     return out, new_cache
+
+
+# -- a split serving cache (``sharding.ServeSplit``): the reference's
+# ``conv`` spec splits the (x, B, C) channels, joined, over its axes
+# ("model"), while a rank's mixer holds its block of each section
+
+def _conv_axes(cfg: MambaCfg) -> Tuple[str, ...]:
+    sp = S.serve_split()
+    if sp is None:
+        raise ValueError("a Mamba mixer split over \"model\" serves from "
+                         "a split cache only (Model.init_caches)")
+    if sp.axes("ssm", -3) != (S.MODEL_AXIS,):
+        raise NotImplementedError(
+            f"an ssm state split {sp.axes('ssm', -3)} over its heads")
+    return sp.axes("conv", -1)
+
+
+def _conv_whole(cfg: MambaCfg, block: torch.Tensor) -> torch.Tensor:
+    """The conv state (B, K-1, channels) of every channel from the rank's
+    block of it."""
+    return S.gather_axes(block, _conv_axes(cfg), dim=-1)
+
+
+def _conv_block(cfg: MambaCfg, whole: torch.Tensor) -> torch.Tensor:
+    """The rank's block of a conv state of every channel."""
+    sp = S.serve_split()
+    axes = _conv_axes(cfg)
+    i, n = S.block_index(axes, sp.mesh_sizes, sp.mesh_coords)
+    w = whole.shape[-1] // n
+    return whole[..., i * w:(i + 1) * w]
+
+
+def _section_widths(cfg: MambaCfg) -> Tuple[int, int, int]:
+    return (cfg.d_inner, cfg.d_bc, cfg.d_bc)
+
+
+def _sections_whole(cfg: MambaCfg, xbc: torch.Tensor) -> torch.Tensor:
+    """Conv channels of every rank from this rank's sections (x, B, C)
+    of them (``xbc`` (B, S, channels of the rank)): gathered over
+    "model" and joined section by section."""
+    parts = S.gather_axes(xbc[None], (S.MODEL_AXIS,), dim=0)
+    out, lo = [], 0
+    for w in _section_widths(cfg):
+        out += [p[..., lo:lo + w] for p in parts]
+        lo += w
+    return torch.cat(out, dim=-1)
+
+
+def _sections_of(cfg: MambaCfg, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's sections (x, B, C) of conv channels of every rank."""
+    m, lo, out = S.model_index(), 0, []
+    for w in _section_widths(cfg):
+        out.append(whole[..., lo + m * w:lo + (m + 1) * w])
+        lo += w * cfg.head_shards
+    return torch.cat(out, dim=-1)
+
+
+def _conv_tail(cfg: MambaCfg, conv: torch.Tensor) -> torch.Tensor:
+    """The conv state a mixer chains from: the cache's, or over "model"
+    this rank's sections of the whole state its block is part of."""
+    if cfg.head_shards == 1:
+        return conv
+    return _sections_of(cfg, _conv_whole(cfg, conv))
 
 
 def mamba_decode(params: Params, cfg: MambaCfg, x: torch.Tensor,
@@ -310,14 +377,20 @@ def mamba_decode(params: Params, cfg: MambaCfg, x: torch.Tensor,
     zxbcdt = x @ params["in_proj"]
     z, xbc_new, dt = _split_proj(cfg, zxbcdt)
 
-    window = _join(cache["conv"], xbc_new)                  # (B, K, C)
+    if cfg.head_shards > 1:      # the whole window, then the rank's part
+        whole = _join(_conv_whole(cfg, cache["conv"]),
+                      _sections_whole(cfg, xbc_new))
+        window, conv = _sections_of(cfg, whole), _conv_block(cfg, whole)
+    else:
+        window = _join(cache["conv"], xbc_new)              # (B, K, C)
+        conv = window
     w = params["conv_w"]
     ct = torch.promote_types(window.dtype, w.dtype)
     conv_out = torch.einsum("bkc,kc->bc", window.to(ct), w.to(ct))
     xbc = F.silu(conv_out + params["conv_b"])
 
     xs, Bm, Cm = _heads(cfg, xbc)                           # (B, H, P) ...
-    rep = cfg.nheads // cfg.ngroups
+    rep = cfg.nheads // Bm.shape[1]        # a rank's heads: one B a head
     Bh = Bm.repeat_interleave(rep, 1).float()
     Ch = Cm.repeat_interleave(rep, 1).float()
     dt = F.softplus(dt[:, 0].float() + params["dt_bias"])   # (B, H)
@@ -328,7 +401,7 @@ def mamba_decode(params: Params, cfg: MambaCfg, x: torch.Tensor,
          + torch.einsum("bhp,bhn,bh->bhpn", xs.float(), Bh, dt))
     y = torch.einsum("bhpn,bhn->bhp", h, Ch)
     out = _gate_out(params, cfg, y[:, None], z, xs[:, None], x)
-    return out, {"conv": window[:, 1:].to(cache["conv"].dtype), "ssm": h}
+    return out, {"conv": conv[:, 1:].to(cache["conv"].dtype), "ssm": h}
 
 
 def init_mamba_cache(batch: int, cfg: MambaCfg, dtype, device,

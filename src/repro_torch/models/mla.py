@@ -22,12 +22,16 @@ Caches are written IN PLACE, as ``layers``' K/V caches are: a prefill or
 decode step writes its rows into the ``ckv``/``krope`` tensors it is
 handed and returns them with a new ``len``.
 
-Over a "model" axis (training only) ``cfg.num_heads`` is the rank's
-share (``transformer.local_config``) and ``params`` hold its columns of
+Over a "model" axis ``cfg.num_heads`` is the rank's share
+(``transformer.local_config``) and ``params`` hold its columns of
 ``w_uq`` / ``w_ukv`` and rows of ``w_o``: ``mla_forward`` runs the
 rank's heads over the latent ``ckv`` and ``k_rope``, which every rank
 computes whole from the low-rank leaves it holds whole
-(``parallel.sharding``).
+(``parallel.sharding``).  Serving so (``sharding.ServeSplit``), a rank
+holds a block of the latent cache's positions: prefill writes the
+block, and ``mla_decode`` gathers every head's absorbed query over
+"model", attends over the block and combines the partial softmaxes
+(``_split_absorbed_attention``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as S
 
 Params = Dict[str, torch.Tensor]
 
@@ -95,6 +100,13 @@ def _latent_kv(params: Params, cfg: MLACfg, x: torch.Tensor, cos, sin):
     return ckv, krope[:, :, 0, :]
 
 
+def _w_ukv(params: Params, cfg: MLACfg):
+    """(W_uk (kv_lora, H, dh_nope), W_uv (kv_lora, H, dh_v)) in f32."""
+    w_ukv = params["w_ukv"].reshape(cfg.kv_lora, cfg.num_heads,
+                                    cfg.dh_nope + cfg.dh_v).float()
+    return w_ukv[..., :cfg.dh_nope], w_ukv[..., cfg.dh_nope:]
+
+
 def _absorbed_attention(params: Params, cfg: MLACfg, q_nope, q_rope,
                         ckv_c: torch.Tensor, kr_c: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
@@ -103,9 +115,7 @@ def _absorbed_attention(params: Params, cfg: MLACfg, q_nope, q_rope,
     ``mask`` (B, Sq, Smax) says which cache positions each query sees.
     Returns (B, Sq, H * dh_v) f32."""
     b, sq = q_nope.shape[:2]
-    w_ukv = params["w_ukv"].reshape(cfg.kv_lora, cfg.num_heads,
-                                    cfg.dh_nope + cfg.dh_v).float()
-    w_uk, w_uv = w_ukv[..., :cfg.dh_nope], w_ukv[..., cfg.dh_nope:]
+    w_uk, w_uv = _w_ukv(params, cfg)
     q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), w_uk)
     ckv = ckv_c.float()
     s_nope = torch.einsum("bqhl,bkl->bhqk", q_lat, ckv)
@@ -114,6 +124,31 @@ def _absorbed_attention(params: Params, cfg: MLACfg, q_nope, q_rope,
     s = s.masked_fill(~mask[:, None], -math.inf)
     p = torch.softmax(s, dim=-1)
     out_lat = torch.einsum("bhqk,bkl->bqhl", p, ckv)
+    out = torch.einsum("bqhl,lhd->bqhd", out_lat, w_uv)
+    return out.reshape(b, sq, cfg.num_heads * cfg.dh_v)
+
+
+def _split_absorbed_attention(params: Params, cfg: MLACfg, q_nope, q_rope,
+                              ckv_c: torch.Tensor, kr_c: torch.Tensor,
+                              valid: torch.Tensor,
+                              axes: Tuple[str, ...]) -> torch.Tensor:
+    """``_absorbed_attention`` of the rank's heads over its block of a
+    latent cache split by sequence over ``axes``: the absorbed queries
+    and the rotary ones are one query of kv_lora + dh_rope values a head
+    against the latent and the rotary key (one K/V head), the values the
+    latents; ``layers.split_attention`` gathers every head over "model",
+    attends over the block and combines.  ``valid`` (B, S_block).
+    Returns (B, Sq, H * dh_v) f32."""
+    b, sq = q_nope.shape[:2]
+    w_uk, w_uv = _w_ukv(params, cfg)
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), w_uk)
+    q = torch.cat([q_lat, q_rope.float()], dim=-1)
+    k = torch.cat([ckv_c.float(), kr_c.float()], dim=-1)[:, :, None]
+    # a model split always splits MLA's heads over every model rank
+    shards = S.serve_split().mesh_sizes.get(S.MODEL_AXIS, 1)
+    out_lat = L.split_attention(q, k, ckv_c.float()[:, :, None], axes,
+                                shards, valid,
+                                sm_scale=1.0 / math.sqrt(cfg.dh_qk))
     out = torch.einsum("bqhl,lhd->bqhd", out_lat, w_uv)
     return out.reshape(b, sq, cfg.num_heads * cfg.dh_v)
 
@@ -144,11 +179,9 @@ def mla_forward(params: Params, cfg: MLACfg, x: torch.Tensor, *,
     new_cache = None
     if kv_cache is not None:
         cc, kc = kv_cache["ckv"], kv_cache["krope"]
-        if q_offset + s > cc.shape[1]:
-            raise ValueError(f"positions {q_offset}..{q_offset + s} past "
-                             f"the cache's {cc.shape[1]}")
-        cc[:, q_offset:q_offset + s] = ckv.to(cc.dtype)
-        kc[:, q_offset:q_offset + s] = krope.to(kc.dtype)
+        start = L.seq_block_start("ckv", cc, q_offset + s, chunked)
+        L.put_positions(cc, ckv, q_offset - start)
+        L.put_positions(kc, krope, q_offset - start)
         new_len = kv_cache["len"] + s
         if valid_len is not None:
             new_len = torch.clamp(new_len, max=valid_len)
@@ -190,13 +223,23 @@ def mla_decode(params: Params, cfg: MLACfg, x: torch.Tensor,
     cos, sin = L.rope_cos_sin(idx[:, None], cfg.dh_rope, cfg.rope_theta)
     q_nope, q_rope = _project_q(params, cfg, x, cos, sin)
     ckv_new, krope_new = _latent_kv(params, cfg, x, cos, sin)
-    cc = L._scatter_token(kv_cache["ckv"], ckv_new, idx)
-    kc = L._scatter_token(kv_cache["krope"], krope_new, idx)
+    sp = S.serve_split()
+    axes, start = (), 0
+    if sp is not None:        # the rank's block of a split latent cache
+        axes, blk = sp.index("ckv", -2)
+        start = blk * kv_cache["ckv"].shape[1]
+    cc = L._scatter_token(kv_cache["ckv"], ckv_new, idx - start)
+    kc = L._scatter_token(kv_cache["krope"], krope_new, idx - start)
     new_len = idx + 1
     smax = cc.shape[1]
     mask = (torch.arange(smax, device=x.device)[None, :]
-            < new_len[:, None])[:, None, :]               # (B, 1, Smax)
-    out = _absorbed_attention(params, cfg, q_nope, q_rope, cc, kc, mask)
+            < (new_len - start)[:, None])                 # (B, S_block)
+    if axes:
+        out = _split_absorbed_attention(params, cfg, q_nope, q_rope, cc,
+                                        kc, mask, axes)
+    else:
+        out = _absorbed_attention(params, cfg, q_nope, q_rope, cc, kc,
+                                  mask[:, None, :])
     return (out.reshape(b, 1, cfg.num_heads * cfg.dh_v).to(x.dtype)
             @ params["w_o"], {"ckv": cc, "krope": kc, "len": new_len})
 

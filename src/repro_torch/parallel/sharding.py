@@ -118,6 +118,16 @@ run, the whole weights then let go.  Those collectives wait for peers,
 so the split step always runs under a tape, model axis or not: its
 cuts then cut the residual stream of every layer (and a MoE layer's
 input and logits), as they do over "model".
+
+**Serving over "data" and "model".**  The reference's prefill and
+decode cells place the params as its training does and the caches by
+``serve_cache_shardings``: ``cache_split`` is that rule, the one the
+models (``Model.init_caches``) and the dry-run read.  A rank's
+``ServeSplit`` (carried by its ``CacheBlocks``, made the thread's for
+a step) tells each layer how its cache leaves split; where a sequence
+(or an encoder's memory) splits, the layer attends over its block and
+``combine_partials`` merges the ranks' partial softmaxes.  The params'
+data blocks are gathered forward only, without a tape.
 """
 
 from __future__ import annotations
@@ -897,3 +907,280 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def model_index() -> int:
     """This rank's coordinate on "model"."""
     return collectives.axis_index(MODEL_AXIS)
+
+
+# ---------------------------------------------------------------------------
+# Serving over "data" and "model": the caches' split and the rank's blocks
+# ---------------------------------------------------------------------------
+
+#: a spec: one entry a dim, each None, an axis name or a tuple of them
+Spec = Tuple[Any, ...]
+
+#: the axes a serving batch's rows split over (the reference's
+#: ``batch_specs`` and cache specs: ``("pod", "data")``)
+BATCH_AXES = ("pod", "data")
+
+
+def filter_spec(spec: Spec, axis_names) -> Spec:
+    """Drop mesh-axis names not present in ``axis_names`` from a spec (an
+    entry left with one name is that name, as a ``PartitionSpec`` reads
+    a 1-tuple)."""
+    names = set(axis_names)
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+        elif isinstance(entry, (tuple, list)):
+            kept = tuple(a for a in entry if a in names)
+            out.append(kept[0] if len(kept) == 1 else (kept or None))
+        else:
+            out.append(entry if entry in names else None)
+    return tuple(out)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axes of one spec entry, major first (``()`` for None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def fit_spec(spec: Spec, shape, sizes: Dict[str, int]) -> Spec:
+    """``spec`` filtered to the mesh's axes (``sizes``: axis -> size),
+    an entry dropped where its dim does not split evenly over its axes
+    (the reference's ``fit_spec``)."""
+    fs = filter_spec(spec, sizes)
+    out = []
+    for i, entry in enumerate(fs):
+        if entry is None or i >= len(shape):
+            out.append(None if i >= len(shape) else entry)
+            continue
+        n = 1
+        for a in entry_axes(entry):
+            n *= sizes.get(a, 1)
+        out.append(None if shape[i] % n else entry)
+    return tuple(out)
+
+
+def _kv_cache_specs() -> Dict[str, Spec]:
+    return {"k": (BATCH_AXES, None, "model", None),
+            "v": (BATCH_AXES, None, "model", None), "len": (BATCH_AXES,)}
+
+
+def _mixer_cache_specs(mixer: str) -> Dict[str, Spec]:
+    if mixer == "attn":
+        return _kv_cache_specs()
+    if mixer == "mla":
+        # the latent cache is shared by all heads: replicated over "model"
+        return {"ckv": (BATCH_AXES, None, None),
+                "krope": (BATCH_AXES, None, None), "len": (BATCH_AXES,)}
+    return {"conv": (BATCH_AXES, None, "model"),
+            "ssm": (BATCH_AXES, "model", None, None)}
+
+
+def _stacked(specs: Dict[str, Spec]) -> Dict[str, Spec]:
+    return {k: (None,) + v for k, v in specs.items()}
+
+
+def cache_specs(model) -> Dict[str, Any]:
+    """The reference's ``Model.cache_specs``: each cache leaf's spec, the
+    batch over ("pod", "data") and heads over "model", stacked layers a
+    leading None."""
+    if model.kind == "encdec":
+        return {"self": _stacked(_kv_cache_specs()),
+                "memory": (BATCH_AXES, None, None)}
+    return {f"stage{i}": {f"layer{j}": _stacked(_mixer_cache_specs(
+        spec.mixer)) for j, spec in enumerate(st.layers)}
+        for i, st in enumerate(model.cfg.stages)}
+
+
+def _spec_leaves(tree) -> list:
+    """A spec tree's leaves in ``tree.flatten``'s order (sorted keys): a
+    spec tuple is a leaf, not a node."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _spec_leaves(tree[k])]
+    return [tree]
+
+
+def cache_split(model, sizes: Dict[str, int], batch: int, max_len: int,
+                enc_len: int = 0) -> Tuple[List[Spec], Any]:
+    """(the fitted spec of every cache leaf, in ``tree.flatten``'s order;
+    the whole caches on ``meta``) of ``model`` serving ``batch`` rows of
+    ``max_len`` positions (``enc_len`` frames of an encoder-decoder's
+    memory) on a mesh of ``sizes`` (axis -> size): the reference's
+    ``serve_cache_shardings``.  The template puts the batch over ("pod",
+    "data") and heads over "model"; where those do not divide (batch 1,
+    K/V heads fewer than the model ranks) the longest dim left whole
+    (the sequence, or the memory's frames), if it is at least 1024 long,
+    is split over the axes left free, each taken in the order "model",
+    "data", "pod" while the dim still splits into at least two positions
+    a rank: a context-parallel cache."""
+    specs = _spec_leaves(cache_specs(model))
+    abstract = model.cache_shapes(
+        batch, max_len, enc_len=enc_len if model.kind == "encdec" else 0)
+    leaves_, _ = flatten(abstract)
+    if len(specs) != len(leaves_):
+        raise ValueError(f"{len(specs)} cache specs for {len(leaves_)} "
+                         f"cache leaves")
+
+    def one(spec, leaf):
+        fitted = list(fit_spec(spec, tuple(leaf.shape), sizes))
+        while len(fitted) < leaf.ndim:
+            fitted.append(None)
+        used = {a for e in fitted for a in entry_axes(e)}
+        free = [a for a in ("model", "data", "pod") if a in sizes
+                and a not in used]
+        if free and leaf.ndim >= 2:
+            dims = [(d, i) for i, d in enumerate(leaf.shape)
+                    if fitted[i] is None]
+            if dims:
+                dmax, imax = max(dims)
+                axes = []
+                for a in free:
+                    n = sizes[a]
+                    cur = 1
+                    for x in axes:
+                        cur *= sizes[x]
+                    if dmax % (cur * n) == 0 and dmax >= 2 * cur * n:
+                        axes.append(a)
+                if axes and dmax >= 1024:   # only worth it for seq dims
+                    fitted[imax] = tuple(axes) if len(axes) > 1 else axes[0]
+        return tuple(fitted)
+
+    return [one(s, l) for s, l in zip(specs, leaves_)], abstract
+
+
+def row_axes(sizes: Dict[str, int], batch: int) -> Tuple[str, ...]:
+    """The axes a serving batch of ``batch`` rows splits over: ("pod",
+    "data") as the mesh has them, or none where the rows do not divide
+    (the batch is then whole on every rank, as ``fit_spec`` leaves it)."""
+    return entry_axes(fit_spec((BATCH_AXES,), (batch,), sizes)[0])
+
+
+def block_index(axes: Tuple[str, ...], sizes: Dict[str, int],
+                coords: Dict[str, int]) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dim split over
+    ``axes`` (major first)."""
+    i, n = 0, 1
+    for a in axes:
+        i, n = i * sizes[a] + coords[a], n * sizes[a]
+    return i, n
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSplit:
+    """One rank's share of serving caches of ``max_len`` positions
+    (``enc_len`` frames of memory) on a mesh of ``sizes`` at ``coords``:
+    ``specs`` is ``cache_split``'s, one a cache leaf at ``paths``.  ``axes(name, dim)`` says how the leaves called ``name``
+    ("k", "ckv", "conv", "ssm", "memory", ...) split at ``dim``, which
+    is the same for every layer's."""
+
+    sizes: Tuple[Tuple[str, int], ...]
+    coords: Tuple[Tuple[str, int], ...]
+    max_len: int
+    enc_len: int
+    paths: Tuple[Tuple[Any, ...], ...]
+    specs: Tuple[Spec, ...]
+
+    def __post_init__(self):
+        seen: Dict[str, Spec] = {}
+        for path, spec in zip(self.paths, self.specs):
+            # a stacked leaf's leading entry (its layers) is None
+            tail = spec if path[0] == "memory" else spec[1:]
+            if seen.setdefault(path[-1], tail) != tail:
+                raise ValueError(f"cache leaves {path[-1]!r} split two "
+                                 f"ways: {seen[path[-1]]} and {tail}")
+
+    @property
+    def mesh_sizes(self) -> Dict[str, int]:
+        return dict(self.sizes)
+
+    @property
+    def mesh_coords(self) -> Dict[str, int]:
+        return dict(self.coords)
+
+    def axes(self, name: str, dim: int) -> Tuple[str, ...]:
+        """The axes (major first) the leaves called ``name`` split over
+        at ``dim`` (negative)."""
+        for path, spec in zip(self.paths, self.specs):
+            if path[-1] == name:
+                return entry_axes(spec[dim])
+        raise KeyError(f"no cache leaf {name!r}")
+
+    def index(self, name: str, dim: int) -> Tuple[Tuple[str, ...], int]:
+        """(the axes, this rank's block) of ``name``'s leaves at ``dim``."""
+        axes = self.axes(name, dim)
+        return axes, block_index(axes, self.mesh_sizes,
+                                 self.mesh_coords)[0]
+
+    def block(self, i: int, shape) -> Tuple[slice, ...]:
+        """This rank's block of cache leaf ``i`` (whole shape ``shape``),
+        one slice a dim."""
+        out = []
+        for n, entry in zip(shape, self.specs[i]):
+            j, k = block_index(entry_axes(entry), self.mesh_sizes,
+                               self.mesh_coords)
+            out.append(slice(j * (n // k), (j + 1) * (n // k)))
+        return tuple(out)
+
+    def active(self):
+        """``with split.active():`` makes it the calling thread's (the
+        model's layers read it through ``serve_split()``)."""
+        return _serving(self)
+
+
+@contextlib.contextmanager
+def _serving(split: ServeSplit):
+    if getattr(_local, "serve", None) is not None:
+        raise RuntimeError("a ServeSplit is already active")
+    _local.serve = split
+    try:
+        yield split
+    finally:
+        _local.serve = None
+
+
+def serve_split() -> Optional[ServeSplit]:
+    """The calling thread's ``ServeSplit`` (None outside a split serving
+    step)."""
+    return getattr(_local, "serve", None)
+
+
+class CacheBlocks(dict):
+    """A rank's cache blocks (the tree of ``Model.init_caches``) with the
+    split they are blocks of (``split``): ``Model.prefill`` and
+    ``decode_step`` serve a rank from it and return the new blocks so."""
+
+    def __init__(self, tree: Dict[str, Any], split: ServeSplit) -> None:
+        super().__init__(tree)
+        self.split = split
+
+
+def gather_axes(x: torch.Tensor, axes: Tuple[str, ...], dim: int
+                ) -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` over ``axes`` (major first): the
+    blocks in the order a spec entry of those axes lays them out."""
+    for a in reversed(axes):
+        x = collectives.all_gather(x, a, dim=dim)
+    return x
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     axes: Tuple[str, ...]) -> torch.Tensor:
+    """Softmax attention from the partials of the ranks over ``axes``
+    (each a block of the keys): ``o`` (..., Dv) the unnormalized output
+    over the rank's keys, ``m`` (...) their row max (-inf where the rank
+    saw no key), ``l`` (...) the row sum of exp(s - m) (0 there).  The
+    partials are all-gathered (one tensor of (..., Dv + 2) values) and
+    merged in block order, so every rank gets the same bits; a row no
+    rank saw a key of gives 0."""
+    if axes:
+        x = gather_axes(torch.cat([o, m[..., None], l[..., None]],
+                                  dim=-1)[None], axes, dim=0)
+        o, m, l = x[..., :-2], x[..., -2], x[..., -1]
+        top = m.amax(dim=0)
+        top = torch.where(torch.isfinite(top), top, 0.0)
+        w = torch.where(torch.isfinite(m), torch.exp(m - top), 0.0)
+        o = (o * w[..., None]).sum(dim=0)
+        l = (l * w).sum(dim=0)
+    return o / torch.where(l == 0.0, 1.0, l)[..., None]

@@ -78,14 +78,17 @@ def resolve_page_tokens(max_len: int, page_tokens: Optional[int]) -> int:
 
 
 def contiguous_caches(model, batch: int, max_len: int, *, dtype, device,
-                      enc_len: int = 0):
+                      enc_len: int = 0, mesh=None, rank=None):
     """A plain contiguous cache (the pre-paging layout) for the simple
     ``generate`` path and the one-shot prefill fallback; an
-    encoder-decoder's holds ``enc_len`` frames of memory."""
+    encoder-decoder's holds ``enc_len`` frames of memory.  A model split
+    over "model" gets the calling rank's blocks of it (or rank
+    ``rank``'s of ``mesh``: ``Model.init_caches``)."""
+    kw = {} if mesh is None else {"mesh": mesh, "rank": rank}
     if enc_len:
-        return model.init_caches(batch, max_len, enc_len=enc_len,
-                                 dtype=dtype, device=device)
-    return model.init_caches(batch, max_len, dtype=dtype, device=device)
+        kw["enc_len"] = enc_len
+    return model.init_caches(batch, max_len, dtype=dtype, device=device,
+                             **kw)
 
 
 def abstract_caches(model, batch: int, max_len: int, *, dtype,

@@ -19,9 +19,9 @@ against the reference's (``repro.launch.dryrun``).
   by its trace time, about 19 s on the CPU; its 28 query heads do not
   split over 16 model ranks, so its attention is whole on every rank)
   is traced whole.
-- The refused variants (``puredp``, the ``seqflash`` family), the
-  serving cells' ``"traced": null`` and the train launcher's refusal of
-  ``--production-mesh``.
+- The refused variants (``puredp``, the ``seqflash`` family), a serving
+  cell's analytic model beside its trace, and the train launcher's
+  refusal of ``--production-mesh``.
 """
 
 import functools
@@ -274,11 +274,15 @@ def test_ported_variants_not_refused():
 
 
 def test_serving_cells_are_analytic_with_a_reason(tmp_path):
+    """A serving cell keeps the reference's analytic model beside its
+    trace: one rank of the split decode step (no reason for leaving it
+    untraced any more)."""
     r = D.run_cell("qwen2-72b", "decode_32k", "single",
                    out_dir=str(tmp_path))
-    assert r["ok"] and r["traced"] is None
-    assert "model" in r["reason"]
+    assert r["ok"] and r["traced"] is True, r.get("error")
+    assert "reason" not in r
     assert r["memory"]["analytic_h100"]["cache"] > 0
+    assert r["memory"]["peak_split_traced"]["caches"] > 0
 
 
 def test_train_launcher_refuses_production_mesh(capsys):
